@@ -1,0 +1,322 @@
+// Fused forward of the Gaussian ray tracer: per-tile colors from raw tile
+// scenes, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel sgrt_tpu/ops/pallas_kernel.py::_fused_fwd_kernel
+// (launched by _fused_fwd_call). For each tile b, over the live prefix
+// count_b = min(counts[b], N) of its Gaussian rows, and each ray r:
+//
+//   mb(q,r)   = oc_q . d_r
+//   co(q,r)   = mag_q sigma_q sqrt(pi/2) exp(-(|oc_q|^2 - mb^2) / (2 sigma_q^2))
+//   inv_q     = 1 / (sqrt2 sigma_q)
+//   base(r)   = sum_q co(q,r) erf(-mb(q,r) inv_q)
+//   acc_k(p,r)= sum_q co(q,r) erf((mb(p,r) + k sigma_p - mb(q,r)) inv_q),  k = -4..0
+//   tw(p,r)   = sum_k w_k exp(base(r) - acc_k(p,r)),  w_k = exp(-k^2/2)
+//   colors(:,r) = sum_p albedo_p sqrt(2/pi) co(p,r) tw(p,r)
+//
+// What bounds it on this card: operations, not bytes. The inputs are
+// O(B N) floats, the work O(sum_b count_b^2 R): five erf evaluations per
+// (p, q, ray). Each A&S 5-term erf tap is about 17 FP32 instructions (FMA,
+// MUL, the Newton steps of the IEEE reciprocal and the range reduction of
+// expf) and 2 SFU operations (MUFU.RCP, MUFU.EX2). At 16 SFU results per
+// clock per SM (compute capability 9.0) the SFU pipe and the FP32 pipe
+// bound a tap at about the same rate, ~2e12 taps/s on an H100 SXM.
+//
+// What the design does about it:
+//   * Nothing per (q, ray) or (p, q, ray) goes to device memory: one thread
+//     owns one ray, keeps PB p-rows' 5 accumulators in registers, and
+//     recomputes mb and co of each q row from staged rows (one exp per q
+//     against 5*PB erfs).
+//   * The q rows are staged through shared memory, qb rows at a time, with
+//     their per-row constants (|oc|^2, 1/(2 sigma^2), 1/(sqrt2 sigma),
+//     mag sigma sqrt(pi/2)) precomputed once per stage.
+//   * Loops run over the live prefix only, and p rows past the count are
+//     never read, so cost follows count^2, not capacity^2.
+//   * The p axis of a tile is split over blocks of kRowsPerBlock rows, so a
+//     dense tile spreads over many SMs instead of bounding the launch by
+//     itself. Each split writes its partial colors; a second kernel sums
+//     the live splits of each tile in a fixed order. No atomics: the result
+//     is deterministic.
+//   * No fast-math: the A&S reciprocal is an IEEE division and expf is the
+//     accurate one, so "as5" is the float32-exact erf.
+//
+// Layouts (all float32, contiguous): oc (B,N,3), sigma (B,N), mag (B,N),
+// albedo (B,N,3), dirs (B,3,R) ray-minor, counts (B,) int32; partial
+// (B, n_split, 3, R) scratch and colors (B,3,R) are written.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRowsPerBlock = 32;  // p rows per block (split of the p axis)
+constexpr int kStageFields = 7;    // ocx ocy ocz |oc|^2 1/(2s^2) 1/(sqrt2 s) mag*s*sqrt(pi/2)
+constexpr float kInvSqrt2 = 0.7071067811865476f;
+constexpr float kInvSqrt2Pi = 1.2533141373155001f;  // sqrt(pi/2)
+constexpr float kSqrt2Pi = 0.7978845608028654f;     // sqrt(2/pi)
+
+enum { kErfAs5 = 0, kErfAs3 = 1 };
+enum { kExpExact = 0, kExpFast = 1 };
+
+template <int EXP>
+__device__ __forceinline__ float exp_fn(float x);
+
+template <>
+__device__ __forceinline__ float exp_fn<kExpExact>(float x) {
+  return expf(x);
+}
+
+// Schraudolph's bit-trick exp (sgrt_tpu/ops/approx.py::exp_fast): the
+// rounded-to-nearest multiply and add keep nvcc from contracting them into
+// one FMA, so the bits match the float32 reference.
+template <>
+__device__ __forceinline__ float exp_fn<kExpFast>(float x) {
+  x = fminf(fmaxf(x, -87.0f), 88.0f);
+  const float y = __fadd_rn(__fmul_rn(12102203.0f, x), 1064866805.0f);
+  return __int_as_float(__float2int_rz(y));
+}
+
+__device__ __forceinline__ float sign_of(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+template <int ERF>
+__device__ __forceinline__ float erf_fn(float x);
+
+// Abramowitz & Stegun 7.1.26; its own exp is always the accurate expf.
+template <>
+__device__ __forceinline__ float erf_fn<kErfAs5>(float x) {
+  const float a = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.3275911f * a);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f +
+                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  return sign_of(x) * (1.0f - poly * expf(-x * x));
+}
+
+// Abramowitz & Stegun 7.1.25 (3 terms).
+template <>
+__device__ __forceinline__ float erf_fn<kErfAs3>(float x) {
+  const float a = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.47047f * a);
+  const float poly = t * (0.3480242f + t * (-0.0958798f + t * 0.7478556f));
+  return sign_of(x) * (1.0f - poly * expf(-x * x));
+}
+
+// The Gaussian's exponent -(|oc|^2 - mb^2) / (2 sigma^2) subtracts two
+// nearly equal numbers (|oc|^2 ~ mb^2 when the ray passes near the center),
+// so one rounding step of mb or |oc|^2 moves co by up to ulp(|oc|^2) /
+// (2 sigma^2) relative. These helpers round every product and sum to
+// nearest, in the plain version's order, so nvcc cannot contract them into
+// FMAs and the kernel's co matches the plain version's bit for bit.
+__device__ __forceinline__ float dot3_rn(float ax, float ay, float az, float bx,
+                                         float by, float bz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
+}
+
+__device__ __forceinline__ float gauss_exponent_rn(float ocsq, float mb, float i2s2) {
+  return __fmul_rn(-__fsub_rn(ocsq, __fmul_rn(mb, mb)), i2s2);
+}
+
+// Tap i in 0..4 is k = i - 4; its weight is w_k = exp(-k^2/2). Called with
+// unrolled constant indices, both fold to literals.
+__device__ __forceinline__ float tap_k(int i) { return static_cast<float>(i - 4); }
+
+__device__ __forceinline__ float tap_weight(int i) {
+  return i == 0 ? 3.354626279025119e-04f
+       : i == 1 ? 1.110899653824231e-02f
+       : i == 2 ? 1.353352832366127e-01f
+       : i == 3 ? 6.065306597126334e-01f
+                : 1.0f;
+}
+
+template <int PB, int ERF, int EXP>
+__global__ void __launch_bounds__(128)
+fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
+                 const float* __restrict__ mag, const float* __restrict__ alb,
+                 const float* __restrict__ dirs, const int* __restrict__ counts,
+                 float* __restrict__ partial, int N, int R, int qb, int n_split) {
+  extern __shared__ float stage[];
+  float* s_ocx = stage;
+  float* s_ocy = s_ocx + qb;
+  float* s_ocz = s_ocy + qb;
+  float* s_ocsq = s_ocz + qb;
+  float* s_i2s2 = s_ocsq + qb;
+  float* s_inv = s_i2s2 + qb;
+  float* s_cs = s_inv + qb;
+
+  const int b = blockIdx.z;
+  const int split = blockIdx.y;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int cnt = max(0, min(counts[b], N));
+  const int p_begin = split * kRowsPerBlock;
+  if (p_begin >= cnt) return;  // block-uniform: this split has no live rows
+  const int p_end = min(p_begin + kRowsPerBlock, cnt);
+
+  const size_t row0 = static_cast<size_t>(b) * N;
+  const float* oc_b = oc + row0 * 3;
+  const float* sig_b = sig + row0;
+  const float* mag_b = mag + row0;
+  const float* alb_b = alb + row0 * 3;
+
+  // Lanes past R trace a unit +z ray so their math stays finite; they stage
+  // rows and take part in the barriers but write nothing.
+  const bool live_ray = r < R;
+  float dx = 0.0f, dy = 0.0f, dz = 1.0f;
+  if (live_ray) {
+    const float* d = dirs + static_cast<size_t>(b) * 3 * R;
+    dx = d[r];
+    dy = d[R + r];
+    dz = d[2 * R + r];
+  }
+
+  float base = 0.0f;
+  float col_r = 0.0f, col_g = 0.0f, col_b = 0.0f;
+
+  for (int p0 = p_begin; p0 < p_end; p0 += PB) {
+    float mbp[PB], sgp[PB], acc[PB][5];
+#pragma unroll
+    for (int i = 0; i < PB; ++i) {
+      const int p = p0 + i;
+      mbp[i] = 0.0f;
+      sgp[i] = 1.0f;
+      if (p < p_end) {
+        mbp[i] = dot3_rn(oc_b[3 * p], oc_b[3 * p + 1], oc_b[3 * p + 2], dx, dy, dz);
+        sgp[i] = sig_b[p];
+      }
+#pragma unroll
+      for (int k = 0; k < 5; ++k) acc[i][k] = 0.0f;
+    }
+    const bool first_group = p0 == p_begin;  // base is summed once, here
+
+    for (int q0 = 0; q0 < cnt; q0 += qb) {
+      const int nq = min(qb, cnt - q0);
+      __syncthreads();
+      for (int j = threadIdx.x; j < nq; j += blockDim.x) {
+        const int q = q0 + j;
+        const float x = oc_b[3 * q], y = oc_b[3 * q + 1], z = oc_b[3 * q + 2];
+        const float s = sig_b[q];
+        s_ocx[j] = x;
+        s_ocy[j] = y;
+        s_ocz[j] = z;
+        s_ocsq[j] = dot3_rn(x, y, z, x, y, z);
+        s_i2s2[j] = 1.0f / (2.0f * s * s);
+        s_inv[j] = kInvSqrt2 / s;
+        s_cs[j] = mag_b[q] * s * kInvSqrt2Pi;
+      }
+      __syncthreads();
+      for (int j = 0; j < nq; ++j) {
+        const float mbq = dot3_rn(s_ocx[j], s_ocy[j], s_ocz[j], dx, dy, dz);
+        const float co = s_cs[j] * exp_fn<EXP>(gauss_exponent_rn(s_ocsq[j], mbq, s_i2s2[j]));
+        const float invq = s_inv[j];
+        if (first_group) base += co * erf_fn<ERF>(-mbq * invq);
+#pragma unroll
+        for (int i = 0; i < PB; ++i) {
+          const float darg = (mbp[i] - mbq) * invq;
+          const float ks = sgp[i] * invq;
+#pragma unroll
+          for (int k = 0; k < 5; ++k) acc[i][k] += co * erf_fn<ERF>(darg + tap_k(k) * ks);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < PB; ++i) {
+      const int p = p0 + i;
+      if (p < p_end) {
+        float tw = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) tw += tap_weight(k) * exp_fn<EXP>(base - acc[i][k]);
+        const float x = oc_b[3 * p], y = oc_b[3 * p + 1], z = oc_b[3 * p + 2];
+        const float s = sgp[i];
+        const float co = (mag_b[p] * s * kInvSqrt2Pi) *
+                         exp_fn<EXP>(gauss_exponent_rn(dot3_rn(x, y, z, x, y, z), mbp[i],
+                                                       1.0f / (2.0f * s * s)));
+        const float w = kSqrt2Pi * co * tw;
+        col_r += alb_b[3 * p] * w;
+        col_g += alb_b[3 * p + 1] * w;
+        col_b += alb_b[3 * p + 2] * w;
+      }
+    }
+  }
+
+  if (live_ray) {
+    float* out = partial + (static_cast<size_t>(b) * n_split + split) * 3 * R;
+    out[r] = col_r;
+    out[R + r] = col_g;
+    out[2 * R + r] = col_b;
+  }
+}
+
+// colors[b, c, r] = sum over the live splits of tile b, in split order.
+__global__ void sum_splits_kernel(const float* __restrict__ partial,
+                                  const int* __restrict__ counts,
+                                  float* __restrict__ colors, int B, int N, int R,
+                                  int n_split) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t per_tile = static_cast<size_t>(3) * R;
+  if (i >= per_tile * B) return;
+  const int b = static_cast<int>(i / per_tile);
+  const size_t cr = i % per_tile;
+  const int cnt = max(0, min(counts[b], N));
+  const int live_splits = (cnt + kRowsPerBlock - 1) / kRowsPerBlock;
+  const float* src = partial + static_cast<size_t>(b) * n_split * per_tile + cr;
+  float s = 0.0f;
+  for (int z = 0; z < live_splits; ++z) s += src[z * per_tile];
+  colors[i] = s;
+}
+
+using FwdKernel = void (*)(const float*, const float*, const float*, const float*,
+                           const float*, const int*, float*, int, int, int, int);
+
+template <int PB>
+FwdKernel pick_fn(int erf_id, int exp_id) {
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return fused_fwd_kernel<PB, kErfAs5, kExpExact>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return fused_fwd_kernel<PB, kErfAs5, kExpFast>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return fused_fwd_kernel<PB, kErfAs3, kExpExact>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return fused_fwd_kernel<PB, kErfAs3, kExpFast>;
+  return nullptr;
+}
+
+}  // namespace
+
+extern "C" {
+
+int sgrt_fused_fwd_rows_per_block() { return kRowsPerBlock; }
+
+int sgrt_fused_fwd_max_threads() { return 128; }
+
+const char* sgrt_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Launches the fused forward and the split reduction on `stream`. Returns
+// a cudaError_t: the launch's own error, or cudaErrorInvalidValue for a
+// configuration the kernel does not take.
+int sgrt_fused_fwd(const float* oc, const float* sig, const float* mag,
+                   const float* alb, const float* dirs, const int* counts,
+                   float* partial, float* colors, int B, int N, int R,
+                   int threads, int pb, int qb, int erf_id, int exp_id,
+                   void* stream) {
+  FwdKernel fn = nullptr;
+  if (pb == 8) fn = pick_fn<8>(erf_id, exp_id);
+  if (pb == 16) fn = pick_fn<16>(erf_id, exp_id);
+  if (fn == nullptr || B < 1 || B > 65535 || N < 1 || R < 1 || threads < 32 ||
+      threads > 128 || threads % 32 != 0 || qb < 1 || qb > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_split = (N + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (n_split > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((R + threads - 1) / threads, n_split, B);
+  const size_t smem = sizeof(float) * kStageFields * qb;
+  fn<<<grid, threads, smem, s>>>(oc, sig, mag, alb, dirs, counts, partial, N, R,
+                                 qb, n_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t total = static_cast<size_t>(B) * 3 * R;
+  const int rthreads = 256;
+  sum_splits_kernel<<<static_cast<unsigned>((total + rthreads - 1) / rthreads),
+                      rthreads, 0, s>>>(partial, counts, colors, B, N, R, n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

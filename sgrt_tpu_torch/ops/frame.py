@@ -1,0 +1,157 @@
+"""Whole-frame pipeline: orbit camera → rays → tile/cull → render (PyTorch
+port of sgrt_tpu.ops.frame).
+
+One call renders one frame of the reference's orbit loop
+(main.cpp:257-335: orbit camera, re-tile, render) on the scene's device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sgrt_tpu_torch.models.camera import Camera, orbit_position
+from sgrt_tpu_torch.models.gaussians import GaussianScene
+from sgrt_tpu_torch.ops.render import (
+    _radiance_block,
+    _tile_rays,
+    _untile_image,
+    render_rays_impl,
+)
+from sgrt_tpu_torch.ops.tiling import (
+    as_grid,
+    gather_tiles,
+    tile_indices,
+    tile_membership,
+)
+from sgrt_tpu_torch.utils.device import resolve_device
+
+BACKENDS = ("kernel", "torch")
+
+
+def orbit_camera(angle_deg, offset, focal_length, width: int, height: int,
+                 *, device="cuda") -> Camera:
+    """Camera on the reference's orbit (main.cpp:248-255, 330-334): start at
+    (0, 0, offset) yaw=-90, rotated `angle_deg` about world Y."""
+    dev = resolve_device(device)
+    angle = torch.as_tensor(angle_deg, dtype=torch.float32, device=dev)
+    e_z = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    e_y = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    cam = Camera(
+        position=orbit_position(e_z * offset, angle),
+        front=e_z,
+        up=e_y,
+        right=torch.zeros(3, device=dev),
+        world_up=e_y,
+        view_matrix=torch.eye(4, device=dev),
+        focal_length=torch.as_tensor(focal_length, dtype=torch.float32, device=dev),
+        width=width,
+        height=height,
+    )
+    return cam.turn(-90.0 - angle, 0.0)
+
+
+def render_orbit_frame(
+    scene: GaussianScene,
+    angle_deg,
+    offset=-4.0,
+    focal_length=1.0,
+    *,
+    width: int = 256,
+    height: int = 256,
+    tiles=16,
+    capacity: int = 128,
+    q_block: int = 128,
+    ray_block: int = 2048,
+    tile_batch: int = 16,
+    use_tiling: bool = True,
+    backend: str = "torch",
+    erf_name: str = "as5",
+    exp_name: str = "exact",
+    bucket_cfg=None,
+):
+    """One full frame on the scene's device → (image (H,W,3), overflow
+    (0-d int32 tensor)).
+
+    overflow counts tiles whose true member count exceeded their capacity
+    (Gaussians dropped); 0 means the frame is exact, and it is always 0 on
+    the untiled path. backend="kernel" renders through the CUDA fused
+    forward kernel (ops.cuda_kernel; its plain version for a scene on the
+    CPU); "torch" is the plain tensor formulation (ops.render).
+    erf_name/exp_name select the approximation on both; "exact" on the
+    kernel route means the float32-exact as5.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if bucket_cfg is not None:
+        raise NotImplementedError("bucketed tile scheduling (ops/scheduler.py) "
+                                  "is not ported yet")
+    dev = scene.device
+    cam = orbit_camera(angle_deg, offset, focal_length, width, height, device=dev)
+    o, dirs = cam.rays()
+    no_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if not use_tiling:
+        if backend == "kernel":
+            from sgrt_tpu_torch.ops.cuda_kernel import render_rays_fused_impl
+
+            colors = render_rays_fused_impl(o, dirs, scene, erf_name=erf_name,
+                                            exp_name=exp_name)
+        else:
+            colors = render_rays_impl(o, dirs, scene, q_block, ray_block,
+                                      erf_name=erf_name, exp_name=exp_name)
+        return colors.reshape(height, width, 3), no_overflow
+
+    d = _tile_rays(dirs, height, width, tiles)
+    if backend == "kernel":
+        from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+
+        # one routing point for the per-tile kernel
+        capacity, render_tiles = tile_renderer_for(capacity, erf_name=erf_name,
+                                                   exp_name=exp_name)
+        idx, counts = tile_indices(scene, cam.view_matrix, tiles, capacity,
+                                   focal_length=focal_length)
+        colors = render_tiles(gather_tiles(scene, idx), o, d, counts)
+    else:
+        # capacity must divide evenly into q-blocks
+        qb = min(q_block, capacity)
+        capacity = -(-capacity // qb) * qb
+        idx, counts = tile_indices(scene, cam.view_matrix, tiles, capacity,
+                                   focal_length=focal_length)
+        tiled = gather_tiles(scene, idx)
+        tx, ty = as_grid(tiles)
+        t2 = tx * ty
+        colors = torch.cat([
+            _radiance_block(o, d[t:t + tile_batch],
+                            GaussianScene(tiled.mu[t:t + tile_batch],
+                                          tiled.sigma[t:t + tile_batch],
+                                          tiled.magnitude[t:t + tile_batch],
+                                          tiled.albedo[t:t + tile_batch]),
+                            qb, erf_name, exp_name)
+            for t in range(0, t2, tile_batch)])
+    overflow = torch.sum(counts > capacity, dtype=torch.int32)
+    return _untile_image(colors, height, width, tiles), overflow
+
+
+def render_orbit_frames(scene: GaussianScene, angles, offset=-4.0,
+                        focal_length=1.0, **cfg):
+    """Render an orbit sequence → (imgs (F, H, W, 3), overflow summed over
+    frames): per-frame re-tiling, the same work per frame as
+    render_orbit_frame (the reference's frame loop, main.cpp:257-335).
+    Frames are queued without waiting for the device in between."""
+    imgs, ovfs = [], []
+    for a in angles:
+        im, ov = render_orbit_frame(scene, float(a), offset, focal_length, **cfg)
+        imgs.append(im)
+        ovfs.append(ov)
+    return torch.stack(imgs), torch.sum(torch.stack(ovfs), dtype=torch.int32)
+
+
+def probe_capacity(scene: GaussianScene, angles, offset, focal_length, tiles) -> int:
+    """Max per-tile Gaussian count over sample orbit angles, to size
+    `capacity` for a whole orbit. Waits for the device."""
+    best = 0
+    for a in angles:
+        cam = orbit_camera(float(a), offset, focal_length, 8, 8, device=scene.device)
+        member = tile_membership(scene, cam.view_matrix, tiles,
+                                 focal_length=focal_length)
+        best = max(best, int(torch.max(torch.sum(member, dim=-1))))
+    return best

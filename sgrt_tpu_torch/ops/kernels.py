@@ -1,0 +1,20 @@
+"""Registry of the port's hand-written kernels: one object per kernel, each
+with `name`, `route`, `source`, `replaces` (the TPU kernel it ports) and a
+`launches` count that its wrapper raises by one per launch."""
+
+from __future__ import annotations
+
+from sgrt_tpu_torch.ops.cuda_kernel import FUSED_FWD
+from sgrt_tpu_torch.utils import nvcc
+
+KERNELS = (FUSED_FWD,)
+
+
+def build_all() -> None:
+    """Compile every kernel's source, all nvcc processes at once."""
+    nvcc.build(sorted({k.source for k in KERNELS}))
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

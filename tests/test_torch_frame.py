@@ -1,0 +1,106 @@
+"""Port parity: whole frames of sgrt_tpu_torch.ops.frame (device="cpu")
+against sgrt_tpu.ops.frame, on the setup of tests/test_pallas.py:243-252
+(grid_scene(8), 64^2, 4x4 tiles, capacity 64, angle 23).
+
+Tolerance, derived: the Gaussian exponent -(|oc|^2 - mb^2) / (2 sigma^2)
+subtracts two numbers near d^2 (camera distance d ~ 4-5, so |oc|^2 < 32,
+float32 ulp 1.9e-6). Two float32 evaluations that round mb or |oc|^2 one
+step apart (Pallas takes mb from a dot, the port from ordered products)
+differ there by up to 2 ulp / (2 sigma^2) = 4.9e-4 relative at
+sigma = 1/16; at the frame's peak color 0.079 that is 3.8e-5. Twice that,
+8e-5, is the tolerance (under 1/40 of one 8-bit level). The JAX package's
+own Pallas-vs-XLA frame test shares XLA's rounding and holds 2e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import sgrt_tpu  # noqa: F401
+from sgrt_tpu.models.gaussians import grid_scene as j_grid
+from sgrt_tpu.ops import frame as jf
+from sgrt_tpu_torch.models.gaussians import scene_from_numpy
+from sgrt_tpu_torch.ops import frame as tf
+
+FIELDS = ("mu", "sigma", "magnitude", "albedo")
+ATOL = 8e-5
+KW = dict(width=64, height=64, tiles=4, capacity=64)
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    js = j_grid(8)
+    ts = scene_from_numpy(*(np.asarray(getattr(js, f)) for f in FIELDS), device="cpu")
+    return js, ts
+
+
+@pytest.fixture(scope="module")
+def jax_pallas_frame(scenes):
+    img, ovf = jf.render_orbit_frame(scenes[0], 23.0, backend="pallas", **KW)
+    return np.asarray(img), int(ovf)
+
+
+def test_tiled_kernel_route_matches_pallas(scenes, jax_pallas_frame):
+    img, ovf = tf.render_orbit_frame(scenes[1], 23.0, backend="kernel", **KW)
+    assert img.shape == (64, 64, 3) and img.dtype == torch.float32
+    assert int(ovf) == jax_pallas_frame[1] == 0
+    np.testing.assert_allclose(img.numpy(), jax_pallas_frame[0], atol=ATOL)
+    assert img.max() > 0.05
+
+
+def test_tiled_torch_route_matches_xla(scenes):
+    j, _ = jf.render_orbit_frame(scenes[0], 23.0, backend="xla", **KW)
+    t, ovf = tf.render_orbit_frame(scenes[1], 23.0, backend="torch", **KW)
+    assert int(ovf) == 0
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL)
+
+
+def test_kernel_and_torch_routes_agree(scenes):
+    a, _ = tf.render_orbit_frame(scenes[1], 23.0, backend="kernel", **KW)
+    b, _ = tf.render_orbit_frame(scenes[1], 23.0, backend="torch", **KW)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("backend,jbackend", [("kernel", "pallas"), ("torch", "xla")])
+def test_untiled_route_matches(scenes, backend, jbackend):
+    kw = dict(width=16, height=12, use_tiling=False)
+    j, _ = jf.render_orbit_frame(scenes[0], 10.0, backend=jbackend, **kw)
+    t, ovf = tf.render_orbit_frame(scenes[1], 10.0, backend=backend, **kw)
+    assert t.shape == (12, 16, 3) and int(ovf) == 0
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL)
+
+
+def test_rectangular_tiles_match(scenes):
+    kw = dict(width=32, height=16, tiles=(4, 2), capacity=40)
+    j, _ = jf.render_orbit_frame(scenes[0], 300.0, backend="pallas", **kw)
+    t, _ = tf.render_orbit_frame(scenes[1], 300.0, backend="kernel", **kw)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL)
+
+
+def test_overflow_counter_matches(scenes):
+    kw = dict(width=32, height=32, tiles=2, capacity=8)
+    _, jo = jf.render_orbit_frame(scenes[0], 0.0, backend="pallas", **kw)
+    _, to = tf.render_orbit_frame(scenes[1], 0.0, backend="kernel", **kw)
+    assert int(to) == int(jo) > 0
+
+
+def test_probe_capacity_matches(scenes):
+    angles = [0.0, 30.0, 45.0, 60.0, 90.0]
+    for tiles in (4, (8, 4)):
+        assert tf.probe_capacity(scenes[1], angles, -4.0, 1.0, tiles) == \
+            jf.probe_capacity(scenes[0], angles, -4.0, 1.0, tiles)
+
+
+def test_render_orbit_frames_matches_per_frame(scenes):
+    kw = dict(width=16, height=16, tiles=2, capacity=64, backend="kernel")
+    imgs, ovf = tf.render_orbit_frames(scenes[1], [0.0, 40.0], **kw)
+    assert imgs.shape == (2, 16, 16, 3) and int(ovf) == 0
+    one, _ = tf.render_orbit_frame(scenes[1], 40.0, **kw)
+    np.testing.assert_array_equal(imgs[1].numpy(), one.numpy())
+
+
+def test_unported_options_raise(scenes):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tf.render_orbit_frame(scenes[1], 0.0, bucket_cfg=object(), **KW)
+    with pytest.raises(ValueError, match="backend"):
+        tf.render_orbit_frame(scenes[1], 0.0, backend="pallas", **KW)
