@@ -5,15 +5,22 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version, drives the main path (the CLI's default tiled orbit
-render) through the kernels, checks the images, and times the kernels.
+PyTorch version, drives the main paths through the kernels, checks what
+comes out, and times the kernels:
+
+  serving   the CLI's default tiled orbit render (fused forward kernel);
+  training  fit_cli (forward-with-T and saved-T backward kernels) and the
+            north-star train step, once more with the saved-T budget at 0
+            so that the recompute backward kernel runs.
+
 Each phase prints one JSON line; any failure exits non-zero before the last
 line, which is {"ok": true, "device": {...}} on success.
 
 Scene: bench.py's stand-in for the teapot — 3644 seeded points on the
 surface of the cube [-1, 1]^3 (np.random.default_rng(0)) turned into
-Gaussians by the obj rule (sigma 0.05) — at 512x512 with 64x32 tiles
-(docs/BASELINE_CONFIGS.json, config3_teapot_512).
+Gaussians by the obj rule (sigma 0.05). Serving at 512x512 with 64x32
+tiles (docs/BASELINE_CONFIGS.json, config3_teapot_512); training at
+bench.py's north-star step, 256x256 with 32x16 tiles, bucketed.
 """
 
 from __future__ import annotations
@@ -49,6 +56,23 @@ SFU_PER_CLOCK_PER_SM = 16  # MUFU results per clock per SM, compute capability 9
 # per erf tap of csrc/fused_fwd.cu (its source note): FP32 instructions and
 # SFU operations; an exp alone is ~4 FP32 and 1 SFU
 TAP_FP32, TAP_SFU, EXP_FP32, EXP_SFU = 17, 2, 4, 1
+# the backward's gradient pass per live (p, q, ray), from csrc/fused_bwd.cu's
+# source note: five erf-and-gauss taps, 4 FP32 each to fold the cotangents,
+# 8 FP32 per pair; per live (q, ray) the base path, co's exp and the prep
+# chain (~20 FP32)
+BWD_PAIR_FP32, BWD_PAIR_SFU = 5 * (TAP_FP32 + 4) + 8, 5 * TAP_SFU
+BWD_ROW_FP32, BWD_ROW_SFU = TAP_FP32 + EXP_FP32 + 20, TAP_SFU + EXP_SFU
+# training cell: bench.py's north-star step (bench.py:103-150)
+TRAIN_SIZE, TRAIN_TILES, TRAIN_STEPS = 256, (32, 16), 10
+ANGLES = [0.0, 30.0, 45.0, 60.0, 90.0]
+# Training kernels vs their plain versions, as max |diff| / max |plain| per
+# output. tests/test_pallas.py holds gradients at 5e-5 of scale; on an H100
+# every output but doc agrees within 4e-6 (this script's
+# train_kernels_vs_plain line), so 1e-5. doc is the
+# difference of two terms, sum_r dmb d and 2 oc d|oc|^2, each ~|oc|/sigma
+# = 4/0.05 = 80 times its size on this cloud, so summation order alone
+# moves it by ~sqrt(R) 2^-24 80 = 5e-5 of its scale at R = 128: 2e-4.
+TRAIN_REL, DOC_REL = 1e-5, 2e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -111,14 +135,21 @@ def time_cuda(fn, iters: int, warmup: int = 2) -> float:
 def profile_frames(render, angles=(0.0, 45.0)) -> dict:
     """Device time by CUDA kernel over a few frames (torch.profiler), and
     the share of the frames' wall time during which no kernel ran."""
+    return {"frames": len(angles), **profile_device(render, angles)}
+
+
+def profile_device(run, args) -> dict:
+    """run(a) for each a in args under torch.profiler: wall ms, device busy
+    ms, the idle share of the wall time, and the top kernels by device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for a in angles:
-            render(a)
+        for a in args:
+            run(a)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels_us = {}
@@ -128,9 +159,367 @@ def profile_frames(render, angles=(0.0, 45.0)) -> dict:
             kernels_us[e.key[:80]] = kernels_us.get(e.key[:80], 0.0) + us
     busy_us = sum(kernels_us.values())
     top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:10]
-    return {"frames": len(angles), "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / wall_us if busy_us else None,
             "top_kernels_ms": {k: v / 1e3 for k, v in top}}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|: a difference relative to the output's
+    scale."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def launch_inputs(tiled, o, tile_dirs, counts) -> list:
+    """The fused op's inputs (oc, sigma, mag, albedo, dirs_t, counts) as
+    render_tiles_fused builds them from gathered tiles."""
+    import torch
+
+    n = tiled.sigma.shape[1]
+    return [(tiled.mu - o).contiguous(), tiled.sigma.contiguous(),
+            tiled.magnitude.contiguous(), tiled.albedo.contiguous(),
+            tile_dirs.transpose(1, 2).contiguous(),
+            torch.clamp(counts.to(torch.int32), max=n).contiguous()]
+
+
+def bucket_launches(scene, view, o, tile_dirs, cfg) -> list:
+    """The inputs of each fused-op launch of render_tiles_bucketed (dense
+    bucket first, if any), at the capacities tile_renderer_for rounds to."""
+    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig, bucketed_tile_indices
+    from sgrt_tpu_torch.ops.tiling import gather_tiles
+
+    cfg = BucketConfig(cfg.n_dense, tile_renderer_for(cfg.cap_dense)[0],
+                       tile_renderer_for(cfg.cap_sparse)[0])
+    dense_ids, idx_d, sparse_ids, idx_s, counts = bucketed_tile_indices(
+        scene, view, TRAIN_TILES, cfg, focal_length=FOCAL)
+    out = []
+    if cfg.n_dense:
+        out.append(launch_inputs(gather_tiles(scene, idx_d), o, tile_dirs[dense_ids],
+                                 counts[dense_ids]))
+    out.append(launch_inputs(gather_tiles(scene, idx_s), o, tile_dirs[sparse_ids],
+                             counts[sparse_ids]))
+    return out
+
+
+def live_counts(inp) -> np.ndarray:
+    return np.minimum(inp[5].cpu().numpy().astype(np.float64), inp[0].shape[1])
+
+
+def fwd_ops(inp) -> tuple[float, float]:
+    """(FP32 instructions, SFU operations) of the forward's live work: 5
+    erf taps per live (p, q, ray), one base erf and 6 exps per live (q, ray)."""
+    c, r = live_counts(inp), inp[4].shape[2]
+    taps = float(np.sum(5 * c * c + c) * r)
+    exps = float(np.sum(6 * c) * r)
+    return TAP_FP32 * taps + EXP_FP32 * exps, TAP_SFU * taps + EXP_SFU * exps
+
+
+def bwd_ops(inp, recompute: bool) -> tuple[float, float]:
+    """(FP32 instructions, SFU operations) of a backward's live work; the
+    recompute backward also redoes the forward's pass A."""
+    c, r = live_counts(inp), inp[4].shape[2]
+    pairs, rows = float(np.sum(c * c) * r), float(np.sum(c) * r)
+    fp32 = BWD_PAIR_FP32 * pairs + BWD_ROW_FP32 * rows
+    sfu = BWD_PAIR_SFU * pairs + BWD_ROW_SFU * rows
+    if recompute:
+        f, s = fwd_ops(inp)
+        fp32, sfu = fp32 + f, sfu + s
+    return fp32, sfu
+
+
+def scene_bytes(inp) -> int:
+    """Bytes of the scene inputs and the rays (each read once)."""
+    b, n = inp[1].shape
+    return 4 * (b * n * 8 + b * 3 * inp[4].shape[2] + b)
+
+
+def bound(fp32: float, sfu: float, nbytes: float, clock_mhz: float, n_sm: int) -> dict:
+    t_fp32 = fp32 / FP32_INSTR_PER_S
+    t_sfu = sfu / (SFU_PER_CLOCK_PER_SM * n_sm * clock_mhz * 1e6)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t = max(t_fp32, t_sfu, t_bytes)
+    return {"bound_ms": t * 1e3, "fp32_bound_ms": t_fp32 * 1e3, "sfu_bound_ms": t_sfu * 1e3,
+            "bytes_bound_ms": t_bytes * 1e3,
+            "bound_by": "bytes" if t == t_bytes else "operations"}
+
+
+def compare_train_kernels(inp, dcol, erf_name="as5", exp_name="exact") -> dict:
+    """The three training kernels against their plain versions on `inp`:
+    per output, max |kernel - plain| / max |plain|; also both backwards
+    against each other, and the absolute max differences."""
+    import torch
+
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
+
+    pb, qb = ck._block_sizes(inp[0].shape[1])
+    kw = dict(erf_name=erf_name, exp_name=exp_name)
+    colors, t = ck.fused_forward_t(*inp, pb=pb, qb=qb, **kw)
+    g_t = ck.fused_backward(*inp, dcol, t, qb=qb, **kw)
+    g_r = ck.fused_backward(*inp, dcol, qb=qb, **kw)
+    torch.cuda.synchronize()
+    ref_c, ref_t = ck.fused_forward_t_plain(*inp, **kw)
+    p_t = ck.fused_backward_plain(*inp, dcol, t, **kw)
+    p_r = ck.fused_backward_plain(*inp, dcol, **kw)
+    names = ("doc", "dsigma", "dmag", "dalbedo", "ddirs")
+    for x in (colors, t, *g_t, *g_r):
+        check(bool(torch.isfinite(x).all()), f"a training kernel's output is not finite "
+                                             f"({erf_name}/{exp_name})")
+    dead = torch.arange(inp[0].shape[1], device=t.device)[None, :] >= inp[5][:, None].long()
+    check(bool((t.permute(0, 2, 1, 3)[dead] == 0).all()), "T is not 0 on dead rows")
+    rel = {"fused_fwd_t": {"colors": rel_err(colors, ref_c), "T": rel_err(t, ref_t)},
+           "fused_bwd_t": {n: rel_err(a, b) for n, a, b in zip(names, g_t, p_t)},
+           "fused_bwd": {n: rel_err(a, b) for n, a, b in zip(names, g_r, p_r)},
+           "bwd_t_vs_bwd": {n: rel_err(a, b) for n, a, b in zip(names, g_t, g_r)}}
+    absd = {"fused_fwd_t": max(float((colors - ref_c).abs().max()),
+                               float((t - ref_t).abs().max())),
+            "fused_bwd_t": max(float((a - b).abs().max()) for a, b in zip(g_t, p_t)),
+            "fused_bwd": max(float((a - b).abs().max()) for a, b in zip(g_r, p_r))}
+    over = [f"{k}.{o}: {v:.3g}" for k, d in rel.items() for o, v in d.items()
+            if v > (DOC_REL if o == "doc" else TRAIN_REL)]
+    return {"rel": rel, "abs": absd, "over_tolerance": over}
+
+
+def train_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
+    """The training path: shapes, kernels vs plain, fit_cli, the north-star
+    train step (saved-T and recompute), a profile of two steps, and the
+    kernels' times. Returns the kernel line's entries of its kernels."""
+    import torch
+
+    from sgrt_tpu_torch import fit_cli
+    from sgrt_tpu_torch.models.gaussians import scene_from_vertices
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+    from sgrt_tpu_torch.ops.frame import (orbit_camera, probe_buckets, probe_capacity,
+                                          render_orbit_frame)
+    from sgrt_tpu_torch.ops.render import _tile_rays
+    from sgrt_tpu_torch.ops.scheduler import calibrate_cost_model
+    from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
+    from sgrt_tpu_torch.parallel.fit import adam, init_state, make_frame_train_step
+    from sgrt_tpu_torch.utils import nvcc
+
+    S = TRAIN_SIZE
+    scene = scene_from_vertices(smoke_points(), device=dev)
+
+    # 1. train shapes: bench.py's capacity and bucket probes
+    capacity = max(64, int(probe_capacity(scene, ANGLES, OFFSET, FOCAL, TRAIN_TILES) * 1.3))
+    cap_pad, _ = tile_renderer_for(capacity)
+    t0 = time.perf_counter()
+    bucket = probe_buckets(scene, ANGLES, OFFSET, FOCAL, TRAIN_TILES, margin=1.3)
+    probe_s = time.perf_counter() - t0
+    emit("train_shapes", size=S, tiles=list(TRAIN_TILES), capacity=capacity,
+         padded_capacity=cap_pad, bucket_cfg=bucket._asdict(),
+         cost_model=calibrate_cost_model(dev), probe_buckets_seconds=probe_s)
+
+    # 2. kernels vs plain at the full padded capacity, camera at 30 degrees
+    cam = orbit_camera(30.0, OFFSET, FOCAL, S, S, device=dev)
+    o, dirs = cam.rays()
+    tile_dirs = _tile_rays(dirs, S, S, TRAIN_TILES)
+    idx, counts = tile_indices(scene, cam.view_matrix, TRAIN_TILES, cap_pad, focal_length=FOCAL)
+    check(int(counts.max()) <= cap_pad, "the 30-degree view overflows the probed capacity")
+    full = launch_inputs(gather_tiles(scene, idx), o, tile_dirs, counts)
+    cnt = full[5].cpu().numpy()
+    rng = np.random.default_rng(1)
+
+    def pick(c, k):
+        dense = int(np.argmax(c))
+        live = [i for i in np.flatnonzero(c > 0) if i != dense]
+        return [dense] + sorted(rng.choice(live, size=min(k, len(live)), replace=False).tolist())
+
+    def cotangent(inp, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn((inp[0].shape[0], 3, inp[4].shape[2]), generator=g).to(dev)
+
+    sel = torch.tensor(pick(cnt, 31), device=dev)
+    sub = [t[sel].contiguous() for t in full]
+    # untiled: B = 1, 256 seeded Gaussians, 1000 seeded rays of the frame's
+    # central 96x96 pixels (8 ray blocks, the last partial)
+    g_idx = torch.tensor(np.sort(rng.choice(scene.n, 256, replace=False)), device=dev)
+    lo, hi = S * 5 // 16, S * 11 // 16
+    yy, xx = np.meshgrid(np.arange(lo, hi), np.arange(lo, hi), indexing="ij")
+    r_idx = torch.tensor(rng.choice((yy * S + xx).ravel(), min(1000, yy.size), replace=False),
+                         device=dev)
+    sc = scene.replace(mu=scene.mu[g_idx], sigma=scene.sigma[g_idx],
+                       magnitude=scene.magnitude[g_idx], albedo=scene.albedo[g_idx])
+    untiled = launch_inputs(sc.replace(**{f: getattr(sc, f)[None] for f in
+                                          ("mu", "sigma", "magnitude", "albedo")}),
+                            o, dirs[r_idx][None], torch.tensor([256], device=dev))
+    # 256-ray tiles: fit_cli's --tiles 16 at 256^2
+    idx16, counts16 = tile_indices(scene, cam.view_matrix, 16, 4096, focal_length=FOCAL)
+    cap16, _ = tile_renderer_for(int(counts16.max()))
+    full16 = launch_inputs(gather_tiles(scene, idx16[:, :cap16]), o, _tile_rays(dirs, S, S, 16),
+                           counts16)
+    sel16 = torch.tensor(pick(full16[5].cpu().numpy(), 7), device=dev)
+    tiles256 = [t[sel16].contiguous() for t in full16]
+    cases = {"32_tiles": (sub, "as5", "exact"), "one_tile_as3_fast": ([t[:1] for t in sub],
+                                                                     "as3", "fast"),
+             "untiled_B1": (untiled, "as5", "exact"), "256_ray_tiles": (tiles256, "as5", "exact")}
+    results = {}
+    t0 = time.perf_counter()
+    for i, (name, (inp, e, x)) in enumerate(cases.items()):
+        results[name] = compare_train_kernels(inp, cotangent(inp, 10 + i), e, x)
+        results[name]["shape"] = {"B": inp[0].shape[0], "N": inp[0].shape[1],
+                                  "R": inp[4].shape[2], "max_count": int(inp[5].max())}
+    emit("train_kernels_vs_plain", tolerance_rel=TRAIN_REL, tolerance_rel_doc=DOC_REL,
+         seconds=time.perf_counter() - t0, densest_count=int(cnt.max()),
+         live_tiles=int((cnt > 0).sum()), cases=results)
+    over = [f"{name}: {o}" for name, r in results.items() for o in r["over_tolerance"]]
+    check(not over, f"a training kernel disagrees with its plain version: {over}")
+
+    # 3. main path: fit_cli fits the cloud for 10 steps at 256^2
+    png = os.path.join(os.path.dirname(obj), "fit.png")
+    argv = ["-f", obj, "-w", str(S), "--height", str(S), "--tiles", "16", "--steps", "10",
+            "--views", "4", "--out", png]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        rc = fit_cli.main(argv)
+    fit_s = time.perf_counter() - t0
+    fit_launches = {k.name: k.launches for k in kernels.KERNELS}
+    out = stdout.getvalue()
+    check(rc == 0, f"fit_cli exited {rc}: {stderr.getvalue()[-2000:]}")
+    check(fit_launches[ck.FUSED_FWD.name] > 0 and fit_launches[ck.FUSED_FWD_T.name] > 0
+          and fit_launches[ck.FUSED_BWD_T.name] > 0,
+          f"a kernel of the training path was not launched by fit_cli: {fit_launches}")
+    check("warning" not in out, f"fit_cli warned: {out[-2000:]}")
+    losses = [float(v) for v in re.findall(r"loss ([^\s]+)", out)]
+    check(len(losses) == 10 and all(np.isfinite(losses)), f"fit_cli losses: {out[-2000:]}")
+    img = read_png_rgba(png)
+    check(img.shape == (S, S, 4) and int(img[..., :3].max()) > 0, "fit_cli's PNG is black")
+    emit("train_main_path", argv=argv[2:], rc=rc, launches=fit_launches, losses=losses,
+         seconds=fit_s, lines=[ln for ln in out.splitlines()
+                               if ln.startswith(("scene", "10 steps", "max"))],
+         mean_rgb=round(float(img[..., :3].mean()), 3))
+
+    # 4. the north-star train step (bench.py:103-150), saved-T and recompute
+    target, ovf = render_orbit_frame(scene, 35.0, OFFSET, FOCAL, width=S, height=S,
+                                     tiles=TRAIN_TILES, capacity=capacity, backend="kernel",
+                                     bucket_cfg=bucket)
+    check(int(ovf) == 0, "the target frame overflowed")
+
+    def run_steps(n):
+        step = make_frame_train_step(width=S, height=S, tiles=TRAIN_TILES,
+                                     capacity=capacity, backend="kernel", erf_name="as5",
+                                     bucket_cfg=bucket)
+        state = init_state(scene, adam(1e-3))
+        state, loss, ovf = step(state, cam.view_matrix, o, dirs, target)
+        losses, ovfs = [loss], [ovf]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, loss, ovf = step(state, cam.view_matrix, o, dirs, target)
+            losses.append(loss)
+            ovfs.append(ovf)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        losses = [float(v) for v in losses]
+        check(all(int(v) == 0 for v in ovfs), "a train step overflowed")
+        check(all(np.isfinite(losses)), f"train-step losses not finite: {losses}")
+        return {"step_ms": dt * 1e3, "rays_per_s": S * S / dt, "losses": losses,
+                "launches": launches, "launches_per_step": {k: v / n for k, v in launches.items()},
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}, step, state
+
+    per_bucket = bucket_launches(scene, cam.view_matrix, o, tile_dirs, bucket)
+    residual = sum(ck.save_t_bytes(i[0].shape[0], i[0].shape[1], i[4].shape[2])
+                   for i in per_bucket)
+    saved, step, state = run_steps(TRAIN_STEPS)
+    check(saved["losses"][-1] < saved["losses"][0],
+          f"the train step's loss did not fall: {saved['losses']}")
+    check(saved["launches"][ck.FUSED_BWD_T.name] > 0, "the saved-T backward did not run")
+    budget = ck.SAVE_T_MAX_BYTES
+    ck.SAVE_T_MAX_BYTES = 0          # a residual over budget: the recompute backward
+    try:
+        recompute, _, _ = run_steps(3)
+    finally:
+        ck.SAVE_T_MAX_BYTES = budget
+    recompute_launches = recompute["launches"]
+    check(recompute_launches[ck.FUSED_BWD.name] > 0
+          and recompute_launches[ck.FUSED_BWD_T.name] == 0,
+          f"the recompute backward did not run: {recompute_launches}")
+    np.testing.assert_allclose(recompute["losses"], saved["losses"][:4], rtol=1e-4)
+    emit("train_step", size=S, tiles=list(TRAIN_TILES), capacity=capacity,
+         bucket_cfg=bucket._asdict(), steps=TRAIN_STEPS,
+         backward_chosen="saved-T" if residual <= budget else "recompute",
+         residual_bytes=residual, save_t_max_bytes=budget, saved_t=saved,
+         recompute=recompute, power_limit=smi)
+    emit("train_profile", steps=2, **profile_device(
+        lambda _: step(state, cam.view_matrix, o, dirs, target), range(2)))
+
+    # 5. times at the train step's launch shapes, per train step
+    dcols = [cotangent(inp, 20 + i) for i, inp in enumerate(per_bucket)]
+    blocks = [ck._block_sizes(inp[0].shape[1]) for inp in per_bucket]
+    ts = [ck.fused_forward_t(*inp, pb=pb, qb=qb)[1] for inp, (pb, qb) in zip(per_bucket, blocks)]
+    runs = {
+        ck.FUSED_FWD_T.name: [lambda i=i, b=b: ck.fused_forward_t(*i, pb=b[0], qb=b[1])
+                              for i, b in zip(per_bucket, blocks)],
+        ck.FUSED_BWD_T.name: [lambda i=i, b=b, d=d, t=t: ck.fused_backward(*i, d, t, qb=b[1])
+                              for i, b, d, t in zip(per_bucket, blocks, dcols, ts)],
+        ck.FUSED_BWD.name: [lambda i=i, b=b, d=d: ck.fused_backward(*i, d, qb=b[1])
+                            for i, b, d in zip(per_bucket, blocks, dcols)],
+    }
+    ms = {k: sum(time_cuda(f, iters=5, warmup=1) for f in fs) for k, fs in runs.items()}
+    plain = {ck.FUSED_FWD_T.name: (sum(time_cuda(lambda i=i: ck.fused_forward_t_plain(*i),
+                                                 iters=1, warmup=0) for i in per_bucket),
+                                   "the train step's launches")}
+    d_sub = cotangent(sub, 30)
+    t_sub = ck.fused_forward_t(*sub)[1]
+    plain[ck.FUSED_BWD_T.name] = (time_cuda(
+        lambda: ck.fused_backward_plain(*sub, d_sub, t_sub), iters=1, warmup=0),
+        "the 32-tile subset of phase 2")
+    plain[ck.FUSED_BWD.name] = (time_cuda(
+        lambda: ck.fused_backward_plain(*sub, d_sub), iters=1, warmup=0),
+        "the 32-tile subset of phase 2")
+    # bytes, each input read once and each output written once: the scene
+    # and rays; colors (B,3,R) and T out of the forward; dcol and T in, the
+    # five gradients out of a backward
+    t_bytes = sum(ck.save_t_bytes(i[0].shape[0], i[0].shape[1], i[4].shape[2])
+                  for i in per_bucket)
+    rays3 = sum(4 * 3 * i[0].shape[0] * i[4].shape[2] for i in per_bucket)
+    rows8 = sum(4 * 8 * i[0].shape[0] * i[0].shape[1] for i in per_bucket)
+    scene_b = sum(scene_bytes(i) for i in per_bucket)
+    nbytes = {ck.FUSED_FWD_T.name: scene_b + rays3 + t_bytes,
+              ck.FUSED_BWD_T.name: scene_b + 2 * rays3 + rows8 + t_bytes,
+              ck.FUSED_BWD.name: scene_b + 2 * rays3 + rows8}
+    ops = {ck.FUSED_FWD_T.name: [fwd_ops(i) for i in per_bucket],
+           ck.FUSED_BWD_T.name: [bwd_ops(i, False) for i in per_bucket],
+           ck.FUSED_BWD.name: [bwd_ops(i, True) for i in per_bucket]}
+    times = {}
+    for k in runs:
+        fp32 = sum(a for a, _ in ops[k])
+        sfu = sum(b for _, b in ops[k])
+        times[k] = {"ms": ms[k], "launches_per_step": saved["launches_per_step"][k]
+                    if k != ck.FUSED_BWD.name else recompute["launches_per_step"][k],
+                    "live_pairs": sum(float(np.sum(live_counts(i) ** 2) * i[4].shape[2])
+                                      for i in per_bucket),
+                    "fp32_instr": fp32, "sfu_ops": sfu, "bytes": nbytes[k],
+                    **bound(fp32, sfu, nbytes[k], clock_mhz, n_sm),
+                    "plain_ms": plain[k][0], "plain_shape": plain[k][1],
+                    "library_ms": "n/a: no single PyTorch call computes it"}
+    emit("train_times", shapes=[{"B": i[0].shape[0], "N": i[0].shape[1], "R": i[4].shape[2],
+                                 "max_count": int(i[5].max())} for i in per_bucket],
+         kernels=times, power_limit=smi)
+
+    launches = {ck.FUSED_FWD_T.name: fit_launches[ck.FUSED_FWD_T.name],
+                ck.FUSED_BWD_T.name: fit_launches[ck.FUSED_BWD_T.name],
+                ck.FUSED_BWD.name: recompute_launches[ck.FUSED_BWD.name]}
+    entries = []
+    for k in (ck.FUSED_FWD_T, ck.FUSED_BWD_T, ck.FUSED_BWD):
+        entries.append({
+            "name": k.name, "route": k.route,
+            "source": str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
+            "replaces": k.replaces,
+            "launches": launches[k.name],
+            "max_abs_err": max(r["abs"][k.name] for r in results.values()),
+            "max_rel_err": max(max(r["rel"][k.name].values()) for r in results.values()),
+            "ms": times[k.name]["ms"], "plain_ms": times[k.name]["plain_ms"],
+            "bound_ms": times[k.name]["bound_ms"], "bound_by": times[k.name]["bound_by"],
+            "library_ms": None})
+    return entries
 
 
 def main() -> int:
@@ -225,8 +614,8 @@ def main() -> int:
         cli_s = time.perf_counter() - t0
         main_launches = {k.name: k.launches for k in kernels.KERNELS}
         check(rc == 0, f"cli exited {rc}: {stderr.getvalue()[-2000:]}")
-        check(all(n > 0 for n in main_launches.values()),
-              f"a kernel was not launched on the main path: {main_launches}")
+        check(main_launches[FUSED_FWD.name] > 0,
+              f"the forward kernel was not launched on the serving path: {main_launches}")
         check("overflow" not in stderr.getvalue(), stderr.getvalue()[-2000:])
         avg = re.search(r"AVG\. TIME: ([\d.]+) ms", stdout.getvalue())
         check(avg is not None, f"no AVG. TIME line: {stdout.getvalue()!r}")
@@ -306,14 +695,21 @@ def main() -> int:
          if bound_s > t_bytes else "bytes", frame_ms=frame_mean,
          rays_per_s=SIZE * SIZE / (frame_mean * 1e-3), power_limit=smi)
 
-    # 6. the kernel line
+    # 6. the training path: its phases, main paths and times
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, "cube_cloud.obj")
+        with open(obj, "w") as f:
+            f.writelines(f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in smoke_points())
+        train_entries = train_phases(dev, smi, clock_mhz, n_sm, obj)
+
+    # 7. the kernel line
     print(json.dumps({"kernels": [{
         "name": FUSED_FWD.name, "route": FUSED_FWD.route,
         "source": str(FUSED_FWD.source.relative_to(nvcc.CSRC_DIR.parents[1])),
         "replaces": FUSED_FWD.replaces, "launches": main_launches[FUSED_FWD.name],
         "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_s * 1e3, "bound_by": "operations" if bound_s > t_bytes else "bytes",
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}] + train_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

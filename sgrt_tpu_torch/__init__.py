@@ -2,16 +2,20 @@
 
 A port of the JAX/Pallas package `sgrt_tpu` to an NVIDIA H100: closed-form
 erf-based transmittance through isotropic 3D Gaussians, 5-sample radiance
-quadrature, 3.3-sigma tile culling, and the fused forward renderer as a
-hand-written CUDA kernel (csrc/fused_fwd.cu). It imports torch and numpy
-only; entry points run on the card (device="cuda") unless the caller passes
-device="cpu", where the kernels' plain tensor versions run instead.
+quadrature, 3.3-sigma tile culling, the fused forward renderer and its
+analytic backward as hand-written CUDA kernels (csrc/), and scene fitting
+with Adam. It imports torch and numpy only; entry points run on the card
+(device="cuda") unless the caller passes device="cpu", where the kernels'
+plain tensor versions run instead.
 
 Layout (mirrors sgrt_tpu):
     models/    Gaussian scene and camera dataclasses, procedural/obj scenes
     ops/       oracle math, plain fused renderer, tiling, approximations,
-               the CUDA kernel's wrapper and routing, the frame pipeline
-    utils/     obj parsing, PNG/GIF writers, nvcc build, device selection
+               the CUDA kernels' wrappers, the differentiable fused op and
+               its routing, the bucketed tile scheduler, the frame pipeline
+    parallel/  the train steps (one device)
+    utils/     obj parsing, PNG/GIF writers, checkpoints, nvcc build,
+               device selection
     csrc/      CUDA sources, built with nvcc on first use
 """
 
@@ -32,6 +36,13 @@ from sgrt_tpu_torch.models.gaussians import (  # noqa: E402
     scene_from_obj,
     scene_from_vertices,
 )
+from sgrt_tpu_torch.ops.scheduler import BucketConfig  # noqa: E402
+from sgrt_tpu_torch.parallel.fit import (  # noqa: E402
+    FitState,
+    adam,
+    init_state,
+    make_frame_train_step,
+)
 
 __version__ = "0.1.0"
 
@@ -44,5 +55,10 @@ __all__ = [
     "scene_from_obj",
     "scene_from_vertices",
     "Camera",
+    "BucketConfig",
+    "FitState",
+    "adam",
+    "init_state",
+    "make_frame_train_step",
     "__version__",
 ]

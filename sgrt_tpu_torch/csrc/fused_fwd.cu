@@ -1,17 +1,25 @@
 // Fused forward of the Gaussian ray tracer: per-tile colors from raw tile
-// scenes, for Hopper (sm_90a).
+// scenes, for Hopper (sm_90a), optionally also writing the transmittance
+// factors T that the saved-T backward reads.
 //
-// Replaces the TPU kernel sgrt_tpu/ops/pallas_kernel.py::_fused_fwd_kernel
-// (launched by _fused_fwd_call). For each tile b, over the live prefix
-// count_b = min(counts[b], N) of its Gaussian rows, and each ray r:
+// Replaces the TPU kernels sgrt_tpu/ops/pallas_kernel.py::_fused_fwd_kernel
+// (launched by _fused_fwd_call; entry point sgrt_fused_fwd) and
+// ::_fused_fwd_t_kernel (launched by _fused_fwd_t_call; entry point
+// sgrt_fused_fwd_t, the SAVE_T instantiation). For each tile b, over the
+// live prefix count_b = min(counts[b], N) of its Gaussian rows, and each
+// ray r:
 //
 //   mb(q,r)   = oc_q . d_r
 //   co(q,r)   = mag_q sigma_q sqrt(pi/2) exp(-(|oc_q|^2 - mb^2) / (2 sigma_q^2))
 //   inv_q     = 1 / (sqrt2 sigma_q)
 //   base(r)   = sum_q co(q,r) erf(-mb(q,r) inv_q)
 //   acc_k(p,r)= sum_q co(q,r) erf((mb(p,r) + k sigma_p - mb(q,r)) inv_q),  k = -4..0
-//   tw(p,r)   = sum_k w_k exp(base(r) - acc_k(p,r)),  w_k = exp(-k^2/2)
-//   colors(:,r) = sum_p albedo_p sqrt(2/pi) co(p,r) tw(p,r)
+//   T_k(p,r)  = w_k exp(base(r) - acc_k(p,r)),  w_k = exp(-k^2/2)
+//   colors(:,r) = sum_p albedo_p sqrt(2/pi) co(p,r) sum_k T_k(p,r)
+//
+// SAVE_T also writes T (B,5,N,R); rows at or past the count hold T = 0, as
+// the TPU kernel's up-front clear leaves them (the saved-T backward relies
+// on it).
 //
 // What bounds it on this card: operations, not bytes. The inputs are
 // O(B N) floats, the work O(sum_b count_b^2 R): five erf evaluations per
@@ -19,7 +27,9 @@
 // MUL, the Newton steps of the IEEE reciprocal and the range reduction of
 // expf) and 2 SFU operations (MUFU.RCP, MUFU.EX2). At 16 SFU results per
 // clock per SM (compute capability 9.0) the SFU pipe and the FP32 pipe
-// bound a tap at about the same rate, ~2e12 taps/s on an H100 SXM.
+// bound a tap at about the same rate, ~2e12 taps/s on an H100 SXM. SAVE_T
+// adds 20 bytes per (p, ray) of writes, which stays far below the
+// operations' time at any count above a few rows.
 //
 // What the design does about it:
 //   * Nothing per (q, ray) or (p, q, ray) goes to device memory: one thread
@@ -35,120 +45,58 @@
 //     dense tile spreads over many SMs instead of bounding the launch by
 //     itself. Each split writes its partial colors; a second kernel sums
 //     the live splits of each tile in a fixed order. No atomics: the result
-//     is deterministic.
-//   * No fast-math: the A&S reciprocal is an IEEE division and expf is the
-//     accurate one, so "as5" is the float32-exact erf.
+//     is deterministic. With SAVE_T every split writes its own rows of T
+//     (zeros past the count), so T needs no clearing pass.
 //
 // Layouts (all float32, contiguous): oc (B,N,3), sigma (B,N), mag (B,N),
 // albedo (B,N,3), dirs (B,3,R) ray-minor, counts (B,) int32; partial
-// (B, n_split, 3, R) scratch and colors (B,3,R) are written.
+// (B, n_split, 3, R) scratch, colors (B,3,R) and, with SAVE_T, t
+// (B,5,N,R) are written.
 
 #include <cuda_runtime.h>
 
+#include "gauss_common.cuh"
+
 namespace {
 
+using namespace sgrt;
+
 constexpr int kRowsPerBlock = 32;  // p rows per block (split of the p axis)
-constexpr int kStageFields = 7;    // ocx ocy ocz |oc|^2 1/(2s^2) 1/(sqrt2 s) mag*s*sqrt(pi/2)
-constexpr float kInvSqrt2 = 0.7071067811865476f;
-constexpr float kInvSqrt2Pi = 1.2533141373155001f;  // sqrt(pi/2)
-constexpr float kSqrt2Pi = 0.7978845608028654f;     // sqrt(2/pi)
 
-enum { kErfAs5 = 0, kErfAs3 = 1 };
-enum { kExpExact = 0, kExpFast = 1 };
-
-template <int EXP>
-__device__ __forceinline__ float exp_fn(float x);
-
-template <>
-__device__ __forceinline__ float exp_fn<kExpExact>(float x) {
-  return expf(x);
-}
-
-// Schraudolph's bit-trick exp (sgrt_tpu/ops/approx.py::exp_fast): the
-// rounded-to-nearest multiply and add keep nvcc from contracting them into
-// one FMA, so the bits match the float32 reference.
-template <>
-__device__ __forceinline__ float exp_fn<kExpFast>(float x) {
-  x = fminf(fmaxf(x, -87.0f), 88.0f);
-  const float y = __fadd_rn(__fmul_rn(12102203.0f, x), 1064866805.0f);
-  return __int_as_float(__float2int_rz(y));
-}
-
-__device__ __forceinline__ float sign_of(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
-
-template <int ERF>
-__device__ __forceinline__ float erf_fn(float x);
-
-// Abramowitz & Stegun 7.1.26; its own exp is always the accurate expf.
-template <>
-__device__ __forceinline__ float erf_fn<kErfAs5>(float x) {
-  const float a = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * a);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return sign_of(x) * (1.0f - poly * expf(-x * x));
-}
-
-// Abramowitz & Stegun 7.1.25 (3 terms).
-template <>
-__device__ __forceinline__ float erf_fn<kErfAs3>(float x) {
-  const float a = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.47047f * a);
-  const float poly = t * (0.3480242f + t * (-0.0958798f + t * 0.7478556f));
-  return sign_of(x) * (1.0f - poly * expf(-x * x));
-}
-
-// The Gaussian's exponent -(|oc|^2 - mb^2) / (2 sigma^2) subtracts two
-// nearly equal numbers (|oc|^2 ~ mb^2 when the ray passes near the center),
-// so one rounding step of mb or |oc|^2 moves co by up to ulp(|oc|^2) /
-// (2 sigma^2) relative. These helpers round every product and sum to
-// nearest, in the plain version's order, so nvcc cannot contract them into
-// FMAs and the kernel's co matches the plain version's bit for bit.
-__device__ __forceinline__ float dot3_rn(float ax, float ay, float az, float bx,
-                                         float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
-}
-
-__device__ __forceinline__ float gauss_exponent_rn(float ocsq, float mb, float i2s2) {
-  return __fmul_rn(-__fsub_rn(ocsq, __fmul_rn(mb, mb)), i2s2);
-}
-
-// Tap i in 0..4 is k = i - 4; its weight is w_k = exp(-k^2/2). Called with
-// unrolled constant indices, both fold to literals.
-__device__ __forceinline__ float tap_k(int i) { return static_cast<float>(i - 4); }
-
-__device__ __forceinline__ float tap_weight(int i) {
-  return i == 0 ? 3.354626279025119e-04f
-       : i == 1 ? 1.110899653824231e-02f
-       : i == 2 ? 1.353352832366127e-01f
-       : i == 3 ? 6.065306597126334e-01f
-                : 1.0f;
-}
-
-template <int PB, int ERF, int EXP>
+template <int PB, int ERF, int EXP, bool SAVE_T>
 __global__ void __launch_bounds__(128)
 fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
                  const float* __restrict__ mag, const float* __restrict__ alb,
                  const float* __restrict__ dirs, const int* __restrict__ counts,
-                 float* __restrict__ partial, int N, int R, int qb, int n_split) {
+                 float* __restrict__ partial, float* __restrict__ t, int N, int R,
+                 int qb, int n_split) {
   extern __shared__ float stage[];
-  float* s_ocx = stage;
-  float* s_ocy = s_ocx + qb;
-  float* s_ocz = s_ocy + qb;
-  float* s_ocsq = s_ocz + qb;
-  float* s_i2s2 = s_ocsq + qb;
-  float* s_inv = s_i2s2 + qb;
-  float* s_cs = s_inv + qb;
+  const float* s_ocx = stage;
+  const float* s_ocy = s_ocx + qb;
+  const float* s_ocz = s_ocy + qb;
+  const float* s_ocsq = s_ocz + qb;
+  const float* s_i2s2 = s_ocsq + qb;
+  const float* s_inv = s_i2s2 + qb;
+  const float* s_cs = s_inv + qb;
 
   const int b = blockIdx.z;
   const int split = blockIdx.y;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int cnt = max(0, min(counts[b], N));
   const int p_begin = split * kRowsPerBlock;
+  // Lanes past R trace a unit +z ray so their math stays finite; they stage
+  // rows and take part in the barriers but write nothing.
+  const bool live_ray = r < R;
+
+  // T rows of this split at or past the count are zero
+  float* t_b = SAVE_T ? t + static_cast<size_t>(b) * kTaps * N * R : nullptr;
+  if (SAVE_T && live_ray) {
+    const int dead_end = min(p_begin + kRowsPerBlock, N);
+    for (int p = max(p_begin, cnt); p < dead_end; ++p) {
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) t_b[(static_cast<size_t>(k) * N + p) * R + r] = 0.0f;
+    }
+  }
   if (p_begin >= cnt) return;  // block-uniform: this split has no live rows
   const int p_end = min(p_begin + kRowsPerBlock, cnt);
 
@@ -158,9 +106,6 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
   const float* mag_b = mag + row0;
   const float* alb_b = alb + row0 * 3;
 
-  // Lanes past R trace a unit +z ray so their math stays finite; they stage
-  // rows and take part in the barriers but write nothing.
-  const bool live_ray = r < R;
   float dx = 0.0f, dy = 0.0f, dz = 1.0f;
   if (live_ray) {
     const float* d = dirs + static_cast<size_t>(b) * 3 * R;
@@ -173,7 +118,7 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
   float col_r = 0.0f, col_g = 0.0f, col_b = 0.0f;
 
   for (int p0 = p_begin; p0 < p_end; p0 += PB) {
-    float mbp[PB], sgp[PB], acc[PB][5];
+    float mbp[PB], sgp[PB], acc[PB][kTaps];
 #pragma unroll
     for (int i = 0; i < PB; ++i) {
       const int p = p0 + i;
@@ -184,29 +129,18 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
         sgp[i] = sig_b[p];
       }
 #pragma unroll
-      for (int k = 0; k < 5; ++k) acc[i][k] = 0.0f;
+      for (int k = 0; k < kTaps; ++k) acc[i][k] = 0.0f;
     }
     const bool first_group = p0 == p_begin;  // base is summed once, here
 
     for (int q0 = 0; q0 < cnt; q0 += qb) {
       const int nq = min(qb, cnt - q0);
       __syncthreads();
-      for (int j = threadIdx.x; j < nq; j += blockDim.x) {
-        const int q = q0 + j;
-        const float x = oc_b[3 * q], y = oc_b[3 * q + 1], z = oc_b[3 * q + 2];
-        const float s = sig_b[q];
-        s_ocx[j] = x;
-        s_ocy[j] = y;
-        s_ocz[j] = z;
-        s_ocsq[j] = dot3_rn(x, y, z, x, y, z);
-        s_i2s2[j] = 1.0f / (2.0f * s * s);
-        s_inv[j] = kInvSqrt2 / s;
-        s_cs[j] = mag_b[q] * s * kInvSqrt2Pi;
-      }
+      stage_rows(stage, qb, oc_b, sig_b, mag_b, q0, nq);
       __syncthreads();
       for (int j = 0; j < nq; ++j) {
         const float mbq = dot3_rn(s_ocx[j], s_ocy[j], s_ocz[j], dx, dy, dz);
-        const float co = s_cs[j] * exp_fn<EXP>(gauss_exponent_rn(s_ocsq[j], mbq, s_i2s2[j]));
+        const float co = coeff<EXP>(s_cs[j], s_ocsq[j], mbq, s_i2s2[j]);
         const float invq = s_inv[j];
         if (first_group) base += co * erf_fn<ERF>(-mbq * invq);
 #pragma unroll
@@ -214,7 +148,7 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
           const float darg = (mbp[i] - mbq) * invq;
           const float ks = sgp[i] * invq;
 #pragma unroll
-          for (int k = 0; k < 5; ++k) acc[i][k] += co * erf_fn<ERF>(darg + tap_k(k) * ks);
+          for (int k = 0; k < kTaps; ++k) acc[i][k] += co * erf_fn<ERF>(darg + tap_k(k) * ks);
         }
       }
     }
@@ -225,16 +159,16 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
       if (p < p_end) {
         float tw = 0.0f;
 #pragma unroll
-        for (int k = 0; k < 5; ++k) tw += tap_weight(k) * exp_fn<EXP>(base - acc[i][k]);
-        const float x = oc_b[3 * p], y = oc_b[3 * p + 1], z = oc_b[3 * p + 2];
-        const float s = sgp[i];
-        const float co = (mag_b[p] * s * kInvSqrt2Pi) *
-                         exp_fn<EXP>(gauss_exponent_rn(dot3_rn(x, y, z, x, y, z), mbp[i],
-                                                       1.0f / (2.0f * s * s)));
-        const float w = kSqrt2Pi * co * tw;
-        col_r += alb_b[3 * p] * w;
-        col_g += alb_b[3 * p + 1] * w;
-        col_b += alb_b[3 * p + 2] * w;
+        for (int k = 0; k < kTaps; ++k) {
+          const float tk = tap_weight(k) * exp_fn<EXP>(base - acc[i][k]);
+          if (SAVE_T && live_ray) t_b[(static_cast<size_t>(k) * N + p) * R + r] = tk;
+          tw += tk;
+        }
+        const Row w = load_row(oc_b, sig_b, mag_b, p);
+        const float wp = kSqrt2Pi * coeff<EXP>(w.cs, w.ocsq, mbp[i], w.i2s2) * tw;
+        col_r += alb_b[3 * p] * wp;
+        col_g += alb_b[3 * p + 1] * wp;
+        col_b += alb_b[3 * p + 2] * wp;
       }
     }
   }
@@ -266,15 +200,42 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
 }
 
 using FwdKernel = void (*)(const float*, const float*, const float*, const float*,
-                           const float*, const int*, float*, int, int, int, int);
+                           const float*, const int*, float*, float*, int, int, int, int);
 
-template <int PB>
+template <int PB, bool SAVE_T>
 FwdKernel pick_fn(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return fused_fwd_kernel<PB, kErfAs5, kExpExact>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return fused_fwd_kernel<PB, kErfAs5, kExpFast>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return fused_fwd_kernel<PB, kErfAs3, kExpExact>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return fused_fwd_kernel<PB, kErfAs3, kExpFast>;
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return fused_fwd_kernel<PB, kErfAs5, kExpExact, SAVE_T>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return fused_fwd_kernel<PB, kErfAs5, kExpFast, SAVE_T>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return fused_fwd_kernel<PB, kErfAs3, kExpExact, SAVE_T>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return fused_fwd_kernel<PB, kErfAs3, kExpFast, SAVE_T>;
   return nullptr;
+}
+
+template <bool SAVE_T>
+int launch(const float* oc, const float* sig, const float* mag, const float* alb,
+           const float* dirs, const int* counts, float* partial, float* colors, float* t,
+           int B, int N, int R, int threads, int pb, int qb, int erf_id, int exp_id,
+           void* stream) {
+  FwdKernel fn = nullptr;
+  if (pb == 8) fn = pick_fn<8, SAVE_T>(erf_id, exp_id);
+  if (pb == 16) fn = pick_fn<16, SAVE_T>(erf_id, exp_id);
+  if (fn == nullptr || B < 1 || B > 65535 || N < 1 || R < 1 || threads < 32 ||
+      threads > 128 || threads % 32 != 0 || qb < 1 || qb > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_split = (N + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (n_split > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((R + threads - 1) / threads, n_split, B);
+  const size_t smem = sizeof(float) * kStageFields * qb;
+  fn<<<grid, threads, smem, s>>>(oc, sig, mag, alb, dirs, counts, partial, t, N, R, qb,
+                                 n_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t total = static_cast<size_t>(B) * 3 * R;
+  const int rthreads = 256;
+  sum_splits_kernel<<<static_cast<unsigned>((total + rthreads - 1) / rthreads),
+                      rthreads, 0, s>>>(partial, counts, colors, B, N, R, n_split);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -297,26 +258,18 @@ int sgrt_fused_fwd(const float* oc, const float* sig, const float* mag,
                    float* partial, float* colors, int B, int N, int R,
                    int threads, int pb, int qb, int erf_id, int exp_id,
                    void* stream) {
-  FwdKernel fn = nullptr;
-  if (pb == 8) fn = pick_fn<8>(erf_id, exp_id);
-  if (pb == 16) fn = pick_fn<16>(erf_id, exp_id);
-  if (fn == nullptr || B < 1 || B > 65535 || N < 1 || R < 1 || threads < 32 ||
-      threads > 128 || threads % 32 != 0 || qb < 1 || qb > 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_split = (N + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (n_split > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((R + threads - 1) / threads, n_split, B);
-  const size_t smem = sizeof(float) * kStageFields * qb;
-  fn<<<grid, threads, smem, s>>>(oc, sig, mag, alb, dirs, counts, partial, N, R,
-                                 qb, n_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t total = static_cast<size_t>(B) * 3 * R;
-  const int rthreads = 256;
-  sum_splits_kernel<<<static_cast<unsigned>((total + rthreads - 1) / rthreads),
-                      rthreads, 0, s>>>(partial, counts, colors, B, N, R, n_split);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(oc, sig, mag, alb, dirs, counts, partial, colors, nullptr, B, N, R,
+                       threads, pb, qb, erf_id, exp_id, stream);
+}
+
+// The same forward, also writing T (B,5,N,R) for the saved-T backward.
+int sgrt_fused_fwd_t(const float* oc, const float* sig, const float* mag,
+                     const float* alb, const float* dirs, const int* counts,
+                     float* partial, float* colors, float* t, int B, int N, int R,
+                     int threads, int pb, int qb, int erf_id, int exp_id,
+                     void* stream) {
+  return launch<true>(oc, sig, mag, alb, dirs, counts, partial, colors, t, B, N, R,
+                      threads, pb, qb, erf_id, exp_id, stream);
 }
 
 }  // extern "C"

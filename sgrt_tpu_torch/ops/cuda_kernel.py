@@ -1,5 +1,5 @@
-"""The fused forward renderer on a hand-written CUDA kernel (PyTorch port of
-sgrt_tpu.ops.pallas_kernel, forward only).
+"""The fused renderer and its analytic backward on hand-written CUDA kernels
+(PyTorch port of sgrt_tpu.ops.pallas_kernel's fused op).
 
 Definitions (see ops.reference for the math contract; rows past a tile's
 count are inert dummies, sigma=1 and magnitude=0):
@@ -9,25 +9,32 @@ count are inert dummies, sigma=1 and magnitude=0):
     inv(q)       = 1 / (sqrt(2) sigma_q)
     acc_k(p,r)   = sum_q coeff(q,r) * erf((mu_bar(p,r) + k*sigma_p - mu_bar(q,r)) * inv(q))
     base(r)      = sum_q coeff(q,r) * erf(-mu_bar(q,r) * inv(q))
-    tw(p,r)      = sum_k w_k * exp(base(r) - acc_k(p,r)),  w_k = exp(-k^2/2)
-    colors(r,:)  = sum_p [sigma_p * cbar(p,r) * tw(p,r)] * albedo_p
+    T_k(p,r)     = w_k * exp(base(r) - acc_k(p,r)),  w_k = exp(-k^2/2)
+    colors(r,:)  = sum_p [sigma_p * cbar(p,r) * sum_k T_k(p,r)] * albedo_p
 
-`fused_forward` is the kernel's wrapper: for tensors on the card it
-launches csrc/fused_fwd.cu (the port of the TPU kernel _fused_fwd_kernel)
-or raises; for tensors on the CPU it runs `fused_forward_plain`, the same
-math in tensor ops. The kernel has no backward yet, so it refuses inputs
-that require grad; the plain version is differentiable by autograd.
+Four kernels, each with a wrapper that launches it for tensors on the card
+(or raises) and runs its plain version, the same math in tensor ops, for
+tensors on the CPU:
+
+    fused_forward     csrc/fused_fwd.cu  colors           (_fused_fwd_kernel)
+    fused_forward_t   csrc/fused_fwd.cu  colors and T     (_fused_fwd_t_kernel)
+    fused_backward    csrc/fused_bwd.cu  the VJP, from saved T (_fused_bwd_t_kernel)
+                                         or recomputing it (_fused_bwd_kernel)
+
+`FusedRender` joins them into one differentiable op, as the JAX package's
+custom VJP does; `render_fused` uses it when a gradient is wanted.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
 
 from sgrt_tpu_torch.models.gaussians import GaussianScene, pad_scene
-from sgrt_tpu_torch.ops.approx import ERF_IMPLS, EXP_IMPLS
+from sgrt_tpu_torch.ops.approx import ERF_AND_GAUSS_IMPLS, ERF_IMPLS, EXP_IMPLS
 from sgrt_tpu_torch.ops.reference import INV_SQRT_2_PI
 from sgrt_tpu_torch.ops.render import _unit_pad
 from sgrt_tpu_torch.utils import nvcc
@@ -36,11 +43,24 @@ K_TAPS = (-4.0, -3.0, -2.0, -1.0, 0.0)
 K_WEIGHTS = tuple(math.exp(-k * k / 2.0) for k in K_TAPS)
 _SQRT_2_PI = 0.7978845608028654   # sigma*cbar = coeff * sqrt(2/pi)
 _INV_SQRT_2 = 0.7071067811865476
+_DERF = 1.1283791670955126        # 2/sqrt(pi)
 
-# erf/exp names the CUDA kernel is compiled for (template arguments).
+# erf/exp names the CUDA kernels are compiled for (template arguments).
 KERNEL_ERFS = {"as5": 0, "as3": 1}
 KERNEL_EXPS = {"exact": 0, "fast": 1}
 KERNEL_PBS = (8, 16)
+
+# Byte budget of the saved-T residual, 20*B*N*R logical bytes (five
+# float32 factors per row and ray; the card has no lane padding to count).
+# Up to it the differentiated forward writes T and the backward reads it;
+# above it the backward recomputes pass A. On an H100 (80 GB, 700 W) at the
+# north-star train step (256^2, 32x16 tiles, N = 480; chip_smoke.py,
+# "train_step") the saved-T step takes 62.5 ms against 98.3 ms recomputing,
+# for 0.63 GB of T (peak 1.40 GB against 0.77 GB): saving always pays, so
+# the budget is set by memory alone. 8 GiB is a tenth of the card's 80 GB;
+# a step holds T of every launch at once, plus the backward's scratch
+# planes of the same size (csrc/fused_bwd.cu).
+SAVE_T_MAX_BYTES = 8 << 30
 
 
 def _kernel_erf_name(name: str) -> str:
@@ -51,7 +71,7 @@ def _kernel_erf_name(name: str) -> str:
 
 def _block_sizes(n: int) -> tuple[int, int]:
     """(pb, qb) from the Gaussian-axis extent, as in the JAX package, so
-    both pad tile capacities alike. pb is the number of p rows a CUDA
+    both pad tile capacities alike. pb is the number of p rows a forward
     thread keeps in registers, qb the q rows staged per shared-memory
     pass."""
     if n <= 256:
@@ -59,91 +79,144 @@ def _block_sizes(n: int) -> tuple[int, int]:
     return 8, 32
 
 
-class FusedForwardKernel:
-    """csrc/fused_fwd.cu, built on first launch, with its launch count."""
+def save_t_bytes(b: int, n: int, r: int) -> int:
+    """Logical bytes of the saved-T residual T (B,5,N,R) float32."""
+    return 4 * len(K_TAPS) * b * n * r
 
-    name = "fused_fwd"
+
+class CudaKernel:
+    """One hand-written kernel: an entry point of a library built from a
+    csrc/ source on first launch, the TPU kernel it replaces, and the count
+    of its launches (raised by one per launch, nowhere else)."""
+
     route = "cuda"
-    source = nvcc.CSRC_DIR / "fused_fwd.cu"
-    replaces = "sgrt_tpu/ops/pallas_kernel.py:862"
 
-    def __init__(self):
+    def __init__(self, name: str, source: str, symbol: str, replaces: str,
+                 n_ptr: int, n_int: int):
+        self.name = name
+        self.source = nvcc.CSRC_DIR / source
+        self.symbol = symbol
+        self.replaces = replaces
         self.launches = 0
+        self._argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         self._lib = None
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = nvcc.load(self.source)
-            ptr, i = ctypes.c_void_p, ctypes.c_int
-            lib.sgrt_fused_fwd.argtypes = [ptr] * 8 + [i] * 8 + [ptr]
-            lib.sgrt_fused_fwd.restype = i
-            lib.sgrt_fused_fwd_rows_per_block.restype = i
-            lib.sgrt_fused_fwd_max_threads.restype = i
-            lib.sgrt_cuda_error_string.argtypes = [i]
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self._argtypes
+            fn.restype = ctypes.c_int
+            lib.sgrt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sgrt_cuda_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
-    def launch(self, oc, sigma, mag, albedo, dirs_t, counts, *, rb: int,
-               pb: int, qb: int, erf_name: str, exp_name: str) -> torch.Tensor:
-        """colors (B,3,R) from CUDA tensors already checked by
-        fused_forward."""
-        if erf_name not in KERNEL_ERFS or exp_name not in KERNEL_EXPS:
-            raise ValueError(
-                f"the CUDA kernel implements erf {sorted(KERNEL_ERFS)} and exp "
-                f"{sorted(KERNEL_EXPS)}; got erf={erf_name!r}, exp={exp_name!r}")
-        if pb not in KERNEL_PBS:
-            raise ValueError(f"the CUDA kernel takes pb in {KERNEL_PBS}, got {pb}")
+    def query(self, symbol: str) -> int:
+        """An int-returning constant of the library (a block size)."""
+        fn = getattr(self.library(), symbol)
+        fn.restype = ctypes.c_int
+        return fn()
+
+    def launch(self, tensors, ints, *, what: str) -> None:
+        """Call the entry point with the tensors' pointers, the ints and the
+        current stream; raise with the CUDA error if the launch failed."""
         lib = self.library()
-        b, n, _ = oc.shape
-        r = dirs_t.shape[2]
-        threads = min(lib.sgrt_fused_fwd_max_threads(), rb, -(-r // 32) * 32)
-        threads = max(32, threads - threads % 32)
-        n_split = -(-n // lib.sgrt_fused_fwd_rows_per_block())
-        colors = torch.empty((b, 3, r), dtype=torch.float32, device=oc.device)
-        partial = torch.empty((b, n_split, 3, r), dtype=torch.float32,
-                              device=oc.device)
-        stream = torch.cuda.current_stream(oc.device).cuda_stream
-        with torch.cuda.device(oc.device):
-            err = lib.sgrt_fused_fwd(
-                oc.data_ptr(), sigma.data_ptr(), mag.data_ptr(), albedo.data_ptr(),
-                dirs_t.data_ptr(), counts.data_ptr(), partial.data_ptr(),
-                colors.data_ptr(), b, n, r, threads, pb, qb,
-                KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name], stream)
+        dev = tensors[0].device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = getattr(lib, self.symbol)(*(t.data_ptr() for t in tensors), *ints, stream)
         if err != 0:
             msg = lib.sgrt_cuda_error_string(err).decode()
-            raise RuntimeError(f"fused_fwd launch failed (B={b}, N={n}, R={r}, "
-                               f"threads={threads}, pb={pb}, qb={qb}): {msg}")
+            raise RuntimeError(f"{self.name} launch failed ({what}): {msg}")
         self.launches += 1
-        return colors
 
 
-FUSED_FWD = FusedForwardKernel()
+_FWD_SRC, _BWD_SRC, _TPU = "fused_fwd.cu", "fused_bwd.cu", "sgrt_tpu/ops/pallas_kernel.py"
+FUSED_FWD = CudaKernel("fused_fwd", _FWD_SRC, "sgrt_fused_fwd", f"{_TPU}:862", 8, 8)
+FUSED_FWD_T = CudaKernel("fused_fwd_t", _FWD_SRC, "sgrt_fused_fwd_t", f"{_TPU}:898", 9, 8)
+FUSED_BWD_T = CudaKernel("fused_bwd_t", _BWD_SRC, "sgrt_fused_bwd_t", f"{_TPU}:948", 14, 7)
+FUSED_BWD = CudaKernel("fused_bwd", _BWD_SRC, "sgrt_fused_bwd", f"{_TPU}:1073", 13, 7)
 
 
-def fused_forward_plain(oc, sigma, mag, albedo, dirs_t, counts, *,
-                        erf_name: str = "as5", exp_name: str = "exact",
-                        max_block_elems: int = 1 << 24) -> torch.Tensor:
-    """The kernel's function in tensor ops: oc (B,N,3), sigma/mag (B,N),
-    albedo (B,N,3), dirs_t (B,3,R), counts (B,) → colors (B,3,R).
+def _check_names(erf_name: str, exp_name: str, pb: int | None = None) -> None:
+    if erf_name not in KERNEL_ERFS or exp_name not in KERNEL_EXPS:
+        raise ValueError(
+            f"the CUDA kernels implement erf {sorted(KERNEL_ERFS)} and exp "
+            f"{sorted(KERNEL_EXPS)}; got erf={erf_name!r}, exp={exp_name!r}")
+    if pb is not None and pb not in KERNEL_PBS:
+        raise ValueError(f"the CUDA kernel takes pb in {KERNEL_PBS}, got {pb}")
 
-    Rows at or past min(count, N) are replaced by inert dummies, so they
-    never act as live whatever they hold. Only tiles with a live row and
-    the rows up to the largest count are computed (this reads the counts on
-    the host), and the q axis is blocked so that no (B, N, N, R) array
-    is made: the pairwise temporaries hold at most `max_block_elems`.
-    """
-    erf_fn, exp_fn = ERF_IMPLS[erf_name], EXP_IMPLS[exp_name]
+
+def _threads(max_threads: int, rb: int, r: int) -> int:
+    """Threads (rays) per block: at most rb and the kernel's maximum, a
+    multiple of 32."""
+    t = min(max_threads, rb, -(-r // 32) * 32)
+    return max(32, t - t % 32)
+
+
+def _check_inputs(who: str, want: dict, dev: torch.device) -> bool:
+    """Shapes, dtypes and one device for every input; True if they are on
+    the card (then also contiguous), False if on the CPU."""
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, oc on {dev}")
+        dtype = torch.int32 if name == "counts" else torch.float32
+        if t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{who} runs on CUDA or CPU tensors, not {dev}")
+    for name, (t, _) in want.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return True
+
+
+def _scene_shapes(oc, sigma, mag, albedo, dirs_t, counts) -> dict:
     b, n, _ = oc.shape
-    r = dirs_t.shape[2]
+    r = dirs_t.shape[-1]
+    return {"oc": (oc, (b, n, 3)), "sigma": (sigma, (b, n)), "mag": (mag, (b, n)),
+            "albedo": (albedo, (b, n, 3)), "dirs_t": (dirs_t, (b, 3, r)),
+            "counts": (counts, (b,))}
+
+
+# ---------------------------------------------------------------------------
+# plain versions (tensor ops; on the CPU and beside the kernels in checks)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _LiveTiles:
+    """The tiles with a live row, cut to the rows up to the largest count,
+    rows past each count replaced by inert dummies, and the kernel prep."""
+
+    live: torch.Tensor       # (L,) tile indices
+    nl: int                  # rows kept
+    row_live: torch.Tensor   # (L, nl) bool
+    o3: torch.Tensor         # (L, nl, 3)
+    sg: torch.Tensor         # (L, nl, 1) sigma
+    mg: torch.Tensor         # (L, nl) magnitude
+    alb: torch.Tensor        # (L, nl, 3)
+    d: torch.Tensor          # (L, 3, R)
+    mb: torch.Tensor         # (L, nl, R)
+    ocsq: torch.Tensor       # (L, nl, 1)
+    inv2s2: torch.Tensor     # (L, nl, 1)
+    inv: torch.Tensor        # (L, nl, 1)
+    co: torch.Tensor         # (L, nl, R)
+
+
+def _live_tiles(oc, sigma, mag, albedo, dirs_t, counts, exp_fn) -> _LiveTiles | None:
+    """Reads the counts on the host; None if no tile has a live row."""
+    n = oc.shape[1]
     cnt = torch.clamp(counts.to(torch.int64), 0, n)
-    out = dirs_t.new_zeros((b, 3, r))
     live = torch.nonzero(cnt > 0).reshape(-1)
     if live.numel() == 0:
-        return out
+        return None
     nl = int(cnt.max())
-    cnt = cnt[live]
-    row_live = torch.arange(nl, device=oc.device)[None, :] < cnt[:, None]
+    row_live = torch.arange(nl, device=oc.device)[None, :] < cnt[live][:, None]
     sig = torch.where(row_live, sigma[live, :nl], torch.ones_like(row_live, dtype=oc.dtype))
     mg = torch.where(row_live, mag[live, :nl], torch.zeros_like(sig))
     o3 = torch.where(row_live[..., None], oc[live, :nl], torch.zeros_like(oc[live, :nl]))
@@ -151,9 +224,9 @@ def fused_forward_plain(oc, sigma, mag, albedo, dirs_t, counts, *,
                       torch.zeros_like(albedo[live, :nl]))
     d = dirs_t[live]
 
-    # mb and |oc|^2 as explicit sums in a fixed order, as the kernel rounds
+    # mb and |oc|^2 as explicit sums in a fixed order, as the kernels round
     # them: the exponent of co cancels |oc|^2 against mb^2 (see
-    # csrc/fused_fwd.cu, gauss_exponent_rn)
+    # csrc/gauss_common.cuh, gauss_exponent_rn)
     x, y, z = (o3[..., c:c + 1] for c in range(3))         # (L, nl, 1)
     mb = x * d[:, None, 0] + y * d[:, None, 1] + z * d[:, None, 2]   # (L, nl, R)
     ocsq = x * x + y * y + z * z                            # (L, nl, 1)
@@ -161,12 +234,22 @@ def fused_forward_plain(oc, sigma, mag, albedo, dirs_t, counts, *,
     inv2s2 = 1.0 / (2.0 * sg * sg)
     inv = _INV_SQRT_2 / sg                                  # (L, nl, 1)
     co = (mg[..., None] * sg * INV_SQRT_2_PI) * exp_fn(-(ocsq - mb * mb) * inv2s2)
-    base = torch.sum(co * erf_fn(-mb * inv), dim=1)         # (L, R)
+    return _LiveTiles(live, nl, row_live, o3, sg, mg, alb, d, mb, ocsq, inv2s2, inv, co)
 
-    nlive = live.numel()
-    qb = max(1, min(nl, max_block_elems // (nlive * nl * r)))
+
+def _q_block(lt: _LiveTiles, max_block_elems: int) -> int:
+    """q rows per block so that (L, nl, Qb, R) temporaries hold at most
+    max_block_elems."""
+    return max(1, min(lt.nl, max_block_elems // (lt.live.numel() * lt.nl * lt.mb.shape[2])))
+
+
+def _transmittance(lt: _LiveTiles, erf_fn, exp_fn, max_block_elems: int) -> list:
+    """The five T_k (L, nl, R) of pass A, zero on dead rows."""
+    mb, co, inv, sg = lt.mb, lt.co, lt.inv, lt.sg
+    base = torch.sum(co * erf_fn(-mb * inv), dim=1)         # (L, R)
+    qb = _q_block(lt, max_block_elems)
     accs = [torch.zeros_like(mb) for _ in K_TAPS]
-    for q0 in range(0, nl, qb):
+    for q0 in range(0, lt.nl, qb):
         mb_q = mb[:, None, q0:q0 + qb, :]                   # (L, 1, Qb, R)
         co_q = co[:, None, q0:q0 + qb, :]
         inv_q = inv[:, None, q0:q0 + qb, :]                 # (L, 1, Qb, 1)
@@ -174,10 +257,180 @@ def fused_forward_plain(oc, sigma, mag, albedo, dirs_t, counts, *,
         ks = sg[:, :, None, :] * inv_q                      # (L, nl, Qb, 1)
         accs = [acc + torch.sum(co_q * erf_fn(darg + k * ks), dim=2)
                 for acc, k in zip(accs, K_TAPS)]
-    tw = sum(w * exp_fn(base[:, None, :] - acc) for w, acc in zip(K_WEIGHTS, accs))
-    w_p = _SQRT_2_PI * co * tw                              # (L, nl, R)
-    colors = alb.transpose(1, 2) @ w_p                      # (L, 3, R)
-    return out.index_copy(0, live, colors)
+    rl = lt.row_live[..., None]
+    return [torch.where(rl, w * exp_fn(base[:, None, :] - acc), torch.zeros_like(acc))
+            for w, acc in zip(K_WEIGHTS, accs)]
+
+
+def _colors(lt: _LiveTiles, T) -> torch.Tensor:
+    tw = sum(T)
+    w_p = _SQRT_2_PI * lt.co * tw                           # (L, nl, R)
+    return lt.alb.transpose(1, 2) @ w_p                     # (L, 3, R)
+
+
+def _forward_plain(oc, sigma, mag, albedo, dirs_t, counts, erf_name, exp_name,
+                   max_block_elems, want_t):
+    erf_fn, exp_fn = ERF_IMPLS[erf_name], EXP_IMPLS[exp_name]
+    b, n, _ = oc.shape
+    r = dirs_t.shape[2]
+    colors = dirs_t.new_zeros((b, 3, r))
+    t = dirs_t.new_zeros((b, len(K_TAPS), n, r)) if want_t else None
+    lt = _live_tiles(oc, sigma, mag, albedo, dirs_t, counts, exp_fn)
+    if lt is None:
+        return colors, t
+    T = _transmittance(lt, erf_fn, exp_fn, max_block_elems)
+    colors = colors.index_copy(0, lt.live, _colors(lt, T))
+    if want_t:
+        t_live = dirs_t.new_zeros((lt.live.numel(), len(K_TAPS), n, r))
+        t_live[:, :, :lt.nl] = torch.stack(T, dim=1)
+        t = t.index_copy(0, lt.live, t_live)
+    return colors, t
+
+
+def fused_forward_plain(oc, sigma, mag, albedo, dirs_t, counts, *,
+                        erf_name: str = "as5", exp_name: str = "exact",
+                        max_block_elems: int = 1 << 24) -> torch.Tensor:
+    """The forward kernel's function in tensor ops: oc (B,N,3), sigma/mag
+    (B,N), albedo (B,N,3), dirs_t (B,3,R), counts (B,) → colors (B,3,R).
+
+    Rows at or past min(count, N) are replaced by inert dummies, so they
+    never act as live whatever they hold. Only tiles with a live row and
+    the rows up to the largest count are computed (this reads the counts on
+    the host), and the q axis is blocked so that no (B, N, N, R) array
+    is made: the pairwise temporaries hold at most `max_block_elems`.
+    Differentiable by autograd.
+    """
+    return _forward_plain(oc, sigma, mag, albedo, dirs_t, counts, erf_name, exp_name,
+                          max_block_elems, False)[0]
+
+
+def fused_forward_t_plain(oc, sigma, mag, albedo, dirs_t, counts, *,
+                          erf_name: str = "as5", exp_name: str = "exact",
+                          max_block_elems: int = 1 << 24):
+    """fused_forward_plain that also returns T (B,5,N,R), the five
+    transmittance factors w_k exp(base - acc_k) per row and ray; rows at or
+    past the count hold T = 0."""
+    return _forward_plain(oc, sigma, mag, albedo, dirs_t, counts, erf_name, exp_name,
+                          max_block_elems, True)
+
+
+def fused_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
+                         erf_name: str = "as5", exp_name: str = "exact",
+                         max_block_elems: int = 1 << 24):
+    """The backward kernels' function in tensor ops: the analytic VJP of
+    the fused forward for the cotangent dcol (B,3,R), written out in the
+    JAX package's order (pallas_kernel.py: _grad_pass with its S0/S1
+    folding, _base_path_grads, _fused_prep_epilogue with the mag == 0
+    guard). With t_saved (B,5,N,R) it reads T as the saved-T kernel does;
+    without, it recomputes pass A. Returns (doc (B,N,3), dsigma (B,N),
+    dmag (B,N), dalbedo (B,N,3), ddirs (B,3,R)); rows at or past the count
+    get exactly zero.
+
+    erf' is 2/sqrt(pi) exp(-x^2) from the erf's (erf, gauss) pair, as in
+    the kernels; an erf with no pair takes as5's, as the JAX package does.
+    """
+    erf_fn, exp_fn = ERF_IMPLS[erf_name], EXP_IMPLS[exp_name]
+    eag = ERF_AND_GAUSS_IMPLS.get(erf_name, ERF_AND_GAUSS_IMPLS["as5"])
+    doc, dsig, dmag = torch.zeros_like(oc), torch.zeros_like(sigma), torch.zeros_like(mag)
+    dalb, ddirs = torch.zeros_like(albedo), torch.zeros_like(dirs_t)
+    lt = _live_tiles(oc, sigma, mag, albedo, dirs_t, counts, exp_fn)
+    if lt is None:
+        return doc, dsig, dmag, dalb, ddirs
+    mb, co, inv, sg, nl = lt.mb, lt.co, lt.inv, lt.sg, lt.nl
+    rl = lt.row_live[..., None]
+    if t_saved is None:
+        T = _transmittance(lt, erf_fn, exp_fn, max_block_elems)
+    else:
+        T = [torch.where(rl, t, torch.zeros_like(t))
+             for t in t_saved[lt.live, :, :nl].unbind(1)]
+    dcl = dcol[lt.live]                                     # (L, 3, R)
+    A = lt.alb @ dcl                                        # (L, nl, R)
+    g = _SQRT_2_PI * co * A
+    tw = sum(T)
+    db = torch.sum(g * tw, dim=1)                           # (L, R)
+    G = [g * t for t in T]
+    dco = _SQRT_2_PI * tw * A
+    dalb_l = (_SQRT_2_PI * co * tw) @ dcl.transpose(1, 2)   # (L, nl, 3)
+
+    # pass B, q-blocked: q-side sums into dco/dmb/dinv, p-side into dmb/dsig_p
+    dmb, dinv, dsig_p = torch.zeros_like(mb), torch.zeros_like(mb), torch.zeros_like(mb)
+    sg4 = sg[:, :, None, :]                                 # (L, nl, 1, 1)
+    qb = _q_block(lt, max_block_elems)
+    for q0 in range(0, nl, qb):
+        q = slice(q0, q0 + qb)
+        mb_q = mb[:, None, q, :]                            # (L, 1, Qb, R)
+        co_q = co[:, None, q, :]
+        inv_q = inv[:, None, q, :]                          # (L, 1, Qb, 1)
+        dd = mb[:, :, None, :] - mb_q                       # (L, nl, Qb, R)
+        dco_blk = torch.zeros_like(mb_q[:, 0])
+        t0 = t1 = 0.0
+        for k, gk in zip(K_TAPS, G):
+            ee, gau = eag((dd + k * sg4) * inv_q)
+            gk4 = gk[:, :, None, :]
+            dco_blk = dco_blk - torch.sum(gk4 * ee, dim=1)
+            gg = gk4 * gau
+            t0 = t0 + gg
+            t1 = t1 + k * gg
+        s0 = (-_DERF) * co_q * t0
+        s1 = (-_DERF) * co_q * t1
+        di = s0 * inv_q
+        dmb = dmb + torch.sum(di, dim=2)
+        dsig_p = dsig_p + torch.sum(s1 * inv_q, dim=2)
+        dco[:, q] += dco_blk
+        dmb[:, q] -= torch.sum(di, dim=1)
+        dinv[:, q] += torch.sum(s0 * dd + s1 * sg4, dim=1)
+
+    # base path: db = sum_p g*tw is the cotangent of base
+    e1, g1 = eag(-mb * inv)
+    dco = dco + db[:, None, :] * e1
+    derf1 = _DERF * db[:, None, :] * co * g1
+    dmb = dmb + derf1 * (-inv)
+    dinv = dinv + derf1 * (-mb)
+
+    # chain through the prep (co, mb, inv) to the raw inputs
+    dcoco = dco * co
+    dmb = dmb + dcoco * (2.0 * lt.inv2s2) * mb
+    s_row = torch.sum(dcoco, dim=2, keepdim=True)           # (L, nl, 1)
+    docsq = s_row * (-lt.inv2s2)
+    s_qmb = torch.sum(dcoco * (lt.ocsq - mb * mb), dim=2, keepdim=True)
+    dsig_l = (torch.sum(dsig_p, dim=2, keepdim=True)
+              + torch.sum(dinv, dim=2, keepdim=True) * (-inv / sg)
+              + s_row / sg + s_qmb / (sg * sg * sg))[..., 0]
+    # guard only mag == 0 (inert rows): a negative magnitude keeps the sign
+    # of d mag = sum(dco*co)/mag
+    mg = lt.mg
+    dmag_l = mg * s_row[..., 0] / torch.where(mg == 0, torch.ones_like(mg), mg * mg)
+    doc_l = dmb @ lt.d.transpose(1, 2) + 2.0 * lt.o3 * docsq   # (L, nl, 3)
+    ddirs_l = lt.o3.transpose(1, 2) @ dmb                   # (L, 3, R)
+
+    zero = torch.zeros((), dtype=oc.dtype, device=oc.device)
+    live = lt.live
+    doc[live, :nl] = torch.where(rl, doc_l, zero)
+    dsig[live, :nl] = torch.where(lt.row_live, dsig_l, zero)
+    dmag[live, :nl] = torch.where(lt.row_live, dmag_l, zero)
+    dalb[live, :nl] = torch.where(rl, dalb_l, zero)
+    ddirs[live] = ddirs_l
+    return doc, dsig, dmag, dalb, ddirs
+
+
+# ---------------------------------------------------------------------------
+# wrappers: the kernel for CUDA tensors (or raise), the plain version for CPU
+# ---------------------------------------------------------------------------
+
+def _forward_launch(kernel, args, t, *, rb, pb, qb, erf_name, exp_name):
+    _check_names(erf_name, exp_name, pb)
+    oc, dirs_t = args[0], args[4]
+    b, n, _ = oc.shape
+    r = dirs_t.shape[2]
+    threads = _threads(kernel.query("sgrt_fused_fwd_max_threads"), rb, r)
+    n_split = -(-n // kernel.query("sgrt_fused_fwd_rows_per_block"))
+    colors = torch.empty((b, 3, r), dtype=torch.float32, device=oc.device)
+    partial = torch.empty((b, n_split, 3, r), dtype=torch.float32, device=oc.device)
+    outs = [partial, colors] + ([t] if t is not None else [])
+    kernel.launch(list(args) + outs,
+                  [b, n, r, threads, pb, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  what=f"B={b}, N={n}, R={r}, threads={threads}, pb={pb}, qb={qb}")
+    return colors
 
 
 def fused_forward(oc, sigma, mag, albedo, dirs_t, counts, *, rb: int = 128,
@@ -188,63 +441,158 @@ def fused_forward(oc, sigma, mag, albedo, dirs_t, counts, *, rb: int = 128,
     Checks shapes, dtypes, devices and contiguity. CUDA tensors go to the
     kernel (which raises for what it does not take); CPU tensors go to
     fused_forward_plain."""
-    b, n, three = oc.shape
+    args = (oc, sigma, mag, albedo, dirs_t, counts)
+    if not _check_inputs("fused_forward", _scene_shapes(*args), oc.device):
+        return fused_forward_plain(*args, erf_name=erf_name, exp_name=exp_name)
+    return _forward_launch(FUSED_FWD, args, None, rb=rb, pb=pb, qb=qb,
+                           erf_name=erf_name, exp_name=exp_name)
+
+
+def fused_forward_t(oc, sigma, mag, albedo, dirs_t, counts, *, rb: int = 128,
+                    pb: int = 8, qb: int = 32, erf_name: str = "as5",
+                    exp_name: str = "exact"):
+    """Wrapper of the forward-with-T kernel: (colors (B,3,R), T (B,5,N,R)),
+    T zero on rows at or past the count. CUDA tensors go to the kernel,
+    CPU tensors to fused_forward_t_plain."""
+    args = (oc, sigma, mag, albedo, dirs_t, counts)
+    if not _check_inputs("fused_forward_t", _scene_shapes(*args), oc.device):
+        return fused_forward_t_plain(*args, erf_name=erf_name, exp_name=exp_name)
+    b, n, _ = oc.shape
+    t = torch.empty((b, len(K_TAPS), n, dirs_t.shape[2]), dtype=torch.float32,
+                    device=oc.device)   # the kernel writes every element
+    colors = _forward_launch(FUSED_FWD_T, args, t, rb=rb, pb=pb, qb=qb,
+                             erf_name=erf_name, exp_name=exp_name)
+    return colors, t
+
+
+def fused_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
+                   rb: int = 128, qb: int = 32, erf_name: str = "as5",
+                   exp_name: str = "exact"):
+    """Wrapper of the backward kernels: the VJP of the fused forward for
+    the cotangent dcol (B,3,R) → (doc (B,N,3), dsigma (B,N), dmag (B,N),
+    dalbedo (B,N,3), ddirs (B,3,R)).
+
+    With t_saved (B,5,N,R) from fused_forward_t it launches the saved-T
+    kernel, without it the recompute kernel. CPU tensors go to
+    fused_backward_plain. rb caps the rays per block; qb is the rows staged
+    per shared-memory pass."""
+    args = (oc, sigma, mag, albedo, dirs_t, counts)
+    want = _scene_shapes(*args)
+    b, n, _ = oc.shape
     r = dirs_t.shape[-1]
-    want = {"oc": (oc, (b, n, 3)), "sigma": (sigma, (b, n)), "mag": (mag, (b, n)),
-            "albedo": (albedo, (b, n, 3)), "dirs_t": (dirs_t, (b, 3, r)),
-            "counts": (counts, (b,))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.device != oc.device:
-            raise ValueError(f"{name} is on {t.device}, oc on {oc.device}")
-        dtype = torch.int32 if name == "counts" else torch.float32
-        if t.dtype != dtype:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if oc.device.type == "cpu":
-        return fused_forward_plain(oc, sigma, mag, albedo, dirs_t, counts,
-                                   erf_name=erf_name, exp_name=exp_name)
-    if oc.device.type != "cuda":
-        raise ValueError(f"fused_forward runs on CUDA or CPU tensors, not {oc.device}")
-    for name, (t, _) in want.items():
-        if t.requires_grad:
-            raise NotImplementedError(
-                f"{name} requires grad: the backward kernels are not yet ported "
-                "to CUDA (render on the CPU for gradients)")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return FUSED_FWD.launch(oc, sigma, mag, albedo, dirs_t, counts, rb=rb,
-                            pb=pb, qb=qb, erf_name=erf_name, exp_name=exp_name)
+    want["dcol"] = (dcol, (b, 3, r))
+    if t_saved is not None:
+        want["t_saved"] = (t_saved, (b, len(K_TAPS), n, r))
+    if not _check_inputs("fused_backward", want, oc.device):
+        return fused_backward_plain(*args, dcol, t_saved, erf_name=erf_name,
+                                    exp_name=exp_name)
+    _check_names(erf_name, exp_name)
+    kernel = FUSED_BWD if t_saved is None else FUSED_BWD_T
+    threads = _threads(kernel.query("sgrt_fused_bwd_max_threads"), rb, r)
+    rp = -(-r // threads) * threads
+    planes = kernel.query("sgrt_fused_bwd_planes")
+    f32 = dict(dtype=torch.float32, device=oc.device)
+    scratch = torch.empty((b, planes, n, rp), **f32)
+    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
+    dsig, dmag = torch.empty((b, n), **f32), torch.empty((b, n), **f32)
+    ddirs = torch.empty((b, 3, r), **f32)
+    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
+    kernel.launch(ins + [scratch, doc, dsig, dmag, dalb, ddirs],
+                  [b, n, r, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  what=f"B={b}, N={n}, R={r}, threads={threads}, qb={qb}")
+    return doc, dsig, dmag, dalb, ddirs
+
+
+# ---------------------------------------------------------------------------
+# the differentiable op
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _FusedOpts:
+    rb: int
+    rb_bwd: int
+    pb: int
+    qb: int
+    erf_name: str
+    exp_name: str
+    save_t: bool
+
+
+class FusedRender(torch.autograd.Function):
+    """colors = fused forward(oc, sigma, mag, albedo, dirs_t, counts) with
+    the analytic backward (the counterpart of the JAX package's
+    _make_fused_op). save_t: the forward also writes T and the backward
+    reads it instead of recomputing pass A. Gradients flow to oc, sigma,
+    mag, albedo and the ray directions; counts gets None."""
+
+    @staticmethod
+    def forward(ctx, oc, sigma, mag, albedo, dirs_t, counts, opts: _FusedOpts):
+        kw = dict(pb=opts.pb, qb=opts.qb, erf_name=opts.erf_name, exp_name=opts.exp_name)
+        if opts.save_t:
+            colors, t = fused_forward_t(oc, sigma, mag, albedo, dirs_t, counts,
+                                        rb=opts.rb_bwd, **kw)
+            ctx.save_for_backward(oc, sigma, mag, albedo, dirs_t, counts, t)
+        else:
+            colors = fused_forward(oc, sigma, mag, albedo, dirs_t, counts, rb=opts.rb, **kw)
+            ctx.save_for_backward(oc, sigma, mag, albedo, dirs_t, counts)
+        ctx.opts = opts
+        return colors
+
+    @staticmethod
+    def backward(ctx, dcol):
+        oc, sigma, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
+        o = ctx.opts
+        grads = fused_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol.contiguous(),
+                               t[0] if t else None, rb=o.rb_bwd, qb=o.qb,
+                               erf_name=o.erf_name, exp_name=o.exp_name)
+        return (*grads, None, None)
 
 
 def render_fused(scene_oc, sigma, mag, albedo, dirs_t, counts=None, *,
                  rb: int = 128, pb: int = 16, qb: int = 32,
-                 erf_name: str = "as5", exp_name: str = "exact"):
+                 rb_bwd: int | None = None, erf_name: str = "as5",
+                 exp_name: str = "exact", save_t: bool | None = None):
     """Fully fused batched render: oc (B,N,3), sigma/mag (B,N), albedo
-    (B,N,3), dirs_t (B,3,R), counts (B,) → colors (B,3,R). Block sizes
-    follow the JAX package's rules (rb | R, pb | N, qb | N, multiples of
-    8); counts default to N and are clamped to N."""
+    (B,N,3), dirs_t (B,3,R) → colors (B,3,R). Block sizes follow the JAX
+    package's rules (rb | R, pb | N, qb | N, multiples of 8); counts
+    default to N and are clamped to N.
+
+    Differentiable: when grad is enabled and an input requires it, the
+    render goes through FusedRender (gradients for oc, sigma, mag, albedo
+    and the ray directions); otherwise it launches the plain forward kernel
+    and never pays for the T write. save_t=None saves T when its 20*B*N*R
+    bytes fit SAVE_T_MAX_BYTES. rb_bwd is the ray block of the saved-T
+    forward and of the backward (default rb)."""
     erf_name = _kernel_erf_name(erf_name)
     b, n, _ = scene_oc.shape
     r = dirs_t.shape[2]
-    rb, pb, qb = min(rb, r), min(pb, n), min(qb, n)
-    if r % rb or n % pb or n % qb or pb % 8 or qb % 8:
+    rb = min(rb, r)
+    rb_bwd = rb if rb_bwd is None else min(rb_bwd, r)
+    pb, qb = min(pb, n), min(qb, n)
+    if r % rb or n % pb or n % qb or r % rb_bwd or pb % 8 or qb % 8:
         raise ValueError(f"shape (R={r}, N={n}) not divisible by blocks "
-                         f"(rb={rb}, pb={pb}, qb={qb})")
+                         f"(rb={rb}, rb_bwd={rb_bwd}, pb={pb}, qb={qb})")
     if counts is None:
         counts = torch.full((b,), n, dtype=torch.int32, device=scene_oc.device)
     counts = torch.clamp(counts.to(torch.int32), max=n)
-    return fused_forward(scene_oc, sigma, mag, albedo, dirs_t, counts, rb=rb,
-                         pb=pb, qb=qb, erf_name=erf_name, exp_name=exp_name)
+    inputs = (scene_oc, sigma, mag, albedo, dirs_t)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
+        return fused_forward(*inputs, counts, rb=rb, pb=pb, qb=qb, erf_name=erf_name,
+                             exp_name=exp_name)
+    if save_t is None:
+        save_t = save_t_bytes(b, n, r) <= SAVE_T_MAX_BYTES
+    opts = _FusedOpts(rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
+    return FusedRender.apply(*inputs, counts, opts)
 
 
 def render_tiles_fused(tiled_scene: GaussianScene, o, tile_dirs, counts=None,
                        *, rb: int = 128, pb: int | None = None,
-                       qb: int | None = None, erf_name: str = "as5",
-                       exp_name: str = "exact") -> torch.Tensor:
+                       qb: int | None = None, rb_bwd: int | None = None,
+                       erf_name: str = "as5", exp_name: str = "exact") -> torch.Tensor:
     """Batched per-tile render: tiled_scene fields (T2, K, ...), tile_dirs
     (T2, P, 3), counts (T2,) live Gaussians per tile → per-tile colors
-    (T2, P, 3). o is one (3,) origin or a per-tile (T2, 3) batch."""
+    (T2, P, 3). o is one (3,) origin or a per-tile (T2, 3) batch.
+    Differentiable through render_fused."""
     k = tiled_scene.mu.shape[1]
     dpb, dqb = _block_sizes(k)
     pb = dpb if pb is None else pb
@@ -255,17 +603,17 @@ def render_tiles_fused(tiled_scene: GaussianScene, o, tile_dirs, counts=None,
     colors_t = render_fused(
         oc, tiled_scene.sigma.contiguous(), tiled_scene.magnitude.contiguous(),
         tiled_scene.albedo.contiguous(), dirs_t, counts, rb=rb, pb=pb, qb=qb,
-        erf_name=erf_name, exp_name=exp_name)                 # (T2, 3, P)
+        rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name)  # (T2, 3, P)
     return colors_t.transpose(1, 2)
 
 
 def render_rays_fused_impl(o, dirs, scene: GaussianScene, *, rb: int = 128,
                            pb: int | None = None, qb: int | None = None,
-                           erf_name: str = "as5",
+                           rb_bwd: int | None = None, erf_name: str = "as5",
                            exp_name: str = "exact") -> torch.Tensor:
     """Render a flat ray batch through the kernel as one tile:
     dirs (R,3) → colors (R,3). Rays are padded to a multiple of rb with a
-    unit direction (see ops.render._unit_pad)."""
+    unit direction (see ops.render._unit_pad). Differentiable."""
     n_live = scene.n
     if pb is None or qb is None:
         dpb, dqb = _block_sizes(n_live)
@@ -280,5 +628,6 @@ def render_rays_fused_impl(o, dirs, scene: GaussianScene, *, rb: int = 128,
     colors_t = render_fused(
         oc[None], scene.sigma[None].contiguous(), scene.magnitude[None].contiguous(),
         scene.albedo[None].contiguous(), dirs_p.T[None].contiguous(), counts,
-        rb=rb, pb=pb, qb=qb, erf_name=erf_name, exp_name=exp_name)[0]  # (3, R)
+        rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd, erf_name=erf_name,
+        exp_name=exp_name)[0]  # (3, R)
     return colors_t.T[:r]

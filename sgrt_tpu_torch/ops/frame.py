@@ -78,13 +78,14 @@ def render_orbit_frame(
     forward kernel (ops.cuda_kernel; its plain version for a scene on the
     CPU); "torch" is the plain tensor formulation (ops.render).
     erf_name/exp_name select the approximation on both; "exact" on the
-    kernel route means the float32-exact as5.
+    kernel route means the float32-exact as5. bucket_cfg (an
+    ops.scheduler.BucketConfig) renders the kernel route's tiles in a dense
+    and a sparse bucket, each at its own capacity (`capacity` is then
+    unused); the torch route ignores it, as the JAX package's xla route
+    does.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if bucket_cfg is not None:
-        raise NotImplementedError("bucketed tile scheduling (ops/scheduler.py) "
-                                  "is not ported yet")
     dev = scene.device
     cam = orbit_camera(angle_deg, offset, focal_length, width, height, device=dev)
     o, dirs = cam.rays()
@@ -101,6 +102,13 @@ def render_orbit_frame(
         return colors.reshape(height, width, 3), no_overflow
 
     d = _tile_rays(dirs, height, width, tiles)
+    if backend == "kernel" and bucket_cfg is not None:
+        from sgrt_tpu_torch.ops.scheduler import render_tiles_bucketed
+
+        colors, _, overflow = render_tiles_bucketed(
+            scene, cam.view_matrix, o, d, bucket_cfg, erf_name=erf_name,
+            exp_name=exp_name, tiles=tiles, focal_length=focal_length)
+        return _untile_image(colors, height, width, tiles), overflow
     if backend == "kernel":
         from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
 
@@ -155,3 +163,17 @@ def probe_capacity(scene: GaussianScene, angles, offset, focal_length, tiles) ->
                                  focal_length=focal_length)
         best = max(best, int(torch.max(torch.sum(member, dim=-1))))
     return best
+
+
+def probe_buckets(scene: GaussianScene, angles, offset, focal_length, tiles,
+                  margin: float = 1.2, dense_frac: float = 0.125,
+                  multiple_of: int = 1):
+    """Size a BucketConfig over sample orbit angles (the bucketed analog of
+    probe_capacity; see ops.scheduler.probe_bucket_config). Waits for the
+    device."""
+    from sgrt_tpu_torch.ops.scheduler import probe_bucket_config
+
+    views = [orbit_camera(float(a), offset, focal_length, 8, 8,
+                          device=scene.device).view_matrix for a in angles]
+    return probe_bucket_config(scene, views, tiles, margin=margin, dense_frac=dense_frac,
+                               focal_length=focal_length, multiple_of=multiple_of)

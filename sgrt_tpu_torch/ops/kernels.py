@@ -4,10 +4,10 @@ with `name`, `route`, `source`, `replaces` (the TPU kernel it ports) and a
 
 from __future__ import annotations
 
-from sgrt_tpu_torch.ops.cuda_kernel import FUSED_FWD
+from sgrt_tpu_torch.ops.cuda_kernel import FUSED_BWD, FUSED_BWD_T, FUSED_FWD, FUSED_FWD_T
 from sgrt_tpu_torch.utils import nvcc
 
-KERNELS = (FUSED_FWD,)
+KERNELS = (FUSED_FWD, FUSED_FWD_T, FUSED_BWD_T, FUSED_BWD)
 
 
 def build_all() -> None:

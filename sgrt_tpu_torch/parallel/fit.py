@@ -1,0 +1,272 @@
+"""Differentiable scene fitting on one device (PyTorch port of
+sgrt_tpu.parallel.fit).
+
+Optimize Gaussian means / sigmas / magnitudes / albedos against target
+pixels by gradient descent. The tiled frame step is the north-star
+training configuration: per-frame re-tiling (no gradient), gather, the
+fused CUDA forward and its analytic backward (ops.cuda_kernel.FusedRender),
+the gather's transpose as a scatter-add of tile gradients into the scene,
+then an Adam step.
+
+Optimizers: where the JAX package takes an optax transformation, the port
+takes a factory params → torch.optim.Optimizer (`adam(lr)` is the
+counterpart of optax.adam(lr)). A torch optimizer holds both the update
+rule and its state, so only init_state takes the factory: it builds the
+optimizer over the scene's four fields and keeps it in the state, and the
+step builders take no optimizer. A train step hands the optimizer the
+gradients of the trainable fields only, so the other fields get no
+gradient and no update and stay bit-identical, as optax's zero-gradient
+Adam update leaves them. Steps update the state in place and return it.
+
+Distribution over a mesh is not ported: every builder raises for
+mesh is not None.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from sgrt_tpu_torch.models.gaussians import GaussianScene
+from sgrt_tpu_torch.ops.frame import BACKENDS
+from sgrt_tpu_torch.ops.render import _radiance_block, _tile_rays, render_rays_impl
+from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
+
+FIELDS = ("mu", "sigma", "magnitude", "albedo")
+
+
+@dataclasses.dataclass
+class FitState:
+    scene: GaussianScene                 # leaf tensors, updated in place
+    opt_state: torch.optim.Optimizer     # over the scene's four fields
+    step: int = 0
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """The counterpart of optax.adam(lr, b1, b2, eps): a factory that
+    builds torch.optim.Adam over the given parameters (the same update,
+    lr * m_hat / (sqrt(v_hat) + eps))."""
+    return functools.partial(torch.optim.Adam, lr=lr, betas=(b1, b2), eps=eps)
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("distribution over a mesh (sgrt_tpu/parallel/mesh.py) "
+                                  "is not ported yet; pass mesh=None")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def init_state(scene: GaussianScene, optimizer, mesh=None) -> FitState:
+    """A fit state over copies of the scene's fields (the caller's scene is
+    never updated), with the optimizer built over them."""
+    _refuse_mesh(mesh)
+    scene = GaussianScene(**{f: getattr(scene, f).detach().clone() for f in FIELDS})
+    return FitState(scene, optimizer([getattr(scene, f) for f in FIELDS]), 0)
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - target) ** 2)
+
+
+def _apply_updates(state: FitState, grads: GaussianScene, trainable) -> None:
+    """One optimizer step: the trainable fields get their gradients, the
+    others none (the optimizer skips them)."""
+    for f in FIELDS:
+        getattr(state.scene, f).grad = getattr(grads, f) if f in trainable else None
+    state.opt_state.step()
+    state.step += 1
+
+
+def _value_and_grad(loss_of, scene: GaussianScene, trainable):
+    """loss_of(masked scene) → (loss, aux); returns ((loss, aux), grads):
+    gradients of the trainable fields, zeros for the frozen ones (the JAX
+    package's stop_gradient mask)."""
+    leaves = {f: getattr(scene, f).detach().requires_grad_(f in trainable) for f in FIELDS}
+    loss, aux = loss_of(GaussianScene(**leaves))
+    wrt = [f for f in FIELDS if f in trainable]
+    got = dict(zip(wrt, torch.autograd.grad(loss, [leaves[f] for f in wrt]))) if wrt else {}
+    grads = GaussianScene(**{f: got.get(f, torch.zeros_like(leaves[f])) for f in FIELDS})
+    return (loss.detach(), aux), grads
+
+
+def make_train_step(mesh=None, loss_fn: Callable = l2_loss,
+                    q_block: int = 128, ray_block: int = 2048,
+                    trainable: tuple[str, ...] = FIELDS, backend: str = "torch"):
+    """Untiled train step: step(state, o, dirs, target) → (state, loss).
+
+    backend="kernel" renders through the fused kernel and its analytic
+    backward (ops.cuda_kernel.render_rays_fused_impl; the JAX package's
+    "pallas"); "torch" differentiates the plain renderer by autograd
+    (ops.render; the JAX package's "xla")."""
+    _refuse_mesh(mesh)
+    _check_backend(backend)
+
+    def step(state: FitState, o, dirs, target):
+        def loss_of(scene):
+            if backend == "kernel":
+                from sgrt_tpu_torch.ops.cuda_kernel import render_rays_fused_impl
+
+                colors = render_rays_fused_impl(o, dirs, scene)
+            else:
+                colors = render_rays_impl(o, dirs, scene, q_block, ray_block)
+            return loss_fn(colors, target), None
+
+        (loss, _), grads = _value_and_grad(loss_of, state.scene, trainable)
+        _apply_updates(state, grads, trainable)
+        return state, loss
+
+    return step
+
+
+def _torch_tile_render(tiled: GaussianScene, o, d, q_block: int, tile_batch: int):
+    """Per-tile plain render for training: tiles in batches, each batch
+    checkpointed, so the backward recomputes a batch's pairwise
+    intermediates instead of keeping every batch's (the JAX package's
+    _xla_tile_render)."""
+    t2 = d.shape[0]
+    tb = min(tile_batch, t2)
+    while t2 % tb:
+        tb -= 1
+    k = tiled.sigma.shape[1]
+    q_block = min(q_block, k)
+    while k % q_block:
+        q_block -= 1
+
+    def batch(mu, sigma, mag, alb, dirs):
+        return _radiance_block(o, dirs, GaussianScene(mu, sigma, mag, alb), q_block)
+
+    return torch.cat([
+        checkpoint(batch, *(getattr(tiled, f)[t:t + tb] for f in FIELDS), d[t:t + tb],
+                   use_reentrant=False)
+        for t in range(0, t2, tb)])
+
+
+def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
+                              capacity: int = 128, backend: str = "kernel",
+                              erf_name: str = "as5", exp_name: str = "exact",
+                              trainable: tuple[str, ...] = FIELDS, bucket_cfg=None,
+                              focal_length=1.0, q_block: int = 128, tile_batch: int = 16):
+    """Single-device frame loss and gradient: vg(scene, view, o, dirs,
+    target) → ((loss, overflow), grads), grads a GaussianScene (zeros for
+    frozen fields). The gradient core of make_frame_train_step, exposed so
+    callers can compare raw gradients across backends without an optimizer.
+
+    backend="kernel" routes tiles through tile_renderer_for (the fused
+    kernels); bucket_cfg then renders a dense and a sparse bucket
+    (ops.scheduler.render_tiles_bucketed). backend="torch" differentiates
+    the plain per-tile renderer and, as the JAX package's "xla" route,
+    ignores bucket_cfg and erf_name/exp_name. Tile indices carry no
+    gradient; overflow counts tiles over capacity."""
+    from sgrt_tpu_torch.ops.cuda_kernel import _block_sizes
+
+    _check_backend(backend)
+    if backend == "kernel":
+        from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+
+        capacity, render = tile_renderer_for(capacity, erf_name=erf_name, exp_name=exp_name)
+    else:
+        _, qb = _block_sizes(capacity)
+        capacity = -(-capacity // qb) * qb
+
+    def tile_render(scene, idx, counts, o, d):
+        tiled = gather_tiles(scene, idx)
+        if backend == "kernel":
+            return render(tiled, o, d, counts)
+        return _torch_tile_render(tiled, o, d, min(q_block, capacity), tile_batch)
+
+    if bucket_cfg is not None and backend == "kernel":
+        from sgrt_tpu_torch.ops.scheduler import render_tiles_bucketed
+
+        def vg(scene, view, o, dirs, target):
+            d = _tile_rays(dirs, height, width, tiles)
+            target_t = _tile_rays(target.reshape(-1, 3), height, width, tiles)
+
+            def loss_of(s):
+                colors, _, overflow = render_tiles_bucketed(
+                    s, view, o, d, bucket_cfg, erf_name=erf_name, exp_name=exp_name,
+                    tiles=tiles, focal_length=focal_length)
+                return torch.mean((colors - target_t) ** 2), overflow
+
+            return _value_and_grad(loss_of, scene, trainable)
+
+        return vg
+
+    def vg(scene, view, o, dirs, target):
+        with torch.no_grad():
+            idx, counts = tile_indices(scene, view, tiles, capacity, focal_length=focal_length)
+            overflow = torch.sum(counts > capacity, dtype=torch.int32)
+        d = _tile_rays(dirs, height, width, tiles)
+        target_t = _tile_rays(target.reshape(-1, 3), height, width, tiles)
+
+        def loss_of(s):
+            colors = tile_render(s, idx, counts, o, d)
+            return torch.mean((colors - target_t) ** 2), overflow
+
+        return _value_and_grad(loss_of, scene, trainable)
+
+    return vg
+
+
+def make_frame_train_step(*, width: int = 256, height: int = 256,
+                          tiles=16, capacity: int = 128, mesh=None, backend: str = "kernel",
+                          erf_name: str = "as5", exp_name: str = "exact",
+                          trainable: tuple[str, ...] = FIELDS, bucket_cfg=None,
+                          focal_length=1.0):
+    """Tiled whole-frame train step, the north-star fwd+bwd configuration:
+    step(state, view, o, dirs, target_image) → (state, loss, overflow).
+
+    Per-frame re-tiling (no gradient), gather, fused forward and analytic
+    backward, scatter-add of the tile gradients back to the scene (the
+    gather's transpose), Adam. overflow (0-d int32) counts tiles whose true
+    member count exceeded their capacity this step: nonzero means
+    Gaussians were dropped from the loss and its gradients, and callers
+    must check it (fit_cli warns). bucket_cfg: dense/sparse capacity
+    bucketing of tiles (ops.scheduler)."""
+    _refuse_mesh(mesh)
+    vg = make_frame_value_and_grad(
+        width=width, height=height, tiles=tiles, capacity=capacity, backend=backend,
+        erf_name=erf_name, exp_name=exp_name, trainable=trainable, bucket_cfg=bucket_cfg,
+        focal_length=focal_length)
+
+    def step(state: FitState, view, o, dirs, target):
+        (loss, overflow), grads = vg(state.scene, view, o, dirs, target)
+        _apply_updates(state, grads, trainable)
+        return state, loss, overflow
+
+    return step
+
+
+def fit(scene: GaussianScene, o, dirs, target, steps: int = 200,
+        learning_rate: float = 1e-2, mesh=None, optimizer=None,
+        callback: Callable[[int, float], None] | None = None,
+        checkpoint_dir: str | None = None, checkpoint_every: int = 100,
+        **step_kwargs) -> tuple[GaussianScene, list]:
+    """Fit a scene to target ray colors with the untiled step → (fitted
+    scene, loss history). checkpoint_dir saves every `checkpoint_every`
+    steps and at the end (resumable with utils.checkpoint.restore_fit)."""
+    step_fn = make_train_step(mesh=mesh, **step_kwargs)
+    state = init_state(scene, optimizer or adam(learning_rate), mesh)
+    mgr = None
+    if checkpoint_dir is not None:
+        from sgrt_tpu_torch.utils.checkpoint import make_manager, save_fit
+
+        mgr = make_manager(checkpoint_dir)
+    losses = []
+    for i in range(steps):
+        state, loss = step_fn(state, o, dirs, target)
+        losses.append(loss)      # read once at the end: no wait per step
+        if callback is not None:
+            callback(i, float(loss))
+        if mgr is not None and (i + 1) % checkpoint_every == 0:
+            save_fit(mgr, state.step, state)
+    if mgr is not None:
+        save_fit(mgr, state.step, state)
+    return state.scene, [float(v) for v in losses]

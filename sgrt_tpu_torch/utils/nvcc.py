@@ -35,7 +35,12 @@ def nvcc_path() -> str:
 
 
 def library_path(source: Path) -> Path:
-    h = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of the source, the shared
+    headers beside it (csrc/*.cuh) and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:12]}.so"
 
 

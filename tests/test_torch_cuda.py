@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked `gpu`: each test decides inside itself whether a CUDA device is
 present and skips without one, so every pytest worker collects the same
@@ -7,10 +7,10 @@ imports JAX, which the port's machine need not have):
 
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest
 
-Tolerance 2e-5 is the JAX package's kernel tolerance (tests/test_pallas.py);
-the kernel rounds the Gaussian exponent's inputs exactly as the plain
-version does (csrc/fused_fwd.cu, gauss_exponent_rn), so the two differ only
-by summation order.
+Tolerances are the JAX package's (tests/test_pallas.py): 2e-5 for colors
+and T, 5e-5 of each field's max |value| for gradients. The kernels round
+the Gaussian exponent's inputs exactly as the plain versions do
+(csrc/gauss_common.cuh), so the two differ only by summation order.
 """
 
 import numpy as np
@@ -57,12 +57,85 @@ def test_kernel_matches_plain(erf_name, exp_name, pb, qb):
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=2e-5)
 
 
+GRAD_NAMES = ("oc", "sigma", "mag", "albedo", "dirs")
+
+
+def _assert_grads_close(got, want, rel=5e-5):
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        assert torch.isfinite(a).all(), name
+        scale = max(float(b.abs().max()), 1e-8)
+        np.testing.assert_allclose(a.cpu().numpy() / scale, b.cpu().numpy() / scale,
+                                   atol=rel, err_msg=name)
+
+
 def test_kernel_refuses_grad_and_unported_names():
-    args = _inputs(_card())
-    with pytest.raises(NotImplementedError, match="backward"):
-        tk.fused_forward(args[0].clone().requires_grad_(True), *args[1:])
+    """On the card, gradients of render_fused come from the backward
+    kernels and equal the plain backward's; unported erf names raise."""
+    dev = _card()
+    args = _inputs(dev, r=256)
+    dcol = torch.randn((5, 3, 256), generator=torch.Generator().manual_seed(3)).to(dev)
+    want = tk.fused_backward_plain(*args, dcol)
+    for save_t, kernel in ((True, tk.FUSED_BWD_T), (False, tk.FUSED_BWD)):
+        leaves = [a.clone().requires_grad_(True) for a in args[:5]]
+        before = kernel.launches
+        tk.render_fused(*leaves, args[5], pb=8, qb=32, save_t=save_t).backward(dcol)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        _assert_grads_close([t.grad for t in leaves], want)
     with pytest.raises(ValueError, match="erf"):
         tk.fused_forward(*args, erf_name="spline")
+    with pytest.raises(ValueError, match="erf"):
+        tk.fused_backward(*args, dcol, erf_name="spline")
+
+
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+def test_forward_t_kernel_matches_plain(erf_name, exp_name):
+    args = _inputs(_card())
+    before = tk.FUSED_FWD_T.launches
+    colors, t = tk.fused_forward_t(*args, erf_name=erf_name, exp_name=exp_name)
+    torch.cuda.synchronize()
+    assert tk.FUSED_FWD_T.launches == before + 1
+    ref_c, ref_t = tk.fused_forward_t_plain(*args, erf_name=erf_name, exp_name=exp_name)
+    np.testing.assert_allclose(colors.cpu().numpy(), ref_c.cpu().numpy(), atol=2e-5)
+    np.testing.assert_allclose(t.cpu().numpy(), ref_t.cpu().numpy(), atol=2e-5)
+    counts = [96, 17, 0, 40, 96]
+    for b, c in enumerate(counts):
+        assert (t[b, :, c:] == 0).all()     # dead rows hold exactly T = 0
+    plain = tk.fused_forward(*args, erf_name=erf_name, exp_name=exp_name)
+    np.testing.assert_allclose(colors.cpu().numpy(), plain.cpu().numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("saved_t", [True, False])
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+def test_backward_kernels_match_plain(saved_t, erf_name, exp_name):
+    """Both backwards at R = 200 (two ray blocks, the second partial) and
+    counts (96, 17, 0, 40, >N): per-ray-block partials summed in order, dead
+    rows exactly zero."""
+    dev = _card()
+    args = _inputs(dev)
+    dcol = torch.randn((5, 3, 200), generator=torch.Generator().manual_seed(4)).to(dev)
+    kw = dict(erf_name=erf_name, exp_name=exp_name)
+    t = tk.fused_forward_t(*args, **kw)[1] if saved_t else None
+    kernel = tk.FUSED_BWD_T if saved_t else tk.FUSED_BWD
+    before = kernel.launches
+    got = tk.fused_backward(*args, dcol, t, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _assert_grads_close(got, tk.fused_backward_plain(*args, dcol, t, **kw))
+    for g in got[:4]:
+        assert (g[2] == 0).all() and (g[1, 17:] == 0).all() and (g[3, 40:] == 0).all()
+    assert (got[4][2] == 0).all()
+
+
+def test_backward_untiled_many_ray_blocks():
+    """B = 1 with many ray blocks: the row reduction sums them all."""
+    dev = _card()
+    args = _inputs(dev, b=1, n=64, r=1000, counts=(61,), seed=5)
+    dcol = torch.randn((1, 3, 1000), generator=torch.Generator().manual_seed(6)).to(dev)
+    t = tk.fused_forward_t(*args)[1]
+    want = tk.fused_backward_plain(*args, dcol)
+    _assert_grads_close(tk.fused_backward(*args, dcol, t), want)
+    _assert_grads_close(tk.fused_backward(*args, dcol), want)
 
 
 def test_frame_kernel_route_on_card():
@@ -78,3 +151,35 @@ def test_frame_kernel_route_on_card():
     un, _ = render_orbit_frame(scene, 23.0, backend="kernel", use_tiling=False,
                                width=32, height=32)
     assert tk.FUSED_FWD.launches == before + 2 and torch.isfinite(un).all()
+
+
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_frame_train_step_on_card(bucketed):
+    """The frame train step on the card runs through the forward-with-T and
+    the saved-T backward kernels and takes the same Adam steps as on the
+    CPU (losses rtol 1e-3, tests/test_torch_fit.py's tolerance)."""
+    from sgrt_tpu_torch.ops.frame import orbit_camera
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+    from sgrt_tpu_torch.parallel.fit import adam, init_state, make_frame_train_step
+
+    dev = _card()
+    kw = dict(width=32, height=32, tiles=4, capacity=32,
+              bucket_cfg=BucketConfig(4, 16, 8) if bucketed else None)
+    losses = {}
+    for d in ("cpu", dev):
+        g = grid_scene(4, device=d)
+        cam = orbit_camera(0.0, -4.0, 1.0, 32, 32, device=d)
+        o, dirs = cam.rays()
+        target, _ = render_orbit_frame(g, 0.0, backend="kernel", width=32, height=32,
+                                       tiles=4, capacity=32)
+        step = make_frame_train_step(**kw)
+        state = init_state(g.replace(mu=g.mu + 0.03), adam(3e-3))
+        before = (tk.FUSED_FWD_T.launches, tk.FUSED_BWD_T.launches)
+        losses[str(d)] = []
+        for _ in range(3):
+            state, loss, ovf = step(state, cam.view_matrix, o, dirs, target)
+            assert int(ovf) == 0
+            losses[str(d)].append(float(loss))
+        launched = (tk.FUSED_FWD_T.launches - before[0], tk.FUSED_BWD_T.launches - before[1])
+        assert launched == ((0, 0) if d == "cpu" else (3 * (1 + bucketed),) * 2)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)

@@ -99,8 +99,21 @@ def test_render_orbit_frames_matches_per_frame(scenes):
     np.testing.assert_array_equal(imgs[1].numpy(), one.numpy())
 
 
+@pytest.mark.parametrize("buckets", [(4, 64, 32), (0, 64, 64)])
+def test_bucketed_frame_matches_pallas(scenes, buckets):
+    from sgrt_tpu.ops.scheduler import BucketConfig as JBucket
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+
+    j, jo = jf.render_orbit_frame(scenes[0], 23.0, backend="pallas",
+                                  bucket_cfg=JBucket(*buckets), **KW)
+    t, to = tf.render_orbit_frame(scenes[1], 23.0, backend="kernel",
+                                  bucket_cfg=BucketConfig(*buckets), **KW)
+    assert int(to) == int(jo) == 0
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL)
+
+
 def test_unported_options_raise(scenes):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tf.render_orbit_frame(scenes[1], 0.0, bucket_cfg=object(), **KW)
+    """Bucketed scheduling is ported (test_bucketed_frame_matches_pallas);
+    a backend the port does not have still raises."""
     with pytest.raises(ValueError, match="backend"):
         tf.render_orbit_frame(scenes[1], 0.0, backend="pallas", **KW)
