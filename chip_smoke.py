@@ -11,16 +11,23 @@ comes out, and times the kernels:
   serving   the CLI's default tiled orbit render (fused forward kernel);
   training  fit_cli (forward-with-T and saved-T backward kernels) and the
             north-star train step, once more with the saved-T budget at 0
-            so that the recompute backward kernel runs.
+            so that the recompute backward kernel runs;
+  dense     the 50k-Gaussian sphere at 512x512 (the Gaussian-axis chunked
+            kernels): tile grid and buckets, the chunked kernels against
+            their plain versions, the bucketed frame and the CLI, the
+            bucketed train step and the slab train step.
 
 Each phase prints one JSON line; any failure exits non-zero before the last
 line, which is {"ok": true, "device": {...}} on success.
 
-Scene: bench.py's stand-in for the teapot — 3644 seeded points on the
-surface of the cube [-1, 1]^3 (np.random.default_rng(0)) turned into
-Gaussians by the obj rule (sigma 0.05). Serving at 512x512 with 64x32
-tiles (docs/BASELINE_CONFIGS.json, config3_teapot_512); training at
-bench.py's north-star step, 256x256 with 32x16 tiles, bucketed.
+Scenes. Serving and training: bench.py's stand-in for the teapot, 3644
+seeded points on the surface of the cube [-1, 1]^3 (np.random.default_rng(0))
+turned into Gaussians by the obj rule (sigma 0.05); serving at 512x512 with
+64x32 tiles (docs/BASELINE_CONFIGS.json, config3_teapot_512), training at
+bench.py's north-star step, 256x256 with 32x16 tiles, bucketed. Dense:
+scripts/large_n.py's sphere, 50,000 seeded points on the unit sphere by the
+same rule, at docs/LARGE_N.md's fitting size (512x512, orbit at 30 degrees,
+auto_tile_grid at margin 1.2, the buckets pinned: DENSE_N_DENSE).
 """
 
 from __future__ import annotations
@@ -73,6 +80,19 @@ ANGLES = [0.0, 30.0, 45.0, 60.0, 90.0]
 # = 4/0.05 = 80 times its size on this cloud, so summation order alone
 # moves it by ~sqrt(R) 2^-24 80 = 5e-5 of its scale at R = 128: 2e-4.
 TRAIN_REL, DOC_REL = 1e-5, 2e-4
+# the dense cell: scripts/large_n.py's sphere at docs/LARGE_N.md's size
+DENSE_N, DENSE_SIZE, DENSE_ANGLE, DENSE_TARGET_ANGLE = 50_000, 512, 30.0, 35.0
+DENSE_MARGIN = 1.2
+# slab of the slab step: 256 tiles of 5376 rows and 128 rays hold 3.5 GB of
+# T, and a recomputing slab 1.2 GB of the chunked backward's T scratch
+DENSE_SLAB_TILES = 256
+# The dense cell's buckets: the densest eighth of the 2048 tiles at
+# auto_tile_grid's capacity, the rest (empty at 30 degrees) at 32 rows.
+# probe_buckets chose this on an H100 in some calls and one bucket of all
+# tiles in others (its cost model is measured in every call), and the choice
+# decides which backward each launch takes; pinned so that every run times
+# the same launches. The probe's own pick is printed beside it.
+DENSE_N_DENSE, DENSE_CAP_SPARSE = 256, 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -90,6 +110,19 @@ def smoke_points() -> np.ndarray:
     pts = rng.uniform(-1, 1, (N_POINTS, 3)).astype(np.float32)
     pts /= np.maximum(np.abs(pts).max(axis=1, keepdims=True), 1e-6)
     return pts
+
+
+def sphere_points(n: int) -> np.ndarray:
+    """scripts/large_n.py's sphere: n seeded normal points on the unit sphere."""
+    rng = np.random.default_rng(0)
+    v = rng.normal(size=(n, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return v
+
+
+def write_obj(path: str, pts: np.ndarray) -> None:
+    with open(path, "w") as f:
+        f.writelines(f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in pts)
 
 
 def read_png_rgba(path: str) -> np.ndarray:
@@ -164,6 +197,19 @@ def profile_device(run, args) -> dict:
             "top_kernels_ms": {k: v / 1e3 for k, v in top}}
 
 
+def time_once(fn):
+    """(ms of one call by CUDA events, the call's result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
 def rel_err(got, want) -> float:
     """max |got - want| / max |want|: a difference relative to the output's
     scale."""
@@ -182,9 +228,9 @@ def launch_inputs(tiled, o, tile_dirs, counts) -> list:
             torch.clamp(counts.to(torch.int32), max=n).contiguous()]
 
 
-def bucket_launches(scene, view, o, tile_dirs, cfg) -> list:
-    """The inputs of each fused-op launch of render_tiles_bucketed (dense
-    bucket first, if any), at the capacities tile_renderer_for rounds to."""
+def bucket_launches(scene, view, o, tile_dirs, cfg, tiles=TRAIN_TILES) -> list:
+    """The inputs of each launch of render_tiles_bucketed (dense bucket
+    first, if any), at the capacities tile_renderer_for rounds to."""
     from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
     from sgrt_tpu_torch.ops.scheduler import BucketConfig, bucketed_tile_indices
     from sgrt_tpu_torch.ops.tiling import gather_tiles
@@ -192,7 +238,7 @@ def bucket_launches(scene, view, o, tile_dirs, cfg) -> list:
     cfg = BucketConfig(cfg.n_dense, tile_renderer_for(cfg.cap_dense)[0],
                        tile_renderer_for(cfg.cap_sparse)[0])
     dense_ids, idx_d, sparse_ids, idx_s, counts = bucketed_tile_indices(
-        scene, view, TRAIN_TILES, cfg, focal_length=FOCAL)
+        scene, view, tiles, cfg, focal_length=FOCAL)
     out = []
     if cfg.n_dense:
         out.append(launch_inputs(gather_tiles(scene, idx_d), o, tile_dirs[dense_ids],
@@ -277,7 +323,15 @@ def compare_train_kernels(inp, dcol, erf_name="as5", exp_name="exact") -> dict:
             "fused_bwd": max(float((a - b).abs().max()) for a, b in zip(g_r, p_r))}
     over = [f"{k}.{o}: {v:.3g}" for k, d in rel.items() for o, v in d.items()
             if v > (DOC_REL if o == "doc" else TRAIN_REL)]
-    return {"rel": rel, "abs": absd, "over_tolerance": over}
+    return {"rel": rel, "abs": absd, "over_tolerance": over + backwards_differ(rel)}
+
+
+def backwards_differ(rel) -> list:
+    """The recompute backward redoes the forward's pass A with the same code
+    and block sizes, so it is the exact VJP of the forward that ran: its
+    gradients must equal the saved-T backward's bit for bit."""
+    return [f"bwd_t_vs_bwd.{o}: {v:.3g} (must be 0)"
+            for o, v in rel["bwd_t_vs_bwd"].items() if v != 0]
 
 
 def train_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
@@ -522,13 +576,393 @@ def train_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
     return entries
 
 
-def main() -> int:
+def per_tile(fn, inp, *extra):
+    """fn over one tile at a time, outputs joined on the tile axis: the
+    plain versions pad every tile of a call to the largest count, so one
+    dense tile among sparse ones costs as much as all dense; tile by tile
+    the cost follows the sum of count^2."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this script needs "
-              "an NVIDIA GPU", file=sys.stderr)
-        return 2
+    outs = [fn(*[t[b:b + 1] for t in inp], *[e[b:b + 1] for e in extra])
+            for b in range(inp[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(z) for z in zip(*outs))
+    return torch.cat(outs)
+
+
+def compare_chunked_kernels(inp, dcol, ck: int, erf_name="as5", exp_name="exact",
+                            rb: int = 128) -> dict:
+    """The four chunked kernels against their plain versions on `inp`.
+
+    Tolerance, derived from the data: the exponent of T subtracts sums of up
+    to N terms (base and acc), so float32 summation order moves T, the
+    colors and the gradients by about sqrt(N) ulp of those sums relative,
+    which at the dense cell's thousands of rows exceeds the training cell's
+    TRAIN_REL. So the plain version is also run in float64, and each output
+    of a kernel must be as close to it as the float32 plain version is, up
+    to a factor of 2, or within TRAIN_REL (colors: KERNEL_ATOL absolute;
+    doc: DOC_REL) of its scale. Both backwards are held against the float64
+    VJP at the float64 T. Reported: per output, max |kernel - plain| /
+    max |plain| against the float32 plain version ("rel"), against the
+    float64 one for kernel and float32 plain ("vs_f64"), the absolute max
+    differences against the float32 plain version, the saved-T and
+    recompute backwards against each other, and the plain versions' ms (one
+    call each, tile by tile)."""
+    import torch
+
+    from sgrt_tpu_torch.ops import cuda_chunked as cc
+
+    kw = dict(ck=ck, erf_name=erf_name, exp_name=exp_name)
+    colors = cc.chunked_forward(*inp, rb=rb, **kw)
+    colors_t, t = cc.chunked_forward_t(*inp, rb=rb, **kw)
+    g_t = cc.chunked_backward(*inp, dcol, t, rb=rb, **kw)
+    g_r = cc.chunked_backward(*inp, dcol, rb=rb, **kw)
+    torch.cuda.synchronize()
+    names = ("doc", "dsigma", "dmag", "dalbedo", "ddirs")
+    for x in (colors, colors_t, t, *g_t, *g_r):
+        check(bool(torch.isfinite(x).all()), f"a chunked kernel's output is not finite "
+                                             f"({erf_name}/{exp_name})")
+    dead = torch.arange(inp[0].shape[1], device=t.device)[None, :] >= inp[5][:, None].long()
+    check(bool((t.permute(0, 2, 1, 3)[dead] == 0).all()), "chunked T is not 0 on dead rows")
+
+    plain, plain_ms = {}, {}
+    runs = {cc.CHUNKED_FWD.name: (cc.chunked_forward_plain, ()),
+            cc.CHUNKED_FWD_T.name: (cc.chunked_forward_t_plain, ()),
+            cc.CHUNKED_BWD_T.name: (cc.chunked_backward_plain, (dcol, t)),
+            cc.CHUNKED_BWD.name: (cc.chunked_backward_plain, (dcol,))}
+    for name, (fn, extra) in runs.items():
+        t0 = time.perf_counter()
+        plain[name] = per_tile(lambda *a: fn(*a, **kw), inp, *extra)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+    f64 = [x.double() if x.is_floating_point() else x for x in inp]
+    ref_c, ref_t = per_tile(lambda *a: cc.chunked_forward_t_plain(*a, **kw), f64)
+    ref_g = per_tile(lambda *a: cc.chunked_backward_plain(*a, **kw), f64, dcol.double(), ref_t)
+
+    outs = {cc.CHUNKED_FWD.name: {"colors": (colors, plain[cc.CHUNKED_FWD.name], ref_c)},
+            cc.CHUNKED_FWD_T.name: {"colors": (colors_t, plain[cc.CHUNKED_FWD_T.name][0], ref_c),
+                                    "T": (t, plain[cc.CHUNKED_FWD_T.name][1], ref_t)},
+            cc.CHUNKED_BWD_T.name: {n: (a, b, c) for n, a, b, c in
+                                    zip(names, g_t, plain[cc.CHUNKED_BWD_T.name], ref_g)},
+            cc.CHUNKED_BWD.name: {n: (a, b, c) for n, a, b, c in
+                                  zip(names, g_r, plain[cc.CHUNKED_BWD.name], ref_g)}}
+    rel, vs_f64, absd, over = {}, {}, {}, []
+    for k, d in outs.items():
+        rel[k], vs_f64[k] = {}, {}
+        absd[k] = max(float((a - b).abs().max()) for a, b, _ in d.values())
+        for o, (a, b, c) in d.items():
+            rel[k][o] = rel_err(a, b)
+            e_k, e_p = rel_err(a.double(), c), rel_err(b.double(), c)
+            vs_f64[k][o] = {"kernel": e_k, "plain_f32": e_p}
+            base = DOC_REL if o == "doc" else TRAIN_REL
+            ok = e_k <= max(base, 2 * e_p)
+            if o == "colors":
+                ok = ok or float((a.double() - c).abs().max()) <= KERNEL_ATOL
+            if not ok:
+                over.append(f"{k}.{o}: {e_k:.3g} vs float64 (plain float32 {e_p:.3g})")
+    rel["bwd_t_vs_bwd"] = {n: rel_err(a, b) for n, a, b in zip(names, g_t, g_r)}
+    over += backwards_differ(rel)
+    for i in [i for i, c in enumerate(inp[5].tolist()) if c <= 0]:
+        check(all(bool((x[i] == 0).all()) for x in (colors, colors_t, *g_t, *g_r)),
+              f"a dead tile's chunked outputs are not zero ({erf_name}/{exp_name})")
+    return {"rel": rel, "vs_f64": vs_f64, "abs": absd, "over_tolerance": over,
+            "plain_ms": plain_ms,
+            "shape": {"B": inp[0].shape[0], "N": inp[0].shape[1], "R": inp[4].shape[2],
+                      "ck": ck, "rb": rb, "max_count": int(inp[5].max())}}
+
+
+def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
+    """The dense cell: tile grid and buckets, the chunked kernels against
+    their plain versions, the bucketed frame and the CLI, the bucketed train
+    step and the slab train step, and the chunked kernels' times (the
+    chunked saved-T backward beside the fused one). Returns the kernel
+    line's entries of kernels 5-8."""
+    import torch
+
+    from sgrt_tpu_torch import cli
+    from sgrt_tpu_torch.models.gaussians import scene_from_vertices
+    from sgrt_tpu_torch.ops import cuda_chunked as cc
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.ops.frame import (auto_tile_grid, orbit_camera, probe_buckets,
+                                          render_orbit_frame)
+    from sgrt_tpu_torch.ops.render import _tile_rays
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+    from sgrt_tpu_torch.parallel.fit import (adam, init_state, make_frame_train_step,
+                                             make_slab_frame_train_step)
+    from sgrt_tpu_torch.utils import nvcc
+
+    S = DENSE_SIZE
+    pts = sphere_points(DENSE_N)
+    scene = scene_from_vertices(pts, device=dev)
+
+    # 1. shapes: the tile grid, the buckets, and each bucket's route
+    t0 = time.perf_counter()
+    tiles, capacity = auto_tile_grid(scene, [DENSE_ANGLE], OFFSET, FOCAL, margin=DENSE_MARGIN,
+                                     width=S, height=S)
+    probed = probe_buckets(scene, [DENSE_ANGLE], OFFSET, FOCAL, tiles, margin=DENSE_MARGIN)
+    bucket = BucketConfig(DENSE_N_DENSE, capacity, DENSE_CAP_SPARSE)
+    routes = {}
+    for name, cap in (("dense", bucket.cap_dense), ("sparse", bucket.cap_sparse)):
+        chunked = cap > cc.MAX_MONOLITHIC_CAPACITY
+        padded, c_k = cc.chunk_plan(cap)
+        routes[name] = {"capacity": cap, "route": "chunked" if chunked else "fused",
+                        "padded_capacity": cc.tile_renderer_for(cap)[0],
+                        "chunk_plan": {"C": padded // c_k, "ck": c_k, "padded": padded}}
+    emit("dense_shapes", scene=f"sphere({DENSE_N})", size=S, tiles=list(tiles),
+         capacity=capacity, chunk_plan=dict(zip(("padded", "ck"), cc.chunk_plan(capacity))),
+         bucket_cfg=bucket._asdict(), probe_buckets_pick=probed._asdict(), buckets=routes,
+         seconds=time.perf_counter() - t0)
+
+    cam = orbit_camera(DENSE_ANGLE, OFFSET, FOCAL, S, S, device=dev)
+    o, dirs = cam.rays()
+    tile_dirs = _tile_rays(dirs, S, S, tiles)
+    per_bucket = bucket_launches(scene, cam.view_matrix, o, tile_dirs, bucket, tiles)
+    dense_in = per_bucket[0]
+    n_d = dense_in[0].shape[1]
+    c_k = cc.chunk_plan(n_d)[1]
+    check(n_d > cc.MAX_MONOLITHIC_CAPACITY, f"the dense bucket ({n_d} rows) is not chunked")
+
+    # 2. the chunked kernels against their plain versions
+    cnt = live_counts(dense_in).astype(np.int64)
+    rng = np.random.default_rng(2)
+    dense_tile = int(np.argmax(cnt))
+    live = [i for i in np.flatnonzero(cnt > 0) if i != dense_tile]
+    sel = [dense_tile] + sorted(rng.choice(live, size=min(31, len(live)), replace=False).tolist())
+    sub = [t[torch.tensor(sel, device=dev)].contiguous() for t in dense_in]
+    # B = 1, three chunks with the last one partly live: the densest tile cut
+    # or padded (inert rows: oc = -o, sigma 1, magnitude 0) to 3 chunks
+    c0 = int(cnt[dense_tile])
+    ck3 = -(-int(np.ceil(c0 / 2.5)) // 128) * 128
+    one = [t[:1] for t in sub]
+    if 3 * ck3 <= n_d:
+        one3 = [t[:, :3 * ck3].contiguous() if i < 4 else t for i, t in enumerate(one)]
+    else:
+        pad = 3 * ck3 - n_d
+        fill = [(-o).expand(1, pad, 3), torch.ones(1, pad, device=dev),
+                torch.zeros(1, pad, device=dev), torch.zeros(1, pad, 3, device=dev)]
+        one3 = [torch.cat([t, f], dim=1).contiguous() for t, f in zip(one[:4], fill)] + one[4:]
+    dead = [t[:2].clone() for t in sub]
+    dead[5][0] = 0
+
+    def cotangent(inp, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn((inp[0].shape[0], 3, inp[4].shape[2]), generator=g).to(dev)
+
+    cases = {"32_tiles": (sub, c_k, "as5", "exact", 128),
+             "B1_three_chunks_last_partial": (one3, ck3, "as5", "exact", 128),
+             "dead_tile": (dead, c_k, "as5", "exact", 128),
+             "two_ray_blocks": ([t[:4] for t in sub], c_k, "as5", "exact", 64),
+             "one_tile_as3_fast": (one, c_k, "as3", "fast", 128)}
+    results = {}
+    t0 = time.perf_counter()
+    for i, (name, (inp, kk, e, x, rb)) in enumerate(cases.items()):
+        results[name] = compare_chunked_kernels(inp, cotangent(inp, 40 + i), kk, e, x, rb)
+    emit("dense_kernels_vs_plain", seconds=time.perf_counter() - t0, densest_count=c0,
+         live_tiles=int((cnt > 0).sum()), cases=results)
+    over = [f"{name}: {o}" for name, r in results.items() for o in r["over_tolerance"]]
+    check(not over, f"a chunked kernel disagrees with its plain version: {over}")
+
+    # 3. the bucketed frame and the CLI
+    def frame():
+        return render_orbit_frame(scene, DENSE_ANGLE, OFFSET, FOCAL, width=S, height=S,
+                                  tiles=tiles, backend="kernel", bucket_cfg=bucket)
+
+    kernels.reset_launch_counts()
+    frame_ms, ovf = [], []
+    for _ in range(3):                        # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, ov = frame()
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        ovf.append(int(ov))
+    frame_launches = {k.name: k.launches for k in kernels.KERNELS}
+    check(all(v == 0 for v in ovf), f"the dense frame overflowed: {ovf}")
+    check(bool(torch.isfinite(img).all()) and float(img.max()) > 0, "the dense frame is black")
+    check(frame_launches[cc.CHUNKED_FWD.name] > 0,
+          f"the dense frame did not launch the chunked forward: {frame_launches}")
+    obj = os.path.join(tmp, "sphere.obj")
+    write_obj(obj, pts)
+    argv = ["-f", obj, "-w", str(S), "--height", str(S), "--tiles", "64x32", "--frames", "1",
+            "-q", "-o", os.path.join(tmp, "sphere.png")]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        rc = cli.main(argv)
+    cli_launches = {k.name: k.launches for k in kernels.KERNELS}
+    check(rc == 0, f"the dense CLI run exited {rc}: {stderr.getvalue()[-2000:]}")
+    check(cli_launches[cc.CHUNKED_FWD.name] == 1 and "overflow" not in stderr.getvalue(),
+          f"the dense CLI run: {cli_launches}, {stderr.getvalue()[-2000:]}")
+    png = read_png_rgba(os.path.join(tmp, "sphere.png"))
+    check(int(png[..., :3].max()) > 0, "the dense CLI frame is black")
+    emit("dense_frame", size=S, tiles=list(tiles), bucket_cfg=bucket._asdict(),
+         frame_ms=frame_ms[1:], overflow=ovf, launches=frame_launches,
+         mean_rgb=float(img.mean()), cli={"argv": argv[2:10], "rc": rc,
+                                          "stdout": stdout.getvalue().strip(),
+                                          "launches": cli_launches},
+         power_limit=smi)
+
+    # 4. the bucketed train step (the north-star step's shape at this cell)
+    target, ov = render_orbit_frame(scene, DENSE_TARGET_ANGLE, OFFSET, FOCAL, width=S,
+                                    height=S, tiles=tiles, backend="kernel", bucket_cfg=bucket)
+    check(int(ov) == 0, "the dense target overflowed")
+    step = make_frame_train_step(width=S, height=S, tiles=tiles, capacity=capacity,
+                                 backend="kernel", bucket_cfg=bucket)
+    state = init_state(scene, adam(1e-3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss, ov = step(state, cam.view_matrix, o, dirs, target)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    fields = ("mu", "sigma", "magnitude", "albedo")
+    after1 = {f: getattr(state.scene, f).clone() for f in fields}
+    losses, ovfs = [loss], [ov]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        state, loss, ov = step(state, cam.view_matrix, o, dirs, target)
+        losses.append(loss)
+        ovfs.append(ov)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 2 * 1e3
+    train_launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    check(all(int(v) == 0 for v in ovfs), "a dense train step overflowed")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the dense train step's loss did not fall: {losses}")
+    chosen = []
+    for name, inp in zip(("dense", "sparse") if len(per_bucket) == 2 else ("single",),
+                         per_bucket):
+        b_, n_ = inp[0].shape[:2]
+        chunked = n_ > cc.MAX_MONOLITHIC_CAPACITY
+        nbytes = ck.save_t_bytes(b_, n_, inp[4].shape[2])
+        budget = cc.SAVE_T_CHUNKED_MAX_BYTES if chunked else ck.SAVE_T_MAX_BYTES
+        chosen.append({"bucket": name, "B": b_, "N": n_, "max_count": int(inp[5].max()),
+                       "route": "chunked" if chunked else "fused", "t_bytes": nbytes,
+                       "budget": budget, "backward": "saved-T" if nbytes <= budget
+                       else "recompute"})
+    prof = profile_device(lambda _: step(state, cam.view_matrix, o, dirs, target), range(1))
+    emit("dense_train_step", size=S, tiles=list(tiles), bucket_cfg=bucket._asdict(),
+         first_step_ms=first_ms, step_ms=step_ms, rays_per_s=S * S / (step_ms * 1e-3),
+         losses=losses, backward_per_bucket=chosen, launches=train_launches,
+         peak_memory_gb=peak_gb, profile_one_step=prof, power_limit=smi)
+
+    # 5. the slab step from the same start state: the same function, one
+    # launch per slab of count-sorted tiles. Its backward is the one the
+    # bucketed step's chunked bucket did not take, so both chunked
+    # backwards run on a main path.
+    saved_taken = chosen[0]["backward"] == "saved-T"
+    budget = cc.SAVE_T_CHUNKED_MAX_BYTES
+    if saved_taken:
+        cc.SAVE_T_CHUNKED_MAX_BYTES = 0
+    try:
+        slab = make_slab_frame_train_step(width=S, height=S, tiles=tiles,
+                                          capacity=bucket.cap_dense, slab_tiles=DENSE_SLAB_TILES)
+        st = init_state(scene, adam(1e-3))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, slab_loss, ov = slab(st, cam.view_matrix, o, dirs, target)
+        torch.cuda.synchronize()
+        slab_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cc.SAVE_T_CHUNKED_MAX_BYTES = budget
+    slab_launches = {k.name: k.launches for k in kernels.KERNELS}
+    slab_peak = torch.cuda.max_memory_allocated() / 1e9
+    want_bwd = cc.CHUNKED_BWD if saved_taken else cc.CHUNKED_BWD_T
+    check(int(ov) == 0, "the slab step overflowed")
+    check(slab_launches[want_bwd.name] > 0, f"the slab step did not run {want_bwd.name}: "
+                                            f"{slab_launches}")
+    # the updated scene, held at rtol 1e-5 and atol 1e-6
+    diffs, max_abs = {}, {}
+    for f, want in after1.items():
+        got = getattr(st.scene, f)
+        diffs[f] = float(((got - want).abs() / (1e-6 + 1e-5 * want.abs())).max())
+        max_abs[f] = float((got - want).abs().max())
+    loss_rel = abs(float(slab_loss) - losses[0]) / abs(losses[0])
+    emit("dense_slab_step", slab_tiles=DENSE_SLAB_TILES, capacity=bucket.cap_dense,
+         save_t_chunked_max_bytes=0 if saved_taken else budget, step_ms=slab_ms,
+         loss=float(slab_loss), bucketed_loss=losses[0], loss_rel_diff=loss_rel,
+         scene_max_abs_diff=max_abs, scene_diff_over_tolerance=diffs,
+         launches=slab_launches, peak_memory_gb=slab_peak,
+         power_limit=smi)
+    check(loss_rel <= 1e-5, f"the slab step's loss differs from the bucketed step's: {loss_rel}")
+    check(all(v <= 1.0 for v in diffs.values()),
+          f"the slab step's scene differs from the bucketed step's: {diffs}")
+
+    # 6. times at the dense bucket's launch shapes, and the chunked saved-T
+    # backward beside the fused one (the card's own MAX_MONOLITHIC_CAPACITY
+    # is to be set from that; the forwards are one kernel on the card)
+    dcol = cotangent(dense_in, 50)
+    pb, qb = ck._block_sizes(c_k)
+    kw = dict(ck=c_k, pb=pb, qb=qb)
+    t_d = cc.chunked_forward_t(*dense_in, **kw)[1]
+    ms = {cc.CHUNKED_FWD.name: time_cuda(lambda: cc.chunked_forward(*dense_in, **kw),
+                                         iters=3, warmup=1),
+          cc.CHUNKED_FWD_T.name: time_cuda(lambda: cc.chunked_forward_t(*dense_in, **kw),
+                                           iters=2, warmup=1),
+          cc.CHUNKED_BWD_T.name: time_cuda(lambda: cc.chunked_backward(*dense_in, dcol, t_d,
+                                                                       ck=c_k, qb=qb),
+                                           iters=2, warmup=1),
+          cc.CHUNKED_BWD.name: time_cuda(lambda: cc.chunked_backward(*dense_in, dcol, ck=c_k,
+                                                                     qb=qb), iters=1, warmup=1)}
+    g_chunked = cc.chunked_backward(*dense_in, dcol, t_d, ck=c_k, qb=qb)
+    fused_bwd_ms, g_fused = time_once(lambda: ck.fused_backward(*dense_in, dcol, t_d, qb=qb))
+    check(all(bool(torch.isfinite(g).all()) for g in g_fused), "the fused backward at the "
+                                                               "dense shapes is not finite")
+    backward_side_by_side = {
+        "chunked_bwd_t_ms": ms[cc.CHUNKED_BWD_T.name], "fused_bwd_t_ms": fused_bwd_ms,
+        "max_rel_diff": {n: rel_err(a, b) for n, a, b in
+                         zip(("doc", "dsigma", "dmag", "dalbedo", "ddirs"), g_fused, g_chunked)}}
+    del t_d, g_chunked, g_fused
+    b_, n_ = dense_in[1].shape
+    r_ = dense_in[4].shape[2]
+    t_bytes = ck.save_t_bytes(b_, n_, r_)
+    rays3, rows8 = 4 * 3 * b_ * r_, 4 * 8 * b_ * n_
+    nbytes = {cc.CHUNKED_FWD.name: scene_bytes(dense_in) + rays3,
+              cc.CHUNKED_FWD_T.name: scene_bytes(dense_in) + rays3 + t_bytes,
+              cc.CHUNKED_BWD_T.name: scene_bytes(dense_in) + 2 * rays3 + rows8 + t_bytes,
+              cc.CHUNKED_BWD.name: scene_bytes(dense_in) + 2 * rays3 + rows8}
+    ops = {cc.CHUNKED_FWD.name: fwd_ops(dense_in), cc.CHUNKED_FWD_T.name: fwd_ops(dense_in),
+           cc.CHUNKED_BWD_T.name: bwd_ops(dense_in, False),
+           cc.CHUNKED_BWD.name: bwd_ops(dense_in, True)}
+    plain_ms = results["32_tiles"]["plain_ms"]
+    launches = {k: frame_launches[k] + train_launches[k] + slab_launches[k]
+                for k in frame_launches}
+    times, entries = {}, []
+    for k in (cc.CHUNKED_FWD, cc.CHUNKED_FWD_T, cc.CHUNKED_BWD, cc.CHUNKED_BWD_T):
+        check(launches[k.name] > 0, f"{k.name} was not launched on a dense main path")
+        times[k.name] = {"ms": ms[k.name], "fp32_instr": ops[k.name][0],
+                         "sfu_ops": ops[k.name][1], "bytes": nbytes[k.name],
+                         **bound(*ops[k.name], nbytes[k.name], clock_mhz, n_sm),
+                         "plain_ms": plain_ms[k.name],
+                         "plain_shape": "the 32-tile case of dense_kernels_vs_plain",
+                         "launches": launches[k.name]}
+        entries.append({
+            "name": k.name, "route": k.route,
+            "source": str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
+            "replaces": k.replaces, "launches": launches[k.name],
+            "max_abs_err": max(r["abs"][k.name] for r in results.values()),
+            "max_rel_err": max(max(r["rel"][k.name].values()) for r in results.values()),
+            "ms": ms[k.name], "plain_ms": plain_ms[k.name],
+            "bound_ms": times[k.name]["bound_ms"], "bound_by": times[k.name]["bound_by"],
+            "library_ms": None})
+    emit("dense_times", shape={"B": b_, "N": n_, "R": r_, "ck": c_k,
+                               "max_count": int(dense_in[5].max()),
+                               "live_pairs": float(np.sum(live_counts(dense_in) ** 2) * r_)},
+         kernels=times, backward_side_by_side=backward_side_by_side, power_limit=smi)
+    return entries
+
+
+def serving_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
+    """The serving path: the fused forward against its plain version, the
+    CLI's 8-frame orbit, the untiled route, a reference frame, and the
+    kernel's times. Returns the kernel line's entry of the fused forward."""
+    import torch
 
     from sgrt_tpu_torch import cli
     from sgrt_tpu_torch.models.gaussians import grid_scene, scene_from_vertices
@@ -542,28 +976,7 @@ def main() -> int:
     from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
     from sgrt_tpu_torch.utils import nvcc
 
-    dev = torch.device("cuda")
-
-    # 1. device
-    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = nvidia_smi("name,power.limit")
-    print(smi, flush=True)
-    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    emit("device", name=name, count=count, nvidia_smi=smi, max_sm_clock_mhz=clock_mhz,
-         sms=n_sm, torch=torch.__version__, cuda=torch.version.cuda)
-
-    # 2. build every kernel from the checkout's sources, all nvcc at once
-    t0 = time.perf_counter()
-    kernels.build_all()
-    build_s = time.perf_counter() - t0
-    for k in kernels.KERNELS:
-        ptxas = [ln.strip() for ln in nvcc.build_log(k.source).splitlines()
-                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-        emit("build", kernel=k.name, source=str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
-             seconds=round(build_s, 2), ptxas=ptxas)
-
-    # 3. kernel vs plain on frame 0 of the smoke scene
+    # 1. kernel vs plain on frame 0 of the smoke scene
     scene = scene_from_vertices(smoke_points(), device=dev)
     angles = [0.0, 30.0, 45.0, 60.0, 90.0]
     capacity = max(32, int(probe_capacity(scene, angles, OFFSET, FOCAL, TILES) * 1.25))
@@ -598,11 +1011,10 @@ def main() -> int:
     check(all(e <= KERNEL_ATOL for e in errs.values()),
           f"kernel disagrees with its plain version: {errs}")
 
-    # 4. main path: the CLI renders an 8-frame orbit through the kernel
+    # 2. main path: the CLI renders an 8-frame orbit through the kernel
     with tempfile.TemporaryDirectory() as tmp:
         obj = os.path.join(tmp, "cube_cloud.obj")
-        with open(obj, "w") as f:
-            f.writelines(f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in smoke_points())
+        write_obj(obj, smoke_points())
         out_png = os.path.join(tmp, "orbit.png")
         argv = ["-f", obj, "-w", str(SIZE), "--height", str(SIZE), "--tiles",
                 f"{TILES[0]}x{TILES[1]}", "--frames", str(FRAMES), "-q", "-o", out_png]
@@ -658,7 +1070,7 @@ def main() -> int:
     emit("reference_frame", scene="grid_scene(8)", size=64, max_abs_err=grid_err, atol=FRAME_ATOL)
     check(grid_err <= FRAME_ATOL, f"grid frame differs from the plain route by {grid_err}")
 
-    # 5. times at the main path's shapes (frame 0: all tiles, padded capacity)
+    # 3. times at the main path's shapes (frame 0: all tiles, padded capacity)
     def run_kernel():
         return fused_forward(*frame_in, pb=pb, qb=qb)
 
@@ -695,21 +1107,56 @@ def main() -> int:
          if bound_s > t_bytes else "bytes", frame_ms=frame_mean,
          rays_per_s=SIZE * SIZE / (frame_mean * 1e-3), power_limit=smi)
 
-    # 6. the training path: its phases, main paths and times
-    with tempfile.TemporaryDirectory() as tmp:
-        obj = os.path.join(tmp, "cube_cloud.obj")
-        with open(obj, "w") as f:
-            f.writelines(f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in smoke_points())
-        train_entries = train_phases(dev, smi, clock_mhz, n_sm, obj)
+    return {"name": FUSED_FWD.name, "route": FUSED_FWD.route,
+            "source": str(FUSED_FWD.source.relative_to(nvcc.CSRC_DIR.parents[1])),
+            "replaces": FUSED_FWD.replaces, "launches": main_launches[FUSED_FWD.name],
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "operations" if bound_s > t_bytes else "bytes", "library_ms": None}
 
-    # 7. the kernel line
-    print(json.dumps({"kernels": [{
-        "name": FUSED_FWD.name, "route": FUSED_FWD.route,
-        "source": str(FUSED_FWD.source.relative_to(nvcc.CSRC_DIR.parents[1])),
-        "replaces": FUSED_FWD.replaces, "launches": main_launches[FUSED_FWD.name],
-        "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_s * 1e3, "bound_by": "operations" if bound_s > t_bytes else "bytes",
-        "library_ms": None}] + train_entries}), flush=True)
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 2
+
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.utils import nvcc
+
+    dev = torch.device("cuda")
+
+    # 1. device
+    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = nvidia_smi("name,power.limit")
+    print(smi, flush=True)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    emit("device", name=name, count=count, nvidia_smi=smi, max_sm_clock_mhz=clock_mhz,
+         sms=n_sm, torch=torch.__version__, cuda=torch.version.cuda)
+
+    # 2. build every kernel from the checkout's sources, all nvcc at once
+    t0 = time.perf_counter()
+    kernels.build_all()
+    build_s = time.perf_counter() - t0
+    for k in kernels.KERNELS:
+        ptxas = [ln.strip() for ln in nvcc.build_log(k.source).splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        emit("build", kernel=k.name, source=str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
+             seconds=round(build_s, 2), ptxas=ptxas)
+
+    # 3. the serving path; 4. the training path; 5. the dense cell
+    with tempfile.TemporaryDirectory() as tmp:
+        entries = [serving_phases(dev, smi, clock_mhz, n_sm)]
+        obj = os.path.join(tmp, "cube_cloud.obj")
+        write_obj(obj, smoke_points())
+        entries += train_phases(dev, smi, clock_mhz, n_sm, obj)
+        entries += dense_phases(dev, smi, clock_mhz, n_sm, tmp)
+
+    # 6. the kernel line
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

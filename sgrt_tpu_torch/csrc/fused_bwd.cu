@@ -43,7 +43,8 @@
 //   * One thread owns one ray of one tile and runs the p axis serially in
 //     blocks of kPB rows held in registers (their G_k, mb, sigma and the
 //     p-side sums dmb_p, dsig_p), as the TPU grid step does. The q rows
-//     are staged through shared memory as in the forward.
+//     are staged through shared memory as in the forward; the recompute
+//     variant's pass A is the forward's own (gauss_common.cuh, pass_a).
 //   * The q-side sums (dco_q, dmb_q, dinv_q) of a ray go to a global
 //     scratch column that only this thread reads and writes: the Pallas
 //     kernel's (N, RB) VMEM planes do not fit an SM's shared memory at the
@@ -136,22 +137,8 @@ bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
     P_dinv[static_cast<size_t>(q) * Rp] = 0.0f;
   }
 
-  // base(r) feeds the recomputed T only
+  // base(r) feeds the recomputed T only; pass A of the first p block sums it
   float base = 0.0f;
-  if (!SAVED_T) {
-    for (int q0 = 0; q0 < cnt; q0 += qb) {
-      const int nq = min(qb, cnt - q0);
-      __syncthreads();
-      stage_rows(stage, qb, oc_b, sig_b, mag_b, q0, nq);
-      __syncthreads();
-      for (int j = 0; j < nq; ++j) {
-        const float mbq = dot3_rn(s_ocx[j], s_ocy[j], s_ocz[j], dx, dy, dz);
-        const float co = coeff<EXP>(s_cs[j], s_ocsq[j], mbq, s_i2s2[j]);
-        base += co * erf_fn<ERF>(-mbq * s_inv[j]);
-      }
-    }
-  }
-
   float db = 0.0f;
   for (int p0 = 0; p0 < cnt; p0 += kPB) {
     float mbp[kPB], sgp[kPB], G[kPB][kTaps];
@@ -181,25 +168,11 @@ bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
         }
       }
     } else {
-      // pass A: acc_k of this p block into G, then T_k = w_k exp(base - acc_k)
-      for (int q0 = 0; q0 < cnt; q0 += qb) {
-        const int nq = min(qb, cnt - q0);
-        __syncthreads();
-        stage_rows(stage, qb, oc_b, sig_b, mag_b, q0, nq);
-        __syncthreads();
-        for (int j = 0; j < nq; ++j) {
-          const float mbq = dot3_rn(s_ocx[j], s_ocy[j], s_ocz[j], dx, dy, dz);
-          const float co = coeff<EXP>(s_cs[j], s_ocsq[j], mbq, s_i2s2[j]);
-          const float invq = s_inv[j];
-#pragma unroll
-          for (int i = 0; i < kPB; ++i) {
-            const float darg = (mbp[i] - mbq) * invq;
-            const float ks = sgp[i] * invq;
-#pragma unroll
-            for (int k = 0; k < kTaps; ++k) G[i][k] += co * erf_fn<ERF>(darg + tap_k(k) * ks);
-          }
-        }
-      }
+      // pass A: acc_k of this p block into G, then T_k = w_k exp(base - acc_k).
+      // The forward's pass_a with the same qb, so T equals the forward's
+      // bit for bit and this is the exact VJP of the forward that ran.
+      pass_a<kPB, ERF, EXP>(stage, qb, oc_b, sig_b, mag_b, 0, cnt, dx, dy, dz, mbp, sgp, G,
+                            p0 == 0, base);
 #pragma unroll
       for (int i = 0; i < kPB; ++i) {
         const bool live = p0 + i < cnt;  // a dead row's G stays 0 in pass B
@@ -305,12 +278,6 @@ bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
     dd_out[R + r] = gy;
     dd_out[2 * R + r] = gz;
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
 }
 
 // One warp per (tile, row): the sums over rays of the ray planes, then the

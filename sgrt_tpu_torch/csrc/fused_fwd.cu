@@ -5,7 +5,15 @@
 // Replaces the TPU kernels sgrt_tpu/ops/pallas_kernel.py::_fused_fwd_kernel
 // (launched by _fused_fwd_call; entry point sgrt_fused_fwd) and
 // ::_fused_fwd_t_kernel (launched by _fused_fwd_t_call; entry point
-// sgrt_fused_fwd_t, the SAVE_T instantiation). For each tile b, over the
+// sgrt_fused_fwd_t, the SAVE_T instantiation), and for capacities above
+// 4096 rows also sgrt_tpu/ops/pallas_chunked.py::_chunked_fwd_kernel and
+// ::_chunked_fwd_t_kernel: the TPU cuts the Gaussian axis into chunks only
+// because a dense tile's rows do not fit VMEM, and a q sweep chunk by chunk
+// stages here exactly the rows of one sweep over the live prefix, while the
+// p split below already spreads a dense tile over many blocks (at the
+// 50k-Gaussian sphere's dense bucket, a 64-row chunked copy of this kernel
+// took 1221 ms against this one's 1202 ms on an NVIDIA H100 80GB HBM3 at
+// 700 W, chip_smoke.py). For each tile b, over the
 // live prefix count_b = min(counts[b], N) of its Gaussian rows, and each
 // ray r:
 //
@@ -38,7 +46,9 @@
 //     against 5*PB erfs).
 //   * The q rows are staged through shared memory, qb rows at a time, with
 //     their per-row constants (|oc|^2, 1/(2 sigma^2), 1/(sqrt2 sigma),
-//     mag sigma sqrt(pi/2)) precomputed once per stage.
+//     mag sigma sqrt(pi/2)) precomputed once per stage; each stage's terms
+//     are summed on their own before they join acc_k and base
+//     (gauss_common.cuh, pass_a), which keeps T accurate at thousands of rows.
 //   * Loops run over the live prefix only, and p rows past the count are
 //     never read, so cost follows count^2, not capacity^2.
 //   * The p axis of a tile is split over blocks of kRowsPerBlock rows, so a
@@ -71,14 +81,6 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
                  float* __restrict__ partial, float* __restrict__ t, int N, int R,
                  int qb, int n_split) {
   extern __shared__ float stage[];
-  const float* s_ocx = stage;
-  const float* s_ocy = s_ocx + qb;
-  const float* s_ocz = s_ocy + qb;
-  const float* s_ocsq = s_ocz + qb;
-  const float* s_i2s2 = s_ocsq + qb;
-  const float* s_inv = s_i2s2 + qb;
-  const float* s_cs = s_inv + qb;
-
   const int b = blockIdx.z;
   const int split = blockIdx.y;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -131,27 +133,9 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
 #pragma unroll
       for (int k = 0; k < kTaps; ++k) acc[i][k] = 0.0f;
     }
-    const bool first_group = p0 == p_begin;  // base is summed once, here
-
-    for (int q0 = 0; q0 < cnt; q0 += qb) {
-      const int nq = min(qb, cnt - q0);
-      __syncthreads();
-      stage_rows(stage, qb, oc_b, sig_b, mag_b, q0, nq);
-      __syncthreads();
-      for (int j = 0; j < nq; ++j) {
-        const float mbq = dot3_rn(s_ocx[j], s_ocy[j], s_ocz[j], dx, dy, dz);
-        const float co = coeff<EXP>(s_cs[j], s_ocsq[j], mbq, s_i2s2[j]);
-        const float invq = s_inv[j];
-        if (first_group) base += co * erf_fn<ERF>(-mbq * invq);
-#pragma unroll
-        for (int i = 0; i < PB; ++i) {
-          const float darg = (mbp[i] - mbq) * invq;
-          const float ks = sgp[i] * invq;
-#pragma unroll
-          for (int k = 0; k < kTaps; ++k) acc[i][k] += co * erf_fn<ERF>(darg + tap_k(k) * ks);
-        }
-      }
-    }
+    // base is summed once, by the first group
+    pass_a<PB, ERF, EXP>(stage, qb, oc_b, sig_b, mag_b, 0, cnt, dx, dy, dz, mbp, sgp, acc,
+                         p0 == p_begin, base);
 
 #pragma unroll
     for (int i = 0; i < PB; ++i) {

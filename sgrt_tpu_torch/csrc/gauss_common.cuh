@@ -1,7 +1,8 @@
-// Device math shared by the fused forward (fused_fwd.cu) and the fused
-// backward (fused_bwd.cu): the erf/exp variants the kernels are compiled
-// for, the rounding-controlled Gaussian exponent, the per-row constants
-// that rows are staged with, and the five quadrature taps.
+// Device math shared by the fused (fused_fwd.cu, fused_bwd.cu) and the
+// chunked (chunked_bwd.cu) kernels: the erf/exp variants
+// the kernels are compiled for, the rounding-controlled Gaussian exponent,
+// the per-row constants that rows are staged with, the five quadrature
+// taps, a warp sum, and pass A over staged rows.
 //
 // No fast-math anywhere: the A&S reciprocal is an IEEE division and expf is
 // the accurate one, so "as5" is the float32-exact erf and the kernels agree
@@ -153,6 +154,64 @@ __device__ __forceinline__ float tap_weight(int i) {
        : i == 2 ? 1.353352832366127e-01f
        : i == 3 ? 6.065306597126334e-01f
                 : 1.0f;
+}
+
+// Sum over the 32 lanes of a warp in a fixed butterfly (deterministic).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// Pass A of PB p rows of one ray against the q rows [q_lo, q_hi) of one
+// tile, staged qb rows at a time through shared memory:
+//   acc[i][k] += co_q erf((mb_p + k sigma_p - mb_q) inv_q)
+// and, with with_base, base += co_q erf(-mb_q inv_q). Every thread of the
+// block calls it with the same bounds (it stages rows between barriers).
+//
+// The sums are two-level: each stage's qb terms are summed on their own,
+// then added to the running sum. T = w exp(base - acc) subtracts two sums
+// of up to N terms, so their rounding error is T's relative error; a single
+// running sum over N terms loses ~N ulp in the worst case, two levels
+// ~(qb + N/qb). At N ~ 4000 (the 50k-Gaussian sphere) a single running sum
+// made T several times less accurate than the plain version's blocked sums.
+template <int PB, int ERF, int EXP>
+__device__ __forceinline__ void pass_a(float* stage, int qb, const float* oc_b,
+                                       const float* sig_b, const float* mag_b, int q_lo,
+                                       int q_hi, float dx, float dy, float dz,
+                                       const float (&mbp)[PB], const float (&sgp)[PB],
+                                       float (&acc)[PB][kTaps], bool with_base, float& base) {
+  for (int q0 = q_lo; q0 < q_hi; q0 += qb) {
+    const int nq = min(qb, q_hi - q0);
+    __syncthreads();
+    stage_rows(stage, qb, oc_b, sig_b, mag_b, q0, nq);
+    __syncthreads();
+    float part[PB][kTaps], base_part = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PB; ++i) {
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) part[i][k] = 0.0f;
+    }
+    for (int j = 0; j < nq; ++j) {
+      const float mbq = dot3_rn(stage[j], stage[qb + j], stage[2 * qb + j], dx, dy, dz);
+      const float co = coeff<EXP>(stage[6 * qb + j], stage[3 * qb + j], mbq, stage[4 * qb + j]);
+      const float invq = stage[5 * qb + j];
+      if (with_base) base_part += co * erf_fn<ERF>(-mbq * invq);
+#pragma unroll
+      for (int i = 0; i < PB; ++i) {
+        const float darg = (mbp[i] - mbq) * invq;
+        const float ks = sgp[i] * invq;
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) part[i][k] += co * erf_fn<ERF>(darg + tap_k(k) * ks);
+      }
+    }
+    base += base_part;
+#pragma unroll
+    for (int i = 0; i < PB; ++i) {
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) acc[i][k] += part[i][k];
+    }
+  }
 }
 
 }  // namespace sgrt

@@ -1,26 +1,98 @@
-"""Routing of the per-tile renderer by capacity (PyTorch port of the routing
-half of sgrt_tpu.ops.pallas_chunked).
+"""Routing of the per-tile renderer by capacity, and the Gaussian-axis
+chunked renderer for dense tiles (PyTorch port of
+sgrt_tpu.ops.pallas_chunked).
 
 `tile_renderer_for` is THE single place that decides which kernel renders
-a tile batch of a given capacity. Up to MAX_MONOLITHIC_CAPACITY rows the
-fused forward kernel (ops.cuda_kernel) takes it. Above it the JAX package
-switches to its Gaussian-axis chunked kernels; those are not ported yet,
-so the port raises there rather than run anything else.
+a tile batch of a given capacity: up to MAX_MONOLITHIC_CAPACITY rows the
+fused kernels (ops.cuda_kernel), above it, up to MAX_CHUNKED_CAPACITY, the
+chunked kernels of this module.
+
+The chunked kernels compute the fused kernels' function (ops.cuda_kernel's
+definitions) with the Gaussian axis cut into C = N / ck chunks of ck rows.
+That is exact because the transmittance exponent is additive over
+Gaussians; chunk a's live rows are clip(count - a ck, 0, ck) and dead chunk
+pairs are skipped, so work follows count^2, not capacity^2. Four kernels,
+each with a wrapper that launches it for tensors on the card (or raises)
+and runs its plain version for tensors on the CPU:
+
+    chunked_forward    csrc/fused_fwd.cu    colors         (_chunked_fwd_kernel)
+    chunked_forward_t  csrc/fused_fwd.cu    colors and T   (_chunked_fwd_t_kernel)
+    chunked_backward   csrc/chunked_bwd.cu  the VJP, from saved T (_chunked_bwd_t_kernel)
+                                            or recomputing it (_chunked_bwd_kernel)
+
+The forwards launch the fused forward's entry points: the TPU chunks the
+forward only because a whole tile's rows do not fit VMEM, and on the card
+a sweep of the q axis chunk by chunk stages exactly the rows that one
+sweep over the live prefix stages. fused_fwd.cu already splits the p axis
+of a dense tile over blocks of 32 rows, so there is nothing left to chunk.
+The chunked forwards keep their own launch counts. The backward is a
+kernel of its own, split into p-side and q-side passes (csrc/chunked_bwd.cu).
+
+The plain versions are the fused ones (the same function) behind the
+chunk-count contract: N must divide into chunks of ck rows, ck a multiple
+of 128. The JAX package packs the per-Gaussian fields Gaussian-minor into
+one (B, 8, N) operand only to avoid TPU lane padding; the card has none,
+so the kernels take the fused kernels' unpacked operands.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import math
 
-from sgrt_tpu_torch.ops.cuda_kernel import _block_sizes, render_tiles_fused
+import torch
+
+from sgrt_tpu_torch.models.gaussians import GaussianScene
+from sgrt_tpu_torch.ops.cuda_kernel import (
+    K_TAPS,
+    KERNEL_ERFS,
+    KERNEL_EXPS,
+    CudaKernel,
+    _block_sizes,
+    _check_inputs,
+    _check_names,
+    _forward_launch,
+    _kernel_erf_name,
+    _scene_shapes,
+    _threads,
+    fused_backward_plain,
+    fused_forward_plain,
+    fused_forward_t_plain,
+    render_tiles_fused,
+    save_t_bytes,
+)
 
 # Per-tile capacity above which the JAX package routes to its chunked
-# kernels (its MAX_BWD_CAPACITY). Kept at the same value until the chunked
-# kernels are ported and the card's own ceiling is measured.
+# kernels (its MAX_BWD_CAPACITY, a v5e VMEM ceiling). The port's fused
+# kernels have no such wall; the card's own crossover is measured beside
+# the dense cell (chip_smoke.py, "dense_frame") and routing stays at the
+# JAX package's value until a later change sets it from that.
 MAX_MONOLITHIC_CAPACITY = 4096
 
-# Chunk size of the chunked kernels' Gaussian axis (JAX: DEFAULT_CHUNK).
+# Ceiling of the chunked route's padded capacity: the JAX package's API
+# ceiling, kept so that both packages accept the same capacities.
+MAX_CHUNKED_CAPACITY = 65536
+
+# Chunk size of the Gaussian axis (JAX: DEFAULT_CHUNK).
 DEFAULT_CHUNK = 2048
+
+# Byte budget of the chunked saved-T residual, 20*B*N*R logical bytes. The
+# chunked backward keeps no (row, ray) plane of its own (csrc/chunked_bwd.cu:
+# its scratch is O(B N) plus, recomputing, one chunk's T), so T is the only
+# O(B N R) buffer of a chunked train step. 16 GiB is a fifth of the card's
+# 80 GB: a bucketed step holds the T of both buckets until its backward,
+# beside the monolithic bucket's own budget (SAVE_T_MAX_BYTES, 8 GiB) and
+# its (B,5,N,R) scratch. A whole 512^2 frame of the 50k-Gaussian sphere
+# (2048 tiles at capacity 5376) would need 28 GB of T: such launches, or a
+# slab step's slabs sized past the budget, take the recompute backward.
+SAVE_T_CHUNKED_MAX_BYTES = 16 << 30
+
+_FWD_SRC, _BWD_SRC, _TPU = "fused_fwd.cu", "chunked_bwd.cu", "sgrt_tpu/ops/pallas_chunked.py"
+CHUNKED_FWD = CudaKernel("chunked_fwd", _FWD_SRC, "sgrt_fused_fwd", f"{_TPU}:176", 8, 8)
+CHUNKED_FWD_T = CudaKernel("chunked_fwd_t", _FWD_SRC, "sgrt_fused_fwd_t", f"{_TPU}:245", 9, 8)
+CHUNKED_BWD_T = CudaKernel("chunked_bwd_t", _BWD_SRC, "sgrt_chunked_bwd_t", f"{_TPU}:522", 14, 8)
+CHUNKED_BWD = CudaKernel("chunked_bwd", _BWD_SRC, "sgrt_chunked_bwd", f"{_TPU}:369", 13, 8)
 
 
 def chunk_plan(capacity: int) -> tuple[int, int]:
@@ -33,19 +105,256 @@ def chunk_plan(capacity: int) -> tuple[int, int]:
     return c * ck, ck
 
 
+def _check_chunks(n: int, ck: int) -> None:
+    """The chunk-count contract: N = C * ck, ck a multiple of 128."""
+    if ck < 128 or ck % 128 or n % ck:
+        raise ValueError(f"N={n} does not divide into chunks of ck={ck} rows "
+                         "(ck a multiple of 128)")
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the fused ones, behind the chunk-count contract
+# ---------------------------------------------------------------------------
+
+def chunked_forward_plain(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int,
+                          erf_name: str = "as5", exp_name: str = "exact") -> torch.Tensor:
+    """The chunked forward kernel's function in tensor ops: colors (B,3,R)."""
+    _check_chunks(oc.shape[1], ck)
+    return fused_forward_plain(oc, sigma, mag, albedo, dirs_t, counts, erf_name=erf_name,
+                               exp_name=exp_name)
+
+
+def chunked_forward_t_plain(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int,
+                            erf_name: str = "as5", exp_name: str = "exact"):
+    """chunked_forward_plain that also returns T (B,5,N,R), zero on rows at
+    or past the count."""
+    _check_chunks(oc.shape[1], ck)
+    return fused_forward_t_plain(oc, sigma, mag, albedo, dirs_t, counts, erf_name=erf_name,
+                                 exp_name=exp_name)
+
+
+def chunked_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
+                           ck: int, erf_name: str = "as5", exp_name: str = "exact"):
+    """The chunked backward kernels' function in tensor ops: (doc, dsigma,
+    dmag, dalbedo, ddirs), from t_saved or recomputing T."""
+    _check_chunks(oc.shape[1], ck)
+    return fused_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved,
+                                erf_name=erf_name, exp_name=exp_name)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: the kernel for CUDA tensors (or raise), the plain version for CPU
+# ---------------------------------------------------------------------------
+
+def chunked_forward(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int, rb: int = 128,
+                    pb: int = 8, qb: int = 32, erf_name: str = "as5",
+                    exp_name: str = "exact") -> torch.Tensor:
+    """Wrapper of the chunked forward kernel: colors (B,3,R). CUDA tensors
+    go to the kernel (which raises for what it does not take), CPU tensors
+    to chunked_forward_plain."""
+    args = (oc, sigma, mag, albedo, dirs_t, counts)
+    _check_chunks(oc.shape[1], ck)
+    if not _check_inputs("chunked_forward", _scene_shapes(*args), oc.device):
+        return chunked_forward_plain(*args, ck=ck, erf_name=erf_name, exp_name=exp_name)
+    return _forward_launch(CHUNKED_FWD, args, None, rb=rb, pb=pb, qb=qb, erf_name=erf_name,
+                           exp_name=exp_name)
+
+
+def chunked_forward_t(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int, rb: int = 128,
+                      pb: int = 8, qb: int = 32, erf_name: str = "as5",
+                      exp_name: str = "exact"):
+    """Wrapper of the chunked forward-with-T kernel: (colors (B,3,R),
+    T (B,5,N,R)), T zero on rows at or past the count."""
+    args = (oc, sigma, mag, albedo, dirs_t, counts)
+    _check_chunks(oc.shape[1], ck)
+    if not _check_inputs("chunked_forward_t", _scene_shapes(*args), oc.device):
+        return chunked_forward_t_plain(*args, ck=ck, erf_name=erf_name, exp_name=exp_name)
+    b, n, _ = oc.shape
+    t = torch.empty((b, len(K_TAPS), n, dirs_t.shape[2]), dtype=torch.float32,
+                    device=oc.device)   # the kernel writes every element
+    colors = _forward_launch(CHUNKED_FWD_T, args, t, rb=rb, pb=pb, qb=qb, erf_name=erf_name,
+                             exp_name=exp_name)
+    return colors, t
+
+
+def chunked_backward_scratch_floats(b: int, n: int, r: int, ck: int, threads: int,
+                                    recompute: bool) -> int:
+    """Floats of scratch one chunked backward launch takes (the kernel's
+    own count; csrc/chunked_bwd.cu lists its parts)."""
+    fn = CHUNKED_BWD.library().sgrt_chunked_bwd_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    return int(fn(b, n, r, ck, threads, int(recompute)))
+
+
+def chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
+                     ck: int, rb: int = 128, qb: int = 32, erf_name: str = "as5",
+                     exp_name: str = "exact"):
+    """Wrapper of the chunked backward kernels: the VJP for the cotangent
+    dcol (B,3,R) → (doc (B,N,3), dsigma (B,N), dmag (B,N), dalbedo (B,N,3),
+    ddirs (B,3,R)). With t_saved (B,5,N,R) from chunked_forward_t it
+    launches the saved-T kernel, without it the recompute kernel. CPU
+    tensors go to chunked_backward_plain. rb caps the rays per block; qb is
+    the rows staged per shared-memory pass."""
+    args = (oc, sigma, mag, albedo, dirs_t, counts)
+    want = _scene_shapes(*args)
+    b, n, _ = oc.shape
+    r = dirs_t.shape[-1]
+    _check_chunks(n, ck)
+    want["dcol"] = (dcol, (b, 3, r))
+    if t_saved is not None:
+        want["t_saved"] = (t_saved, (b, len(K_TAPS), n, r))
+    if not _check_inputs("chunked_backward", want, oc.device):
+        return chunked_backward_plain(*args, dcol, t_saved, ck=ck, erf_name=erf_name,
+                                      exp_name=exp_name)
+    _check_names(erf_name, exp_name)
+    kernel = CHUNKED_BWD if t_saved is None else CHUNKED_BWD_T
+    threads = _threads(kernel.query("sgrt_chunked_bwd_max_threads"), rb, r)
+    f32 = dict(dtype=torch.float32, device=oc.device)
+    scratch = torch.empty(chunked_backward_scratch_floats(b, n, r, ck, threads,
+                                                          t_saved is None), **f32)
+    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
+    dsig, dmag = torch.empty((b, n), **f32), torch.empty((b, n), **f32)
+    ddirs = torch.empty((b, 3, r), **f32)
+    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
+    kernel.launch(ins + [scratch, doc, dsig, dmag, dalb, ddirs],
+                  [b, n, r, ck, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  what=f"B={b}, N={n}, R={r}, ck={ck}, threads={threads}, qb={qb}")
+    return doc, dsig, dmag, dalb, ddirs
+
+
+# ---------------------------------------------------------------------------
+# the differentiable op
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _ChunkedOpts:
+    ck: int
+    rb: int
+    rb_bwd: int
+    pb: int
+    qb: int
+    erf_name: str
+    exp_name: str
+    save_t: bool
+
+
+class ChunkedRender(torch.autograd.Function):
+    """colors = chunked forward(oc, sigma, mag, albedo, dirs_t, counts) with
+    the analytic backward (the counterpart of the JAX package's
+    _make_chunked_op). save_t: the forward also writes T and the backward
+    reads it instead of recomputing pass A. Gradients flow to oc, sigma,
+    mag, albedo and the ray directions; counts gets None."""
+
+    @staticmethod
+    def forward(ctx, oc, sigma, mag, albedo, dirs_t, counts, opts: _ChunkedOpts):
+        kw = dict(ck=opts.ck, pb=opts.pb, qb=opts.qb, erf_name=opts.erf_name,
+                  exp_name=opts.exp_name)
+        if opts.save_t:
+            colors, t = chunked_forward_t(oc, sigma, mag, albedo, dirs_t, counts,
+                                          rb=opts.rb_bwd, **kw)
+            ctx.save_for_backward(oc, sigma, mag, albedo, dirs_t, counts, t)
+        else:
+            colors = chunked_forward(oc, sigma, mag, albedo, dirs_t, counts, rb=opts.rb, **kw)
+            ctx.save_for_backward(oc, sigma, mag, albedo, dirs_t, counts)
+        ctx.opts = opts
+        return colors
+
+    @staticmethod
+    def backward(ctx, dcol):
+        oc, sigma, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
+        o = ctx.opts
+        grads = chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol.contiguous(),
+                                 t[0] if t else None, ck=o.ck, rb=o.rb_bwd, qb=o.qb,
+                                 erf_name=o.erf_name, exp_name=o.exp_name)
+        return (*grads, None, None)
+
+
+def render_fused_chunked(scene_oc, sigma, mag, albedo, dirs_t, counts=None, *,
+                         ck: int = DEFAULT_CHUNK, rb: int = 128, pb: int = 8, qb: int = 32,
+                         rb_bwd: int | None = None, erf_name: str = "as5",
+                         exp_name: str = "exact", save_t: bool | None = None):
+    """Chunked fused render, the render_fused of big per-tile capacities:
+    oc (B,N,3), sigma/mag (B,N), albedo (B,N,3), dirs_t (B,3,R) → colors
+    (B,3,R), the Gaussian axis cut into C = N/ck chunks. Block rules as the
+    JAX package's (ck a multiple of 128 dividing N, pb and qb dividing ck
+    and multiples of 8, rb | R); N at most MAX_CHUNKED_CAPACITY; counts
+    default to N and are clamped to N.
+
+    Differentiable: when grad is enabled and an input requires it, the
+    render goes through ChunkedRender; otherwise it launches the plain
+    forward kernel. save_t=None saves T when its 20*B*N*R bytes fit
+    SAVE_T_CHUNKED_MAX_BYTES."""
+    erf_name = _kernel_erf_name(erf_name)
+    b, n, _ = scene_oc.shape
+    r = dirs_t.shape[2]
+    rb = min(rb, r)
+    rb_bwd = rb if rb_bwd is None else min(rb_bwd, r)
+    ck = min(-(-ck // 128) * 128, n)
+    pb, qb = min(pb, ck), min(qb, ck)
+    if (n % ck or ck % pb or ck % qb or r % rb or r % rb_bwd
+            or pb % 8 or qb % 8 or ck % 128):
+        raise ValueError(f"shape (R={r}, N={n}) not divisible by chunk/blocks "
+                         f"(ck={ck}, rb={rb}, rb_bwd={rb_bwd}, pb={pb}, qb={qb}; "
+                         "ck must be a multiple of 128)")
+    if n > MAX_CHUNKED_CAPACITY:
+        raise ValueError(f"padded capacity {n} exceeds MAX_CHUNKED_CAPACITY "
+                         f"({MAX_CHUNKED_CAPACITY}); use a finer tile grid")
+    if counts is None:
+        counts = torch.full((b,), n, dtype=torch.int32, device=scene_oc.device)
+    counts = torch.clamp(counts.to(torch.int32), max=n)
+    inputs = (scene_oc, sigma, mag, albedo, dirs_t)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
+        return chunked_forward(*inputs, counts, ck=ck, rb=rb, pb=pb, qb=qb,
+                               erf_name=erf_name, exp_name=exp_name)
+    if save_t is None:
+        save_t = save_t_bytes(b, n, r) <= SAVE_T_CHUNKED_MAX_BYTES
+    opts = _ChunkedOpts(ck, rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
+    return ChunkedRender.apply(*inputs, counts, opts)
+
+
+def render_tiles_chunked(tiled_scene: GaussianScene, o, tile_dirs, counts=None, *,
+                         ck: int = DEFAULT_CHUNK, rb: int = 128, pb: int | None = None,
+                         qb: int | None = None, rb_bwd: int | None = None,
+                         erf_name: str = "as5", exp_name: str = "exact",
+                         save_t: bool | None = None) -> torch.Tensor:
+    """Chunked sibling of render_tiles_fused: tiled_scene fields (T2, K, ...)
+    with K up to MAX_CHUNKED_CAPACITY, tile_dirs (T2, P, 3), counts (T2,)
+    → per-tile colors (T2, P, 3). o is one (3,) origin or a per-tile (T2, 3)
+    batch. Differentiable through render_fused_chunked."""
+    k = tiled_scene.mu.shape[1]
+    if pb is None or qb is None:
+        dpb, dqb = _block_sizes(min(k, ck))
+        pb = dpb if pb is None else pb
+        qb = dqb if qb is None else qb
+    o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
+    oc = (tiled_scene.mu - o_b).contiguous()
+    dirs_t = tile_dirs.transpose(1, 2).contiguous()
+    colors_t = render_fused_chunked(
+        oc, tiled_scene.sigma.contiguous(), tiled_scene.magnitude.contiguous(),
+        tiled_scene.albedo.contiguous(), dirs_t, counts, ck=ck, rb=rb, pb=pb, qb=qb,
+        rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name, save_t=save_t)
+    return colors_t.transpose(1, 2)
+
+
 def tile_renderer_for(capacity: int, *, erf_name: str = "as5",
                       exp_name: str = "exact", pb: int | None = None,
                       qb: int | None = None, rb: int = 128):
     """Route a per-tile renderer by capacity. Returns (padded_capacity,
     render_fn(tiled_scene, o, tile_dirs, counts)); callers gather and
-    compact at the padded capacity (a multiple of lcm(pb, qb)). pb/qb
-    override the kernel's block sizes and reach the kernel."""
+    compact at the padded capacity. Up to MAX_MONOLITHIC_CAPACITY the fused
+    kernels render at a multiple of lcm(pb, qb); above it the chunked
+    kernels at chunk_plan(capacity)'s padded capacity, the JAX package's.
+    pb/qb override the block sizes and reach the kernel on both routes."""
     if capacity > MAX_MONOLITHIC_CAPACITY:
-        raise NotImplementedError(
-            f"per-tile capacity {capacity} is above {MAX_MONOLITHIC_CAPACITY}, "
-            "where the JAX package switches to its Gaussian-axis chunked "
-            "kernels (sgrt_tpu/ops/pallas_chunked.py); those are not ported "
-            "yet. Use a finer tile grid to lower the per-tile count.")
+        cap, ck = chunk_plan(capacity)
+
+        def render_chunked(tiled, o, d, counts):
+            return render_tiles_chunked(tiled, o, d, counts, ck=ck, rb=rb, pb=pb, qb=qb,
+                                        erf_name=erf_name, exp_name=exp_name)
+
+        return cap, render_chunked
+
     dpb, dqb = _block_sizes(capacity)
     pb = dpb if pb is None else pb
     qb = dqb if qb is None else qb

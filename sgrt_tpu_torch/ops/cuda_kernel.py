@@ -418,6 +418,8 @@ def fused_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=N
 # ---------------------------------------------------------------------------
 
 def _forward_launch(kernel, args, t, *, rb, pb, qb, erf_name, exp_name):
+    """Launch a forward entry point of csrc/fused_fwd.cu: colors (B,3,R),
+    and T into t."""
     _check_names(erf_name, exp_name, pb)
     oc, dirs_t = args[0], args[4]
     b, n, _ = oc.shape

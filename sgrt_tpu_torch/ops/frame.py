@@ -165,6 +165,37 @@ def probe_capacity(scene: GaussianScene, angles, offset, focal_length, tiles) ->
     return best
 
 
+def auto_tile_grid(scene: GaussianScene, angles, offset, focal_length,
+                   start=(16, 32), margin: float = 1.3,
+                   width: int | None = None, height: int | None = None,
+                   min_rays_per_tile: int = 32):
+    """Smallest power-of-two refinement of `start` whose worst per-tile
+    count (x margin) fits MAX_MONOLITHIC_CAPACITY → ((tx, ty), capacity).
+
+    The JAX package's rule, kept so that both packages pick the same grid:
+    refine (the axis with fewer tiles first) until the capacity fits the
+    fused kernels; once tiles are down to 128 rays, stop if the chunked
+    kernels' MAX_CHUNKED_CAPACITY covers the capacity; never go below
+    min_rays_per_tile rays (nor past 8192 tiles), even if the capacity
+    stays above every ceiling. Waits for the device."""
+    from sgrt_tpu_torch.ops.cuda_chunked import MAX_CHUNKED_CAPACITY, MAX_MONOLITHIC_CAPACITY
+    from sgrt_tpu_torch.ops.tiling import as_grid
+
+    tx, ty = as_grid(start)
+    sized = width is not None and height is not None
+    while True:
+        cap = max(64, int(probe_capacity(scene, angles, offset, focal_length, (tx, ty))
+                          * margin))
+        if cap <= MAX_MONOLITHIC_CAPACITY or tx * ty >= 8192:
+            return (tx, ty), cap
+        if sized and (width // tx) * (height // ty) <= 128 and cap <= MAX_CHUNKED_CAPACITY:
+            return (tx, ty), cap
+        nxt = (tx * 2, ty) if tx <= ty else (tx, ty * 2)
+        if sized and (width // nxt[0]) * (height // nxt[1]) < min_rays_per_tile:
+            return (tx, ty), cap
+        tx, ty = nxt
+
+
 def probe_buckets(scene: GaussianScene, angles, offset, focal_length, tiles,
                   margin: float = 1.2, dense_frac: float = 0.125,
                   multiple_of: int = 1):

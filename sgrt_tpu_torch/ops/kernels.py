@@ -4,10 +4,13 @@ with `name`, `route`, `source`, `replaces` (the TPU kernel it ports) and a
 
 from __future__ import annotations
 
+from sgrt_tpu_torch.ops.cuda_chunked import CHUNKED_BWD, CHUNKED_BWD_T, CHUNKED_FWD, CHUNKED_FWD_T
 from sgrt_tpu_torch.ops.cuda_kernel import FUSED_BWD, FUSED_BWD_T, FUSED_FWD, FUSED_FWD_T
 from sgrt_tpu_torch.utils import nvcc
 
-KERNELS = (FUSED_FWD, FUSED_FWD_T, FUSED_BWD_T, FUSED_BWD)
+# in the order of the kernel table (PERF.md): rows 1-8
+KERNELS = (FUSED_FWD, FUSED_FWD_T, FUSED_BWD_T, FUSED_BWD,
+           CHUNKED_FWD, CHUNKED_FWD_T, CHUNKED_BWD, CHUNKED_BWD_T)
 
 
 def build_all() -> None:

@@ -18,8 +18,10 @@ gradients of the trainable fields only, so the other fields get no
 gradient and no update and stay bit-identical, as optax's zero-gradient
 Adam update leaves them. Steps update the state in place and return it.
 
-Distribution over a mesh is not ported: every builder raises for
-mesh is not None.
+make_slab_frame_train_step is the fitting-scale step: one forward and
+backward per slab of count-sorted tiles, gradients summed across slabs,
+Adam applied once. Distribution over a mesh is not ported: every step
+factory raises for mesh is not None.
 """
 
 from __future__ import annotations
@@ -62,6 +64,26 @@ def _refuse_mesh(mesh) -> None:
 def _check_backend(backend: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def _check_bwd_capacity(capacity, bucket_cfg, backend) -> None:
+    """Fail when the step is built, not in its first launch. Capacities up
+    to MAX_MONOLITHIC_CAPACITY take the fused kernels, above it the chunked
+    kernels (ops.cuda_chunked), whose ceiling is MAX_CHUNKED_CAPACITY: only
+    beyond that is the tile grid too coarse for the scene."""
+    if backend != "kernel":
+        return
+    from sgrt_tpu_torch.ops.cuda_chunked import MAX_CHUNKED_CAPACITY
+
+    caps = [capacity]
+    if bucket_cfg is not None:
+        caps += [bucket_cfg.cap_dense, bucket_cfg.cap_sparse]
+    worst = max(caps)
+    if worst > MAX_CHUNKED_CAPACITY:
+        raise ValueError(
+            f"per-tile capacity {worst} exceeds even the chunked backward "
+            f"kernel's ceiling ({MAX_CHUNKED_CAPACITY}); use a finer tile grid "
+            "so fewer Gaussians land in each tile (ops.frame.auto_tile_grid)")
 
 
 def init_state(scene: GaussianScene, optimizer, mesh=None) -> FitState:
@@ -168,6 +190,7 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
     from sgrt_tpu_torch.ops.cuda_kernel import _block_sizes
 
     _check_backend(backend)
+    _check_bwd_capacity(capacity, bucket_cfg, backend)
     if backend == "kernel":
         from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
 
@@ -240,6 +263,71 @@ def make_frame_train_step(*, width: int = 256, height: int = 256,
         (loss, overflow), grads = vg(state.scene, view, o, dirs, target)
         _apply_updates(state, grads, trainable)
         return state, loss, overflow
+
+    return step
+
+
+def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64, 32),
+                               capacity: int = 4096, slab_tiles: int = 64, mesh=None,
+                               erf_name: str = "as5", exp_name: str = "exact",
+                               trainable: tuple[str, ...] | None = None, aniso: bool = False,
+                               focal_length=1.0):
+    """Host-slabbed train step for fitting-scale dense scenes:
+    step(state, view, o, dirs, target) → (state, loss, overflow).
+
+    The tiles, sorted by count (densest first, a stable sort so that tiles
+    of equal count keep their order, as jnp.argsort does), are cut into
+    slabs of `slab_tiles` (the largest divisor of the tile count not above
+    it). Each slab runs one forward and backward through tile_renderer_for
+    (the chunked kernels above MAX_MONOLITHIC_CAPACITY) on its
+    sum-of-squares loss; the slabs' losses and gradients add exactly, since
+    the frame loss is a sum over pixels, and Adam applies once to their
+    sum over H*W*3. A slab's saved-T residual and scratch are freed before
+    the next slab, so slab_tiles bounds the step's memory. The mesh and
+    anisotropic variants are not ported."""
+    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+    from sgrt_tpu_torch.ops.tiling import as_grid
+
+    _refuse_mesh(mesh)
+    if aniso:
+        raise NotImplementedError("the anisotropic slab step (sgrt_tpu/ops/anisotropic.py) "
+                                  "is not ported yet; pass aniso=False")
+    _check_bwd_capacity(capacity, None, "kernel")
+    capacity, render = tile_renderer_for(capacity, erf_name=erf_name, exp_name=exp_name)
+    trainable = FIELDS if trainable is None else trainable
+    tx, ty = as_grid(tiles)
+    t2 = tx * ty
+    slab_tiles = max(1, min(slab_tiles, t2))
+    while t2 % slab_tiles:
+        slab_tiles -= 1
+    norm = float(height * width * 3)
+
+    def step(state: FitState, view, o, dirs, target):
+        with torch.no_grad():
+            idx, counts = tile_indices(state.scene, view, tiles, capacity,
+                                       focal_length=focal_length)
+            order = torch.argsort(-counts, stable=True)
+            overflow = torch.sum(counts > capacity, dtype=torch.int32)
+        idx, counts = idx[order], counts[order]
+        d = _tile_rays(dirs, height, width, tiles)[order]
+        tgt = _tile_rays(target.reshape(-1, 3), height, width, tiles)[order]
+        total, grads = None, None
+        for s0 in range(0, t2, slab_tiles):
+            sl = slice(s0, s0 + slab_tiles)
+
+            def loss_of(sc):
+                colors = render(gather_tiles(sc, idx[sl]), o, d[sl], counts[sl])
+                return torch.sum((colors - tgt[sl]) ** 2), None
+
+            (loss, _), g = _value_and_grad(loss_of, state.scene, trainable)
+            if total is None:
+                total, grads = loss, g
+            else:
+                total = total + loss
+                grads = GaussianScene(**{f: getattr(grads, f) + getattr(g, f) for f in FIELDS})
+        grads = GaussianScene(**{f: getattr(grads, f) / norm for f in FIELDS})
+        _apply_updates(state, grads, trainable)
+        return state, total / norm, overflow
 
     return step
 

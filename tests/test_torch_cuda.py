@@ -183,3 +183,81 @@ def test_frame_train_step_on_card(bucketed):
         launched = (tk.FUSED_FWD_T.launches - before[0], tk.FUSED_BWD_T.launches - before[1])
         assert launched == ((0, 0) if d == "cpu" else (3 * (1 + bucketed),) * 2)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+
+
+# the chunked kernels: N = 384 in 3 chunks of 128; counts with two live
+# chunks, a partly live last chunk, a dead tile, one chunk and a count > N
+CHUNK_COUNTS = (384, 17, 0, 200, 1000)
+
+
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+def test_chunked_forward_kernels_match_plain(erf_name, exp_name):
+    from sgrt_tpu_torch.ops import cuda_chunked as tc
+
+    args = _inputs(_card(), n=384, counts=CHUNK_COUNTS)
+    kw = dict(ck=128, erf_name=erf_name, exp_name=exp_name)
+    before = (tc.CHUNKED_FWD.launches, tc.CHUNKED_FWD_T.launches)
+    out = tc.chunked_forward(*args, **kw)
+    colors, t = tc.chunked_forward_t(*args, **kw)
+    torch.cuda.synchronize()
+    assert (tc.CHUNKED_FWD.launches, tc.CHUNKED_FWD_T.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    ref_c, ref_t = tc.chunked_forward_t_plain(*args, **kw)
+    for got in (out, colors):
+        np.testing.assert_allclose(got.cpu().numpy(), ref_c.cpu().numpy(), atol=2e-5)
+    # T = w exp(base - acc) with base and acc sums of up to N = 384 terms:
+    # summation order moves T relatively, by ~sqrt(N) ulp of those sums, so
+    # T is held relative to its scale, at the gradients' 5e-5
+    scale = float(ref_t.abs().max())
+    np.testing.assert_allclose(t.cpu().numpy() / scale, ref_t.cpu().numpy() / scale, atol=5e-5)
+    for b, c in enumerate(CHUNK_COUNTS):
+        assert (t[b, :, min(c, 384):] == 0).all()
+    assert (out[2] == 0).all()
+
+
+@pytest.mark.parametrize("saved_t", [True, False])
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+def test_chunked_backward_kernels_match_plain(saved_t, erf_name, exp_name):
+    """Both chunked backwards at R = 200 (two ray blocks, the second
+    partial): q-side sums carried over three p chunks, dead rows and the
+    dead tile exactly zero."""
+    from sgrt_tpu_torch.ops import cuda_chunked as tc
+
+    dev = _card()
+    args = _inputs(dev, n=384, counts=CHUNK_COUNTS)
+    dcol = torch.randn((5, 3, 200), generator=torch.Generator().manual_seed(7)).to(dev)
+    kw = dict(ck=128, erf_name=erf_name, exp_name=exp_name)
+    t = tc.chunked_forward_t(*args, **kw)[1] if saved_t else None
+    kernel = tc.CHUNKED_BWD_T if saved_t else tc.CHUNKED_BWD
+    before = kernel.launches
+    got = tc.chunked_backward(*args, dcol, t, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _assert_grads_close(got, tc.chunked_backward_plain(*args, dcol, t, **kw))
+    for g in got[:4]:
+        assert (g[2] == 0).all() and (g[1, 17:] == 0).all() and (g[3, 200:] == 0).all()
+    assert (got[4][2] == 0).all()
+
+
+def test_chunked_route_on_card():
+    """render_fused_chunked's gradients on the card come from the chunked
+    backward kernels (both schedules) and equal the plain backward's; the
+    chunked and fused forwards agree on the same inputs."""
+    from sgrt_tpu_torch.ops import cuda_chunked as tc
+
+    dev = _card()
+    args = _inputs(dev, n=384, r=256, counts=CHUNK_COUNTS)
+    dcol = torch.randn((5, 3, 256), generator=torch.Generator().manual_seed(8)).to(dev)
+    want = tc.chunked_backward_plain(*args, dcol, ck=128)
+    for save_t, kernel in ((True, tc.CHUNKED_BWD_T), (False, tc.CHUNKED_BWD)):
+        leaves = [a.clone().requires_grad_(True) for a in args[:5]]
+        before = kernel.launches
+        tc.render_fused_chunked(*leaves, args[5], ck=128, save_t=save_t).backward(dcol)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        _assert_grads_close([x.grad for x in leaves], want)
+    fused = tk.fused_forward(*args)
+    np.testing.assert_allclose(tc.chunked_forward(*args, ck=128).cpu().numpy(),
+                               fused.cpu().numpy(), atol=2e-5)
+    with pytest.raises(ValueError, match="erf"):
+        tc.chunked_forward(*args, ck=128, erf_name="spline")

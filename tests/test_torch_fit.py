@@ -263,3 +263,80 @@ def test_fit_cli_matches_jax_fit_cli(tmp_path, capsys):
     assert make_manager(str(tmp_path / "ck")).all_steps() == [2, 4]
     assert torch_fit_main(common + ["--aniso", "2,1,1"]) != 0
     assert "not yet ported" in capsys.readouterr().err
+
+
+def _sgd(lr):
+    import functools
+
+    return functools.partial(torch.optim.SGD, lr=lr)
+
+
+@pytest.fixture(scope="module")
+def wall_setup():
+    """tests/test_chunked.py's setup above the monolithic wall: grid_scene(4,
+    sigma 0.3, magnitude 2), a 16^2 frame in 2x2 tiles, a black target."""
+    js = j_grid(4, sigma=0.3, magnitude=2.0)
+    cam = j_orbit(0.0, -4.0, 1.0, 16, 16)
+    o, dirs = cam.rays()
+    j_in = (cam.view_matrix, o, dirs, jnp.zeros((16, 16, 3), jnp.float32))
+    return js, _port_scene(js), j_in, tuple(torch.from_numpy(np.array(x)) for x in j_in)
+
+
+def test_train_step_routes_to_chunked_above_wall(wall_setup):
+    """make_frame_train_step at capacity MAX_MONOLITHIC_CAPACITY + 1 takes
+    the chunked route in both packages: the same losses (rtol 1e-3, Adam)
+    and the same updated scene. Adam moves every parameter by about lr a
+    step whatever its gradient's size, so 4 steps of 1e-2 agree to 1e-4
+    where the float32 gradients agree in sign."""
+    from sgrt_tpu_torch.ops.cuda_chunked import MAX_MONOLITHIC_CAPACITY
+
+    js, ts, j_in, t_in = wall_setup
+    kw = dict(width=16, height=16, tiles=2, capacity=MAX_MONOLITHIC_CAPACITY + 1)
+    jstep = jfit.make_frame_train_step(optax.adam(1e-2), backend="pallas", **kw)
+    jl, jst = _losses(jstep, jfit.init_state(js, optax.adam(1e-2)), j_in, 4)
+    tl, tst = _losses(tfit.make_frame_train_step(**kw), tfit.init_state(ts, tfit.adam(1e-2)),
+                      t_in, 4)
+    np.testing.assert_allclose(tl, jl, rtol=1e-3)
+    assert tl[-1] < tl[0]
+    for f in FIELDS:
+        np.testing.assert_allclose(getattr(tst.scene, f).numpy(),
+                                   np.asarray(getattr(jst.scene, f)), atol=1e-4, err_msg=f)
+
+
+@pytest.mark.parametrize("capacity,slab_tiles", [(16, 8), (4097, 2)])
+def test_slab_step_matches_jax_and_frame_step(capacity, slab_tiles):
+    """make_slab_frame_train_step against the JAX package's slab step on one
+    device (tests/test_chunked.py's setup, SGD 1e-2) and against the port's
+    own frame step, which computes the same function in one launch; at
+    capacity 4097 both run the chunked route."""
+    js = j_grid(4, sigma=0.3, magnitude=2.0)
+    size, tiles = (32, 4) if capacity == 16 else (16, 2)
+    cam = j_orbit(0.0, -4.0, 1.0, size, size)
+    o, dirs = cam.rays()
+    target, _ = j_render(j_grid(4, sigma=0.35), 0.0, -4.0, 1.0, width=size, height=size,
+                         tiles=tiles, capacity=16, backend="pallas")
+    j_in = (cam.view_matrix, o, dirs, target)
+    t_in = tuple(torch.from_numpy(np.array(x)) for x in j_in)
+    common = dict(width=size, height=size, tiles=tiles, capacity=capacity)
+    jstep = jfit.make_slab_frame_train_step(optax.sgd(1e-2), slab_tiles=slab_tiles, **common)
+    jst, jl, jo = jstep(jfit.init_state(js, optax.sgd(1e-2)), *j_in)
+    slab = tfit.make_slab_frame_train_step(slab_tiles=slab_tiles, **common)
+    sst, sl, so = slab(tfit.init_state(_port_scene(js), _sgd(1e-2)), *t_in)
+    frame = tfit.make_frame_train_step(**common)
+    fst, fl, fo = frame(tfit.init_state(_port_scene(js), _sgd(1e-2)), *t_in)
+    assert int(jo) == int(so) == int(fo) == 0
+    np.testing.assert_allclose(float(sl), float(fl), rtol=1e-5)
+    np.testing.assert_allclose(float(sl), float(jl), rtol=1e-4)
+    for f in FIELDS:
+        np.testing.assert_allclose(getattr(sst.scene, f).numpy(), getattr(fst.scene, f).numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=f)
+        np.testing.assert_allclose(getattr(sst.scene, f).numpy(),
+                                   np.asarray(getattr(jst.scene, f)), rtol=1e-5, atol=1e-6,
+                                   err_msg=f)
+
+
+def test_slab_step_refuses_mesh_and_aniso():
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tfit.make_slab_frame_train_step(mesh=object())
+    with pytest.raises(NotImplementedError, match="anisotropic"):
+        tfit.make_slab_frame_train_step(aniso=True)

@@ -117,3 +117,32 @@ def test_unported_options_raise(scenes):
     a backend the port does not have still raises."""
     with pytest.raises(ValueError, match="backend"):
         tf.render_orbit_frame(scenes[1], 0.0, backend="pallas", **KW)
+
+
+def _sphere(n):
+    """scripts/large_n.py's sphere scene: n seeded points on the unit
+    sphere, sigma 0.05, magnitude 1, albedo 0.5 v + 0.5."""
+    rng = np.random.default_rng(0)
+    v = rng.normal(size=(n, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return v, np.full(n, 0.05, np.float32), np.ones(n, np.float32), 0.5 * v + 0.5
+
+
+@pytest.mark.parametrize("start,size,min_rays", [
+    ((2, 2), 256, 32), ((4, 4), 64, 32), ((2, 2), 64, 256), ((16, 32), 512, 32)])
+def test_auto_tile_grid_matches_jax(start, size, min_rays):
+    """The same grid and capacity as the JAX package's rule on a dense
+    20k-Gaussian sphere: refinement until the fused ceiling (256^2 from
+    2x2: (16, 16)), the stop at 128-ray tiles under the chunked ceiling
+    (64^2 from 4x4: (8, 4)), the min_rays_per_tile stop (64^2 from 2x2 at
+    256 rays: (4, 4)), and a start that already fits (512^2 from 16x32)."""
+    import jax.numpy as jnp
+    from sgrt_tpu.models.gaussians import GaussianScene as JScene
+
+    fields = _sphere(20_000)
+    js = JScene(*map(jnp.asarray, fields))
+    ts = scene_from_numpy(*fields, device="cpu")
+    kw = dict(start=start, margin=1.2, width=size, height=size, min_rays_per_tile=min_rays)
+    want = jf.auto_tile_grid(js, [30.0], -4.0, 1.0, **kw)
+    got = tf.auto_tile_grid(ts, [30.0], -4.0, 1.0, **kw)
+    assert got == (tuple(want[0]), int(want[1]))

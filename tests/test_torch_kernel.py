@@ -179,10 +179,16 @@ def test_tile_renderer_padding_matches(capacity):
         jpc.tile_renderer_for(capacity, pb=16, qb=48)[0]
 
 
-def test_tile_renderer_refuses_above_monolithic_ceiling():
+def test_tile_renderer_refuses_above_monolithic_ceiling(monkeypatch):
+    """Above the monolithic ceiling the fused kernels are refused: the
+    route is the chunked one, at chunk_plan's padded capacity."""
     assert tpc.MAX_MONOLITHIC_CAPACITY == jpk.MAX_BWD_CAPACITY
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tpc.tile_renderer_for(tpc.MAX_MONOLITHIC_CAPACITY + 1)
+    monkeypatch.setattr(tpc, "render_tiles_fused",
+                        lambda *a, **k: pytest.fail("fused route above the ceiling"))
+    monkeypatch.setattr(tpc, "render_tiles_chunked", lambda *a, **k: "chunked")
+    cap, fn = tpc.tile_renderer_for(tpc.MAX_MONOLITHIC_CAPACITY + 1)
+    assert cap == tpc.chunk_plan(tpc.MAX_MONOLITHIC_CAPACITY + 1)[0]
+    assert fn(None, None, None, None) == "chunked"
     assert tpc.chunk_plan(10000) == jpc.chunk_plan(10000)
 
 
