@@ -93,6 +93,18 @@ DENSE_SLAB_TILES = 256
 # decides which backward each launch takes; pinned so that every run times
 # the same launches. The probe's own pick is printed beside it.
 DENSE_N_DENSE, DENSE_CAP_SPARSE = 256, 32
+# the anisotropic cell: docs/BASELINE_CONFIGS.json's config4_aniso_teapot_256
+# (the cube cloud with per-axis scales sigma * ANISO_MULT, 256x256, 32x16
+# tiles of 128 rays, orbit camera at -4, focal length 1)
+ANISO_MULT = (1.6, 0.7, 1.0)
+ANISO_SIZE, ANISO_TILES, ANISO_STEPS = 256, (32, 16), 10
+ANISO_FIT_TILES = 16      # fit_cli's square grid, as the training phase's run
+# per live (row, ray), anisotropic rows (csrc/gauss_common.cuh, AnisoGeo):
+# A (8 FP32), Bt (5), two IEEE square roots (~6 FP32 and a MUFU.RSQ each)
+# and a division (~5 and a MUFU.RCP), mb, the exponent and co (7); the
+# backward's chain through A, Bt and C adds ~40 FP32 and two divisions
+PREP_FP32, PREP_SFU = 38, 3
+CHAIN_FP32, CHAIN_SFU = 40, 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -218,11 +230,13 @@ def rel_err(got, want) -> float:
 
 def launch_inputs(tiled, o, tile_dirs, counts) -> list:
     """The fused op's inputs (oc, sigma, mag, albedo, dirs_t, counts) as
-    render_tiles_fused builds them from gathered tiles."""
+    render_tiles_fused builds them from gathered tiles; for an anisotropic
+    tile scene (oc, invd, ...) as render_tiles_fused_aniso does."""
     import torch
 
-    n = tiled.sigma.shape[1]
-    return [(tiled.mu - o).contiguous(), tiled.sigma.contiguous(),
+    n = tiled.mu.shape[1]
+    shape = tiled.sigma if hasattr(tiled, "sigma") else 1.0 / (tiled.scale * tiled.scale)
+    return [(tiled.mu - o).contiguous(), shape.contiguous(),
             tiled.magnitude.contiguous(), tiled.albedo.contiguous(),
             tile_dirs.transpose(1, 2).contiguous(),
             torch.clamp(counts.to(torch.int32), max=n).contiguous()]
@@ -230,20 +244,19 @@ def launch_inputs(tiled, o, tile_dirs, counts) -> list:
 
 def bucket_launches(scene, view, o, tile_dirs, cfg, tiles=TRAIN_TILES) -> list:
     """The inputs of each launch of render_tiles_bucketed (dense bucket
-    first, if any), at the capacities tile_renderer_for rounds to."""
-    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
-    from sgrt_tpu_torch.ops.scheduler import BucketConfig, bucketed_tile_indices
-    from sgrt_tpu_torch.ops.tiling import gather_tiles
+    first, if any), at the capacities the scene's router rounds to."""
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig, _scene_ops, bucketed_tile_indices
 
-    cfg = BucketConfig(cfg.n_dense, tile_renderer_for(cfg.cap_dense)[0],
-                       tile_renderer_for(cfg.cap_sparse)[0])
+    renderer_for, gather, culled = _scene_ops(scene)
+    cfg = BucketConfig(cfg.n_dense, renderer_for(cfg.cap_dense)[0],
+                       renderer_for(cfg.cap_sparse)[0])
     dense_ids, idx_d, sparse_ids, idx_s, counts = bucketed_tile_indices(
-        scene, view, tiles, cfg, focal_length=FOCAL)
+        culled, view, tiles, cfg, focal_length=FOCAL)
     out = []
     if cfg.n_dense:
-        out.append(launch_inputs(gather_tiles(scene, idx_d), o, tile_dirs[dense_ids],
+        out.append(launch_inputs(gather(scene, idx_d), o, tile_dirs[dense_ids],
                                  counts[dense_ids]))
-    out.append(launch_inputs(gather_tiles(scene, idx_s), o, tile_dirs[sparse_ids],
+    out.append(launch_inputs(gather(scene, idx_s), o, tile_dirs[sparse_ids],
                              counts[sparse_ids]))
     return out
 
@@ -252,32 +265,47 @@ def live_counts(inp) -> np.ndarray:
     return np.minimum(inp[5].cpu().numpy().astype(np.float64), inp[0].shape[1])
 
 
+def is_aniso(inp) -> bool:
+    return inp[1].dim() == 3          # invd (B,N,3), not sigma (B,N)
+
+
 def fwd_ops(inp) -> tuple[float, float]:
     """(FP32 instructions, SFU operations) of the forward's live work: 5
-    erf taps per live (p, q, ray), one base erf and 6 exps per live (q, ray)."""
+    erf taps per live (p, q, ray), one base erf and 6 exps per live (q, ray),
+    and for anisotropic rows their per-(row, ray) prep."""
     c, r = live_counts(inp), inp[4].shape[2]
     taps = float(np.sum(5 * c * c + c) * r)
     exps = float(np.sum(6 * c) * r)
-    return TAP_FP32 * taps + EXP_FP32 * exps, TAP_SFU * taps + EXP_SFU * exps
+    preps = float(np.sum(c) * r) if is_aniso(inp) else 0.0
+    return (TAP_FP32 * taps + EXP_FP32 * exps + PREP_FP32 * preps,
+            TAP_SFU * taps + EXP_SFU * exps + PREP_SFU * preps)
 
 
 def bwd_ops(inp, recompute: bool) -> tuple[float, float]:
     """(FP32 instructions, SFU operations) of a backward's live work; the
-    recompute backward also redoes the forward's pass A."""
+    recompute backward also redoes the forward's pass A. Anisotropic rows
+    add their prep and chain per live (row, ray)."""
     c, r = live_counts(inp), inp[4].shape[2]
     pairs, rows = float(np.sum(c * c) * r), float(np.sum(c) * r)
     fp32 = BWD_PAIR_FP32 * pairs + BWD_ROW_FP32 * rows
     sfu = BWD_PAIR_SFU * pairs + BWD_ROW_SFU * rows
+    if is_aniso(inp):
+        fp32 += (PREP_FP32 + CHAIN_FP32) * rows
+        sfu += (PREP_SFU + CHAIN_SFU) * rows
     if recompute:
         f, s = fwd_ops(inp)
+        if is_aniso(inp):         # the prep is counted once
+            f, s = f - PREP_FP32 * rows, s - PREP_SFU * rows
         fp32, sfu = fp32 + f, sfu + s
     return fp32, sfu
 
 
 def scene_bytes(inp) -> int:
-    """Bytes of the scene inputs and the rays (each read once)."""
-    b, n = inp[1].shape
-    return 4 * (b * n * 8 + b * 3 * inp[4].shape[2] + b)
+    """Bytes of the scene inputs and the rays (each read once): per row oc,
+    sigma (or invd, 3), mag, albedo."""
+    b, n = inp[2].shape
+    per_row = 10 if is_aniso(inp) else 8
+    return 4 * (b * n * per_row + b * 3 * inp[4].shape[2] + b)
 
 
 def bound(fp32: float, sfu: float, nbytes: float, clock_mhz: float, n_sm: int) -> dict:
@@ -329,9 +357,10 @@ def compare_train_kernels(inp, dcol, erf_name="as5", exp_name="exact") -> dict:
 def backwards_differ(rel) -> list:
     """The recompute backward redoes the forward's pass A with the same code
     and block sizes, so it is the exact VJP of the forward that ran: its
-    gradients must equal the saved-T backward's bit for bit."""
-    return [f"bwd_t_vs_bwd.{o}: {v:.3g} (must be 0)"
-            for o, v in rel["bwd_t_vs_bwd"].items() if v != 0]
+    gradients must equal the saved-T backward's bit for bit (every
+    "..bwd_t_vs_bwd" entry of rel)."""
+    return [f"{k}.{o}: {v:.3g} (must be 0)" for k, d in rel.items()
+            if k.endswith("bwd_t_vs_bwd") for o, v in d.items() if v != 0]
 
 
 def train_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
@@ -590,9 +619,41 @@ def per_tile(fn, inp, *extra):
     return torch.cat(outs)
 
 
-def compare_chunked_kernels(inp, dcol, ck: int, erf_name="as5", exp_name="exact",
-                            rb: int = 128) -> dict:
-    """The four chunked kernels against their plain versions on `inp`.
+def gate_vs_f64(outs) -> tuple:
+    """outs: {kernel: {output: (kernel's, float32 plain's, float64 plain's)}}.
+
+    The gate of thousands of rows a tile: T and every gradient subtract or
+    cancel sums over a tile's rows, so float32 summation order moves them
+    by about sqrt(N) ulp of those sums relative, more than a fixed
+    tolerance. Each output of a kernel must be as close to the float64 run
+    of the plain version as the float32 plain version is, up to a factor of
+    2, or within TRAIN_REL (doc and dinvd, whose terms cancel ~|oc|/sigma
+    times their size: DOC_REL) of its scale; colors also pass within
+    KERNEL_ATOL absolute. Returns (rel: max |kernel - plain| / max |plain|,
+    vs_f64: both against float64, abs: max |kernel - plain| per kernel,
+    the outputs over the gate)."""
+    rel, vs_f64, absd, over = {}, {}, {}, []
+    for k, d in outs.items():
+        rel[k], vs_f64[k] = {}, {}
+        absd[k] = max(float((a - b).abs().max()) for a, b, _ in d.values())
+        for o, (a, b, c) in d.items():
+            rel[k][o] = rel_err(a, b)
+            e_k, e_p = rel_err(a.double(), c), rel_err(b.double(), c)
+            vs_f64[k][o] = {"kernel": e_k, "plain_f32": e_p}
+            base = DOC_REL if o in ("doc", "dinvd") else TRAIN_REL
+            ok = e_k <= max(base, 2 * e_p)
+            if o == "colors":
+                ok = ok or float((a.double() - c).abs().max()) <= KERNEL_ATOL
+            if not ok:
+                over.append(f"{k}.{o}: {e_k:.3g} vs float64 (plain float32 {e_p:.3g})")
+    return rel, vs_f64, absd, over
+
+
+def compare_chunked_kernels(inp, dcol, c_k: int, erf_name="as5", exp_name="exact",
+                            rb: int = 128, with_fused_bwd: bool = False) -> dict:
+    """The four chunked kernels against their plain versions on `inp`, and
+    with_fused_bwd also the fused saved-T and recompute backwards (kernels
+    3-4) on the same launch.
 
     Tolerance, derived from the data: the exponent of T subtracts sums of up
     to N terms (base and acc), so float32 summation order moves T, the
@@ -602,17 +663,18 @@ def compare_chunked_kernels(inp, dcol, ck: int, erf_name="as5", exp_name="exact"
     of a kernel must be as close to it as the float32 plain version is, up
     to a factor of 2, or within TRAIN_REL (colors: KERNEL_ATOL absolute;
     doc: DOC_REL) of its scale. Both backwards are held against the float64
-    VJP at the float64 T. Reported: per output, max |kernel - plain| /
-    max |plain| against the float32 plain version ("rel"), against the
-    float64 one for kernel and float32 plain ("vs_f64"), the absolute max
-    differences against the float32 plain version, the saved-T and
-    recompute backwards against each other, and the plain versions' ms (one
-    call each, tile by tile)."""
+    VJP at the float64 T (gate_vs_f64). Reported: per output, max
+    |kernel - plain| / max |plain| against the float32 plain version
+    ("rel"), against the float64 one for kernel and float32 plain
+    ("vs_f64"), the absolute max differences against the float32 plain
+    version, the saved-T and recompute backwards against each other, and
+    the plain versions' ms (one call each, tile by tile)."""
     import torch
 
     from sgrt_tpu_torch.ops import cuda_chunked as cc
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
 
-    kw = dict(ck=ck, erf_name=erf_name, exp_name=exp_name)
+    kw = dict(ck=c_k, erf_name=erf_name, exp_name=exp_name)
     colors = cc.chunked_forward(*inp, rb=rb, **kw)
     colors_t, t = cc.chunked_forward_t(*inp, rb=rb, **kw)
     g_t = cc.chunked_backward(*inp, dcol, t, rb=rb, **kw)
@@ -646,21 +708,20 @@ def compare_chunked_kernels(inp, dcol, ck: int, erf_name="as5", exp_name="exact"
                                     zip(names, g_t, plain[cc.CHUNKED_BWD_T.name], ref_g)},
             cc.CHUNKED_BWD.name: {n: (a, b, c) for n, a, b, c in
                                   zip(names, g_r, plain[cc.CHUNKED_BWD.name], ref_g)}}
-    rel, vs_f64, absd, over = {}, {}, {}, []
-    for k, d in outs.items():
-        rel[k], vs_f64[k] = {}, {}
-        absd[k] = max(float((a - b).abs().max()) for a, b, _ in d.values())
-        for o, (a, b, c) in d.items():
-            rel[k][o] = rel_err(a, b)
-            e_k, e_p = rel_err(a.double(), c), rel_err(b.double(), c)
-            vs_f64[k][o] = {"kernel": e_k, "plain_f32": e_p}
-            base = DOC_REL if o == "doc" else TRAIN_REL
-            ok = e_k <= max(base, 2 * e_p)
-            if o == "colors":
-                ok = ok or float((a.double() - c).abs().max()) <= KERNEL_ATOL
-            if not ok:
-                over.append(f"{k}.{o}: {e_k:.3g} vs float64 (plain float32 {e_p:.3g})")
+    if with_fused_bwd:
+        # the fused backwards at the same thousands of rows a launch, against
+        # the same plain and float64 VJPs (the same function)
+        f_t = ck.fused_backward(*inp, dcol, t, rb=rb)
+        f_r = ck.fused_backward(*inp, dcol, rb=rb)
+        torch.cuda.synchronize()
+        outs[ck.FUSED_BWD_T.name] = {n: (a, b, c) for n, a, b, c in
+                                     zip(names, f_t, plain[cc.CHUNKED_BWD_T.name], ref_g)}
+        outs[ck.FUSED_BWD.name] = {n: (a, b, c) for n, a, b, c in
+                                   zip(names, f_r, plain[cc.CHUNKED_BWD.name], ref_g)}
+    rel, vs_f64, absd, over = gate_vs_f64(outs)
     rel["bwd_t_vs_bwd"] = {n: rel_err(a, b) for n, a, b in zip(names, g_t, g_r)}
+    if with_fused_bwd:
+        rel["fused_bwd_t_vs_bwd"] = {n: rel_err(a, b) for n, a, b in zip(names, f_t, f_r)}
     over += backwards_differ(rel)
     for i in [i for i, c in enumerate(inp[5].tolist()) if c <= 0]:
         check(all(bool((x[i] == 0).all()) for x in (colors, colors_t, *g_t, *g_r)),
@@ -668,7 +729,7 @@ def compare_chunked_kernels(inp, dcol, ck: int, erf_name="as5", exp_name="exact"
     return {"rel": rel, "vs_f64": vs_f64, "abs": absd, "over_tolerance": over,
             "plain_ms": plain_ms,
             "shape": {"B": inp[0].shape[0], "N": inp[0].shape[1], "R": inp[4].shape[2],
-                      "ck": ck, "rb": rb, "max_count": int(inp[5].max())}}
+                      "ck": c_k, "rb": rb, "max_count": int(inp[5].max())}}
 
 
 def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
@@ -757,7 +818,10 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
     results = {}
     t0 = time.perf_counter()
     for i, (name, (inp, kk, e, x, rb)) in enumerate(cases.items()):
-        results[name] = compare_chunked_kernels(inp, cotangent(inp, 40 + i), kk, e, x, rb)
+        # the 32-tile case also holds the fused backwards (kernels 3-4) at
+        # these thousands of rows a launch to the same float64 gate
+        results[name] = compare_chunked_kernels(inp, cotangent(inp, 40 + i), kk, e, x, rb,
+                                                with_fused_bwd=name == "32_tiles")
     emit("dense_kernels_vs_plain", seconds=time.perf_counter() - t0, densest_count=c0,
          live_tiles=int((cnt > 0).sum()), cases=results)
     over = [f"{name}: {o}" for name, r in results.items() for o in r["over_tolerance"]]
@@ -958,6 +1022,376 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
     return entries
 
 
+def aniso_cloud(dev):
+    """The anisotropic cell's scene: the cube cloud's Gaussians with per-axis
+    scales sigma * ANISO_MULT (cli --aniso's from_isotropic and multiply)."""
+    import torch
+
+    from sgrt_tpu_torch.models.gaussians import scene_from_vertices
+    from sgrt_tpu_torch.ops.anisotropic import from_isotropic
+
+    scene = from_isotropic(scene_from_vertices(smoke_points(), device=dev))
+    return scene.replace(scale=scene.scale * torch.tensor([ANISO_MULT], device=dev))
+
+
+def compare_aniso_kernels(inp, dcol, erf_name="as5", exp_name="exact", rb: int = 128) -> dict:
+    """Kernels 9-12 against their plain versions on `inp`, and all of them
+    against a float64 run of the plain version (gate_vs_f64, as the dense
+    cell's): colors within KERNEL_ATOL; T and the gradients within
+    TRAIN_REL of scale (doc and dinvd DOC_REL), or as close to float64 as
+    the float32 plain version is, x2. C - Bt mb cancels |oc|^2/scale^2
+    (~6400 here) in float32 on both sides alike. The saved-T and recompute
+    backwards must be equal bit for bit; dead rows hold T = 0 and dead
+    tiles get zero outputs."""
+    import torch
+
+    from sgrt_tpu_torch.ops import cuda_aniso as ca
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
+
+    pb, qb = ck._block_sizes(inp[0].shape[1])
+    kw = dict(erf_name=erf_name, exp_name=exp_name)
+    colors = ca.fused_forward_aniso(*inp, rb=rb, pb=pb, qb=qb, **kw)
+    colors_t, t = ca.fused_forward_t_aniso(*inp, rb=rb, pb=pb, qb=qb, **kw)
+    g_t = ca.fused_backward_aniso(*inp, dcol, t, rb=rb, qb=qb, **kw)
+    g_r = ca.fused_backward_aniso(*inp, dcol, rb=rb, qb=qb, **kw)
+    torch.cuda.synchronize()
+    names = ("doc", "dinvd", "dmag", "dalbedo", "ddirs")
+    for x in (colors, colors_t, t, *g_t, *g_r):
+        check(bool(torch.isfinite(x).all()), f"an anisotropic kernel's output is not finite "
+                                             f"({erf_name}/{exp_name})")
+    dead = torch.arange(inp[0].shape[1], device=t.device)[None, :] >= inp[5][:, None].long()
+    check(bool((t.permute(0, 2, 1, 3)[dead] == 0).all()), "aniso T is not 0 on dead rows")
+
+    plain, plain_ms = {}, {}
+    runs = {ca.FUSED_FWD_ANISO.name: (ca.fused_forward_aniso_plain, ()),
+            ca.FUSED_FWD_T_ANISO.name: (ca.fused_forward_t_aniso_plain, ()),
+            ca.FUSED_BWD_T_ANISO.name: (ca.fused_backward_aniso_plain, (dcol, t)),
+            ca.FUSED_BWD_ANISO.name: (ca.fused_backward_aniso_plain, (dcol,))}
+    for name, (fn, extra) in runs.items():
+        t0 = time.perf_counter()
+        plain[name] = per_tile(lambda *a: fn(*a, **kw), inp, *extra)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+    f64 = [x.double() if x.is_floating_point() else x for x in inp]
+    ref_c, ref_t = per_tile(lambda *a: ca.fused_forward_t_aniso_plain(*a, **kw), f64)
+    ref_g = per_tile(lambda *a: ca.fused_backward_aniso_plain(*a, **kw), f64, dcol.double(),
+                     ref_t)
+    outs = {ca.FUSED_FWD_ANISO.name: {"colors": (colors, plain[ca.FUSED_FWD_ANISO.name], ref_c)},
+            ca.FUSED_FWD_T_ANISO.name: {
+                "colors": (colors_t, plain[ca.FUSED_FWD_T_ANISO.name][0], ref_c),
+                "T": (t, plain[ca.FUSED_FWD_T_ANISO.name][1], ref_t)},
+            ca.FUSED_BWD_T_ANISO.name: {n: (a, b, c) for n, a, b, c in
+                                        zip(names, g_t, plain[ca.FUSED_BWD_T_ANISO.name], ref_g)},
+            ca.FUSED_BWD_ANISO.name: {n: (a, b, c) for n, a, b, c in
+                                      zip(names, g_r, plain[ca.FUSED_BWD_ANISO.name], ref_g)}}
+    rel, vs_f64, absd, over = gate_vs_f64(outs)
+    rel["bwd_t_vs_bwd"] = {n: rel_err(a, b) for n, a, b in zip(names, g_t, g_r)}
+    over += backwards_differ(rel)
+    for i in [i for i, c in enumerate(inp[5].tolist()) if c <= 0]:
+        check(all(bool((x[i] == 0).all()) for x in (colors, colors_t, *g_t, *g_r)),
+              f"a dead tile's anisotropic outputs are not zero ({erf_name}/{exp_name})")
+    return {"rel": rel, "vs_f64": vs_f64, "abs": absd, "over_tolerance": over,
+            "plain_ms": plain_ms,
+            "shape": {"B": inp[0].shape[0], "N": inp[0].shape[1], "R": inp[4].shape[2],
+                      "rb": rb, "max_count": int(inp[5].max())}}
+
+
+def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
+    """The anisotropic cell (config4_aniso_teapot_256): shapes, kernels 9-12
+    against their plain versions (and float64), the CLI's --aniso orbit,
+    fit_cli --aniso, the bucketed anisotropic train step (saved-T, then
+    recompute) with a profile, and the kernels' times. Returns the kernel
+    line's entries of kernels 9-12."""
+    import torch
+
+    from sgrt_tpu_torch import cli, fit_cli
+    from sgrt_tpu_torch.ops import anisotropic as an
+    from sgrt_tpu_torch.ops import cuda_aniso as ca
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
+    from sgrt_tpu_torch.ops.frame import orbit_camera, probe_buckets, probe_capacity
+    from sgrt_tpu_torch.ops.render import _tile_rays
+    from sgrt_tpu_torch.parallel.fit import adam, init_state, make_aniso_frame_train_step
+    from sgrt_tpu_torch.utils import nvcc
+    from sgrt_tpu_torch.utils.image import to_rgba_u8
+
+    S, TL = ANISO_SIZE, ANISO_TILES
+    scene = aniso_cloud(dev)
+    proxy = an.iso_proxy(scene)
+
+    # 1. shapes: fit_cli's probes (x1.3, margin 1.3) and the CLI's (x1.25,
+    # margin 1.25), both on the max-scale proxy
+    t0 = time.perf_counter()
+    probe = probe_capacity(proxy, ANGLES, OFFSET, FOCAL, TL)
+    capacity = max(32, int(probe * 1.3))
+    bucket = probe_buckets(proxy, ANGLES, OFFSET, FOCAL, TL, margin=1.3)
+    cli_bucket = probe_buckets(proxy, ANGLES, OFFSET, FOCAL, TL, margin=1.25)
+    cam = orbit_camera(30.0, OFFSET, FOCAL, S, S, device=dev)
+    o, dirs = cam.rays()
+    tile_dirs = _tile_rays(dirs, S, S, TL)
+    per_bucket = bucket_launches(scene, cam.view_matrix, o, tile_dirs, bucket, TL)
+    dense_in = per_bucket[0]
+    cnt = live_counts(dense_in)
+    shapes = [{"B": i[0].shape[0], "N": i[0].shape[1], "R": i[4].shape[2],
+               "max_count": int(i[5].max()),
+               "live_pairs_x_rays": float(np.sum(live_counts(i) ** 2) * i[4].shape[2])}
+              for i in per_bucket]
+    emit("aniso_shapes", scene=f"cube cloud ({N_POINTS}) x {list(ANISO_MULT)}", size=S,
+         tiles=list(TL), probe_max_count=int(probe), capacity=capacity,
+         padded_capacity=tile_renderer_aniso_for(capacity)[0], bucket_cfg=bucket._asdict(),
+         cli_capacity=max(32, int(probe * 1.25)), cli_bucket_cfg=cli_bucket._asdict(),
+         route="fused aniso", max_bwd_capacity_aniso=ca.MAX_BWD_CAPACITY_ANISO,
+         launches_at_30_degrees=shapes, densest_tile=int(cnt.max()),
+         seconds=time.perf_counter() - t0)
+    check(max(s["N"] for s in shapes) <= ca.MAX_BWD_CAPACITY_ANISO,
+          "the anisotropic cell's capacity leaves the fused route")
+
+    # 2. kernels 9-12 against their plain versions and float64
+    rng = np.random.default_rng(3)
+    dense_tile = int(np.argmax(cnt))
+    live = [i for i in np.flatnonzero(cnt > 0) if i != dense_tile]
+    sel = [dense_tile] + sorted(rng.choice(live, size=min(31, len(live)), replace=False).tolist())
+    sub = [t[torch.tensor(sel, device=dev)].contiguous() for t in dense_in]
+    # counts below capacity: the rows past each halved count hold live data,
+    # which the kernels must ignore; one tile dead
+    below = [t[:4].clone() for t in sub]
+    below[5] = below[5] // 2
+    below[5][3] = 0
+
+    def cotangent(inp, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn((inp[0].shape[0], 3, inp[4].shape[2]), generator=g).to(dev)
+
+    cases = {"32_tiles": (sub, "as5", "exact", 128),
+             "counts_below_capacity": (below, "as5", "exact", 128),
+             "two_ray_blocks": ([t[:4] for t in sub], "as5", "exact", 64),
+             "one_tile_as3_fast": ([t[:1] for t in sub], "as3", "fast", 128)}
+    results = {}
+    t0 = time.perf_counter()
+    for i, (name, (inp, e, x, rb)) in enumerate(cases.items()):
+        results[name] = compare_aniso_kernels(inp, cotangent(inp, 60 + i), e, x, rb)
+    # the saved-T budget at 0: the differentiable op takes the recompute
+    # backward, with the same gradients bit for bit
+    four = [t[:4] for t in sub]
+    dcol4 = cotangent(four, 70)
+    pb, qb = ck._block_sizes(four[0].shape[1])
+    budget, via_op = ck.SAVE_T_MAX_BYTES, {}
+    for b in (budget, 0):
+        ck.SAVE_T_MAX_BYTES = b
+        try:
+            leaves = [x.clone().requires_grad_(True) for x in four[:5]]
+            kernels.reset_launch_counts()
+            ca.render_fused_aniso(*leaves, four[5], pb=pb, qb=qb).backward(dcol4)
+            torch.cuda.synchronize()
+        finally:
+            ck.SAVE_T_MAX_BYTES = budget
+        via_op[b] = ([x.grad for x in leaves],
+                     {k.name: k.launches for k in (ca.FUSED_BWD_T_ANISO, ca.FUSED_BWD_ANISO)})
+    check(via_op[budget][1][ca.FUSED_BWD_T_ANISO.name] == 1
+          and via_op[0][1][ca.FUSED_BWD_ANISO.name] == 1,
+          f"the saved-T budget did not choose the backward: {via_op[budget][1]}, {via_op[0][1]}")
+    budget0_equal = all(bool(torch.equal(a, b)) for a, b in zip(via_op[budget][0], via_op[0][0]))
+    emit("aniso_kernels_vs_plain", tolerance_rel=TRAIN_REL, tolerance_rel_doc=DOC_REL,
+         atol_colors=KERNEL_ATOL, seconds=time.perf_counter() - t0,
+         densest_count=int(cnt.max()), live_tiles=int((cnt > 0).sum()), cases=results,
+         save_t_budget_0={"launches": via_op[0][1], "grads_equal_saved_t": budget0_equal})
+    over = [f"{name}: {o}" for name, r in results.items() for o in r["over_tolerance"]]
+    check(not over, f"an anisotropic kernel disagrees with its plain version: {over}")
+    check(budget0_equal, "the recompute op's gradients differ from the saved-T op's")
+
+    # 3. main path, serving: the CLI's 8-frame --aniso orbit
+    png = os.path.join(os.path.dirname(obj), "aniso.png")
+    argv = ["-f", obj, "-w", str(S), "--height", str(S), "--tiles", f"{TL[0]}x{TL[1]}",
+            "--aniso", ",".join(str(m) for m in ANISO_MULT), "--frames", str(FRAMES), "-q",
+            "-o", png]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        rc = cli.main(argv)
+    cli_s = time.perf_counter() - t0
+    cli_launches = {k.name: k.launches for k in kernels.KERNELS}
+    check(rc == 0, f"the --aniso CLI exited {rc}: {stderr.getvalue()[-2000:]}")
+    check(cli_launches[ca.FUSED_FWD_ANISO.name] > 0,
+          f"the --aniso orbit did not launch the anisotropic forward: {cli_launches}")
+    check("overflow" not in stderr.getvalue(), stderr.getvalue()[-2000:])
+    avg = re.search(r"AVG\. TIME: ([\d.]+) ms", stdout.getvalue())
+    check(avg is not None, f"no AVG. TIME line: {stdout.getvalue()!r}")
+    stem = png.rpartition(".")[0]
+    imgs = [read_png_rgba(f"{stem}_{i}.png") for i in range(1, FRAMES + 1)]
+    check(all(im.shape == (S, S, 4) and int(im[..., :3].max()) > 0 for im in imgs),
+          "an --aniso frame is black")
+    # frame 1 again through the library: finite, no overflow, the CLI's image
+    img0, ovf0 = an.render_tiled_aniso(scene, orbit_camera(0.0, OFFSET, FOCAL, S, S, device=dev),
+                                       tiles=TL, capacity=max(32, int(probe * 1.25)),
+                                       backend="kernel", erf_name="as5", bucket_cfg=cli_bucket)
+    check(bool(torch.isfinite(img0).all()) and int(ovf0) == 0, "aniso frame 0 is not finite "
+                                                               "or overflowed")
+    check(bool(np.array_equal(to_rgba_u8(img0.cpu().numpy()), imgs[0])),
+          "the --aniso CLI's frame 1 differs from render_tiled_aniso")
+    emit("aniso_cli", argv=argv[2:13], rc=rc, frames=FRAMES, launches=cli_launches, overflow=0,
+         cli_seconds=cli_s, avg_time_ms=float(avg.group(1)),
+         rays_per_s=S * S / (float(avg.group(1)) * 1e-3),
+         mean_rgb=[round(float(im[..., :3].mean()), 3) for im in imgs], power_limit=smi)
+
+    # 4. main path, training: fit_cli --aniso, 10 steps at 256^2
+    fpng = os.path.join(os.path.dirname(obj), "aniso_fit.png")
+    argv = ["-f", obj, "-w", str(S), "--height", str(S), "--tiles", str(ANISO_FIT_TILES),
+            "--steps", "10", "--views", "4", "--aniso", ",".join(str(m) for m in ANISO_MULT),
+            "--out", fpng]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        rc = fit_cli.main(argv)
+    fit_s = time.perf_counter() - t0
+    fit_launches = {k.name: k.launches for k in kernels.KERNELS}
+    out = stdout.getvalue()
+    check(rc == 0, f"fit_cli --aniso exited {rc}: {stderr.getvalue()[-2000:]}")
+    check(fit_launches[ca.FUSED_FWD_T_ANISO.name] > 0 and fit_launches[ca.FUSED_BWD_T_ANISO.name] > 0,
+          f"a kernel of the anisotropic training path was not launched: {fit_launches}")
+    check("warning" not in out, f"fit_cli --aniso warned: {out[-2000:]}")
+    losses = [float(v) for v in re.findall(r"loss ([^\s]+)", out)]
+    check(len(losses) == 10 and all(np.isfinite(losses)), f"fit_cli --aniso losses: {out[-2000:]}")
+    # views cycle 0-3: the loss of view 0 must fall from step 1 to step 9
+    check(losses[8] < losses[0], f"fit_cli --aniso's loss did not fall: {losses}")
+    serr = re.search(r"max \|scale error\|: ([\d.]+) -> ([\d.]+)", out)
+    check(serr is not None, f"no scale error line: {out[-2000:]}")
+    fimg = read_png_rgba(fpng)
+    check(int(fimg[..., :3].max()) > 0, "fit_cli --aniso's PNG is black")
+    emit("aniso_fit_cli", argv=argv[2:], rc=rc, launches=fit_launches, losses=losses,
+         seconds=fit_s, lines=[ln for ln in out.splitlines()
+                               if ln.startswith(("scene", "10 steps", "max"))])
+
+    # 5. the bucketed anisotropic train step, saved-T and recompute
+    cam35 = orbit_camera(35.0, OFFSET, FOCAL, S, S, device=dev)
+    target, ovf = an.render_tiled_aniso(scene, cam35, tiles=TL, capacity=capacity,
+                                        backend="kernel", bucket_cfg=bucket)
+    check(int(ovf) == 0, "the anisotropic target overflowed")
+
+    def run_steps(n):
+        step = make_aniso_frame_train_step(width=S, height=S, tiles=TL, capacity=capacity,
+                                           bucket_cfg=bucket)
+        state = init_state(scene, adam(1e-3))
+        state, loss, ov = step(state, cam.view_matrix, o, dirs, target)
+        losses, ovfs = [loss], [ov]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, loss, ov = step(state, cam.view_matrix, o, dirs, target)
+            losses.append(loss)
+            ovfs.append(ov)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        losses = [float(v) for v in losses]
+        check(all(int(v) == 0 for v in ovfs), "an anisotropic train step overflowed")
+        check(all(np.isfinite(losses)), f"anisotropic train-step losses not finite: {losses}")
+        return {"step_ms": dt * 1e3, "rays_per_s": S * S / dt, "losses": losses,
+                "launches": launches, "launches_per_step": {k: v / n for k, v in launches.items()},
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}, step, state
+
+    saved, step, state = run_steps(ANISO_STEPS)
+    check(saved["losses"][-1] < saved["losses"][0],
+          f"the anisotropic train step's loss did not fall: {saved['losses']}")
+    check(saved["launches"][ca.FUSED_BWD_T_ANISO.name] > 0, "the aniso saved-T backward did not run")
+    ck.SAVE_T_MAX_BYTES = 0
+    try:
+        recompute, _, _ = run_steps(3)
+    finally:
+        ck.SAVE_T_MAX_BYTES = budget
+    check(recompute["launches"][ca.FUSED_BWD_ANISO.name] > 0
+          and recompute["launches"][ca.FUSED_BWD_T_ANISO.name] == 0,
+          f"the aniso recompute backward did not run: {recompute['launches']}")
+    np.testing.assert_allclose(recompute["losses"], saved["losses"][:4], rtol=1e-4)
+    emit("aniso_train_step", size=S, tiles=list(TL), capacity=capacity,
+         bucket_cfg=bucket._asdict(), steps=ANISO_STEPS, saved_t=saved, recompute=recompute,
+         power_limit=smi)
+    emit("aniso_train_profile", steps=2, **profile_device(
+        lambda _: step(state, cam.view_matrix, o, dirs, target), range(2)))
+
+    # 6. times: kernel 9 at the CLI orbit's frame-0 launches, kernels 10-12
+    # at the train step's; plain versions on the 32-tile subset
+    cam0 = orbit_camera(0.0, OFFSET, FOCAL, S, S, device=dev)
+    o0, dirs0 = cam0.rays()
+    cli_launch = bucket_launches(scene, cam0.view_matrix, o0, _tile_rays(dirs0, S, S, TL),
+                                 cli_bucket, TL)
+    shapes_of = {ca.FUSED_FWD_ANISO.name: cli_launch}
+    for k in (ca.FUSED_FWD_T_ANISO, ca.FUSED_BWD_T_ANISO, ca.FUSED_BWD_ANISO):
+        shapes_of[k.name] = per_bucket
+    dcols = [cotangent(inp, 80 + i) for i, inp in enumerate(per_bucket)]
+    blocks = [ck._block_sizes(inp[0].shape[1]) for inp in per_bucket]
+    ts = [ca.fused_forward_t_aniso(*inp, pb=pb, qb=qb)[1] for inp, (pb, qb) in
+          zip(per_bucket, blocks)]
+    runs = {
+        ca.FUSED_FWD_ANISO.name: [lambda i=i, b=ck._block_sizes(i[0].shape[1]):
+                                  ca.fused_forward_aniso(*i, pb=b[0], qb=b[1])
+                                  for i in cli_launch],
+        ca.FUSED_FWD_T_ANISO.name: [lambda i=i, b=b: ca.fused_forward_t_aniso(*i, pb=b[0], qb=b[1])
+                                    for i, b in zip(per_bucket, blocks)],
+        ca.FUSED_BWD_T_ANISO.name: [lambda i=i, b=b, d=d, t=t:
+                                    ca.fused_backward_aniso(*i, d, t, qb=b[1])
+                                    for i, b, d, t in zip(per_bucket, blocks, dcols, ts)],
+        ca.FUSED_BWD_ANISO.name: [lambda i=i, b=b, d=d: ca.fused_backward_aniso(*i, d, qb=b[1])
+                                  for i, b, d in zip(per_bucket, blocks, dcols)],
+    }
+    ms = {k: sum(time_cuda(f, iters=5, warmup=1) for f in fs) for k, fs in runs.items()}
+    del ts
+
+    def nbytes(k, inp):
+        """Each input read once, each output written once: the scene and the
+        rays; colors and T out of the forwards; dcol (and T) in, doc, dinvd,
+        dmag, dalbedo (10 floats a row) and ddirs out of the backwards."""
+        b_, n_, r_ = inp[0].shape[0], inp[0].shape[1], inp[4].shape[2]
+        rays3, t_b = 4 * 3 * b_ * r_, ck.save_t_bytes(b_, n_, r_)
+        if k in (ca.FUSED_FWD_ANISO.name, ca.FUSED_FWD_T_ANISO.name):
+            return scene_bytes(inp) + rays3 + (t_b if k == ca.FUSED_FWD_T_ANISO.name else 0)
+        rows10 = 4 * 10 * b_ * n_
+        return (scene_bytes(inp) + 2 * rays3 + rows10
+                + (t_b if k == ca.FUSED_BWD_T_ANISO.name else 0))
+
+    def ops(k, inp):
+        if k in (ca.FUSED_FWD_ANISO.name, ca.FUSED_FWD_T_ANISO.name):
+            return fwd_ops(inp)
+        return bwd_ops(inp, k == ca.FUSED_BWD_ANISO.name)
+
+    launches = {ca.FUSED_FWD_ANISO.name: cli_launches[ca.FUSED_FWD_ANISO.name],
+                ca.FUSED_FWD_T_ANISO.name: fit_launches[ca.FUSED_FWD_T_ANISO.name],
+                ca.FUSED_BWD_T_ANISO.name: fit_launches[ca.FUSED_BWD_T_ANISO.name],
+                ca.FUSED_BWD_ANISO.name: recompute["launches"][ca.FUSED_BWD_ANISO.name]}
+    plain_ms = results["32_tiles"]["plain_ms"]
+    times, entries = {}, []
+    for k in (ca.FUSED_FWD_ANISO, ca.FUSED_FWD_T_ANISO, ca.FUSED_BWD_T_ANISO, ca.FUSED_BWD_ANISO):
+        check(launches[k.name] > 0, f"{k.name} was not launched on an anisotropic main path")
+        fp32 = sum(ops(k.name, i)[0] for i in shapes_of[k.name])
+        sfu = sum(ops(k.name, i)[1] for i in shapes_of[k.name])
+        nb = sum(nbytes(k.name, i) for i in shapes_of[k.name])
+        times[k.name] = {"ms": ms[k.name], "launches": launches[k.name],
+                         "shapes": [{"B": i[0].shape[0], "N": i[0].shape[1], "R": i[4].shape[2],
+                                     "max_count": int(i[5].max())} for i in shapes_of[k.name]],
+                         "live_pairs": sum(float(np.sum(live_counts(i) ** 2) * i[4].shape[2])
+                                           for i in shapes_of[k.name]),
+                         "fp32_instr": fp32, "sfu_ops": sfu, "bytes": nb,
+                         **bound(fp32, sfu, nb, clock_mhz, n_sm),
+                         "plain_ms": plain_ms[k.name],
+                         "plain_shape": "the 32-tile case of aniso_kernels_vs_plain, tile by tile",
+                         "library_ms": "n/a: no single PyTorch call computes it"}
+        entries.append({
+            "name": k.name, "route": k.route,
+            "source": str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
+            "replaces": k.replaces, "launches": launches[k.name],
+            "max_abs_err": max(r["abs"][k.name] for r in results.values()),
+            "max_rel_err": max(max(r["rel"][k.name].values()) for r in results.values()),
+            "ms": ms[k.name], "plain_ms": plain_ms[k.name],
+            "bound_ms": times[k.name]["bound_ms"], "bound_by": times[k.name]["bound_by"],
+            "library_ms": None})
+    emit("aniso_times", kernels=times, power_limit=smi)
+    return entries
+
+
 def serving_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
     """The serving path: the fused forward against its plain version, the
     CLI's 8-frame orbit, the untiled route, a reference frame, and the
@@ -1147,13 +1581,15 @@ def main() -> int:
         emit("build", kernel=k.name, source=str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
              seconds=round(build_s, 2), ptxas=ptxas)
 
-    # 3. the serving path; 4. the training path; 5. the dense cell
+    # 3. the serving path; 4. the training path; 5. the dense cell; 6. the
+    # anisotropic cell
     with tempfile.TemporaryDirectory() as tmp:
         entries = [serving_phases(dev, smi, clock_mhz, n_sm)]
         obj = os.path.join(tmp, "cube_cloud.obj")
         write_obj(obj, smoke_points())
         entries += train_phases(dev, smi, clock_mhz, n_sm, obj)
         entries += dense_phases(dev, smi, clock_mhz, n_sm, tmp)
+        entries += aniso_phases(dev, smi, clock_mhz, n_sm, obj)
 
     # 6. the kernel line
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,10 +1,10 @@
 """sgrt_tpu_torch — the volumetric Gaussian ray tracer on PyTorch and CUDA.
 
 A port of the JAX/Pallas package `sgrt_tpu` to an NVIDIA H100: closed-form
-erf-based transmittance through isotropic 3D Gaussians, 5-sample radiance
-quadrature, 3.3-sigma tile culling, the fused forward renderer and its
-analytic backward as hand-written CUDA kernels (csrc/), and scene fitting
-with Adam. It imports torch and numpy only; entry points run on the card
+erf-based transmittance through isotropic and anisotropic (diagonal-
+covariance) 3D Gaussians, 5-sample radiance quadrature, 3.3-sigma tile
+culling, the fused forward renderer and its analytic backward as
+hand-written CUDA kernels (csrc/), and scene fitting with Adam. It imports torch and numpy only; entry points run on the card
 (device="cuda") unless the caller passes device="cpu", where the kernels'
 plain tensor versions run instead.
 

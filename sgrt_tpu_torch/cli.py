@@ -72,17 +72,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gif", default=None,
                    help="Write all frames as an animated GIF to <file>.")
     p.add_argument("--aniso", default=None, metavar="SX,SY,SZ",
-                   help="Anisotropic Gaussians (not yet ported: exits with an error).")
+                   help="Anisotropic Gaussians: scale each Gaussian's sigma per axis by "
+                        "SX,SY,SZ and render through the anisotropic kernels.")
     return p
+
+
+def _render_aniso_frame(aniso_scene, angle, args, width, height, use_tiling, capacity,
+                        bucket_cfg):
+    """One orbit frame of an anisotropic scene → (image, overflow): tiled
+    (and bucketed, on the kernel backend) through render_tiled_aniso;
+    untiled through the anisotropic kernels as one tile, or the plain
+    renderer."""
+    import torch
+
+    from sgrt_tpu_torch.ops import anisotropic as an
+    from sgrt_tpu_torch.ops.frame import orbit_camera
+
+    cam = orbit_camera(angle, args.camera_offset, args.focal_length, width, height,
+                       device=aniso_scene.device)
+    if use_tiling:
+        return an.render_tiled_aniso(aniso_scene, cam, tiles=args.tiles,
+                                     capacity=capacity or 1, backend=args.backend,
+                                     erf_name=args.erf, exp_name=args.exp,
+                                     bucket_cfg=bucket_cfg)
+    if args.backend == "kernel":
+        from sgrt_tpu_torch.ops.cuda_aniso import render_rays_fused_aniso_impl
+
+        o, dirs = cam.rays()
+        img = render_rays_fused_aniso_impl(o, dirs, aniso_scene, erf_name=args.erf,
+                                           exp_name=args.exp).reshape(height, width, 3)
+    else:
+        img = an.render_aniso(aniso_scene, cam, erf_name=args.erf, exp_name=args.exp)
+    return img, torch.zeros((), dtype=torch.int32, device=img.device)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.aniso:
-        print("error: --aniso: anisotropic path not yet ported", file=sys.stderr)
-        return 2
 
     import numpy as np
+    import torch
 
     from sgrt_tpu_torch.models.gaussians import grid_scene, scene_from_obj
     from sgrt_tpu_torch.ops.frame import probe_capacity, render_orbit_frame
@@ -104,7 +132,23 @@ def main(argv=None) -> int:
         print(f"error: {width}x{height} not divisible into {tx}x{ty} tiles", file=sys.stderr)
         return 1
 
+    aniso_scene = None
+    if args.aniso:
+        from sgrt_tpu_torch.ops import anisotropic as an
+
+        sf = [float(x) for x in args.aniso.split(",")]
+        if len(sf) != 3:
+            print("error: --aniso expects SX,SY,SZ", file=sys.stderr)
+            return 1
+        aniso_scene = an.from_isotropic(scene)
+        aniso_scene = aniso_scene.replace(
+            scale=aniso_scene.scale * torch.tensor([sf], device=scene.device))
+        # capacity probing (and tiling) uses the conservative max-scale
+        # footprint
+        scene = an.iso_proxy(aniso_scene)
+
     capacity = args.capacity
+    bucket_cfg = None
     if use_tiling and capacity is None:
         # one capacity for the whole orbit, probed at sample angles
         probe_angles = [args.initial_rotation + d
@@ -112,6 +156,12 @@ def main(argv=None) -> int:
         probe = probe_capacity(scene, probe_angles, args.camera_offset,
                                args.focal_length, args.tiles)
         capacity = max(32, int(probe * 1.25))
+        if args.backend == "kernel" and aniso_scene is not None:
+            # the bucketed anisotropic forward, probed on the max-scale proxy
+            from sgrt_tpu_torch.ops.frame import probe_buckets
+
+            bucket_cfg = probe_buckets(scene, probe_angles, args.camera_offset,
+                                       args.focal_length, args.tiles, margin=1.25)
 
     angle_change = args.rotation / args.frames
     total_time = 0.0
@@ -119,20 +169,24 @@ def main(argv=None) -> int:
     for frame in range(1, args.frames + 1):
         angle = args.initial_rotation + (frame - 1) * angle_change
         t0 = time.perf_counter()
-        img, overflow = render_orbit_frame(
-            scene,
-            angle,
-            args.camera_offset,
-            args.focal_length,
-            width=width,
-            height=height,
-            tiles=args.tiles,
-            capacity=capacity or 1,
-            use_tiling=use_tiling,
-            backend=args.backend,
-            erf_name=args.erf,
-            exp_name=args.exp,
-        )
+        if aniso_scene is not None:
+            img, overflow = _render_aniso_frame(aniso_scene, angle, args, width, height,
+                                                use_tiling, capacity, bucket_cfg)
+        else:
+            img, overflow = render_orbit_frame(
+                scene,
+                angle,
+                args.camera_offset,
+                args.focal_length,
+                width=width,
+                height=height,
+                tiles=args.tiles,
+                capacity=capacity or 1,
+                use_tiling=use_tiling,
+                backend=args.backend,
+                erf_name=args.erf,
+                exp_name=args.exp,
+            )
         # the copy to the host waits for the device
         img_np = img.cpu().numpy()
         dt = (time.perf_counter() - t0) * 1000.0

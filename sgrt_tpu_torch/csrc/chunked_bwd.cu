@@ -229,8 +229,8 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
     } else {
       // pass A over every live q (the forward's sweep); base is complete
       // after the first group's sweep
-      pass_a<kPB, ERF, EXP>(stage, qb, oc_b, sig_b, mag_b, 0, cnt, dx, dy, dz, mbp, sgp, G,
-                            p0 == p_begin, base);
+      pass_a<kPB, ERF, EXP>(stage, qb, IsoGeo(oc, sig, mag, b, N), 0, cnt, dx, dy, dz, mbp,
+                            sgp, G, p0 == p_begin, base);
       float* ta_b = t_a + static_cast<size_t>(b) * kTaps * ck * Rp + r;
 #pragma unroll
       for (int i = 0; i < kPB; ++i) {

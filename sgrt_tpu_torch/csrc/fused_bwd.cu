@@ -5,27 +5,40 @@
 // Replaces the TPU kernels sgrt_tpu/ops/pallas_kernel.py::_fused_bwd_t_kernel
 // (saved-T backward, launched by _fused_bwd_t_call; entry point
 // sgrt_fused_bwd_t) and ::_fused_bwd_kernel (recompute backward, launched
-// by _fused_bwd_call; entry point sgrt_fused_bwd). Both are one template,
-// bwd_rays_kernel<..., SAVED_T>, followed by the row reduction
-// bwd_rows_kernel.
+// by _fused_bwd_call; entry point sgrt_fused_bwd), and their anisotropic
+// twins sgrt_tpu/ops/pallas_aniso.py::_fused_bwd_t_aniso_kernel (entry
+// point sgrt_fused_bwd_t_aniso) and ::_fused_bwd_aniso_kernel
+// (sgrt_fused_bwd_aniso). All four are one template,
+// bwd_rays_kernel<Geo, ..., SAVED_T> over the row geometries of
+// gauss_common.cuh, followed by a row reduction (bwd_rows_kernel, or
+// bwd_rows_aniso_kernel for the anisotropic chain).
 //
-// The VJP, in the reference's order (pallas_kernel.py:125-174, :1028-1070),
-// with the forward's definitions (fused_fwd.cu) and for live p, q:
+// The VJP, in the reference's order (pallas_kernel.py:125-174, :1028-1070;
+// pallas_aniso.py:107-142, :180-245), with the forward's definitions
+// (fused_fwd.cu: mb, sb, co, inv per (row, ray)) and for live p, q:
 //   A_p      = albedo_p . dcol(r);  g_p = sqrt(2/pi) co_p A_p
 //   T_k(p)   = saved, or recomputed from acc_k (pass A);  tw_p = sum_k T_k(p)
 //   G_k(p)   = g_p T_k(p);  db = sum_p g_p tw_p
 //   dco_p   += sqrt(2/pi) tw_p A_p;   dalb_p += sum_r sqrt(2/pi) co_p tw_p dcol(r)
-//   grad pass, per (p, q): off_k = mb_p - mb_q + k sigma_p,
+//   grad pass, per (p, q): off_k = mb_p - mb_q + k sb_p,
 //     (ee_k, gau_k) = (erf, exp(-x^2))(off_k inv_q),
 //     dco_q -= sum_k G_k ee_k;  S0 = -2/sqrt(pi) co_q sum_k G_k gau_k;  S1 = the same with k G_k
-//     dmb_p += S0 inv_q;  dmb_q -= S0 inv_q;  dinv_q += S0 (mb_p - mb_q) + S1 sigma_p;
-//     dsig_p += S1 inv_q
+//     dmb_p += S0 inv_q;  dmb_q -= S0 inv_q;  dinv_q += S0 (mb_p - mb_q) + S1 sb_p;
+//     dsb_p += S1 inv_q
 //   base path: dco_q += db e1_q;  dmb_q -= 2/sqrt(pi) db co_q g1_q inv_q;
 //     dinv_q -= 2/sqrt(pi) db co_q g1_q mb_q,  (e1, g1) = (erf, exp(-x^2))(-mb_q inv_q)
-//   prep chain: dcoco = dco co;  dmb += dcoco 2/(2 sigma^2) mb;  ddirs(r) = sum_q oc_q dmb_q
-//   per row, summed over rays: s_row = sum dcoco, s_qmb = sum dcoco (|oc|^2 - mb^2),
-//     dsig = sum dsig_p - sum dinv inv/sigma + s_row/sigma + s_qmb/sigma^3,
+// then the chain through the geometry's prep to its raw inputs:
+//   isotropic: dcoco = dco co;  dmb += dcoco 2/(2 sigma^2) mb;  ddirs(r) = sum_q oc_q dmb_q;
+//     per row, summed over rays: s_row = sum dcoco, s_qmb = sum dcoco (|oc|^2 - mb^2),
+//     dsig = sum dsb_p - sum dinv inv/sigma + s_row/sigma + s_qmb/sigma^3,
 //     dmag = mag s_row / (mag == 0 ? 1 : mag^2),  doc = sum_r dmb d(r) - 2 oc s_row/(2 sigma^2)
+//   anisotropic (pallas_aniso.py's _aniso_epilogue): dcoco = dco co,
+//     dsb_tot = dsb + dcoco/sb - dinv inv/sb,  dBt = dmb sb^2 + dcoco mb,
+//     dA = -dmb mb sb^2 - dsb_tot sb^3/2 - dcoco mb^2/2,
+//     ddirs(r) = sum_q 2 d (invd_q dA_q) + M_q dBt_q  (M = oc invd);
+//     per row: s_row = sum dcoco, dM = sum dBt d, dA_d2 = sum dA d^2, dC = -s_row/2,
+//     dinvd = dA_d2 + dC oc^2 + dM oc,  doc = dM invd + 2 dC oc invd,
+//     dmag = s_row / (mag == 0 ? 1 : mag)
 // Rows at or past the count get exactly zero gradient.
 //
 // What bounds it on this card: operations. The grad pass costs, per live
@@ -33,16 +46,17 @@
 // SFU operations each (the erf tap of fused_fwd.cu; its exp(-x^2) is the
 // one the erf needs anyway), plus 4 FP32 instructions per tap that fold the
 // cotangents (the offset, dco, S0, S1) and about 8 per (p, q) pair (mb_p -
-// mb_q, S0 and S1 scaling, dmb, dinv, dsig): about 25 FP32 and 2 SFU per
-// tap. The recompute variant adds pass A, the forward's 5 erf taps per
-// (p, q, ray). Bytes: the inputs and outputs are O(B N + B R); the scratch
-// planes below are O(B N R), read and written once per (p block, q), 24
-// bytes per 8 x 5 taps.
+// mb_q, S0 and S1 scaling, dmb, dinv, dsb): about 25 FP32 and 2 SFU per
+// tap. Anisotropic rows add their per-(q, ray) terms (~25 FP32, 2 SFU) per
+// staged row and p block. The recompute variant adds pass A, the forward's
+// 5 erf taps per (p, q, ray). Bytes: the inputs and outputs are
+// O(B N + B R); the scratch planes below are O(B N R), read and written
+// once per (p block, q), 40 bytes per 8 x 5 taps.
 //
 // What the design does about it:
 //   * One thread owns one ray of one tile and runs the p axis serially in
-//     blocks of kPB rows held in registers (their G_k, mb, sigma and the
-//     p-side sums dmb_p, dsig_p), as the TPU grid step does. The q rows
+//     blocks of kPB rows held in registers (their G_k, mb, sb and the
+//     p-side sums dmb_p, dsb_p), as the TPU grid step does. The q rows
 //     are staged through shared memory as in the forward; the recompute
 //     variant's pass A is the forward's own (gauss_common.cuh, pass_a).
 //   * The q-side sums (dco_q, dmb_q, dinv_q) of a ray go to a global
@@ -55,18 +69,33 @@
 //     kernel: one warp per row sums the ray planes in a fixed lane order
 //     and a fixed butterfly, so gradients summed over ray blocks are
 //     deterministic.
-//   * mb, |oc|^2 and |oc|^2 - mb^2 are rounded as the plain version rounds
-//     them (gauss_common.cuh), since the prep chain multiplies by mb and
-//     cancels |oc|^2 against mb^2.
+//   * Float32 at thousands of rows: dco_q and T are differences of sums
+//     over a tile's rows (dco_q cancels the pair sum against db e1_q), and
+//     ddirs cancels the rows' large oc dmb terms. So every such sum is
+//     kept to more than float32's single running sum: the p-side sums
+//     dmb_p and dsb_p are two-level (each staged block of qb rows on its
+//     own, then the running sum, as pass_a's), and the q-side columns,
+//     db and ddirs, whose running sums see one term per p block or per
+//     row, are accumulated in double. A single running float per sum was
+//     6x-20x further from a float64 run than the plain version at ~4300
+//     rows (the chunked kernels, PERF.md).
+//   * mb, |oc|^2 and |oc|^2 - mb^2 (isotropic) and A, Bt, C (anisotropic)
+//     are rounded as the plain version rounds them (gauss_common.cuh),
+//     since the chain multiplies by mb and the exponent cancels.
 //   Known cost of this simple form: the densest tile's serial p loop bounds
 //   the launch (one block per 128-ray block of a tile).
 //
-// Layouts (float32 unless noted, contiguous): oc, albedo (B,N,3); sigma,
-// mag (B,N); dirs, dcol (B,3,R); counts (B,) int32; t (B,5,N,R) (saved-T
-// only); planes (B,5,N,Rp) scratch with Rp = the launched ray lanes;
-// outputs doc, dalb (B,N,3), dsig, dmag (B,N), ddirs (B,3,R).
+// Layouts (float32 unless noted, contiguous): oc, albedo (B,N,3); sigma
+// (B,N) or invd (B,N,3); mag (B,N); dirs, dcol (B,3,R); counts (B,) int32;
+// t (B,5,N,R) (saved-T only); planes: kPlanes floats per (tile, row, ray
+// lane), Rp = the launched ray lanes: doubles (B,3,N,Rp) for the q-side
+// columns (dco, dmb, dinv; after the chain: dcoco, and dmb or dBt, and dinv
+// or dA), then floats (B,2,N,Rp) (dsb_p, the albedo weight w_p); outputs
+// doc, dalb (B,N,3), dsig (B,N) or dinvd (B,N,3), dmag (B,N), ddirs (B,3,R).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "gauss_common.cuh"
 
@@ -74,27 +103,73 @@ namespace {
 
 using namespace sgrt;
 
-constexpr int kPB = 8;       // p rows a thread keeps in registers
-constexpr int kPlanes = 5;   // dco (dco * co after the chain), dmb, dinv, dsig_p, w_p
-constexpr int kRowWarps = 8;  // rows per block of the reduction kernel
+constexpr int kPB = 8;        // p rows a thread keeps in registers
+constexpr int kPlanes = 8;    // floats per (row, ray): 3 double columns, 2 float planes
+constexpr int kRowWarps = 8;  // rows per block of the reduction kernels
 
-template <int ERF, int EXP, bool SAVED_T>
+// The planes of tile b, column of ray lane r.
+struct Planes {
+  double* dco;
+  double* dmb;
+  double* dinv;
+  float* dsb;
+  float* w;
+};
+
+__device__ __forceinline__ Planes planes_of(float* planes, int B, int N, int Rp, int b, int r) {
+  const size_t plane = static_cast<size_t>(N) * Rp;
+  double* d = reinterpret_cast<double*>(planes) + static_cast<size_t>(b) * 3 * plane + r;
+  float* f = planes + static_cast<size_t>(B) * 6 * plane + static_cast<size_t>(b) * 2 * plane + r;
+  return {d, d + plane, d + 2 * plane, f, f + plane};
+}
+
+// The chain of one live row q and ray, after the base path: writes the
+// planes the row reduction reads and adds the row's share of ddirs.
+// Isotropic: dco becomes dcoco, dmb gains the prep's term.
+__device__ __forceinline__ void chain(const IsoGeo& geo, int q, const RayTerms& t, float dx,
+                                      float dy, float dz, float dco, float dmb, float dinv,
+                                      float /*dsb*/, const Planes& P, size_t o, double& gx,
+                                      double& gy, double& gz) {
+  const Row w = load_row(geo.oc, geo.sig, geo.mag, q);
+  const float dcoco = dco * t.co;
+  const float dmb_tot = dmb + dcoco * (2.0f * w.i2s2) * t.mb;
+  P.dco[o] = dcoco;
+  P.dmb[o] = dmb_tot;
+  P.dinv[o] = dinv;
+  gx += static_cast<double>(w.x * dmb_tot);
+  gy += static_cast<double>(w.y * dmb_tot);
+  gz += static_cast<double>(w.z * dmb_tot);
+}
+
+// Anisotropic: the plane cotangents through sb, mb and co to dBt and dA
+// (pallas_aniso.py, _aniso_epilogue), written over dmb and dinv.
+__device__ __forceinline__ void chain(const AnisoGeo& geo, int q, const RayTerms& t, float dx,
+                                      float dy, float dz, float dco, float dmb, float dinv,
+                                      float dsb, const Planes& P, size_t o, double& gx,
+                                      double& gy, double& gz) {
+  const AnisoGeo::Fields f = geo.fields(q);
+  const float dcoco = dco * t.co;
+  const float dsb_tot = dsb + dcoco / t.sb - dinv * t.inv / t.sb;
+  const float inv_a = t.sb * t.sb;
+  const float dbt = dmb * inv_a + dcoco * t.mb;
+  const float da = -dmb * t.mb * inv_a - 0.5f * dsb_tot * t.sb * inv_a - 0.5f * dcoco * t.mb * t.mb;
+  P.dco[o] = dcoco;
+  P.dmb[o] = dbt;
+  P.dinv[o] = da;
+  gx += static_cast<double>(2.0f * dx * (f.ix * da) + f.mx * dbt);
+  gy += static_cast<double>(2.0f * dy * (f.iy * da) + f.my * dbt);
+  gz += static_cast<double>(2.0f * dz * (f.iz * da) + f.mz * dbt);
+}
+
+template <class Geo, int ERF, int EXP, bool SAVED_T>
 __global__ void __launch_bounds__(128)
-bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
+bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
                 const float* __restrict__ mag, const float* __restrict__ alb,
                 const float* __restrict__ dirs, const int* __restrict__ counts,
                 const float* __restrict__ dcol, const float* __restrict__ tsave,
-                float* __restrict__ planes, float* __restrict__ ddirs, int N, int R,
+                float* __restrict__ planes, float* __restrict__ ddirs, int B, int N, int R,
                 int Rp, int qb) {
   extern __shared__ float stage[];
-  const float* s_ocx = stage;
-  const float* s_ocy = s_ocx + qb;
-  const float* s_ocz = s_ocy + qb;
-  const float* s_ocsq = s_ocz + qb;
-  const float* s_i2s2 = s_ocsq + qb;
-  const float* s_inv = s_i2s2 + qb;
-  const float* s_cs = s_inv + qb;
-
   const int b = blockIdx.y;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;  // < Rp always
   const int cnt = max(0, min(counts[b], N));
@@ -118,28 +193,18 @@ bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
     return;
   }
 
-  const size_t row0 = static_cast<size_t>(b) * N;
-  const float* oc_b = oc + row0 * 3;
-  const float* sig_b = sig + row0;
-  const float* mag_b = mag + row0;
-  const float* alb_b = alb + row0 * 3;
-  const size_t plane = static_cast<size_t>(N) * Rp;
-  float* col = planes + static_cast<size_t>(b) * kPlanes * plane + r;
-  float* P_dco = col;
-  float* P_dmb = col + plane;
-  float* P_dinv = col + 2 * plane;
-  float* P_dsig = col + 3 * plane;
-  float* P_w = col + 4 * plane;
+  const Geo geo(oc, shape, mag, b, N);
+  const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
+  const Planes P = planes_of(planes, B, N, Rp, b, r);
 
   for (int q = 0; q < cnt; ++q) {
-    P_dco[static_cast<size_t>(q) * Rp] = 0.0f;
-    P_dmb[static_cast<size_t>(q) * Rp] = 0.0f;
-    P_dinv[static_cast<size_t>(q) * Rp] = 0.0f;
+    const size_t o = static_cast<size_t>(q) * Rp;
+    P.dco[o] = P.dmb[o] = P.dinv[o] = 0.0;
   }
 
   // base(r) feeds the recomputed T only; pass A of the first p block sums it
   float base = 0.0f;
-  float db = 0.0f;
+  double db = 0.0;
   for (int p0 = 0; p0 < cnt; p0 += kPB) {
     float mbp[kPB], sgp[kPB], G[kPB][kTaps];
 #pragma unroll
@@ -148,8 +213,9 @@ bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
       mbp[i] = 0.0f;
       sgp[i] = 1.0f;
       if (p < cnt) {
-        mbp[i] = dot3_rn(oc_b[3 * p], oc_b[3 * p + 1], oc_b[3 * p + 2], dx, dy, dz);
-        sgp[i] = sig_b[p];
+        const RayTerms tp = geo.template row<EXP>(p, dx, dy, dz);
+        mbp[i] = tp.mb;
+        sgp[i] = tp.sb;
       }
 #pragma unroll
       for (int k = 0; k < kTaps; ++k) G[i][k] = 0.0f;
@@ -171,8 +237,7 @@ bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
       // pass A: acc_k of this p block into G, then T_k = w_k exp(base - acc_k).
       // The forward's pass_a with the same qb, so T equals the forward's
       // bit for bit and this is the exact VJP of the forward that ran.
-      pass_a<kPB, ERF, EXP>(stage, qb, oc_b, sig_b, mag_b, 0, cnt, dx, dy, dz, mbp, sgp, G,
-                            p0 == 0, base);
+      pass_a<kPB, ERF, EXP>(stage, qb, geo, 0, cnt, dx, dy, dz, mbp, sgp, G, p0 == 0, base);
 #pragma unroll
       for (int i = 0; i < kPB; ++i) {
         const bool live = p0 + i < cnt;  // a dead row's G stays 0 in pass B
@@ -187,35 +252,38 @@ bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
     for (int i = 0; i < kPB; ++i) {
       const int p = p0 + i;
       if (p < cnt) {
-        const Row w = load_row(oc_b, sig_b, mag_b, p);
-        const float co = coeff<EXP>(w.cs, w.ocsq, mbp[i], w.i2s2);
+        const float co = geo.template row<EXP>(p, dx, dy, dz).co;
         const float A = alb_b[3 * p] * cr + alb_b[3 * p + 1] * cg + alb_b[3 * p + 2] * cb;
         const float g = kSqrt2Pi * co * A;
         float tw = 0.0f;
 #pragma unroll
         for (int k = 0; k < kTaps; ++k) tw += G[i][k];
-        db += g * tw;
+        db += static_cast<double>(g * tw);
 #pragma unroll
         for (int k = 0; k < kTaps; ++k) G[i][k] *= g;
-        P_dco[static_cast<size_t>(p) * Rp] += kSqrt2Pi * tw * A;
-        P_w[static_cast<size_t>(p) * Rp] = kSqrt2Pi * co * tw;
+        const size_t o = static_cast<size_t>(p) * Rp;
+        P.dco[o] += static_cast<double>(kSqrt2Pi * tw * A);
+        P.w[o] = kSqrt2Pi * co * tw;
       }
     }
 
-    // pass B: the gradient q-pass
-    float dmbp[kPB], dsigp[kPB];
+    // pass B: the gradient q-pass. The p-side sums are two-level: each
+    // stage's qb terms on their own, then added to the running sums.
+    float dmbp[kPB], dsbp[kPB];
 #pragma unroll
-    for (int i = 0; i < kPB; ++i) dmbp[i] = dsigp[i] = 0.0f;
+    for (int i = 0; i < kPB; ++i) dmbp[i] = dsbp[i] = 0.0f;
     for (int q0 = 0; q0 < cnt; q0 += qb) {
       const int nq = min(qb, cnt - q0);
       __syncthreads();
-      stage_rows(stage, qb, oc_b, sig_b, mag_b, q0, nq);
+      geo.stage(stage, qb, q0, nq);
       __syncthreads();
+      float pdmb[kPB], pdsb[kPB];
+#pragma unroll
+      for (int i = 0; i < kPB; ++i) pdmb[i] = pdsb[i] = 0.0f;
       for (int j = 0; j < nq; ++j) {
-        const float mbq = dot3_rn(s_ocx[j], s_ocy[j], s_ocz[j], dx, dy, dz);
-        const float co = coeff<EXP>(s_cs[j], s_ocsq[j], mbq, s_i2s2[j]);
-        const float invq = s_inv[j];
-        const float nco = -kDerf * co;
+        const RayTerms tq = geo.template staged<EXP>(stage, qb, j, dx, dy, dz);
+        const float mbq = tq.mb, invq = tq.inv;
+        const float nco = -kDerf * tq.co;
         float dco_q = 0.0f, dmb_q = 0.0f, dinv_q = 0.0f;
 #pragma unroll
         for (int i = 0; i < kPB; ++i) {
@@ -232,63 +300,64 @@ bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
           }
           const float s0 = nco * t0, s1 = nco * t1;
           const float di = s0 * invq;
-          dmbp[i] += di;
+          pdmb[i] += di;
           dmb_q -= di;
           dinv_q += s0 * dd + s1 * sgp[i];
-          dsigp[i] += s1 * invq;
+          pdsb[i] += s1 * invq;
         }
         const size_t q = static_cast<size_t>(q0 + j) * Rp;
-        P_dco[q] += dco_q;
-        P_dmb[q] += dmb_q;
-        P_dinv[q] += dinv_q;
+        P.dco[q] += static_cast<double>(dco_q);
+        P.dmb[q] += static_cast<double>(dmb_q);
+        P.dinv[q] += static_cast<double>(dinv_q);
+      }
+#pragma unroll
+      for (int i = 0; i < kPB; ++i) {
+        dmbp[i] += pdmb[i];
+        dsbp[i] += pdsb[i];
       }
     }
 #pragma unroll
     for (int i = 0; i < kPB; ++i) {
       const int p = p0 + i;
       if (p < cnt) {
-        P_dmb[static_cast<size_t>(p) * Rp] += dmbp[i];
-        P_dsig[static_cast<size_t>(p) * Rp] = dsigp[i];
+        const size_t o = static_cast<size_t>(p) * Rp;
+        P.dmb[o] += static_cast<double>(dmbp[i]);
+        P.dsb[o] = dsbp[i];
       }
     }
   }
 
-  // base-path gradients, then the prep chain; ddirs sums over this ray's rows
-  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+  // base-path gradients, then the chain; ddirs sums over this ray's rows
+  const float dbf = static_cast<float>(db);
+  double gx = 0.0, gy = 0.0, gz = 0.0;
   for (int q = 0; q < cnt; ++q) {
-    const Row w = load_row(oc_b, sig_b, mag_b, q);
-    const float mbq = dot3_rn(w.x, w.y, w.z, dx, dy, dz);
-    const float co = coeff<EXP>(w.cs, w.ocsq, mbq, w.i2s2);
+    const RayTerms t = geo.template row<EXP>(q, dx, dy, dz);
     float e1, g1;
-    erf_and_gauss<ERF>(-mbq * w.inv, e1, g1);
+    erf_and_gauss<ERF>(-t.mb * t.inv, e1, g1);
     const size_t o = static_cast<size_t>(q) * Rp;
-    const float dco = P_dco[o] + db * e1;
-    const float derf1 = kDerf * db * co * g1;
-    const float dcoco = dco * co;
-    const float dmb = (P_dmb[o] - derf1 * w.inv) + dcoco * (2.0f * w.i2s2) * mbq;
-    P_dco[o] = dcoco;
-    P_dmb[o] = dmb;
-    P_dinv[o] = P_dinv[o] - derf1 * mbq;
-    gx += w.x * dmb;
-    gy += w.y * dmb;
-    gz += w.z * dmb;
+    const float dco = static_cast<float>(P.dco[o]) + dbf * e1;
+    const float derf1 = kDerf * dbf * t.co * g1;
+    const float dmb = static_cast<float>(P.dmb[o]) - derf1 * t.inv;
+    const float dinv = static_cast<float>(P.dinv[o]) - derf1 * t.mb;
+    chain(geo, q, t, dx, dy, dz, dco, dmb, dinv, P.dsb[o], P, o, gx, gy, gz);
   }
   if (live_ray) {
-    dd_out[r] = gx;
-    dd_out[R + r] = gy;
-    dd_out[2 * R + r] = gz;
+    dd_out[r] = static_cast<float>(gx);
+    dd_out[R + r] = static_cast<float>(gy);
+    dd_out[2 * R + r] = static_cast<float>(gz);
   }
 }
 
 // One warp per (tile, row): the sums over rays of the ray planes, then the
-// per-row gradients. Rows at or past the count are written as zeros.
+// per-row gradients of isotropic rows. Rows at or past the count are
+// written as zeros.
 __global__ void __launch_bounds__(32 * kRowWarps)
 bwd_rows_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
                 const float* __restrict__ mag, const float* __restrict__ dirs,
                 const int* __restrict__ counts, const float* __restrict__ dcol,
-                const float* __restrict__ planes, float* __restrict__ doc,
+                float* __restrict__ planes, float* __restrict__ doc,
                 float* __restrict__ dsig, float* __restrict__ dmag,
-                float* __restrict__ dalb, int N, int R, int Rp) {
+                float* __restrict__ dalb, int B, int N, int R, int Rp) {
   const int b = blockIdx.y;
   const int q = blockIdx.x * kRowWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -305,8 +374,8 @@ bwd_rows_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
   }
   const float x = oc[3 * row], y = oc[3 * row + 1], z = oc[3 * row + 2];
   const float ocsq = dot3_rn(x, y, z, x, y, z);
-  const size_t plane = static_cast<size_t>(N) * Rp;
-  const float* col = planes + static_cast<size_t>(b) * kPlanes * plane + static_cast<size_t>(q) * Rp;
+  const size_t o = static_cast<size_t>(q) * Rp;
+  const Planes P = planes_of(planes, B, N, Rp, b, 0);
   const float* d = dirs + static_cast<size_t>(b) * 3 * R;
   const float* c = dcol + static_cast<size_t>(b) * 3 * R;
   float s_row = 0.0f, s_qmb = 0.0f, s_dsig = 0.0f, s_dinv = 0.0f;
@@ -314,13 +383,13 @@ bwd_rows_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
   for (int r = lane; r < R; r += 32) {
     const float dx = d[r], dy = d[R + r], dz = d[2 * R + r];
     const float mb = dot3_rn(x, y, z, dx, dy, dz);
-    const float dcoco = col[r];
-    const float dmb = col[plane + r];
-    const float w = col[4 * plane + r];
+    const float dcoco = static_cast<float>(P.dco[o + r]);
+    const float dmb = static_cast<float>(P.dmb[o + r]);
+    const float w = P.w[o + r];
     s_row += dcoco;
     s_qmb += dcoco * ocsq_minus_mb2_rn(ocsq, mb);
-    s_dinv += col[2 * plane + r];
-    s_dsig += col[3 * plane + r];
+    s_dinv += static_cast<float>(P.dinv[o + r]);
+    s_dsig += P.dsb[o + r];
     ox += dmb * dx;
     oy += dmb * dy;
     oz += dmb * dz;
@@ -355,39 +424,116 @@ bwd_rows_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
   }
 }
 
+// The same reduction for anisotropic rows (pallas_aniso.py, _aniso_epilogue's
+// sums over rays): s_row = sum dcoco, dM = sum dBt d, dA_d2 = sum dA d^2,
+// dalb = sum w dcol, then dinvd, doc and dmag.
+__global__ void __launch_bounds__(32 * kRowWarps)
+bwd_rows_aniso_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
+                      const float* __restrict__ mag, const float* __restrict__ dirs,
+                      const int* __restrict__ counts, const float* __restrict__ dcol,
+                      float* __restrict__ planes, float* __restrict__ doc,
+                      float* __restrict__ dinvd, float* __restrict__ dmag,
+                      float* __restrict__ dalb, int B, int N, int R, int Rp) {
+  const int b = blockIdx.y;
+  const int q = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (q >= N) return;  // warp-uniform
+  const size_t row = static_cast<size_t>(b) * N + q;
+  const int cnt = max(0, min(counts[b], N));
+  if (q >= cnt) {
+    if (lane == 0) {
+      for (int c = 0; c < 3; ++c) doc[3 * row + c] = dinvd[3 * row + c] = dalb[3 * row + c] = 0.0f;
+      dmag[row] = 0.0f;
+    }
+    return;
+  }
+  const size_t o = static_cast<size_t>(q) * Rp;
+  const Planes P = planes_of(planes, B, N, Rp, b, 0);
+  const float* d = dirs + static_cast<size_t>(b) * 3 * R;
+  const float* c = dcol + static_cast<size_t>(b) * 3 * R;
+  float s_row = 0.0f, mx = 0.0f, my = 0.0f, mz = 0.0f, qx = 0.0f, qy = 0.0f, qz = 0.0f;
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  for (int r = lane; r < R; r += 32) {
+    const float dx = d[r], dy = d[R + r], dz = d[2 * R + r];
+    const float dbt = static_cast<float>(P.dmb[o + r]);
+    const float da = static_cast<float>(P.dinv[o + r]);
+    const float w = P.w[o + r];
+    s_row += static_cast<float>(P.dco[o + r]);
+    mx += dbt * dx;
+    my += dbt * dy;
+    mz += dbt * dz;
+    qx += da * (dx * dx);
+    qy += da * (dy * dy);
+    qz += da * (dz * dz);
+    ax += w * c[r];
+    ay += w * c[R + r];
+    az += w * c[2 * R + r];
+  }
+  s_row = warp_sum(s_row);
+  mx = warp_sum(mx);
+  my = warp_sum(my);
+  mz = warp_sum(mz);
+  qx = warp_sum(qx);
+  qy = warp_sum(qy);
+  qz = warp_sum(qz);
+  ax = warp_sum(ax);
+  ay = warp_sum(ay);
+  az = warp_sum(az);
+  if (lane == 0) {
+    const float dc = -0.5f * s_row;
+    const float dm[3] = {mx, my, mz}, dq[3] = {qx, qy, qz}, da[3] = {ax, ay, az};
+    for (int k = 0; k < 3; ++k) {
+      const float ok = oc[3 * row + k], ik = invd[3 * row + k];
+      dinvd[3 * row + k] = dq[k] + dc * (ok * ok) + dm[k] * ok;
+      doc[3 * row + k] = dm[k] * ik + 2.0f * dc * ok * ik;
+      dalb[3 * row + k] = da[k];
+    }
+    const float m = mag[row];
+    dmag[row] = s_row / (m == 0.0f ? 1.0f : m);
+  }
+}
+
 using RaysKernel = void (*)(const float*, const float*, const float*, const float*,
                             const float*, const int*, const float*, const float*, float*,
-                            float*, int, int, int, int);
+                            float*, int, int, int, int, int);
 
-template <bool SAVED_T>
+template <class Geo, bool SAVED_T>
 RaysKernel pick_fn(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_rays_kernel<kErfAs5, kExpExact, SAVED_T>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_rays_kernel<kErfAs5, kExpFast, SAVED_T>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_rays_kernel<kErfAs3, kExpExact, SAVED_T>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_rays_kernel<kErfAs3, kExpFast, SAVED_T>;
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_rays_kernel<Geo, kErfAs5, kExpExact, SAVED_T>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_rays_kernel<Geo, kErfAs5, kExpFast, SAVED_T>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_rays_kernel<Geo, kErfAs3, kExpExact, SAVED_T>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_rays_kernel<Geo, kErfAs3, kExpFast, SAVED_T>;
   return nullptr;
 }
 
-template <bool SAVED_T>
-int launch(const float* oc, const float* sig, const float* mag, const float* alb,
+// shape is sigma (B,N) for IsoGeo, invd (B,N,3) for AnisoGeo; dshape the
+// matching gradient.
+template <class Geo, bool SAVED_T>
+int launch(const float* oc, const float* shape, const float* mag, const float* alb,
            const float* dirs, const int* counts, const float* dcol, const float* t,
-           float* planes, float* doc, float* dsig, float* dmag, float* dalb, float* ddirs,
+           float* planes, float* doc, float* dshape, float* dmag, float* dalb, float* ddirs,
            int B, int N, int R, int threads, int qb, int erf_id, int exp_id, void* stream) {
-  RaysKernel fn = pick_fn<SAVED_T>(erf_id, exp_id);
+  RaysKernel fn = pick_fn<Geo, SAVED_T>(erf_id, exp_id);
   if (fn == nullptr || B < 1 || B > 65535 || N < 1 || R < 1 || threads < 32 ||
       threads > 128 || threads % 32 != 0 || qb < 1 || qb > 1024 || (SAVED_T && t == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ray_blocks = (R + threads - 1) / threads;
   const int Rp = ray_blocks * threads;
-  const size_t smem = sizeof(float) * kStageFields * qb;
-  fn<<<dim3(ray_blocks, B), threads, smem, s>>>(oc, sig, mag, alb, dirs, counts, dcol, t,
-                                                planes, ddirs, N, R, Rp, qb);
+  const size_t smem = sizeof(float) * Geo::kFields * qb;
+  fn<<<dim3(ray_blocks, B), threads, smem, s>>>(oc, shape, mag, alb, dirs, counts, dcol, t,
+                                                planes, ddirs, B, N, R, Rp, qb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kRowWarps - 1) / kRowWarps, B);
-  bwd_rows_kernel<<<grid, 32 * kRowWarps, 0, s>>>(oc, sig, mag, dirs, counts, dcol, planes,
-                                                  doc, dsig, dmag, dalb, N, R, Rp);
+  if constexpr (std::is_same<Geo, AnisoGeo>::value) {
+    bwd_rows_aniso_kernel<<<grid, 32 * kRowWarps, 0, s>>>(oc, shape, mag, dirs, counts, dcol,
+                                                          planes, doc, dshape, dmag, dalb, B,
+                                                          N, R, Rp);
+  } else {
+    bwd_rows_kernel<<<grid, 32 * kRowWarps, 0, s>>>(oc, shape, mag, dirs, counts, dcol, planes,
+                                                    doc, dshape, dmag, dalb, B, N, R, Rp);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -411,8 +557,8 @@ int sgrt_fused_bwd_t(const float* oc, const float* sig, const float* mag, const 
                      const float* t, float* planes, float* doc, float* dsig, float* dmag,
                      float* dalb, float* ddirs, int B, int N, int R, int threads, int qb,
                      int erf_id, int exp_id, void* stream) {
-  return launch<true>(oc, sig, mag, alb, dirs, counts, dcol, t, planes, doc, dsig, dmag,
-                      dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id, stream);
+  return launch<IsoGeo, true>(oc, sig, mag, alb, dirs, counts, dcol, t, planes, doc, dsig,
+                              dmag, dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id, stream);
 }
 
 // Recompute backward: pass A (acc_k) is recomputed per p block.
@@ -420,8 +566,32 @@ int sgrt_fused_bwd(const float* oc, const float* sig, const float* mag, const fl
                    const float* dirs, const int* counts, const float* dcol, float* planes,
                    float* doc, float* dsig, float* dmag, float* dalb, float* ddirs, int B,
                    int N, int R, int threads, int qb, int erf_id, int exp_id, void* stream) {
-  return launch<false>(oc, sig, mag, alb, dirs, counts, dcol, nullptr, planes, doc, dsig,
-                       dmag, dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id, stream);
+  return launch<IsoGeo, false>(oc, sig, mag, alb, dirs, counts, dcol, nullptr, planes, doc,
+                               dsig, dmag, dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id,
+                               stream);
+}
+
+// The anisotropic saved-T backward: invd (B,N,3) in place of sigma, dinvd
+// (B,N,3) in place of dsig; T from sgrt_fused_fwd_t_aniso.
+int sgrt_fused_bwd_t_aniso(const float* oc, const float* invd, const float* mag,
+                           const float* alb, const float* dirs, const int* counts,
+                           const float* dcol, const float* t, float* planes, float* doc,
+                           float* dinvd, float* dmag, float* dalb, float* ddirs, int B, int N,
+                           int R, int threads, int qb, int erf_id, int exp_id, void* stream) {
+  return launch<AnisoGeo, true>(oc, invd, mag, alb, dirs, counts, dcol, t, planes, doc, dinvd,
+                                dmag, dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id,
+                                stream);
+}
+
+// The anisotropic recompute backward.
+int sgrt_fused_bwd_aniso(const float* oc, const float* invd, const float* mag,
+                         const float* alb, const float* dirs, const int* counts,
+                         const float* dcol, float* planes, float* doc, float* dinvd,
+                         float* dmag, float* dalb, float* ddirs, int B, int N, int R,
+                         int threads, int qb, int erf_id, int exp_id, void* stream) {
+  return launch<AnisoGeo, false>(oc, invd, mag, alb, dirs, counts, dcol, nullptr, planes, doc,
+                                 dinvd, dmag, dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id,
+                                 stream);
 }
 
 }  // extern "C"

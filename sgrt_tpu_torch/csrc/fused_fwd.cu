@@ -13,15 +13,19 @@
 // p split below already spreads a dense tile over many blocks (at the
 // 50k-Gaussian sphere's dense bucket, a 64-row chunked copy of this kernel
 // took 1221 ms against this one's 1202 ms on an NVIDIA H100 80GB HBM3 at
-// 700 W, chip_smoke.py). For each tile b, over the
-// live prefix count_b = min(counts[b], N) of its Gaussian rows, and each
-// ray r:
+// 700 W, chip_smoke.py). The anisotropic entry points (sgrt_fused_fwd_aniso,
+// sgrt_fused_fwd_t_aniso) replace sgrt_tpu/ops/pallas_aniso.py's
+// ::_fused_fwd_aniso_kernel and ::_fused_fwd_t_aniso_kernel: the same
+// kernel over AnisoGeo rows (gauss_common.cuh), whose sb, inv and co vary
+// per (row, ray); the TPU kernel keeps them as four (N, ray block) VMEM
+// planes, here each thread recomputes a staged row's terms for its ray.
+// For each tile b, over the live prefix count_b = min(counts[b], N) of its
+// Gaussian rows, and each ray r (isotropic rows: sb = sigma, mb = oc . d):
 //
-//   mb(q,r)   = oc_q . d_r
-//   co(q,r)   = mag_q sigma_q sqrt(pi/2) exp(-(|oc_q|^2 - mb^2) / (2 sigma_q^2))
-//   inv_q     = 1 / (sqrt2 sigma_q)
-//   base(r)   = sum_q co(q,r) erf(-mb(q,r) inv_q)
-//   acc_k(p,r)= sum_q co(q,r) erf((mb(p,r) + k sigma_p - mb(q,r)) inv_q),  k = -4..0
+//   co(q,r)   = mag_q sb(q,r) sqrt(pi/2) exp(exponent(q,r))
+//   inv(q,r)  = 1 / (sqrt2 sb(q,r))
+//   base(r)   = sum_q co(q,r) erf(-mb(q,r) inv(q,r))
+//   acc_k(p,r)= sum_q co(q,r) erf((mb(p,r) + k sb(p,r) - mb(q,r)) inv(q,r)),  k = -4..0
 //   T_k(p,r)  = w_k exp(base(r) - acc_k(p,r)),  w_k = exp(-k^2/2)
 //   colors(:,r) = sum_p albedo_p sqrt(2/pi) co(p,r) sum_k T_k(p,r)
 //
@@ -58,7 +62,8 @@
 //     is deterministic. With SAVE_T every split writes its own rows of T
 //     (zeros past the count), so T needs no clearing pass.
 //
-// Layouts (all float32, contiguous): oc (B,N,3), sigma (B,N), mag (B,N),
+// Layouts (all float32, contiguous): oc (B,N,3), sigma (B,N) or, for
+// anisotropic rows, invd (B,N,3), mag (B,N),
 // albedo (B,N,3), dirs (B,3,R) ray-minor, counts (B,) int32; partial
 // (B, n_split, 3, R) scratch, colors (B,3,R) and, with SAVE_T, t
 // (B,5,N,R) are written.
@@ -73,9 +78,9 @@ using namespace sgrt;
 
 constexpr int kRowsPerBlock = 32;  // p rows per block (split of the p axis)
 
-template <int PB, int ERF, int EXP, bool SAVE_T>
+template <int PB, int ERF, int EXP, bool SAVE_T, class Geo>
 __global__ void __launch_bounds__(128)
-fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
+fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
                  const float* __restrict__ mag, const float* __restrict__ alb,
                  const float* __restrict__ dirs, const int* __restrict__ counts,
                  float* __restrict__ partial, float* __restrict__ t, int N, int R,
@@ -102,11 +107,8 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
   if (p_begin >= cnt) return;  // block-uniform: this split has no live rows
   const int p_end = min(p_begin + kRowsPerBlock, cnt);
 
-  const size_t row0 = static_cast<size_t>(b) * N;
-  const float* oc_b = oc + row0 * 3;
-  const float* sig_b = sig + row0;
-  const float* mag_b = mag + row0;
-  const float* alb_b = alb + row0 * 3;
+  const Geo geo(oc, shape, mag, b, N);
+  const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
 
   float dx = 0.0f, dy = 0.0f, dz = 1.0f;
   if (live_ray) {
@@ -127,15 +129,16 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
       mbp[i] = 0.0f;
       sgp[i] = 1.0f;
       if (p < p_end) {
-        mbp[i] = dot3_rn(oc_b[3 * p], oc_b[3 * p + 1], oc_b[3 * p + 2], dx, dy, dz);
-        sgp[i] = sig_b[p];
+        const RayTerms tp = geo.template row<EXP>(p, dx, dy, dz);
+        mbp[i] = tp.mb;
+        sgp[i] = tp.sb;
       }
 #pragma unroll
       for (int k = 0; k < kTaps; ++k) acc[i][k] = 0.0f;
     }
     // base is summed once, by the first group
-    pass_a<PB, ERF, EXP>(stage, qb, oc_b, sig_b, mag_b, 0, cnt, dx, dy, dz, mbp, sgp, acc,
-                         p0 == p_begin, base);
+    pass_a<PB, ERF, EXP>(stage, qb, geo, 0, cnt, dx, dy, dz, mbp, sgp, acc, p0 == p_begin,
+                         base);
 
 #pragma unroll
     for (int i = 0; i < PB; ++i) {
@@ -148,8 +151,7 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
           if (SAVE_T && live_ray) t_b[(static_cast<size_t>(k) * N + p) * R + r] = tk;
           tw += tk;
         }
-        const Row w = load_row(oc_b, sig_b, mag_b, p);
-        const float wp = kSqrt2Pi * coeff<EXP>(w.cs, w.ocsq, mbp[i], w.i2s2) * tw;
+        const float wp = kSqrt2Pi * geo.template row<EXP>(p, dx, dy, dz).co * tw;
         col_r += alb_b[3 * p] * wp;
         col_g += alb_b[3 * p + 1] * wp;
         col_b += alb_b[3 * p + 2] * wp;
@@ -186,23 +188,23 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
 using FwdKernel = void (*)(const float*, const float*, const float*, const float*,
                            const float*, const int*, float*, float*, int, int, int, int);
 
-template <int PB, bool SAVE_T>
+template <int PB, bool SAVE_T, class Geo>
 FwdKernel pick_fn(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return fused_fwd_kernel<PB, kErfAs5, kExpExact, SAVE_T>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return fused_fwd_kernel<PB, kErfAs5, kExpFast, SAVE_T>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return fused_fwd_kernel<PB, kErfAs3, kExpExact, SAVE_T>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return fused_fwd_kernel<PB, kErfAs3, kExpFast, SAVE_T>;
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return fused_fwd_kernel<PB, kErfAs5, kExpExact, SAVE_T, Geo>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return fused_fwd_kernel<PB, kErfAs5, kExpFast, SAVE_T, Geo>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return fused_fwd_kernel<PB, kErfAs3, kExpExact, SAVE_T, Geo>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return fused_fwd_kernel<PB, kErfAs3, kExpFast, SAVE_T, Geo>;
   return nullptr;
 }
 
-template <bool SAVE_T>
-int launch(const float* oc, const float* sig, const float* mag, const float* alb,
+template <bool SAVE_T, class Geo>
+int launch(const float* oc, const float* shape, const float* mag, const float* alb,
            const float* dirs, const int* counts, float* partial, float* colors, float* t,
            int B, int N, int R, int threads, int pb, int qb, int erf_id, int exp_id,
            void* stream) {
   FwdKernel fn = nullptr;
-  if (pb == 8) fn = pick_fn<8, SAVE_T>(erf_id, exp_id);
-  if (pb == 16) fn = pick_fn<16, SAVE_T>(erf_id, exp_id);
+  if (pb == 8) fn = pick_fn<8, SAVE_T, Geo>(erf_id, exp_id);
+  if (pb == 16) fn = pick_fn<16, SAVE_T, Geo>(erf_id, exp_id);
   if (fn == nullptr || B < 1 || B > 65535 || N < 1 || R < 1 || threads < 32 ||
       threads > 128 || threads % 32 != 0 || qb < 1 || qb > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -210,8 +212,8 @@ int launch(const float* oc, const float* sig, const float* mag, const float* alb
   if (n_split > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((R + threads - 1) / threads, n_split, B);
-  const size_t smem = sizeof(float) * kStageFields * qb;
-  fn<<<grid, threads, smem, s>>>(oc, sig, mag, alb, dirs, counts, partial, t, N, R, qb,
+  const size_t smem = sizeof(float) * Geo::kFields * qb;
+  fn<<<grid, threads, smem, s>>>(oc, shape, mag, alb, dirs, counts, partial, t, N, R, qb,
                                  n_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -242,8 +244,8 @@ int sgrt_fused_fwd(const float* oc, const float* sig, const float* mag,
                    float* partial, float* colors, int B, int N, int R,
                    int threads, int pb, int qb, int erf_id, int exp_id,
                    void* stream) {
-  return launch<false>(oc, sig, mag, alb, dirs, counts, partial, colors, nullptr, B, N, R,
-                       threads, pb, qb, erf_id, exp_id, stream);
+  return launch<false, IsoGeo>(oc, sig, mag, alb, dirs, counts, partial, colors, nullptr, B,
+                               N, R, threads, pb, qb, erf_id, exp_id, stream);
 }
 
 // The same forward, also writing T (B,5,N,R) for the saved-T backward.
@@ -252,8 +254,28 @@ int sgrt_fused_fwd_t(const float* oc, const float* sig, const float* mag,
                      float* partial, float* colors, float* t, int B, int N, int R,
                      int threads, int pb, int qb, int erf_id, int exp_id,
                      void* stream) {
-  return launch<true>(oc, sig, mag, alb, dirs, counts, partial, colors, t, B, N, R,
-                      threads, pb, qb, erf_id, exp_id, stream);
+  return launch<true, IsoGeo>(oc, sig, mag, alb, dirs, counts, partial, colors, t, B, N, R,
+                              threads, pb, qb, erf_id, exp_id, stream);
+}
+
+// The anisotropic forward: invd (B,N,3) = scale^-2 in place of sigma.
+int sgrt_fused_fwd_aniso(const float* oc, const float* invd, const float* mag,
+                         const float* alb, const float* dirs, const int* counts,
+                         float* partial, float* colors, int B, int N, int R,
+                         int threads, int pb, int qb, int erf_id, int exp_id,
+                         void* stream) {
+  return launch<false, AnisoGeo>(oc, invd, mag, alb, dirs, counts, partial, colors, nullptr,
+                                 B, N, R, threads, pb, qb, erf_id, exp_id, stream);
+}
+
+// The anisotropic forward, also writing T (B,5,N,R).
+int sgrt_fused_fwd_t_aniso(const float* oc, const float* invd, const float* mag,
+                           const float* alb, const float* dirs, const int* counts,
+                           float* partial, float* colors, float* t, int B, int N, int R,
+                           int threads, int pb, int qb, int erf_id, int exp_id,
+                           void* stream) {
+  return launch<true, AnisoGeo>(oc, invd, mag, alb, dirs, counts, partial, colors, t, B, N,
+                                R, threads, pb, qb, erf_id, exp_id, stream);
 }
 
 }  // extern "C"

@@ -1,13 +1,14 @@
 // Device math shared by the fused (fused_fwd.cu, fused_bwd.cu) and the
 // chunked (chunked_bwd.cu) kernels: the erf/exp variants
 // the kernels are compiled for, the rounding-controlled Gaussian exponent,
-// the per-row constants that rows are staged with, the five quadrature
-// taps, a warp sum, and pass A over staged rows.
+// the per-row constants that rows are staged with, the two row geometries
+// (isotropic and anisotropic), the five quadrature taps, a warp sum, and
+// pass A over staged rows.
 //
 // No fast-math anywhere: the A&S reciprocal is an IEEE division and expf is
 // the accurate one, so "as5" is the float32-exact erf and the kernels agree
-// with their plain PyTorch versions (sgrt_tpu_torch/ops/cuda_kernel.py) to
-// summation order.
+// with their plain PyTorch versions (sgrt_tpu_torch/ops/cuda_kernel.py,
+// cuda_aniso.py) to summation order.
 
 #pragma once
 
@@ -144,6 +145,149 @@ __device__ __forceinline__ void stage_rows(float* stage, int qb, const float* oc
   }
 }
 
+// ---------------------------------------------------------------------------
+// Row geometries. A Gaussian row seen along a ray is a 1-D Gaussian with
+// per-(row, ray) parameters; the kernels are templates over how those are
+// made, so that one pass A, one pass B and one p loop serve both:
+//   mb  = the ray parameter of the peak (mu_bar)
+//   sb  = the standard deviation along the ray (sigma_bar)
+//   co  = mag sb sqrt(pi/2) exp(exponent)
+//   inv = 1 / (sqrt2 sb)
+// A geometry stages q rows in shared memory (kFields fields each, stage),
+// reads a staged row's terms for one ray (staged) and a row's terms from
+// device memory (row); both give the same bits for the same row and ray.
+// ---------------------------------------------------------------------------
+
+struct RayTerms {
+  float mb, sb, co, inv;
+};
+
+// Isotropic rows: sigma (B,N) is one number per row, so sb = sigma and inv
+// are per row; mb = oc . d and the exponent -(|oc|^2 - mb^2) / (2 sigma^2).
+struct IsoGeo {
+  static constexpr int kFields = kStageFields;
+  const float* oc;
+  const float* sig;
+  const float* mag;
+
+  // the rows of tile b: oc (B,N,3), sigma (B,N), mag (B,N)
+  __device__ IsoGeo(const float* oc_, const float* sig_, const float* mag_, int b, int N)
+      : oc(oc_ + static_cast<size_t>(b) * N * 3),
+        sig(sig_ + static_cast<size_t>(b) * N),
+        mag(mag_ + static_cast<size_t>(b) * N) {}
+
+  __device__ void stage(float* st, int qb, int q0, int nq) const {
+    stage_rows(st, qb, oc, sig, mag, q0, nq);
+  }
+
+  template <int EXP>
+  __device__ RayTerms staged(const float* st, int qb, int j, float dx, float dy,
+                             float dz) const {
+    RayTerms t;
+    t.mb = dot3_rn(st[j], st[qb + j], st[2 * qb + j], dx, dy, dz);
+    t.co = coeff<EXP>(st[6 * qb + j], st[3 * qb + j], t.mb, st[4 * qb + j]);
+    t.inv = st[5 * qb + j];
+    t.sb = 0.0f;  // a q row's sigma enters only through inv
+    return t;
+  }
+
+  template <int EXP>
+  __device__ RayTerms row(int p, float dx, float dy, float dz) const {
+    const Row w = load_row(oc, sig, mag, p);
+    RayTerms t;
+    t.mb = dot3_rn(w.x, w.y, w.z, dx, dy, dz);
+    t.sb = sig[p];
+    t.co = coeff<EXP>(w.cs, w.ocsq, t.mb, w.i2s2);
+    t.inv = w.inv;
+    return t;
+  }
+};
+
+// Anisotropic rows (diagonal covariance, sgrt_tpu/ops/anisotropic.py's
+// math): invd = scale^-2 (B,N,3) per axis, M = oc * invd, and per ray
+//   A  = sum_i invd_i d_i^2,  Bt = sum_i M_i d_i,  C = sum_i oc_i^2 invd_i
+//   sb = 1/sqrt(A),  mb = Bt sb sb,  inv = sqrt(A/2),
+//   co = mag sqrt(pi/2) sb exp(-(C - Bt mb)/2).
+// C - Bt mb cancels two numbers of size |oc|^2/scale^2 (~6400 on the
+// stretched teapot cloud), so A, Bt, C and every product after them are
+// rounded to nearest in a fixed order, as the plain version
+// (ops/cuda_aniso.py) computes them; sb is an IEEE square root and
+// division, not rsqrtf. Staged per q row: invd (3), M (3), C, mag sqrt(pi/2);
+// the ray's terms are recomputed per (row, ray), about 25 FP32 instructions
+// and 2 SFU operations against the 5 PB erf taps each staged row meets.
+struct AnisoGeo {
+  static constexpr int kFields = 8;
+  const float* oc;
+  const float* invd;
+  const float* mag;
+
+  // the rows of tile b: oc (B,N,3), invd (B,N,3), mag (B,N)
+  __device__ AnisoGeo(const float* oc_, const float* invd_, const float* mag_, int b, int N)
+      : oc(oc_ + static_cast<size_t>(b) * N * 3),
+        invd(invd_ + static_cast<size_t>(b) * N * 3),
+        mag(mag_ + static_cast<size_t>(b) * N) {}
+
+  struct Fields {
+    float ix, iy, iz, mx, my, mz, c, cs;
+  };
+
+  __device__ Fields fields(int q) const {
+    const float ox = oc[3 * q], oy = oc[3 * q + 1], oz = oc[3 * q + 2];
+    Fields f;
+    f.ix = invd[3 * q];
+    f.iy = invd[3 * q + 1];
+    f.iz = invd[3 * q + 2];
+    f.mx = __fmul_rn(ox, f.ix);
+    f.my = __fmul_rn(oy, f.iy);
+    f.mz = __fmul_rn(oz, f.iz);
+    f.c = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(ox, ox), f.ix), __fmul_rn(__fmul_rn(oy, oy), f.iy)),
+                    __fmul_rn(__fmul_rn(oz, oz), f.iz));
+    f.cs = __fmul_rn(mag[q], kInvSqrt2Pi);
+    return f;
+  }
+
+  template <int EXP>
+  static __device__ RayTerms terms(const Fields& f, float dx, float dy, float dz) {
+    const float a = dot3_rn(f.ix, f.iy, f.iz, __fmul_rn(dx, dx), __fmul_rn(dy, dy),
+                            __fmul_rn(dz, dz));
+    const float bt = dot3_rn(f.mx, f.my, f.mz, dx, dy, dz);
+    RayTerms t;
+    t.sb = __fdiv_rn(1.0f, __fsqrt_rn(a));
+    t.mb = __fmul_rn(__fmul_rn(bt, t.sb), t.sb);
+    const float e = exp_fn<EXP>(__fmul_rn(-0.5f, __fsub_rn(f.c, __fmul_rn(bt, t.mb))));
+    t.co = __fmul_rn(__fmul_rn(f.cs, t.sb), e);
+    t.inv = __fsqrt_rn(__fmul_rn(0.5f, a));
+    return t;
+  }
+
+  __device__ void stage(float* st, int qb, int q0, int nq) const {
+    for (int j = threadIdx.x; j < nq; j += blockDim.x) {
+      const Fields f = fields(q0 + j);
+      st[j] = f.ix;
+      st[qb + j] = f.iy;
+      st[2 * qb + j] = f.iz;
+      st[3 * qb + j] = f.mx;
+      st[4 * qb + j] = f.my;
+      st[5 * qb + j] = f.mz;
+      st[6 * qb + j] = f.c;
+      st[7 * qb + j] = f.cs;
+    }
+  }
+
+  template <int EXP>
+  __device__ RayTerms staged(const float* st, int qb, int j, float dx, float dy,
+                             float dz) const {
+    const Fields f = {st[j],          st[qb + j],     st[2 * qb + j], st[3 * qb + j],
+                      st[4 * qb + j], st[5 * qb + j], st[6 * qb + j], st[7 * qb + j]};
+    return terms<EXP>(f, dx, dy, dz);
+  }
+
+  template <int EXP>
+  __device__ RayTerms row(int p, float dx, float dy, float dz) const {
+    return terms<EXP>(fields(p), dx, dy, dz);
+  }
+};
+
 // Tap i in 0..4 is k = i - 4; its weight is w_k = exp(-k^2/2). Called with
 // unrolled constant indices, both fold to literals.
 __device__ __forceinline__ float tap_k(int i) { return static_cast<float>(i - 4); }
@@ -165,9 +309,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Pass A of PB p rows of one ray against the q rows [q_lo, q_hi) of one
 // tile, staged qb rows at a time through shared memory:
-//   acc[i][k] += co_q erf((mb_p + k sigma_p - mb_q) inv_q)
-// and, with with_base, base += co_q erf(-mb_q inv_q). Every thread of the
-// block calls it with the same bounds (it stages rows between barriers).
+//   acc[i][k] += co_q erf((mb_p + k sb_p - mb_q) inv_q)
+// and, with with_base, base += co_q erf(-mb_q inv_q). sgp holds the p rows'
+// sb (sigma for isotropic rows). Every thread of the block calls it with
+// the same bounds (it stages rows between barriers).
 //
 // The sums are two-level: each stage's qb terms are summed on their own,
 // then added to the running sum. T = w exp(base - acc) subtracts two sums
@@ -175,16 +320,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 // running sum over N terms loses ~N ulp in the worst case, two levels
 // ~(qb + N/qb). At N ~ 4000 (the 50k-Gaussian sphere) a single running sum
 // made T several times less accurate than the plain version's blocked sums.
-template <int PB, int ERF, int EXP>
-__device__ __forceinline__ void pass_a(float* stage, int qb, const float* oc_b,
-                                       const float* sig_b, const float* mag_b, int q_lo,
+template <int PB, int ERF, int EXP, class Geo>
+__device__ __forceinline__ void pass_a(float* stage, int qb, const Geo& geo, int q_lo,
                                        int q_hi, float dx, float dy, float dz,
                                        const float (&mbp)[PB], const float (&sgp)[PB],
                                        float (&acc)[PB][kTaps], bool with_base, float& base) {
   for (int q0 = q_lo; q0 < q_hi; q0 += qb) {
     const int nq = min(qb, q_hi - q0);
     __syncthreads();
-    stage_rows(stage, qb, oc_b, sig_b, mag_b, q0, nq);
+    geo.stage(stage, qb, q0, nq);
     __syncthreads();
     float part[PB][kTaps], base_part = 0.0f;
 #pragma unroll
@@ -193,9 +337,8 @@ __device__ __forceinline__ void pass_a(float* stage, int qb, const float* oc_b,
       for (int k = 0; k < kTaps; ++k) part[i][k] = 0.0f;
     }
     for (int j = 0; j < nq; ++j) {
-      const float mbq = dot3_rn(stage[j], stage[qb + j], stage[2 * qb + j], dx, dy, dz);
-      const float co = coeff<EXP>(stage[6 * qb + j], stage[3 * qb + j], mbq, stage[4 * qb + j]);
-      const float invq = stage[5 * qb + j];
+      const RayTerms tq = geo.template staged<EXP>(stage, qb, j, dx, dy, dz);
+      const float mbq = tq.mb, co = tq.co, invq = tq.inv;
       if (with_base) base_part += co * erf_fn<ERF>(-mbq * invq);
 #pragma unroll
       for (int i = 0; i < PB; ++i) {

@@ -5,7 +5,8 @@ sgrt_tpu.ops.pallas_chunked).
 `tile_renderer_for` is THE single place that decides which kernel renders
 a tile batch of a given capacity: up to MAX_MONOLITHIC_CAPACITY rows the
 fused kernels (ops.cuda_kernel), above it, up to MAX_CHUNKED_CAPACITY, the
-chunked kernels of this module.
+chunked kernels of this module. `tile_renderer_aniso_for` is its twin for
+anisotropic scenes (the fused anisotropic kernels, ops.cuda_aniso).
 
 The chunked kernels compute the fused kernels' function (ops.cuda_kernel's
 definitions) with the Gaussian axis cut into C = N / ck chunks of ck rows.
@@ -337,6 +338,23 @@ def render_tiles_chunked(tiled_scene: GaussianScene, o, tile_dirs, counts=None, 
     return colors_t.transpose(1, 2)
 
 
+def _fused_route(render_tiles, capacity, pb, qb, rb, erf_name, exp_name):
+    """(padded capacity, render_fn) of a fused per-tile renderer: the
+    capacity padded to a multiple of lcm(pb, qb), the JAX package's block
+    sizes unless pb/qb override them (and reach the kernel)."""
+    dpb, dqb = _block_sizes(capacity)
+    pb = dpb if pb is None else pb
+    qb = dqb if qb is None else qb
+    align = math.lcm(pb, qb)
+    cap = max(align, -(-capacity // align) * align)
+
+    def render_fn(tiled, o, d, counts):
+        return render_tiles(tiled, o, d, counts, rb=rb, pb=pb, qb=qb,
+                            erf_name=erf_name, exp_name=exp_name)
+
+    return cap, render_fn
+
+
 def tile_renderer_for(capacity: int, *, erf_name: str = "as5",
                       exp_name: str = "exact", pb: int | None = None,
                       qb: int | None = None, rb: int = 128):
@@ -354,15 +372,24 @@ def tile_renderer_for(capacity: int, *, erf_name: str = "as5",
                                         erf_name=erf_name, exp_name=exp_name)
 
         return cap, render_chunked
+    return _fused_route(render_tiles_fused, capacity, pb, qb, rb, erf_name, exp_name)
 
-    dpb, dqb = _block_sizes(capacity)
-    pb = dpb if pb is None else pb
-    qb = dqb if qb is None else qb
-    align = math.lcm(pb, qb)
-    cap = max(align, -(-capacity // align) * align)
 
-    def render_fn(tiled, o, d, counts):
-        return render_tiles_fused(tiled, o, d, counts, rb=rb, pb=pb, qb=qb,
-                                  erf_name=erf_name, exp_name=exp_name)
+def tile_renderer_aniso_for(capacity: int, *, erf_name: str = "as5",
+                            exp_name: str = "exact", pb: int | None = None,
+                            qb: int | None = None, rb: int = 128):
+    """The anisotropic twin of tile_renderer_for (the JAX package's
+    pallas_chunked_aniso.tile_renderer_aniso_for): up to
+    MAX_BWD_CAPACITY_ANISO rows the fused anisotropic kernels
+    (ops.cuda_aniso) render at a multiple of lcm(pb, qb), pb/qb passed
+    through. Above it the JAX package routes to its chunked anisotropic
+    kernels, which the port does not have yet: it raises."""
+    from sgrt_tpu_torch.ops.cuda_aniso import MAX_BWD_CAPACITY_ANISO, render_tiles_fused_aniso
 
-    return cap, render_fn
+    if capacity > MAX_BWD_CAPACITY_ANISO:
+        raise NotImplementedError(
+            f"per-tile capacity {capacity} exceeds MAX_BWD_CAPACITY_ANISO "
+            f"({MAX_BWD_CAPACITY_ANISO}): that takes the chunked anisotropic kernels "
+            "(sgrt_tpu/ops/pallas_chunked_aniso.py:78 _chunked_fwd_aniso_kernel and :199 "
+            "_chunked_bwd_aniso_kernel), which are not ported yet; use a finer tile grid")
+    return _fused_route(render_tiles_fused_aniso, capacity, pb, qb, rb, erf_name, exp_name)

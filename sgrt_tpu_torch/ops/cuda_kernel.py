@@ -23,6 +23,11 @@ tensors on the CPU:
 
 `FusedRender` joins them into one differentiable op, as the JAX package's
 custom VJP does; `render_fused` uses it when a gradient is wanted.
+
+The plain versions and the op are written over a row geometry (the terms
+mb, co, inv and sb per (row, ray), and the chain back to the raw inputs),
+so that ops.cuda_aniso runs the same pass A, pass B and op over
+anisotropic rows, as the kernels share gauss_common.cuh's.
 """
 
 from __future__ import annotations
@@ -191,42 +196,30 @@ def _scene_shapes(oc, sigma, mag, albedo, dirs_t, counts) -> dict:
 @dataclasses.dataclass
 class _LiveTiles:
     """The tiles with a live row, cut to the rows up to the largest count,
-    rows past each count replaced by inert dummies, and the kernel prep."""
+    rows past each count replaced by inert dummies, and the per-(row, ray)
+    terms of the row geometry (the kernels' prep). inv and sb are (L, nl, 1)
+    for isotropic rows and (L, nl, R) for anisotropic ones."""
 
     live: torch.Tensor       # (L,) tile indices
     nl: int                  # rows kept
     row_live: torch.Tensor   # (L, nl) bool
     o3: torch.Tensor         # (L, nl, 3)
-    sg: torch.Tensor         # (L, nl, 1) sigma
+    shape: torch.Tensor      # (L, nl) sigma, or (L, nl, 3) invd
     mg: torch.Tensor         # (L, nl) magnitude
     alb: torch.Tensor        # (L, nl, 3)
     d: torch.Tensor          # (L, 3, R)
     mb: torch.Tensor         # (L, nl, R)
-    ocsq: torch.Tensor       # (L, nl, 1)
-    inv2s2: torch.Tensor     # (L, nl, 1)
-    inv: torch.Tensor        # (L, nl, 1)
     co: torch.Tensor         # (L, nl, R)
+    inv: torch.Tensor        # 1/(sqrt2 sb)
+    sg: torch.Tensor         # sb: sigma along the ray
+    extra: dict              # the geometry's own terms, for its chain
 
 
-def _live_tiles(oc, sigma, mag, albedo, dirs_t, counts, exp_fn) -> _LiveTiles | None:
-    """Reads the counts on the host; None if no tile has a live row."""
-    n = oc.shape[1]
-    cnt = torch.clamp(counts.to(torch.int64), 0, n)
-    live = torch.nonzero(cnt > 0).reshape(-1)
-    if live.numel() == 0:
-        return None
-    nl = int(cnt.max())
-    row_live = torch.arange(nl, device=oc.device)[None, :] < cnt[live][:, None]
-    sig = torch.where(row_live, sigma[live, :nl], torch.ones_like(row_live, dtype=oc.dtype))
-    mg = torch.where(row_live, mag[live, :nl], torch.zeros_like(sig))
-    o3 = torch.where(row_live[..., None], oc[live, :nl], torch.zeros_like(oc[live, :nl]))
-    alb = torch.where(row_live[..., None], albedo[live, :nl],
-                      torch.zeros_like(albedo[live, :nl]))
-    d = dirs_t[live]
-
-    # mb and |oc|^2 as explicit sums in a fixed order, as the kernels round
-    # them: the exponent of co cancels |oc|^2 against mb^2 (see
-    # csrc/gauss_common.cuh, gauss_exponent_rn)
+def _iso_terms(o3, sig, mg, d, exp_fn):
+    """Isotropic rows: (mb, co, inv, sb, extra). mb and |oc|^2 as explicit
+    sums in a fixed order, as the kernels round them: the exponent of co
+    cancels |oc|^2 against mb^2 (see csrc/gauss_common.cuh,
+    gauss_exponent_rn)."""
     x, y, z = (o3[..., c:c + 1] for c in range(3))         # (L, nl, 1)
     mb = x * d[:, None, 0] + y * d[:, None, 1] + z * d[:, None, 2]   # (L, nl, R)
     ocsq = x * x + y * y + z * z                            # (L, nl, 1)
@@ -234,7 +227,28 @@ def _live_tiles(oc, sigma, mag, albedo, dirs_t, counts, exp_fn) -> _LiveTiles | 
     inv2s2 = 1.0 / (2.0 * sg * sg)
     inv = _INV_SQRT_2 / sg                                  # (L, nl, 1)
     co = (mg[..., None] * sg * INV_SQRT_2_PI) * exp_fn(-(ocsq - mb * mb) * inv2s2)
-    return _LiveTiles(live, nl, row_live, o3, sg, mg, alb, d, mb, ocsq, inv2s2, inv, co)
+    return mb, co, inv, sg, {"ocsq": ocsq, "inv2s2": inv2s2}
+
+
+def _live_tiles(oc, shape, mag, albedo, dirs_t, counts, exp_fn, terms) -> _LiveTiles | None:
+    """Reads the counts on the host; None if no tile has a live row. shape
+    is sigma (B,N) or invd (B,N,3); dead rows get shape 1, magnitude 0."""
+    n = oc.shape[1]
+    cnt = torch.clamp(counts.to(torch.int64), 0, n)
+    live = torch.nonzero(cnt > 0).reshape(-1)
+    if live.numel() == 0:
+        return None
+    nl = int(cnt.max())
+    row_live = torch.arange(nl, device=oc.device)[None, :] < cnt[live][:, None]
+    rl = row_live[..., None]
+    shp = shape[live, :nl]
+    shp = torch.where(row_live if shp.dim() == 2 else rl, shp, torch.ones_like(shp))
+    mg = torch.where(row_live, mag[live, :nl], torch.zeros_like(mag[live, :nl]))
+    o3 = torch.where(rl, oc[live, :nl], torch.zeros_like(oc[live, :nl]))
+    alb = torch.where(rl, albedo[live, :nl], torch.zeros_like(albedo[live, :nl]))
+    d = dirs_t[live]
+    mb, co, inv, sg, extra = terms(o3, shp, mg, d, exp_fn)
+    return _LiveTiles(live, nl, row_live, o3, shp, mg, alb, d, mb, co, inv, sg, extra)
 
 
 def _q_block(lt: _LiveTiles, max_block_elems: int) -> int:
@@ -252,9 +266,9 @@ def _transmittance(lt: _LiveTiles, erf_fn, exp_fn, max_block_elems: int) -> list
     for q0 in range(0, lt.nl, qb):
         mb_q = mb[:, None, q0:q0 + qb, :]                   # (L, 1, Qb, R)
         co_q = co[:, None, q0:q0 + qb, :]
-        inv_q = inv[:, None, q0:q0 + qb, :]                 # (L, 1, Qb, 1)
+        inv_q = inv[:, None, q0:q0 + qb, :]                 # (L, 1, Qb, 1 or R)
         darg = (mb[:, :, None, :] - mb_q) * inv_q           # (L, nl, Qb, R)
-        ks = sg[:, :, None, :] * inv_q                      # (L, nl, Qb, 1)
+        ks = sg[:, :, None, :] * inv_q                      # (L, nl, Qb, 1 or R)
         accs = [acc + torch.sum(co_q * erf_fn(darg + k * ks), dim=2)
                 for acc, k in zip(accs, K_TAPS)]
     rl = lt.row_live[..., None]
@@ -268,14 +282,14 @@ def _colors(lt: _LiveTiles, T) -> torch.Tensor:
     return lt.alb.transpose(1, 2) @ w_p                     # (L, 3, R)
 
 
-def _forward_plain(oc, sigma, mag, albedo, dirs_t, counts, erf_name, exp_name,
-                   max_block_elems, want_t):
+def _forward_plain(oc, shape, mag, albedo, dirs_t, counts, erf_name, exp_name,
+                   max_block_elems, want_t, terms=_iso_terms):
     erf_fn, exp_fn = ERF_IMPLS[erf_name], EXP_IMPLS[exp_name]
     b, n, _ = oc.shape
     r = dirs_t.shape[2]
     colors = dirs_t.new_zeros((b, 3, r))
     t = dirs_t.new_zeros((b, len(K_TAPS), n, r)) if want_t else None
-    lt = _live_tiles(oc, sigma, mag, albedo, dirs_t, counts, exp_fn)
+    lt = _live_tiles(oc, shape, mag, albedo, dirs_t, counts, exp_fn, terms)
     if lt is None:
         return colors, t
     T = _transmittance(lt, erf_fn, exp_fn, max_block_elems)
@@ -314,28 +328,41 @@ def fused_forward_t_plain(oc, sigma, mag, albedo, dirs_t, counts, *,
                           max_block_elems, True)
 
 
-def fused_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
-                         erf_name: str = "as5", exp_name: str = "exact",
-                         max_block_elems: int = 1 << 24):
-    """The backward kernels' function in tensor ops: the analytic VJP of
-    the fused forward for the cotangent dcol (B,3,R), written out in the
-    JAX package's order (pallas_kernel.py: _grad_pass with its S0/S1
-    folding, _base_path_grads, _fused_prep_epilogue with the mag == 0
-    guard). With t_saved (B,5,N,R) it reads T as the saved-T kernel does;
-    without, it recomputes pass A. Returns (doc (B,N,3), dsigma (B,N),
-    dmag (B,N), dalbedo (B,N,3), ddirs (B,3,R)); rows at or past the count
-    get exactly zero.
+def _iso_chain(lt: _LiveTiles, dco, dmb, dinv, dsb):
+    """The isotropic prep chain (pallas_kernel.py's _fused_prep_epilogue):
+    plane cotangents → per-row (doc, dsigma, dmag) and ddirs."""
+    co, mb, inv, sg = lt.co, lt.mb, lt.inv, lt.sg
+    inv2s2, ocsq = lt.extra["inv2s2"], lt.extra["ocsq"]
+    dcoco = dco * co
+    dmb = dmb + dcoco * (2.0 * inv2s2) * mb
+    s_row = torch.sum(dcoco, dim=2, keepdim=True)           # (L, nl, 1)
+    docsq = s_row * (-inv2s2)
+    s_qmb = torch.sum(dcoco * (ocsq - mb * mb), dim=2, keepdim=True)
+    dsig_l = (torch.sum(dsb, dim=2, keepdim=True)
+              + torch.sum(dinv, dim=2, keepdim=True) * (-inv / sg)
+              + s_row / sg + s_qmb / (sg * sg * sg))[..., 0]
+    # guard only mag == 0 (inert rows): a negative magnitude keeps the sign
+    # of d mag = sum(dco*co)/mag
+    mg = lt.mg
+    dmag_l = mg * s_row[..., 0] / torch.where(mg == 0, torch.ones_like(mg), mg * mg)
+    doc_l = dmb @ lt.d.transpose(1, 2) + 2.0 * lt.o3 * docsq   # (L, nl, 3)
+    ddirs_l = lt.o3.transpose(1, 2) @ dmb                   # (L, 3, R)
+    return doc_l, dsig_l, dmag_l, ddirs_l
 
-    erf' is 2/sqrt(pi) exp(-x^2) from the erf's (erf, gauss) pair, as in
-    the kernels; an erf with no pair takes as5's, as the JAX package does.
-    """
+
+def _backward_plain(oc, shape, mag, albedo, dirs_t, counts, dcol, t_saved, erf_name,
+                    exp_name, max_block_elems, terms, chain):
+    """The fused VJP in tensor ops over a row geometry: pass B and the base
+    path in the JAX package's order (_grad_pass with its S0/S1 folding,
+    _base_path_grads), then the geometry's chain. Returns (doc, dshape,
+    dmag, dalbedo, ddirs); rows at or past the count get exactly zero."""
     erf_fn, exp_fn = ERF_IMPLS[erf_name], EXP_IMPLS[exp_name]
     eag = ERF_AND_GAUSS_IMPLS.get(erf_name, ERF_AND_GAUSS_IMPLS["as5"])
-    doc, dsig, dmag = torch.zeros_like(oc), torch.zeros_like(sigma), torch.zeros_like(mag)
+    doc, dshape, dmag = torch.zeros_like(oc), torch.zeros_like(shape), torch.zeros_like(mag)
     dalb, ddirs = torch.zeros_like(albedo), torch.zeros_like(dirs_t)
-    lt = _live_tiles(oc, sigma, mag, albedo, dirs_t, counts, exp_fn)
+    lt = _live_tiles(oc, shape, mag, albedo, dirs_t, counts, exp_fn, terms)
     if lt is None:
-        return doc, dsig, dmag, dalb, ddirs
+        return doc, dshape, dmag, dalb, ddirs
     mb, co, inv, sg, nl = lt.mb, lt.co, lt.inv, lt.sg, lt.nl
     rl = lt.row_live[..., None]
     if t_saved is None:
@@ -352,15 +379,15 @@ def fused_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=N
     dco = _SQRT_2_PI * tw * A
     dalb_l = (_SQRT_2_PI * co * tw) @ dcl.transpose(1, 2)   # (L, nl, 3)
 
-    # pass B, q-blocked: q-side sums into dco/dmb/dinv, p-side into dmb/dsig_p
-    dmb, dinv, dsig_p = torch.zeros_like(mb), torch.zeros_like(mb), torch.zeros_like(mb)
-    sg4 = sg[:, :, None, :]                                 # (L, nl, 1, 1)
+    # pass B, q-blocked: q-side sums into dco/dmb/dinv, p-side into dmb/dsb
+    dmb, dinv, dsb = torch.zeros_like(mb), torch.zeros_like(mb), torch.zeros_like(mb)
+    sg4 = sg[:, :, None, :]                                 # (L, nl, 1, 1 or R)
     qb = _q_block(lt, max_block_elems)
     for q0 in range(0, nl, qb):
         q = slice(q0, q0 + qb)
         mb_q = mb[:, None, q, :]                            # (L, 1, Qb, R)
         co_q = co[:, None, q, :]
-        inv_q = inv[:, None, q, :]                          # (L, 1, Qb, 1)
+        inv_q = inv[:, None, q, :]                          # (L, 1, Qb, 1 or R)
         dd = mb[:, :, None, :] - mb_q                       # (L, nl, Qb, R)
         dco_blk = torch.zeros_like(mb_q[:, 0])
         t0 = t1 = 0.0
@@ -375,7 +402,7 @@ def fused_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=N
         s1 = (-_DERF) * co_q * t1
         di = s0 * inv_q
         dmb = dmb + torch.sum(di, dim=2)
-        dsig_p = dsig_p + torch.sum(s1 * inv_q, dim=2)
+        dsb = dsb + torch.sum(s1 * inv_q, dim=2)
         dco[:, q] += dco_blk
         dmb[:, q] -= torch.sum(di, dim=1)
         dinv[:, q] += torch.sum(s0 * dd + s1 * sg4, dim=1)
@@ -387,30 +414,34 @@ def fused_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=N
     dmb = dmb + derf1 * (-inv)
     dinv = dinv + derf1 * (-mb)
 
-    # chain through the prep (co, mb, inv) to the raw inputs
-    dcoco = dco * co
-    dmb = dmb + dcoco * (2.0 * lt.inv2s2) * mb
-    s_row = torch.sum(dcoco, dim=2, keepdim=True)           # (L, nl, 1)
-    docsq = s_row * (-lt.inv2s2)
-    s_qmb = torch.sum(dcoco * (lt.ocsq - mb * mb), dim=2, keepdim=True)
-    dsig_l = (torch.sum(dsig_p, dim=2, keepdim=True)
-              + torch.sum(dinv, dim=2, keepdim=True) * (-inv / sg)
-              + s_row / sg + s_qmb / (sg * sg * sg))[..., 0]
-    # guard only mag == 0 (inert rows): a negative magnitude keeps the sign
-    # of d mag = sum(dco*co)/mag
-    mg = lt.mg
-    dmag_l = mg * s_row[..., 0] / torch.where(mg == 0, torch.ones_like(mg), mg * mg)
-    doc_l = dmb @ lt.d.transpose(1, 2) + 2.0 * lt.o3 * docsq   # (L, nl, 3)
-    ddirs_l = lt.o3.transpose(1, 2) @ dmb                   # (L, 3, R)
-
+    doc_l, dshape_l, dmag_l, ddirs_l = chain(lt, dco, dmb, dinv, dsb)
     zero = torch.zeros((), dtype=oc.dtype, device=oc.device)
     live = lt.live
     doc[live, :nl] = torch.where(rl, doc_l, zero)
-    dsig[live, :nl] = torch.where(lt.row_live, dsig_l, zero)
+    dshape[live, :nl] = torch.where(rl if dshape_l.dim() == 3 else lt.row_live, dshape_l, zero)
     dmag[live, :nl] = torch.where(lt.row_live, dmag_l, zero)
     dalb[live, :nl] = torch.where(rl, dalb_l, zero)
     ddirs[live] = ddirs_l
-    return doc, dsig, dmag, dalb, ddirs
+    return doc, dshape, dmag, dalb, ddirs
+
+
+def fused_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
+                         erf_name: str = "as5", exp_name: str = "exact",
+                         max_block_elems: int = 1 << 24):
+    """The backward kernels' function in tensor ops: the analytic VJP of
+    the fused forward for the cotangent dcol (B,3,R), written out in the
+    JAX package's order (pallas_kernel.py: _grad_pass with its S0/S1
+    folding, _base_path_grads, _fused_prep_epilogue with the mag == 0
+    guard). With t_saved (B,5,N,R) it reads T as the saved-T kernel does;
+    without, it recomputes pass A. Returns (doc (B,N,3), dsigma (B,N),
+    dmag (B,N), dalbedo (B,N,3), ddirs (B,3,R)); rows at or past the count
+    get exactly zero.
+
+    erf' is 2/sqrt(pi) exp(-x^2) from the erf's (erf, gauss) pair, as in
+    the kernels; an erf with no pair takes as5's, as the JAX package does.
+    """
+    return _backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved, erf_name,
+                           exp_name, max_block_elems, _iso_terms, _iso_chain)
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +498,37 @@ def fused_forward_t(oc, sigma, mag, albedo, dirs_t, counts, *, rb: int = 128,
     return colors, t
 
 
+def _backward_launch(kernels, plain, who, args, want, dcol, t_saved, *, rb, qb,
+                     erf_name, exp_name):
+    """Check the inputs, then run the plain version (CPU) or launch the
+    saved-T (t_saved given) or recompute entry point of csrc/fused_bwd.cu;
+    kernels = (recompute, saved-T). Outputs (doc, dshape, dmag, dalb,
+    ddirs), dshape shaped as args[1]."""
+    oc, shape, dirs_t = args[0], args[1], args[4]
+    b, n, _ = oc.shape
+    r = dirs_t.shape[-1]
+    want["dcol"] = (dcol, (b, 3, r))
+    if t_saved is not None:
+        want["t_saved"] = (t_saved, (b, len(K_TAPS), n, r))
+    if not _check_inputs(who, want, oc.device):
+        return plain(*args, dcol, t_saved, erf_name=erf_name, exp_name=exp_name)
+    _check_names(erf_name, exp_name)
+    kernel = kernels[0] if t_saved is None else kernels[1]
+    threads = _threads(kernel.query("sgrt_fused_bwd_max_threads"), rb, r)
+    rp = -(-r // threads) * threads
+    planes = kernel.query("sgrt_fused_bwd_planes")
+    f32 = dict(dtype=torch.float32, device=oc.device)
+    scratch = torch.empty((b, planes, n, rp), **f32)
+    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
+    dshape, dmag = torch.empty(tuple(shape.shape), **f32), torch.empty((b, n), **f32)
+    ddirs = torch.empty((b, 3, r), **f32)
+    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
+    kernel.launch(ins + [scratch, doc, dshape, dmag, dalb, ddirs],
+                  [b, n, r, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  what=f"B={b}, N={n}, R={r}, threads={threads}, qb={qb}")
+    return doc, dshape, dmag, dalb, ddirs
+
+
 def fused_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
                    rb: int = 128, qb: int = 32, erf_name: str = "as5",
                    exp_name: str = "exact"):
@@ -479,30 +541,9 @@ def fused_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *
     fused_backward_plain. rb caps the rays per block; qb is the rows staged
     per shared-memory pass."""
     args = (oc, sigma, mag, albedo, dirs_t, counts)
-    want = _scene_shapes(*args)
-    b, n, _ = oc.shape
-    r = dirs_t.shape[-1]
-    want["dcol"] = (dcol, (b, 3, r))
-    if t_saved is not None:
-        want["t_saved"] = (t_saved, (b, len(K_TAPS), n, r))
-    if not _check_inputs("fused_backward", want, oc.device):
-        return fused_backward_plain(*args, dcol, t_saved, erf_name=erf_name,
-                                    exp_name=exp_name)
-    _check_names(erf_name, exp_name)
-    kernel = FUSED_BWD if t_saved is None else FUSED_BWD_T
-    threads = _threads(kernel.query("sgrt_fused_bwd_max_threads"), rb, r)
-    rp = -(-r // threads) * threads
-    planes = kernel.query("sgrt_fused_bwd_planes")
-    f32 = dict(dtype=torch.float32, device=oc.device)
-    scratch = torch.empty((b, planes, n, rp), **f32)
-    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
-    dsig, dmag = torch.empty((b, n), **f32), torch.empty((b, n), **f32)
-    ddirs = torch.empty((b, 3, r), **f32)
-    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
-    kernel.launch(ins + [scratch, doc, dsig, dmag, dalb, ddirs],
-                  [b, n, r, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
-                  what=f"B={b}, N={n}, R={r}, threads={threads}, qb={qb}")
-    return doc, dsig, dmag, dalb, ddirs
+    return _backward_launch((FUSED_BWD, FUSED_BWD_T), fused_backward_plain, "fused_backward",
+                            args, _scene_shapes(*args), dcol, t_saved, rb=rb, qb=qb,
+                            erf_name=erf_name, exp_name=exp_name)
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +552,7 @@ def fused_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *
 
 @dataclasses.dataclass(frozen=True)
 class _FusedOpts:
+    ops: tuple          # (forward, forward_t, backward) wrappers of one row geometry
     rb: int
     rb_bwd: int
     pb: int
@@ -521,33 +563,60 @@ class _FusedOpts:
 
 
 class FusedRender(torch.autograd.Function):
-    """colors = fused forward(oc, sigma, mag, albedo, dirs_t, counts) with
+    """colors = fused forward(oc, shape, mag, albedo, dirs_t, counts) with
     the analytic backward (the counterpart of the JAX package's
-    _make_fused_op). save_t: the forward also writes T and the backward
-    reads it instead of recomputing pass A. Gradients flow to oc, sigma,
+    _make_fused_op and _make_fused_aniso_op): shape is sigma for the
+    isotropic kernels, invd = scale^-2 for the anisotropic ones, whichever
+    opts.ops holds. save_t: the forward also writes T and the backward
+    reads it instead of recomputing pass A. Gradients flow to oc, shape,
     mag, albedo and the ray directions; counts gets None."""
 
     @staticmethod
-    def forward(ctx, oc, sigma, mag, albedo, dirs_t, counts, opts: _FusedOpts):
+    def forward(ctx, oc, shape, mag, albedo, dirs_t, counts, opts: _FusedOpts):
+        fwd, fwd_t, _ = opts.ops
         kw = dict(pb=opts.pb, qb=opts.qb, erf_name=opts.erf_name, exp_name=opts.exp_name)
         if opts.save_t:
-            colors, t = fused_forward_t(oc, sigma, mag, albedo, dirs_t, counts,
-                                        rb=opts.rb_bwd, **kw)
-            ctx.save_for_backward(oc, sigma, mag, albedo, dirs_t, counts, t)
+            colors, t = fwd_t(oc, shape, mag, albedo, dirs_t, counts, rb=opts.rb_bwd, **kw)
+            ctx.save_for_backward(oc, shape, mag, albedo, dirs_t, counts, t)
         else:
-            colors = fused_forward(oc, sigma, mag, albedo, dirs_t, counts, rb=opts.rb, **kw)
-            ctx.save_for_backward(oc, sigma, mag, albedo, dirs_t, counts)
+            colors = fwd(oc, shape, mag, albedo, dirs_t, counts, rb=opts.rb, **kw)
+            ctx.save_for_backward(oc, shape, mag, albedo, dirs_t, counts)
         ctx.opts = opts
         return colors
 
     @staticmethod
     def backward(ctx, dcol):
-        oc, sigma, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
+        oc, shape, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
         o = ctx.opts
-        grads = fused_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol.contiguous(),
-                               t[0] if t else None, rb=o.rb_bwd, qb=o.qb,
-                               erf_name=o.erf_name, exp_name=o.exp_name)
+        grads = o.ops[2](oc, shape, mag, albedo, dirs_t, counts, dcol.contiguous(),
+                         t[0] if t else None, rb=o.rb_bwd, qb=o.qb,
+                         erf_name=o.erf_name, exp_name=o.exp_name)
         return (*grads, None, None)
+
+
+def _render_fused(ops, scene_oc, shape, mag, albedo, dirs_t, counts, *, rb, pb, qb, rb_bwd,
+                  erf_name, exp_name, save_t):
+    """render_fused over the wrappers `ops` of one row geometry."""
+    erf_name = _kernel_erf_name(erf_name)
+    b, n, _ = scene_oc.shape
+    r = dirs_t.shape[2]
+    rb = min(rb, r)
+    rb_bwd = rb if rb_bwd is None else min(rb_bwd, r)
+    pb, qb = min(pb, n), min(qb, n)
+    if r % rb or n % pb or n % qb or r % rb_bwd or pb % 8 or qb % 8:
+        raise ValueError(f"shape (R={r}, N={n}) not divisible by blocks "
+                         f"(rb={rb}, rb_bwd={rb_bwd}, pb={pb}, qb={qb})")
+    if counts is None:
+        counts = torch.full((b,), n, dtype=torch.int32, device=scene_oc.device)
+    counts = torch.clamp(counts.to(torch.int32), max=n)
+    inputs = (scene_oc, shape, mag, albedo, dirs_t)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
+        return ops[0](*inputs, counts, rb=rb, pb=pb, qb=qb, erf_name=erf_name,
+                      exp_name=exp_name)
+    if save_t is None:
+        save_t = save_t_bytes(b, n, r) <= SAVE_T_MAX_BYTES
+    opts = _FusedOpts(ops, rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
+    return FusedRender.apply(*inputs, counts, opts)
 
 
 def render_fused(scene_oc, sigma, mag, albedo, dirs_t, counts=None, *,
@@ -565,26 +634,9 @@ def render_fused(scene_oc, sigma, mag, albedo, dirs_t, counts=None, *,
     and never pays for the T write. save_t=None saves T when its 20*B*N*R
     bytes fit SAVE_T_MAX_BYTES. rb_bwd is the ray block of the saved-T
     forward and of the backward (default rb)."""
-    erf_name = _kernel_erf_name(erf_name)
-    b, n, _ = scene_oc.shape
-    r = dirs_t.shape[2]
-    rb = min(rb, r)
-    rb_bwd = rb if rb_bwd is None else min(rb_bwd, r)
-    pb, qb = min(pb, n), min(qb, n)
-    if r % rb or n % pb or n % qb or r % rb_bwd or pb % 8 or qb % 8:
-        raise ValueError(f"shape (R={r}, N={n}) not divisible by blocks "
-                         f"(rb={rb}, rb_bwd={rb_bwd}, pb={pb}, qb={qb})")
-    if counts is None:
-        counts = torch.full((b,), n, dtype=torch.int32, device=scene_oc.device)
-    counts = torch.clamp(counts.to(torch.int32), max=n)
-    inputs = (scene_oc, sigma, mag, albedo, dirs_t)
-    if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
-        return fused_forward(*inputs, counts, rb=rb, pb=pb, qb=qb, erf_name=erf_name,
-                             exp_name=exp_name)
-    if save_t is None:
-        save_t = save_t_bytes(b, n, r) <= SAVE_T_MAX_BYTES
-    opts = _FusedOpts(rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
-    return FusedRender.apply(*inputs, counts, opts)
+    return _render_fused((fused_forward, fused_forward_t, fused_backward), scene_oc, sigma, mag,
+                         albedo, dirs_t, counts, rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd,
+                         erf_name=erf_name, exp_name=exp_name, save_t=save_t)
 
 
 def render_tiles_fused(tiled_scene: GaussianScene, o, tile_dirs, counts=None,

@@ -4,13 +4,20 @@ with `name`, `route`, `source`, `replaces` (the TPU kernel it ports) and a
 
 from __future__ import annotations
 
+from sgrt_tpu_torch.ops.cuda_aniso import (
+    FUSED_BWD_ANISO,
+    FUSED_BWD_T_ANISO,
+    FUSED_FWD_ANISO,
+    FUSED_FWD_T_ANISO,
+)
 from sgrt_tpu_torch.ops.cuda_chunked import CHUNKED_BWD, CHUNKED_BWD_T, CHUNKED_FWD, CHUNKED_FWD_T
 from sgrt_tpu_torch.ops.cuda_kernel import FUSED_BWD, FUSED_BWD_T, FUSED_FWD, FUSED_FWD_T
 from sgrt_tpu_torch.utils import nvcc
 
-# in the order of the kernel table (PERF.md): rows 1-8
+# in the order of the kernel table (PERF.md): rows 1-12
 KERNELS = (FUSED_FWD, FUSED_FWD_T, FUSED_BWD_T, FUSED_BWD,
-           CHUNKED_FWD, CHUNKED_FWD_T, CHUNKED_BWD, CHUNKED_BWD_T)
+           CHUNKED_FWD, CHUNKED_FWD_T, CHUNKED_BWD, CHUNKED_BWD_T,
+           FUSED_FWD_ANISO, FUSED_FWD_T_ANISO, FUSED_BWD_T_ANISO, FUSED_BWD_ANISO)
 
 
 def build_all() -> None:

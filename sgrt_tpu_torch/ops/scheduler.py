@@ -215,37 +215,51 @@ def bucketed_tile_indices(scene: GaussianScene, view: torch.Tensor, tiles,
     return dense_ids, idx_dense, sparse_ids, idx_sparse, counts
 
 
-def render_tiles_bucketed(scene: GaussianScene, view, o, tile_dirs, cfg: BucketConfig,
+def _scene_ops(scene):
+    """(renderer_for, gather, culling scene) of a scene's class: isotropic
+    scenes route through tile_renderer_for; anisotropic ones
+    (ops.anisotropic.AnisoScene) through tile_renderer_aniso_for, culled on
+    their max-scale proxy."""
+    from sgrt_tpu_torch.ops import cuda_chunked
+    from sgrt_tpu_torch.ops.anisotropic import AnisoScene, gather_tiles_aniso, iso_proxy
+
+    if isinstance(scene, AnisoScene):
+        return cuda_chunked.tile_renderer_aniso_for, gather_tiles_aniso, iso_proxy(scene)
+    return cuda_chunked.tile_renderer_for, gather_tiles, scene
+
+
+def render_tiles_bucketed(scene, view, o, tile_dirs, cfg: BucketConfig,
                           erf_name: str = "as5", exp_name: str = "exact", tiles=None,
                           rb: int = 128, pb: int | None = None, qb: int | None = None,
                           focal_length=1.0):
-    """Two-bucket tiled render: tile_dirs (T2, P, 3) → (colors (T2, P, 3),
-    counts (T2,), overflow (0-d int32: tiles whose true count exceeds their
-    bucket's capacity; 0 means nothing was dropped)). Differentiable with
-    respect to the scene: the bucket gathers transpose to scatter-adds and
-    the scatter back into tile order to a gather. Capacities are rounded
-    and routed by tile_renderer_for, once per bucket."""
-    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
-
+    """Two-bucket tiled render of a GaussianScene or an AnisoScene:
+    tile_dirs (T2, P, 3) → (colors (T2, P, 3), counts (T2,), overflow (0-d
+    int32: tiles whose true count exceeds their bucket's capacity; 0 means
+    nothing was dropped)). Differentiable with respect to the scene: the
+    bucket gathers transpose to scatter-adds and the scatter back into tile
+    order to a gather. Capacities are rounded and routed by the scene's
+    renderer_for (tile_renderer_for or tile_renderer_aniso_for), once per
+    bucket."""
+    renderer_for, gather, culled = _scene_ops(scene)
     t2 = tile_dirs.shape[0]
     if tiles is None:
         tiles = int(round(t2 ** 0.5))  # square-grid default
-    cap_d, render_dense = tile_renderer_for(cfg.cap_dense, pb=pb, qb=qb, rb=rb,
-                                            erf_name=erf_name, exp_name=exp_name)
-    cap_s, render_sparse = tile_renderer_for(cfg.cap_sparse, pb=pb, qb=qb, rb=rb,
-                                             erf_name=erf_name, exp_name=exp_name)
+    cap_d, render_dense = renderer_for(cfg.cap_dense, pb=pb, qb=qb, rb=rb,
+                                       erf_name=erf_name, exp_name=exp_name)
+    cap_s, render_sparse = renderer_for(cfg.cap_sparse, pb=pb, qb=qb, rb=rb,
+                                        erf_name=erf_name, exp_name=exp_name)
     cfg = BucketConfig(cfg.n_dense, cap_d, cap_s)
     dense_ids, idx_d, sparse_ids, idx_s, counts = bucketed_tile_indices(
-        scene, view, tiles, cfg, focal_length=focal_length)
+        culled, view, tiles, cfg, focal_length=focal_length)
     overflow = (torch.sum(counts[sparse_ids] > cfg.cap_sparse)
                 + torch.sum(counts[dense_ids] > cfg.cap_dense)).to(torch.int32)
 
-    colors_s = render_sparse(gather_tiles(scene, idx_s), o, tile_dirs[sparse_ids],
+    colors_s = render_sparse(gather(scene, idx_s), o, tile_dirs[sparse_ids],
                              counts[sparse_ids])
     colors = colors_s.new_zeros((t2,) + tuple(colors_s.shape[1:]))
     colors = colors.index_copy(0, sparse_ids, colors_s)
     if cfg.n_dense > 0:
-        colors_d = render_dense(gather_tiles(scene, idx_d), o, tile_dirs[dense_ids],
+        colors_d = render_dense(gather(scene, idx_d), o, tile_dirs[dense_ids],
                                 counts[dense_ids])
         colors = colors.index_copy(0, dense_ids, colors_d)
     return colors, counts, overflow

@@ -20,8 +20,11 @@ Adam update leaves them. Steps update the state in place and return it.
 
 make_slab_frame_train_step is the fitting-scale step: one forward and
 backward per slab of count-sorted tiles, gradients summed across slabs,
-Adam applied once. Distribution over a mesh is not ported: every step
-factory raises for mesh is not None.
+Adam applied once. make_aniso_frame_train_step fits anisotropic scenes
+(ops.anisotropic.AnisoScene: per-axis scales) through the fused
+anisotropic kernels. init_state and the steps take either scene class and
+work over its dataclass fields. Distribution over a mesh is not ported:
+every step factory raises for mesh is not None.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from sgrt_tpu_torch.models.gaussians import GaussianScene
+from sgrt_tpu_torch.ops.anisotropic import FIELDS as ANISO_FIELDS
 from sgrt_tpu_torch.ops.frame import BACKENDS
 from sgrt_tpu_torch.ops.render import _radiance_block, _tile_rays, render_rays_impl
 from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
@@ -41,9 +45,15 @@ from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
 FIELDS = ("mu", "sigma", "magnitude", "albedo")
 
 
+def scene_fields(scene) -> tuple[str, ...]:
+    """The field names of a scene dataclass (GaussianScene or AnisoScene),
+    in order."""
+    return tuple(f.name for f in dataclasses.fields(scene))
+
+
 @dataclasses.dataclass
 class FitState:
-    scene: GaussianScene                 # leaf tensors, updated in place
+    scene: GaussianScene                 # or AnisoScene; leaf tensors, updated in place
     opt_state: torch.optim.Optimizer     # over the scene's four fields
     step: int = 0
 
@@ -86,36 +96,39 @@ def _check_bwd_capacity(capacity, bucket_cfg, backend) -> None:
             "so fewer Gaussians land in each tile (ops.frame.auto_tile_grid)")
 
 
-def init_state(scene: GaussianScene, optimizer, mesh=None) -> FitState:
+def init_state(scene, optimizer, mesh=None) -> FitState:
     """A fit state over copies of the scene's fields (the caller's scene is
-    never updated), with the optimizer built over them."""
+    never updated), with the optimizer built over them. scene is a
+    GaussianScene or an AnisoScene."""
     _refuse_mesh(mesh)
-    scene = GaussianScene(**{f: getattr(scene, f).detach().clone() for f in FIELDS})
-    return FitState(scene, optimizer([getattr(scene, f) for f in FIELDS]), 0)
+    fields = scene_fields(scene)
+    scene = type(scene)(**{f: getattr(scene, f).detach().clone() for f in fields})
+    return FitState(scene, optimizer([getattr(scene, f) for f in fields]), 0)
 
 
 def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred - target) ** 2)
 
 
-def _apply_updates(state: FitState, grads: GaussianScene, trainable) -> None:
+def _apply_updates(state: FitState, grads, trainable) -> None:
     """One optimizer step: the trainable fields get their gradients, the
     others none (the optimizer skips them)."""
-    for f in FIELDS:
+    for f in scene_fields(state.scene):
         getattr(state.scene, f).grad = getattr(grads, f) if f in trainable else None
     state.opt_state.step()
     state.step += 1
 
 
-def _value_and_grad(loss_of, scene: GaussianScene, trainable):
-    """loss_of(masked scene) → (loss, aux); returns ((loss, aux), grads):
-    gradients of the trainable fields, zeros for the frozen ones (the JAX
-    package's stop_gradient mask)."""
-    leaves = {f: getattr(scene, f).detach().requires_grad_(f in trainable) for f in FIELDS}
-    loss, aux = loss_of(GaussianScene(**leaves))
-    wrt = [f for f in FIELDS if f in trainable]
+def _value_and_grad(loss_of, scene, trainable):
+    """loss_of(masked scene) → (loss, aux); returns ((loss, aux), grads), a
+    scene of the same class: gradients of the trainable fields, zeros for
+    the frozen ones (the JAX package's stop_gradient mask)."""
+    fields = scene_fields(scene)
+    leaves = {f: getattr(scene, f).detach().requires_grad_(f in trainable) for f in fields}
+    loss, aux = loss_of(type(scene)(**leaves))
+    wrt = [f for f in fields if f in trainable]
     got = dict(zip(wrt, torch.autograd.grad(loss, [leaves[f] for f in wrt]))) if wrt else {}
-    grads = GaussianScene(**{f: got.get(f, torch.zeros_like(leaves[f])) for f in FIELDS})
+    grads = type(scene)(**{f: got.get(f, torch.zeros_like(leaves[f])) for f in fields})
     return (loss.detach(), aux), grads
 
 
@@ -328,6 +341,73 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
         grads = GaussianScene(**{f: getattr(grads, f) / norm for f in FIELDS})
         _apply_updates(state, grads, trainable)
         return state, total / norm, overflow
+
+    return step
+
+
+def make_aniso_frame_train_step(*, width: int = 256, height: int = 256, tiles=16,
+                                capacity: int = 128, mesh=None, erf_name: str = "as5",
+                                exp_name: str = "exact",
+                                trainable: tuple[str, ...] = ANISO_FIELDS, bucket_cfg=None,
+                                focal_length=1.0):
+    """Tiled whole-frame train step for anisotropic scenes, the
+    diagonal-covariance sibling of make_frame_train_step:
+    step(state, view, o, dirs, target) → (state, loss, overflow), state.scene
+    an ops.anisotropic.AnisoScene.
+
+    Per-frame re-tiling on the conservative max-scale footprint (iso_proxy,
+    no gradient), the packed 10-column gather, the fused anisotropic
+    kernels' forward and analytic backward (ops.cuda_aniso; gradients
+    include the per-axis scales, saved-T chosen by SAVE_T_MAX_BYTES), the
+    gather's transpose as a scatter-add, Adam. bucket_cfg: dense/sparse
+    capacity bucketing as in the isotropic step, bucket membership from the
+    iso_proxy counts; a config with n_dense = 0 renders one launch at
+    max(capacity, cap_dense). Capacities route through
+    tile_renderer_aniso_for, which raises above MAX_BWD_CAPACITY_ANISO."""
+    from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
+    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
+
+    _refuse_mesh(mesh)
+    if bucket_cfg is not None and not bucket_cfg.n_dense:
+        capacity = max(capacity, bucket_cfg.cap_dense)
+        bucket_cfg = None
+
+    if bucket_cfg is not None:
+        from sgrt_tpu_torch.ops.scheduler import render_tiles_bucketed
+
+        for cap in (bucket_cfg.cap_dense, bucket_cfg.cap_sparse):
+            tile_renderer_aniso_for(cap)     # fail when built, not in the first launch
+
+        def loss_of_for(view, o, d, target_t):
+            def loss_of(s):
+                colors, _, overflow = render_tiles_bucketed(
+                    s, view, o, d, bucket_cfg, erf_name=erf_name, exp_name=exp_name,
+                    tiles=tiles, focal_length=focal_length)
+                return torch.mean((colors - target_t) ** 2), overflow
+
+            return loss_of
+    else:
+        capacity, render = tile_renderer_aniso_for(capacity, erf_name=erf_name,
+                                                   exp_name=exp_name)
+
+        def loss_of_for(view, o, d, target_t):
+            def loss_of(s):
+                with torch.no_grad():
+                    idx, counts = tile_indices(iso_proxy(s), view, tiles, capacity,
+                                               focal_length=focal_length)
+                    overflow = torch.sum(counts > capacity, dtype=torch.int32)
+                colors = render(gather_tiles_aniso(s, idx), o, d, counts)
+                return torch.mean((colors - target_t) ** 2), overflow
+
+            return loss_of
+
+    def step(state: FitState, view, o, dirs, target):
+        d = _tile_rays(dirs, height, width, tiles)
+        target_t = _tile_rays(target.reshape(-1, 3), height, width, tiles)
+        (loss, overflow), grads = _value_and_grad(loss_of_for(view, o, d, target_t),
+                                                  state.scene, trainable)
+        _apply_updates(state, grads, trainable)
+        return state, loss, overflow
 
     return step
 

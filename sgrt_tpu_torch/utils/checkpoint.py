@@ -2,8 +2,8 @@
 sgrt_tpu.utils.checkpoint, which uses orbax).
 
 A checkpoint is one file per step, <directory>/<step>/fit.pt, written with
-torch.save: the scene's four tensors, the optimizer's state_dict and the
-step. The manager keeps the newest `max_to_keep` steps and deletes older
+torch.save: the scene's four tensors by field name (a GaussianScene's or an
+AnisoScene's), the optimizer's state_dict and the step. The manager keeps the newest `max_to_keep` steps and deletes older
 ones. Saves are synchronous.
 """
 
@@ -14,7 +14,7 @@ import shutil
 
 import torch
 
-from sgrt_tpu_torch.parallel.fit import FIELDS, FitState
+from sgrt_tpu_torch.parallel.fit import FitState, scene_fields
 
 _FILE = "fit.pt"
 
@@ -36,7 +36,8 @@ class CheckpointManager:
     def save(self, step: int, state: FitState) -> None:
         path = os.path.join(self.directory, str(step))
         os.makedirs(path, exist_ok=True)
-        payload = {"scene": {f: getattr(state.scene, f).detach().cpu() for f in FIELDS},
+        payload = {"scene": {f: getattr(state.scene, f).detach().cpu()
+                             for f in scene_fields(state.scene)},
                    "opt_state": state.opt_state.state_dict(), "step": int(state.step)}
         tmp = os.path.join(path, _FILE + ".tmp")
         torch.save(payload, tmp)
@@ -52,7 +53,7 @@ class CheckpointManager:
         payload = torch.load(os.path.join(self.directory, str(step), _FILE),
                              map_location=dev, weights_only=True)
         with torch.no_grad():
-            for f in FIELDS:
+            for f in scene_fields(template.scene):
                 getattr(template.scene, f).copy_(payload["scene"][f])
         template.opt_state.load_state_dict(payload["opt_state"])
         template.step = payload["step"]

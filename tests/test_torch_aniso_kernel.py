@@ -1,0 +1,215 @@
+"""Port parity: the fused anisotropic kernels' plain versions
+(sgrt_tpu_torch.ops.cuda_aniso, kernels 9-12) against the JAX package's
+pallas_aniso calls, run in interpret mode on the CPU, and the
+differentiable op against jax.grad of the Pallas render.
+
+On CPU tensors the wrappers run the plain versions; the CUDA kernels are
+held against those on the card (tests/test_torch_cuda.py, chip_smoke.py).
+
+Tolerances, derived: the exponent of co is -(C - Bt mb)/2 with C ~ |oc|^2 /
+scale^2, and the two packages round C and Bt mb differently (JAX: MXU dots
+and lax.rsqrt; the port: ordered elementwise sums, an IEEE square root and
+division). One rounding step of C is C 2^-24 relative, so co, T and the
+colors may differ by about C_max 2^-24 relative; every comparison below is
+held at 4 C_max 2^-24 of the output's scale (a factor 2 for the two
+roundings, 2 for accumulation), computed from the inputs. At these inputs
+(|oc| <= 3.6, scale >= 0.035) that is ~1.6e-3 at most; the JAX package's
+own Pallas-vs-XLA tolerance is 1e-4 (tests/test_aniso.py), where both
+round alike.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sgrt_tpu  # noqa: F401
+from sgrt_tpu.ops import anisotropic as jan
+from sgrt_tpu.ops import pallas_aniso as jpa
+from sgrt_tpu_torch.ops import anisotropic as tan
+from sgrt_tpu_torch.ops import cuda_aniso as ta
+from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
+from sgrt_tpu_torch.ops.cuda_kernel import FusedRender
+
+FIELDS = ("mu", "scale", "magnitude", "albedo")
+GRADS = ("doc", "dinvd", "dmag", "dalbedo", "ddirs")
+
+
+def _inputs(b=3, n=32, r=128, counts=(32, 11, 0), seed=0):
+    """oc, invd, mag, albedo, dirs_t, counts as numpy; rows past each count
+    are the inert dummies tiling produces (scale 1, magnitude 0)."""
+    rng = np.random.default_rng(seed)
+    oc = (rng.uniform(-1, 1, (b, n, 3)) + [0.0, 0.0, 2.5]).astype(np.float32)
+    scale = (rng.uniform(0.05, 0.2, (b, n, 1)) * [1.6, 0.7, 1.0]).astype(np.float32)
+    mag = rng.uniform(0.1, 0.5, (b, n)).astype(np.float32)
+    alb = rng.uniform(0, 1, (b, n, 3)).astype(np.float32)
+    d = rng.normal(size=(b, 3, r)) * np.array([0.3, 0.3, 1.0])[None, :, None]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    cnt = np.asarray(counts, np.int32)
+    dead = np.arange(n)[None, :] >= np.minimum(cnt, n)[:, None]
+    oc[dead], scale[dead], mag[dead], alb[dead] = 0.0, 1.0, 0.0, 0.0
+    return oc, (1.0 / (scale * scale)).astype(np.float32), mag, alb, d, cnt
+
+
+def _tol(oc, invd) -> float:
+    """4 C_max 2^-24: the relative float32 conditioning of co (module doc)."""
+    c = np.sum(oc.astype(np.float64) ** 2 * invd, axis=-1)
+    return 4.0 * float(c.max()) * 2.0 ** -24
+
+
+def _torch(args):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+
+
+def _jax_call(fn, args, **kw):
+    return fn(*(jnp.asarray(a) for a in args), rb=128, pb=8, qb=16, erf_name="as5",
+              exp_name="exact", interpret=True, **kw)
+
+
+def _close(got, want, tol, name=""):
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-12)
+    np.testing.assert_allclose(np.asarray(got), want, atol=tol * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("counts", [(32, 11, 0), (7, 32, 25)])
+def test_forward_plain_matches_pallas(counts):
+    args = _inputs(counts=counts)
+    tol = _tol(args[0], args[1])
+    want_c, want_t = _jax_call(jpa._fused_fwd_t_aniso_call, args)
+    want_colors = _jax_call(jpa._fused_fwd_aniso_call, args)
+    colors = ta.fused_forward_aniso(*_torch(args))
+    colors_t, t = ta.fused_forward_t_aniso(*_torch(args))
+    _close(colors, want_colors, tol, "colors")
+    _close(colors_t, want_c, tol, "colors (forward-with-T)")
+    # T on live rows: the Pallas kernel writes T for every row of its last
+    # partial p block, the port's contract is T = 0 past the count
+    live = np.arange(32)[None, None, :, None] < np.asarray(counts)[:, None, None, None]
+    _close(np.where(live, t.numpy(), 0.0), np.where(live, np.asarray(want_t), 0.0), tol, "T")
+    assert torch.equal(colors, colors_t)
+    for b, c in enumerate(counts):
+        assert (t[b, :, c:] == 0).all()          # dead rows hold exactly T = 0
+        if c == 0:
+            assert (colors[b] == 0).all()
+
+
+@pytest.mark.parametrize("saved_t", [True, False])
+def test_backward_plain_matches_pallas(saved_t):
+    """The five gradients of both backwards against the Pallas calls; dead
+    rows and the dead tile exactly zero; saved-T equals recompute."""
+    args = _inputs()
+    tol = _tol(args[0], args[1])
+    dcol = np.random.default_rng(3).normal(size=(3, 3, 128)).astype(np.float32)
+    targs = _torch(args)
+    if saved_t:
+        _, jt = _jax_call(jpa._fused_fwd_t_aniso_call, args)
+        want = _jax_call(jpa._fused_bwd_t_aniso_call, args + (np.asarray(jt), dcol))
+        t = ta.fused_forward_t_aniso(*targs)[1]
+        got = ta.fused_backward_aniso(*targs, torch.from_numpy(dcol), t)
+    else:
+        want = _jax_call(jpa._fused_bwd_aniso_call, args + (dcol,))
+        got = ta.fused_backward_aniso(*targs, torch.from_numpy(dcol))
+    for name, a, b in zip(GRADS, got, want):
+        _close(a, b, tol, name)
+    for g in got[:4]:
+        assert (g[2] == 0).all() and (g[1, 11:] == 0).all()
+    assert (got[4][2] == 0).all()
+    other = ta.fused_backward_aniso(*targs, torch.from_numpy(dcol),
+                                    None if saved_t else ta.fused_forward_t_aniso(*targs)[1])
+    for a, b in zip(got, other):
+        assert torch.equal(a, b)
+
+
+def test_plain_backward_is_the_forward_vjp():
+    """float64: the plain backward is the VJP of the plain forward (autograd
+    through fused_forward_aniso_plain), and gradcheck holds, at a tiny size.
+    With the exact erf: the backward takes erf' = 2/sqrt(pi) exp(-x^2), the
+    exact derivative of erf, not of the A&S polynomial."""
+    args = [torch.from_numpy(a).double() if a.dtype == np.float32 else torch.from_numpy(a)
+            for a in _inputs(b=2, n=8, r=16, counts=(8, 5))]
+    dcol = torch.randn((2, 3, 16), dtype=torch.float64, generator=torch.Generator().manual_seed(1))
+    leaves = [a.clone().requires_grad_(True) for a in args[:5]]
+    out = ta.fused_forward_aniso_plain(*leaves, args[5], erf_name="exact")
+    auto = torch.autograd.grad(out, leaves, dcol)
+    got = ta.fused_backward_aniso_plain(*args, dcol, erf_name="exact")
+    for name, a, b in zip(GRADS, got, auto):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9, atol=1e-12, err_msg=name)
+
+    def f(oc, invd, mag, alb, d):
+        return ta.fused_forward_aniso_plain(oc, invd, mag, alb, d, args[5], erf_name="exact")
+
+    assert torch.autograd.gradcheck(f, tuple(leaves), eps=1e-6, atol=1e-6)
+
+
+def test_fused_op_gradients_match_jax_grad():
+    """FusedRenderAniso's gradients to mu, scale, magnitude and albedo,
+    through render_rays_fused_aniso_impl (invd = scale^-2 chained by
+    autograd), against jax.grad of render_rays_pallas_aniso_impl."""
+    from sgrt_tpu.models.camera import Camera as JCamera
+
+    rng = np.random.default_rng(7)
+    n = 8
+    mu = rng.uniform(-0.8, 0.8, (n, 3)).astype(np.float32)
+    mu[:, 2] = rng.uniform(0.5, 1.5, n)
+    fields = (mu, rng.uniform(0.08, 0.4, (n, 3)).astype(np.float32),
+              rng.uniform(0.5, 1.5, n).astype(np.float32),
+              rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    cam = JCamera.create(position=(0.0, 0.0, -2.5), width=16, height=16)
+    o, dirs = (np.asarray(x) for x in cam.rays())
+
+    def jloss(s):
+        c = jpa.render_rays_pallas_aniso_impl(jnp.asarray(o), jnp.asarray(dirs), s,
+                                              interpret=True)
+        return jnp.sum(c ** 2)
+
+    jg = jax.grad(jloss)(jan.AnisoScene(*(jnp.asarray(f) for f in fields)))
+    scene = tan.aniso_scene_from_numpy(*fields, device="cpu")
+    leaves = {f: getattr(scene, f).clone().requires_grad_(True) for f in FIELDS}
+    c = ta.render_rays_fused_aniso_impl(torch.from_numpy(o), torch.from_numpy(dirs),
+                                        tan.AnisoScene(**leaves))
+    torch.sum(c ** 2).backward()
+    tol = 4.0 * float(np.max(np.sum((mu - o) ** 2 / fields[1] ** 2, axis=-1))) * 2.0 ** -24
+    for f in FIELDS:
+        _close(leaves[f].grad, getattr(jg, f), 4 * tol, f)
+    assert ta.FusedRenderAniso is FusedRender
+
+
+def test_tiles_render_matches_pallas_tiles():
+    """render_tiles_fused_aniso (the per-tile entry) against
+    render_tiles_pallas_aniso on one padded tile with counts below K."""
+    rng = np.random.default_rng(2)
+    k, live = 16, 9
+    mu = np.zeros((k, 3), np.float32)
+    scale = np.ones((k, 3), np.float32)
+    mag, alb = np.zeros(k, np.float32), np.zeros((k, 3), np.float32)
+    mu[:live] = rng.uniform(-0.5, 0.5, (live, 3)) + [0.0, 0.0, 1.0]
+    scale[:live] = rng.uniform(0.1, 0.3, (live, 3))
+    mag[:live], alb[:live] = rng.uniform(0.5, 1.5, live), rng.uniform(0, 1, (live, 3))
+    o = np.array([0.0, 0.0, -2.5], np.float32)
+    d = rng.normal(size=(1, 128, 3)) * [0.2, 0.2, 1.0]
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    counts = np.array([live], np.int32)
+    jt = jan.AnisoScene(*(jnp.asarray(x[None]) for x in (mu, scale, mag, alb)))
+    want = jpa.render_tiles_pallas_aniso(jt, jnp.asarray(o), jnp.asarray(d),
+                                         jnp.asarray(counts), pb=8, qb=8, interpret=True)
+    tt = tan.AnisoScene(*(torch.from_numpy(x[None]) for x in (mu, scale, mag, alb)))
+    got = ta.render_tiles_fused_aniso(tt, torch.from_numpy(o), torch.from_numpy(d),
+                                      torch.from_numpy(counts), pb=8, qb=8)
+    tol = 4.0 * float(np.max(np.sum((mu[:live] - o) ** 2 / scale[:live] ** 2, -1))) * 2.0 ** -24
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("capacity,padded", [(20, 32), (300, 320), (6144, 6144)])
+def test_tile_renderer_aniso_routing(capacity, padded):
+    """Up to MAX_BWD_CAPACITY_ANISO the fused anisotropic route, padded to
+    lcm(pb, qb) as the JAX package pads; above it the chunked anisotropic
+    kernels, which the port does not have yet: a NotImplementedError that
+    names them."""
+    from sgrt_tpu.ops.pallas_chunked_aniso import tile_renderer_aniso_for as j_route
+
+    cap, _ = tile_renderer_aniso_for(capacity)
+    assert cap == padded == j_route(capacity)[0]
+    assert ta.MAX_BWD_CAPACITY_ANISO == jpa.MAX_BWD_CAPACITY_ANISO
+    with pytest.raises(NotImplementedError, match="_chunked_fwd_aniso_kernel"):
+        tile_renderer_aniso_for(ta.MAX_BWD_CAPACITY_ANISO + 1)

@@ -61,11 +61,25 @@ def test_cli_gif(tmp_path):
     assert im.size == (16, 8) and im.n_frames == 3
 
 
-def test_cli_aniso_not_ported(capsys):
-    rc = torch_main(["-g", "2", "-w", "16", "-h", "16", "-q", "--device", "cpu",
-                     "--aniso", "2.0,0.5,1.0"])
-    assert rc != 0
-    assert "anisotropic path not yet ported" in capsys.readouterr().err
+@pytest.mark.parametrize("extra,jextra", [
+    (["--tiles", "4"], ["--tiles", "4"]),                       # tiled, bucketed probe
+    (["-m", "1"], ["-m", "1"]),                                 # untiled, the kernels
+    (["--tiles", "4", "--backend", "torch"], ["--tiles", "4", "--backend", "xla"]),
+])
+def test_cli_aniso_matches_jax_cli(tmp_path, capsys, extra, jextra):
+    """--aniso SX,SY,SZ renders the stretched scene as the JAX CLI does:
+    the same TIME line and 8-bit images at most one level apart."""
+    common = ["-g", "4", "-w", "32", "--height", "32", "-q", "--aniso", "1.6,0.7,1.0"]
+    assert jax_main(common + jextra + ["-o", str(tmp_path / "jax.png")]) == 0
+    assert torch_main(common + extra + ["--device", "cpu", "-o", str(tmp_path / "port.png")]) == 0
+    out = capsys.readouterr().out
+    assert len(re.findall(r"^TIME: [\d.]+ ms$", out, re.M)) == 2
+    a, b = _png(tmp_path / "jax.png"), _png(tmp_path / "port.png")
+    assert np.abs(a - b).max() <= 1 and b[..., :3].max() > 10
+    iso = tmp_path / "iso.png"
+    assert torch_main(common[:-2] + extra + ["--device", "cpu", "-o", str(iso)]) == 0
+    assert np.abs(_png(iso) - b).max() > 1      # the scales act on the image
+    assert torch_main(common[:-1] + ["2,1", "--device", "cpu"]) == 1
 
 
 def test_cli_rejects_indivisible_tiles(capsys):

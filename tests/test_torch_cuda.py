@@ -261,3 +261,130 @@ def test_chunked_route_on_card():
                                fused.cpu().numpy(), atol=2e-5)
     with pytest.raises(ValueError, match="erf"):
         tc.chunked_forward(*args, ck=128, erf_name="spline")
+
+
+# the anisotropic kernels (csrc/fused_fwd.cu, csrc/fused_bwd.cu over AnisoGeo
+# rows): _inputs' rows with per-axis scales sigma * (1.6, 0.7, 1.0), the
+# stretched teapot cell's multipliers
+def _aniso_inputs(dev, **kw):
+    oc, sig, mag, alb, d, cnt = _inputs(dev, **kw)
+    scale = sig[..., None] * torch.tensor([1.6, 0.7, 1.0], device=dev)
+    return [oc, (1.0 / (scale * scale)).contiguous(), mag, alb, d, cnt]
+
+
+@pytest.mark.parametrize("erf_name,exp_name,pb,qb", [
+    ("as5", "exact", 8, 32), ("as5", "exact", 16, 16), ("as3", "fast", 8, 32),
+])
+def test_aniso_forward_kernels_match_plain(erf_name, exp_name, pb, qb):
+    from sgrt_tpu_torch.ops import cuda_aniso as ta
+
+    args = _aniso_inputs(_card())
+    kw = dict(erf_name=erf_name, exp_name=exp_name)
+    before = (ta.FUSED_FWD_ANISO.launches, ta.FUSED_FWD_T_ANISO.launches)
+    out = ta.fused_forward_aniso(*args, pb=pb, qb=qb, **kw)
+    colors, t = ta.fused_forward_t_aniso(*args, pb=pb, qb=qb, **kw)
+    torch.cuda.synchronize()
+    assert (ta.FUSED_FWD_ANISO.launches, ta.FUSED_FWD_T_ANISO.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    ref_c, ref_t = ta.fused_forward_t_aniso_plain(*args, **kw)
+    for got in (out, colors):
+        np.testing.assert_allclose(got.cpu().numpy(), ref_c.cpu().numpy(), atol=2e-5)
+    np.testing.assert_allclose(t.cpu().numpy(), ref_t.cpu().numpy(), atol=2e-5)
+    for b, c in enumerate((96, 17, 0, 40, 96)):
+        assert (t[b, :, c:] == 0).all()
+    assert (out[2] == 0).all()
+
+
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+def test_aniso_backward_kernels_match_plain(erf_name, exp_name):
+    """Both anisotropic backwards at R = 200 (two ray blocks, the second
+    partial): within 5e-5 of scale of the plain backward, equal to each
+    other bit for bit (the recompute's pass A is the forward's), dead rows
+    and the dead tile exactly zero."""
+    from sgrt_tpu_torch.ops import cuda_aniso as ta
+
+    dev = _card()
+    args = _aniso_inputs(dev)
+    dcol = torch.randn((5, 3, 200), generator=torch.Generator().manual_seed(4)).to(dev)
+    kw = dict(erf_name=erf_name, exp_name=exp_name)
+    t = ta.fused_forward_t_aniso(*args, **kw)[1]
+    before = (ta.FUSED_BWD_T_ANISO.launches, ta.FUSED_BWD_ANISO.launches)
+    g_t = ta.fused_backward_aniso(*args, dcol, t, **kw)
+    g_r = ta.fused_backward_aniso(*args, dcol, **kw)
+    torch.cuda.synchronize()
+    assert (ta.FUSED_BWD_T_ANISO.launches, ta.FUSED_BWD_ANISO.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    _assert_grads_close(g_t, ta.fused_backward_aniso_plain(*args, dcol, **kw))
+    for a, b in zip(g_t, g_r):
+        assert torch.equal(a, b)
+    for g in g_t[:4]:
+        assert (g[2] == 0).all() and (g[1, 17:] == 0).all() and (g[3, 40:] == 0).all()
+    assert (g_t[4][2] == 0).all()
+
+
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_aniso_train_step_on_card(bucketed):
+    """make_aniso_frame_train_step on the card runs through the anisotropic
+    forward-with-T and saved-T backward kernels and takes the same Adam
+    steps as on the CPU (losses rtol 1e-3)."""
+    from sgrt_tpu_torch.ops import anisotropic as an
+    from sgrt_tpu_torch.ops import cuda_aniso as ta
+    from sgrt_tpu_torch.ops.frame import orbit_camera
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+    from sgrt_tpu_torch.parallel.fit import adam, init_state, make_aniso_frame_train_step
+
+    dev = _card()
+    kw = dict(width=32, height=32, tiles=4, capacity=32,
+              bucket_cfg=BucketConfig(4, 32, 16) if bucketed else None)
+    losses = {}
+    for d in ("cpu", dev):
+        truth = an.from_isotropic(grid_scene(4, device=d))
+        truth = truth.replace(scale=truth.scale * torch.tensor([[1.6, 0.7, 1.0]], device=d))
+        cam = orbit_camera(20.0, -4.0, 1.0, 32, 32, device=d)
+        o, dirs = cam.rays()
+        target, _ = an.render_tiled_aniso(truth, cam, tiles=4, capacity=32, backend="kernel")
+        step = make_aniso_frame_train_step(**kw)
+        state = init_state(truth.replace(scale=truth.scale * 1.1), adam(3e-3))
+        before = (ta.FUSED_FWD_T_ANISO.launches, ta.FUSED_BWD_T_ANISO.launches)
+        losses[str(d)] = []
+        for _ in range(3):
+            state, loss, ovf = step(state, cam.view_matrix, o, dirs, target)
+            assert int(ovf) == 0
+            losses[str(d)].append(float(loss))
+        launched = (ta.FUSED_FWD_T_ANISO.launches - before[0],
+                    ta.FUSED_BWD_T_ANISO.launches - before[1])
+        assert launched == ((0, 0) if d == "cpu" else (3 * (1 + bucketed),) * 2)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+    assert losses["cuda"][-1] < losses["cuda"][0]
+
+
+def test_fused_backward_sums_at_thousands_of_rows():
+    """The fused backward at 3000 rows a tile, where float32 sums over a
+    tile's rows dominate the error: every output of both backwards is as
+    close to a float64 run of the plain version as the float32 plain
+    version is, up to a factor of 2 (or within 1e-5 of scale; doc, whose
+    terms cancel ~|oc|/sigma = 100 times its size, 2e-4), and the two
+    backwards are equal bit for bit."""
+    dev = _card()
+    n, r = 3072, 128
+    g = torch.Generator().manual_seed(9)
+    v = torch.randn((2, n, 3), generator=g)
+    oc = v / v.norm(dim=-1, keepdim=True) + torch.tensor([0.0, 0.0, 4.0])
+    d = torch.randn((2, 3, r), generator=g) * 0.05 + torch.tensor([0.0, 0.0, 1.0])[None, :, None]
+    d = d / d.norm(dim=1, keepdim=True)
+    args = [x.to(dev).contiguous() for x in (
+        oc, torch.full((2, n), 0.05), torch.ones((2, n)), torch.rand((2, n, 3), generator=g),
+        d, torch.tensor([n, 2500], dtype=torch.int32))]
+    dcol = torch.randn((2, 3, r), generator=g).to(dev)
+    t = tk.fused_forward_t(*args)[1]
+    g_t = tk.fused_backward(*args, dcol, t)
+    g_r = tk.fused_backward(*args, dcol)
+    plain = tk.fused_backward_plain(*args, dcol)
+    ref = tk.fused_backward_plain(*[x.double() if x.is_floating_point() else x for x in args],
+                                  dcol.double())
+    for name, a, b, p, f in zip(GRAD_NAMES, g_t, g_r, plain, ref):
+        assert torch.equal(a, b), name
+        scale = float(f.abs().max())
+        e_k = float((a.double() - f).abs().max()) / scale
+        e_p = float((p.double() - f).abs().max()) / scale
+        assert e_k <= max(2e-4 if name == "oc" else 1e-5, 2 * e_p), (name, e_k, e_p)
