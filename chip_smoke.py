@@ -15,7 +15,15 @@ comes out, and times the kernels:
   dense     the 50k-Gaussian sphere at 512x512 (the Gaussian-axis chunked
             kernels): tile grid and buckets, the chunked kernels against
             their plain versions, the bucketed frame and the CLI, the
-            bucketed train step and the slab train step.
+            bucketed train step and the slab train step;
+  aniso     the cube cloud with per-axis scales at 256x256 (the fused
+            anisotropic kernels): kernels vs plain, the --aniso CLI orbit,
+            fit_cli --aniso, the bucketed anisotropic train step;
+  aniso dense  the 50k-Gaussian sphere with per-axis scales at 512x512 (the
+            chunked anisotropic kernels): tile grid and buckets, kernels vs
+            plain, the bucketed frame and the --aniso CLI, the anisotropic
+            slab train step, the kernels' times and the crossover of the
+            fused and chunked anisotropic backwards.
 
 Each phase prints one JSON line; any failure exits non-zero before the last
 line, which is {"ok": true, "device": {...}} on success.
@@ -27,7 +35,9 @@ turned into Gaussians by the obj rule (sigma 0.05); serving at 512x512 with
 bench.py's north-star step, 256x256 with 32x16 tiles, bucketed. Dense:
 scripts/large_n.py's sphere, 50,000 seeded points on the unit sphere by the
 same rule, at docs/LARGE_N.md's fitting size (512x512, orbit at 30 degrees,
-auto_tile_grid at margin 1.2, the buckets pinned: DENSE_N_DENSE).
+auto_tile_grid at margin 1.2, the buckets pinned: DENSE_N_DENSE). Anisotropic:
+config4_aniso_teapot_256 on the cube cloud (ANISO_MULT); aniso dense: the
+sphere with scales sigma x ADENSE_MULT (scripts/large_n.py --aniso).
 """
 
 from __future__ import annotations
@@ -93,12 +103,33 @@ DENSE_SLAB_TILES = 256
 # decides which backward each launch takes; pinned so that every run times
 # the same launches. The probe's own pick is printed beside it.
 DENSE_N_DENSE, DENSE_CAP_SPARSE = 256, 32
+# tiles of the dense kernels-vs-plain case: the densest and seeded live ones
+# (the plain versions and their float64 runs cost ~count^2 a tile; 32 tiles
+# took 198 s of an H100 run, so the script keeps to 16)
+DENSE_SUB_TILES = 16
 # the anisotropic cell: docs/BASELINE_CONFIGS.json's config4_aniso_teapot_256
 # (the cube cloud with per-axis scales sigma * ANISO_MULT, 256x256, 32x16
 # tiles of 128 rays, orbit camera at -4, focal length 1)
 ANISO_MULT = (1.6, 0.7, 1.0)
 ANISO_SIZE, ANISO_TILES, ANISO_STEPS = 256, (32, 16), 10
 ANISO_FIT_TILES = 16      # fit_cli's square grid, as the training phase's run
+# the anisotropic dense cell: scripts/large_n.py --res 512 --n 50000 --aniso
+# (large_n.py:118-126: the dense cell's sphere with per-axis scales
+# sigma x (2, 1, 0.5)), at docs/LARGE_N.md:82's fitting size: 512x512, orbit
+# at 30 degrees, auto_tile_grid on the max-scale proxy at margin 1.2. The
+# buckets are pinned from the seeded data, not from probe_buckets' measured
+# cost model: the sparse bucket at 32 rows, the dense one the tiles whose
+# count exceeds that at 30 or 35 degrees (frame and target), rounded up to a
+# multiple of 64. Slabs of 256 tiles: a recomputing slab holds 256 x 5 x
+# 1920 x 128 floats (1.26 GB) of the chunked backward's T scratch.
+ADENSE_MULT = (2.0, 1.0, 0.5)
+ADENSE_CAP_SPARSE, ADENSE_SLAB_TILES = 32, 256
+# the kernels-vs-plain cases' tiles: the plain versions cost ~count^2 per
+# tile, ~4x the isotropic dense cell's at these counts
+ADENSE_SUB_TILES, ADENSE_B1_COUNT = 8, 3000
+# the crossover of the two anisotropic routes: the densest tiles cut to
+# these counts, both backwards timed once each
+ADENSE_CROSS_TILES, ADENSE_CROSS_COUNTS = 8, (1024, 2048, 4096)
 # per live (row, ray), anisotropic rows (csrc/gauss_common.cuh, AnisoGeo):
 # A (8 FP32), Bt (5), two IEEE square roots (~6 FP32 and a MUFU.RSQ each)
 # and a division (~5 and a MUFU.RCP), mb, the exponent and co (7); the
@@ -789,8 +820,10 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
     rng = np.random.default_rng(2)
     dense_tile = int(np.argmax(cnt))
     live = [i for i in np.flatnonzero(cnt > 0) if i != dense_tile]
-    sel = [dense_tile] + sorted(rng.choice(live, size=min(31, len(live)), replace=False).tolist())
+    sel = [dense_tile] + sorted(rng.choice(live, size=min(DENSE_SUB_TILES - 1, len(live)),
+                                           replace=False).tolist())
     sub = [t[torch.tensor(sel, device=dev)].contiguous() for t in dense_in]
+    sub_case = f"{len(sel)}_tiles"
     # B = 1, three chunks with the last one partly live: the densest tile cut
     # or padded (inert rows: oc = -o, sigma 1, magnitude 0) to 3 chunks
     c0 = int(cnt[dense_tile])
@@ -810,7 +843,7 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
         g = torch.Generator().manual_seed(seed)
         return torch.randn((inp[0].shape[0], 3, inp[4].shape[2]), generator=g).to(dev)
 
-    cases = {"32_tiles": (sub, c_k, "as5", "exact", 128),
+    cases = {sub_case: (sub, c_k, "as5", "exact", 128),
              "B1_three_chunks_last_partial": (one3, ck3, "as5", "exact", 128),
              "dead_tile": (dead, c_k, "as5", "exact", 128),
              "two_ray_blocks": ([t[:4] for t in sub], c_k, "as5", "exact", 64),
@@ -818,10 +851,10 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
     results = {}
     t0 = time.perf_counter()
     for i, (name, (inp, kk, e, x, rb)) in enumerate(cases.items()):
-        # the 32-tile case also holds the fused backwards (kernels 3-4) at
+        # the many-tile case also holds the fused backwards (kernels 3-4) at
         # these thousands of rows a launch to the same float64 gate
         results[name] = compare_chunked_kernels(inp, cotangent(inp, 40 + i), kk, e, x, rb,
-                                                with_fused_bwd=name == "32_tiles")
+                                                with_fused_bwd=name == sub_case)
     emit("dense_kernels_vs_plain", seconds=time.perf_counter() - t0, densest_count=c0,
          live_tiles=int((cnt > 0).sum()), cases=results)
     over = [f"{name}: {o}" for name, r in results.items() for o in r["over_tolerance"]]
@@ -994,7 +1027,7 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
     ops = {cc.CHUNKED_FWD.name: fwd_ops(dense_in), cc.CHUNKED_FWD_T.name: fwd_ops(dense_in),
            cc.CHUNKED_BWD_T.name: bwd_ops(dense_in, False),
            cc.CHUNKED_BWD.name: bwd_ops(dense_in, True)}
-    plain_ms = results["32_tiles"]["plain_ms"]
+    plain_ms = results[sub_case]["plain_ms"]
     launches = {k: frame_launches[k] + train_launches[k] + slab_launches[k]
                 for k in frame_launches}
     times, entries = {}, []
@@ -1004,7 +1037,7 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
                          "sfu_ops": ops[k.name][1], "bytes": nbytes[k.name],
                          **bound(*ops[k.name], nbytes[k.name], clock_mhz, n_sm),
                          "plain_ms": plain_ms[k.name],
-                         "plain_shape": "the 32-tile case of dense_kernels_vs_plain",
+                         "plain_shape": f"the {sub_case} case of dense_kernels_vs_plain",
                          "launches": launches[k.name]}
         entries.append({
             "name": k.name, "route": k.route,
@@ -1392,6 +1425,321 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
     return entries
 
 
+def compare_chunked_aniso_kernels(inp, dcol, c_k: int, erf_name="as5", exp_name="exact",
+                                  rb: int = 128) -> dict:
+    """Kernels 13-14 against their plain versions on `inp`, both held
+    against a float64 run of the plain version (gate_vs_f64, as the dense
+    and anisotropic cells' kernels: each output as close to float64 as the
+    float32 plain version is, x2, or within TRAIN_REL of scale, doc and
+    dinvd DOC_REL, colors KERNEL_ATOL); dead tiles get zero outputs.
+    Reported as compare_chunked_kernels reports, with the plain versions'
+    ms (one call each, tile by tile)."""
+    import torch
+
+    from sgrt_tpu_torch.ops import cuda_chunked_aniso as cca
+
+    kw = dict(ck=c_k, erf_name=erf_name, exp_name=exp_name)
+    colors = cca.chunked_forward_aniso(*inp, rb=rb, **kw)
+    grads = cca.chunked_backward_aniso(*inp, dcol, rb=rb, **kw)
+    torch.cuda.synchronize()
+    names = ("doc", "dinvd", "dmag", "dalbedo", "ddirs")
+    for x in (colors, *grads):
+        check(bool(torch.isfinite(x).all()), f"a chunked anisotropic kernel's output is not "
+                                             f"finite ({erf_name}/{exp_name})")
+    plain, plain_ms = {}, {}
+    runs = {cca.CHUNKED_FWD_ANISO.name: (cca.chunked_forward_aniso_plain, ()),
+            cca.CHUNKED_BWD_ANISO.name: (cca.chunked_backward_aniso_plain, (dcol,))}
+    for name, (fn, extra) in runs.items():
+        t0 = time.perf_counter()
+        plain[name] = per_tile(lambda *a: fn(*a, **kw), inp, *extra)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+    f64 = [x.double() if x.is_floating_point() else x for x in inp]
+    ref_c = per_tile(lambda *a: cca.chunked_forward_aniso_plain(*a, **kw), f64)
+    ref_g = per_tile(lambda *a: cca.chunked_backward_aniso_plain(*a, **kw), f64, dcol.double())
+    outs = {cca.CHUNKED_FWD_ANISO.name: {"colors": (colors, plain[cca.CHUNKED_FWD_ANISO.name],
+                                                    ref_c)},
+            cca.CHUNKED_BWD_ANISO.name: {n: (a, b, c) for n, a, b, c in
+                                         zip(names, grads, plain[cca.CHUNKED_BWD_ANISO.name],
+                                             ref_g)}}
+    rel, vs_f64, absd, over = gate_vs_f64(outs)
+    for i in [i for i, c in enumerate(inp[5].tolist()) if c <= 0]:
+        check(all(bool((x[i] == 0).all()) for x in (colors, *grads)),
+              f"a dead tile's chunked anisotropic outputs are not zero ({erf_name}/{exp_name})")
+    return {"rel": rel, "vs_f64": vs_f64, "abs": absd, "over_tolerance": over,
+            "plain_ms": plain_ms,
+            "shape": {"B": inp[0].shape[0], "N": inp[0].shape[1], "R": inp[4].shape[2],
+                      "ck": c_k, "rb": rb, "max_count": int(inp[5].max())}}
+
+
+def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
+    """The anisotropic dense cell (scripts/large_n.py --aniso at docs/
+    LARGE_N.md's fitting size): tile grid and buckets, kernels 13-14
+    against their plain versions and float64, the bucketed frame and the
+    --aniso CLI, the anisotropic slab train step with a profile, the
+    kernels' times, and the crossover of the fused and chunked anisotropic
+    backwards. Returns the kernel line's entries of kernels 13-14."""
+    import torch
+
+    from sgrt_tpu_torch import cli
+    from sgrt_tpu_torch.models.gaussians import scene_from_vertices
+    from sgrt_tpu_torch.ops import anisotropic as an
+    from sgrt_tpu_torch.ops import cuda_aniso as ca
+    from sgrt_tpu_torch.ops import cuda_chunked as cc
+    from sgrt_tpu_torch.ops import cuda_chunked_aniso as cca
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.ops.frame import auto_tile_grid, orbit_camera, probe_buckets
+    from sgrt_tpu_torch.ops.render import _tile_rays
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+    from sgrt_tpu_torch.ops.tiling import tile_membership
+    from sgrt_tpu_torch.parallel.fit import adam, init_state, make_slab_frame_train_step
+    from sgrt_tpu_torch.utils import nvcc
+
+    S = DENSE_SIZE
+    pts = sphere_points(DENSE_N)
+    scene = an.from_isotropic(scene_from_vertices(pts, device=dev))
+    scene = scene.replace(scale=scene.scale * torch.tensor([ADENSE_MULT], device=dev))
+    proxy = an.iso_proxy(scene)
+
+    # 1. shapes: the tile grid, the buckets, and each bucket's route
+    t0 = time.perf_counter()
+    tiles, capacity = auto_tile_grid(proxy, [DENSE_ANGLE], OFFSET, FOCAL, margin=DENSE_MARGIN,
+                                     width=S, height=S)
+    probed = probe_buckets(proxy, [DENSE_ANGLE], OFFSET, FOCAL, tiles, margin=DENSE_MARGIN)
+    cams = {a: orbit_camera(a, OFFSET, FOCAL, S, S, device=dev)
+            for a in (DENSE_ANGLE, DENSE_TARGET_ANGLE)}
+    over_sparse = max(int(torch.sum(torch.sum(tile_membership(proxy, c.view_matrix, tiles,
+                                                              focal_length=FOCAL), dim=-1)
+                                    > ADENSE_CAP_SPARSE)) for c in cams.values())
+    bucket = BucketConfig(-(-over_sparse // 64) * 64, capacity, ADENSE_CAP_SPARSE)
+    routes = {}
+    for name, cap in (("dense", bucket.cap_dense), ("sparse", bucket.cap_sparse)):
+        chunked = cap > ca.MAX_BWD_CAPACITY_ANISO
+        padded, c_k = cc.chunk_plan(cap)
+        routes[name] = {"capacity": cap, "route": "chunked aniso" if chunked else "fused aniso",
+                        "padded_capacity": cc.tile_renderer_aniso_for(cap)[0],
+                        **({"chunk_plan": {"C": padded // c_k, "ck": c_k, "padded": padded}}
+                           if chunked else {})}
+    emit("aniso_dense_shapes", scene=f"sphere({DENSE_N}) x {list(ADENSE_MULT)}", size=S,
+         tiles=list(tiles), capacity=capacity,
+         chunk_plan=dict(zip(("padded", "ck"), cc.chunk_plan(capacity))),
+         tiles_over_sparse_capacity=over_sparse, bucket_cfg=bucket._asdict(),
+         probe_buckets_pick=probed._asdict(), buckets=routes,
+         max_bwd_capacity_aniso=ca.MAX_BWD_CAPACITY_ANISO, seconds=time.perf_counter() - t0)
+    check(routes["dense"]["route"] == "chunked aniso",
+          f"the dense bucket ({bucket.cap_dense} rows) is not on the chunked route")
+
+    cam = cams[DENSE_ANGLE]
+    o, dirs = cam.rays()
+    tile_dirs = _tile_rays(dirs, S, S, tiles)
+    per_bucket = bucket_launches(scene, cam.view_matrix, o, tile_dirs, bucket, tiles)
+    dense_in = per_bucket[0]
+    n_d = dense_in[0].shape[1]
+    c_k = cc.chunk_plan(n_d)[1]
+
+    def cotangent(inp, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn((inp[0].shape[0], 3, inp[4].shape[2]), generator=g).to(dev)
+
+    # 2. kernels 13-14 against their plain versions and float64: the densest
+    # tile and seeded live ones; B = 1 in three chunks, the last partly live
+    # (of the seeded tiles the one nearest ADENSE_B1_COUNT rows, cut, or
+    # padded with inert rows: oc = -o, invd 1, magnitude 0); a dead tile; two
+    # ray blocks; as3/fast (the last three on seeded tiles: the plain
+    # versions' cost grows as count^2)
+    cnt = live_counts(dense_in).astype(np.int64)
+    rng = np.random.default_rng(4)
+    dense_tile = int(np.argmax(cnt))
+    live = [i for i in np.flatnonzero(cnt > 0) if i != dense_tile]
+    sel = [dense_tile] + sorted(rng.choice(live, size=min(ADENSE_SUB_TILES - 1, len(live)),
+                                           replace=False).tolist())
+    sub = [t[torch.tensor(sel, device=dev)].contiguous() for t in dense_in]
+    mid = min(range(1, len(sel)), key=lambda i: abs(int(cnt[sel[i]]) - ADENSE_B1_COUNT))
+    c0 = int(cnt[sel[mid]])
+    ck3 = -(-int(np.ceil(c0 / 2.5)) // 128) * 128
+    one = [t[mid:mid + 1] for t in sub]
+    if 3 * ck3 <= n_d:
+        one3 = [t[:, :3 * ck3].contiguous() if i < 4 else t for i, t in enumerate(one)]
+    else:
+        pad = 3 * ck3 - n_d
+        fill = [(-o).expand(1, pad, 3), torch.ones(1, pad, 3, device=dev),
+                torch.zeros(1, pad, device=dev), torch.zeros(1, pad, 3, device=dev)]
+        one3 = [torch.cat([t, f], dim=1).contiguous() for t, f in zip(one[:4], fill)] + one[4:]
+    dead = [t[1:3].clone() for t in sub]
+    dead[5][0] = 0
+    cases = {f"{len(sel)}_tiles": (sub, c_k, "as5", "exact", 128),
+             "B1_three_chunks_last_partial": (one3, ck3, "as5", "exact", 128),
+             "dead_tile": (dead, c_k, "as5", "exact", 128),
+             "two_ray_blocks": ([t[1:3] for t in sub], c_k, "as5", "exact", 64),
+             "one_tile_as3_fast": ([t[1:2] for t in sub], c_k, "as3", "fast", 128)}
+    results = {}
+    t0 = time.perf_counter()
+    for i, (name, (inp, kk, e, x, rb)) in enumerate(cases.items()):
+        results[name] = compare_chunked_aniso_kernels(inp, cotangent(inp, 90 + i), kk, e, x, rb)
+    emit("aniso_dense_kernels_vs_plain", seconds=time.perf_counter() - t0,
+         densest_count=int(cnt[dense_tile]), live_tiles=int((cnt > 0).sum()), cases=results)
+    over = [f"{name}: {o}" for name, r in results.items() for o in r["over_tolerance"]]
+    check(not over, f"a chunked anisotropic kernel disagrees with its plain version: {over}")
+
+    # 3. the bucketed frame and the --aniso CLI
+    def frame():
+        return an.render_tiled_aniso(scene, cam, tiles=tiles, capacity=capacity,
+                                     backend="kernel", bucket_cfg=bucket)
+
+    kernels.reset_launch_counts()
+    frame_ms, ovf = [], []
+    for _ in range(3):                        # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, ov = frame()
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        ovf.append(int(ov))
+    frame_launches = {k.name: k.launches for k in kernels.KERNELS}
+    check(all(v == 0 for v in ovf), f"the anisotropic dense frame overflowed: {ovf}")
+    check(bool(torch.isfinite(img).all()) and float(img.max()) > 0,
+          "the anisotropic dense frame is not finite or black")
+    check(frame_launches[cca.CHUNKED_FWD_ANISO.name] > 0,
+          f"the anisotropic dense frame did not launch the chunked forward: {frame_launches}")
+    obj = os.path.join(tmp, "sphere_aniso.obj")
+    write_obj(obj, pts)
+    png = os.path.join(tmp, "sphere_aniso.png")
+    argv = ["--aniso", ",".join(str(m) for m in ADENSE_MULT), "-f", obj, "-w", str(S),
+            "--height", str(S), "--tiles", f"{tiles[0]}x{tiles[1]}", "--frames", "1", "-q",
+            "-o", png]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        rc = cli.main(argv)
+    cli_launches = {k.name: k.launches for k in kernels.KERNELS}
+    check(rc == 0, f"the anisotropic dense CLI run exited {rc}: {stderr.getvalue()[-2000:]}")
+    check(cli_launches[cca.CHUNKED_FWD_ANISO.name] == 1 and "overflow" not in stderr.getvalue(),
+          f"the anisotropic dense CLI run: {cli_launches}, {stderr.getvalue()[-2000:]}")
+    check(int(read_png_rgba(png)[..., :3].max()) > 0, "the anisotropic dense CLI frame is black")
+    emit("aniso_dense_frame", size=S, tiles=list(tiles), bucket_cfg=bucket._asdict(),
+         frame_ms=frame_ms[1:], overflow=ovf, launches=frame_launches,
+         mean_rgb=float(img.mean()), cli={"argv": argv[:12], "rc": rc,
+                                          "stdout": stdout.getvalue().strip(),
+                                          "launches": cli_launches},
+         power_limit=smi)
+
+    # 4. the anisotropic slab step against the target at 35 degrees
+    target, ov = an.render_tiled_aniso(scene, cams[DENSE_TARGET_ANGLE], tiles=tiles,
+                                       capacity=capacity, backend="kernel", bucket_cfg=bucket)
+    check(int(ov) == 0, "the anisotropic dense target overflowed")
+    slab = make_slab_frame_train_step(width=S, height=S, tiles=tiles, capacity=bucket.cap_dense,
+                                      slab_tiles=ADENSE_SLAB_TILES, aniso=True)
+    state = init_state(scene, adam(1e-3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss, ov = slab(state, cam.view_matrix, o, dirs, target)   # warms up
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    losses, ovfs = [loss], [ov]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, loss, ov = slab(state, cam.view_matrix, o, dirs, target)
+    losses.append(loss)
+    ovfs.append(ov)
+    last = {}                                 # the third step, under the profiler
+    prof = profile_device(lambda _: last.update(out=slab(state, cam.view_matrix, o, dirs,
+                                                         target)), range(1))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 2 * 1e3
+    state, loss, ov = last["out"]
+    losses.append(loss)
+    ovfs.append(ov)
+    slab_launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    check(all(int(v) == 0 for v in ovfs), "an anisotropic slab step overflowed")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the anisotropic slab step's loss did not fall: {losses}")
+    check(slab_launches[cca.CHUNKED_BWD_ANISO.name] > 0,
+          f"the anisotropic slab step did not run the chunked backward: {slab_launches}")
+    emit("aniso_dense_slab_step", slab_tiles=ADENSE_SLAB_TILES, capacity=bucket.cap_dense,
+         steps=3, first_step_ms=first_ms, step_ms=step_ms,
+         rays_per_s=S * S / (step_ms * 1e-3), losses=losses, launches=slab_launches,
+         peak_memory_gb=peak_gb, profile_one_step=prof, power_limit=smi)
+    del state, slab, target
+
+    # 5. times at the dense bucket's launch, one call each: both kernels ran
+    # at these shapes in the frame and the slab step, so they are warm
+    dcol = cotangent(dense_in, 99)
+    pb, qb = ck._block_sizes(c_k)
+    kw = dict(ck=c_k, qb=qb)
+    ms = {cca.CHUNKED_FWD_ANISO.name: time_cuda(
+              lambda: cca.chunked_forward_aniso(*dense_in, pb=pb, **kw), iters=1, warmup=0),
+          cca.CHUNKED_BWD_ANISO.name: time_cuda(
+              lambda: cca.chunked_backward_aniso(*dense_in, dcol, **kw), iters=1, warmup=0)}
+    b_, n_ = dense_in[2].shape
+    r_ = dense_in[4].shape[2]
+    rays3, rows10 = 4 * 3 * b_ * r_, 4 * 10 * b_ * n_
+    nbytes = {cca.CHUNKED_FWD_ANISO.name: scene_bytes(dense_in) + rays3,
+              cca.CHUNKED_BWD_ANISO.name: scene_bytes(dense_in) + 2 * rays3 + rows10}
+    ops = {cca.CHUNKED_FWD_ANISO.name: fwd_ops(dense_in),
+           cca.CHUNKED_BWD_ANISO.name: bwd_ops(dense_in, True)}
+    sub_case = results[f"{len(sel)}_tiles"]
+    launches = {k: frame_launches[k] + cli_launches[k] + slab_launches[k] for k in frame_launches}
+    times, entries = {}, []
+    for k in (cca.CHUNKED_FWD_ANISO, cca.CHUNKED_BWD_ANISO):
+        check(launches[k.name] > 0, f"{k.name} was not launched on an anisotropic dense main path")
+        times[k.name] = {"ms": ms[k.name], "fp32_instr": ops[k.name][0],
+                         "sfu_ops": ops[k.name][1], "bytes": nbytes[k.name],
+                         **bound(*ops[k.name], nbytes[k.name], clock_mhz, n_sm),
+                         "plain_ms": sub_case["plain_ms"][k.name],
+                         "plain_shape": f"the {len(sel)}-tile case of "
+                                        "aniso_dense_kernels_vs_plain, tile by tile",
+                         "launches": launches[k.name],
+                         "library_ms": "n/a: no single PyTorch call computes it"}
+        entries.append({
+            "name": k.name, "route": k.route,
+            "source": str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
+            "replaces": k.replaces, "launches": launches[k.name],
+            "max_abs_err": max(r["abs"][k.name] for r in results.values()),
+            "max_rel_err": max(max(r["rel"][k.name].values()) for r in results.values()),
+            "ms": ms[k.name], "plain_ms": sub_case["plain_ms"][k.name],
+            "bound_ms": times[k.name]["bound_ms"], "bound_by": times[k.name]["bound_by"],
+            "library_ms": None})
+    emit("aniso_dense_times", shape={"B": b_, "N": n_, "R": r_, "ck": c_k,
+                                     "max_count": int(dense_in[5].max()),
+                                     "live_pairs": float(np.sum(live_counts(dense_in) ** 2) * r_)},
+         kernels=times, power_limit=smi)
+
+    # 6. the crossover of the two anisotropic routes: the fused saved-T
+    # backward (as the step takes it) and the chunked backward on the
+    # densest tiles cut to each count, one call each after a warm-up
+    top = torch.argsort(dense_in[5], descending=True, stable=True)[:ADENSE_CROSS_TILES]
+    dense8 = [t[top].contiguous() for t in dense_in]
+    dcol8 = cotangent(dense8, 98)
+    cross = []
+    for c in ADENSE_CROSS_COUNTS:
+        check(int(dense8[5].min()) >= c, f"a crossover tile holds fewer than {c} rows")
+        inp = [t[:, :c].contiguous() for t in dense8[:4]] + [dense8[4],
+                                                             torch.clamp(dense8[5], max=c)]
+        pb_c, qb_c = ck._block_sizes(c)
+        cap_c, ck_c = cc.chunk_plan(c)
+        check(cap_c == c, f"the chunk plan of {c} rows pads them to {cap_c}")
+        t_c = ca.fused_forward_t_aniso(*inp, pb=pb_c, qb=qb_c)[1]
+        if c == ADENSE_CROSS_COUNTS[0]:
+            ca.fused_backward_aniso(*inp, dcol8, t_c, qb=qb_c)
+            cca.chunked_backward_aniso(*inp, dcol8, ck=ck_c, qb=qb_c)
+        fused_ms, g_f = time_once(lambda: ca.fused_backward_aniso(*inp, dcol8, t_c, qb=qb_c))
+        chunked_ms, g_c = time_once(lambda: cca.chunked_backward_aniso(*inp, dcol8, ck=ck_c,
+                                                                       qb=qb_c))
+        cross.append({"count": c, "ck": ck_c, "fused_bwd_t_aniso_ms": fused_ms,
+                      "chunked_bwd_aniso_ms": chunked_ms,
+                      "max_rel_diff": {n: rel_err(a, b) for n, a, b in
+                                       zip(("doc", "dinvd", "dmag", "dalbedo", "ddirs"),
+                                           g_c, g_f)}})
+        del t_c, g_f, g_c
+    emit("aniso_dense_crossover", tiles=ADENSE_CROSS_TILES, rays=dense8[4].shape[2],
+         counts=cross, max_bwd_capacity_aniso=ca.MAX_BWD_CAPACITY_ANISO, power_limit=smi)
+    return entries
+
+
 def serving_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
     """The serving path: the fused forward against its plain version, the
     CLI's 8-frame orbit, the untiled route, a reference frame, and the
@@ -1582,7 +1930,7 @@ def main() -> int:
              seconds=round(build_s, 2), ptxas=ptxas)
 
     # 3. the serving path; 4. the training path; 5. the dense cell; 6. the
-    # anisotropic cell
+    # anisotropic cell; 7. the anisotropic dense cell
     with tempfile.TemporaryDirectory() as tmp:
         entries = [serving_phases(dev, smi, clock_mhz, n_sm)]
         obj = os.path.join(tmp, "cube_cloud.obj")
@@ -1590,8 +1938,9 @@ def main() -> int:
         entries += train_phases(dev, smi, clock_mhz, n_sm, obj)
         entries += dense_phases(dev, smi, clock_mhz, n_sm, tmp)
         entries += aniso_phases(dev, smi, clock_mhz, n_sm, obj)
+        entries += aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp)
 
-    # 6. the kernel line
+    # 8. the kernel line
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

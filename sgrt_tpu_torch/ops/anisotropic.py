@@ -20,7 +20,8 @@ culls on the conservative max-scale footprint (iso_proxy).
 Two backends, as for isotropic scenes: "torch" differentiates the plain
 blocked renderer here by autograd (the JAX package's "xla"); "kernel"
 renders through the fused anisotropic CUDA kernels and their analytic
-backward (ops.cuda_aniso; the JAX package's "pallas"), routed by
+backward (ops.cuda_aniso; the JAX package's "pallas"), or for dense tiles
+the chunked ones (ops.cuda_chunked_aniso), routed by
 ops.cuda_chunked.tile_renderer_aniso_for.
 """
 
@@ -245,7 +246,8 @@ def render_tiled_aniso(scene: AnisoScene, camera: Camera, origin=None, tiles=16,
     """Tiled and culled anisotropic frame → ((H, W, 3), overflow (0-d
     int32)). Culling uses the conservative max-scale footprint (iso_proxy)
     and the camera's focal length. backend="kernel" renders through the
-    fused anisotropic kernels (ops.cuda_aniso), routed by
+    fused anisotropic kernels (ops.cuda_aniso) or, above
+    MAX_BWD_CAPACITY_ANISO, the chunked ones, routed by
     tile_renderer_aniso_for; bucket_cfg (ops.scheduler.BucketConfig, kernel
     only) renders a dense and a sparse bucket, each at its own capacity.
     backend="torch" is the plain renderer, tile_batch tiles at a time.

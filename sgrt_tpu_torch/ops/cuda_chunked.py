@@ -6,7 +6,9 @@ sgrt_tpu.ops.pallas_chunked).
 a tile batch of a given capacity: up to MAX_MONOLITHIC_CAPACITY rows the
 fused kernels (ops.cuda_kernel), above it, up to MAX_CHUNKED_CAPACITY, the
 chunked kernels of this module. `tile_renderer_aniso_for` is its twin for
-anisotropic scenes (the fused anisotropic kernels, ops.cuda_aniso).
+anisotropic scenes: the fused anisotropic kernels (ops.cuda_aniso) up to
+MAX_BWD_CAPACITY_ANISO, the chunked anisotropic ones (ops.cuda_chunked_aniso)
+above it.
 
 The chunked kernels compute the fused kernels' function (ops.cuda_kernel's
 definitions) with the Gaussian axis cut into C = N / ck chunks of ck rows.
@@ -188,6 +190,28 @@ def chunked_backward_scratch_floats(b: int, n: int, r: int, ck: int, threads: in
     return int(fn(b, n, r, ck, threads, int(recompute)))
 
 
+def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_name, exp_name):
+    """Launch an entry point of csrc/chunked_bwd.cu on checked CUDA inputs:
+    outputs (doc, dshape, dmag, dalb, ddirs), dshape shaped as args[1]
+    (sigma or invd)."""
+    _check_names(erf_name, exp_name)
+    oc, shape, dirs_t = args[0], args[1], args[4]
+    b, n, _ = oc.shape
+    r = dirs_t.shape[-1]
+    threads = _threads(kernel.query("sgrt_chunked_bwd_max_threads"), rb, r)
+    f32 = dict(dtype=torch.float32, device=oc.device)
+    scratch = torch.empty(chunked_backward_scratch_floats(b, n, r, ck, threads,
+                                                          t_saved is None), **f32)
+    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
+    dshape, dmag = torch.empty(tuple(shape.shape), **f32), torch.empty((b, n), **f32)
+    ddirs = torch.empty((b, 3, r), **f32)
+    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
+    kernel.launch(ins + [scratch, doc, dshape, dmag, dalb, ddirs],
+                  [b, n, r, ck, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  what=f"B={b}, N={n}, R={r}, ck={ck}, threads={threads}, qb={qb}")
+    return doc, dshape, dmag, dalb, ddirs
+
+
 def chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
                      ck: int, rb: int = 128, qb: int = 32, erf_name: str = "as5",
                      exp_name: str = "exact"):
@@ -208,20 +232,9 @@ def chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None,
     if not _check_inputs("chunked_backward", want, oc.device):
         return chunked_backward_plain(*args, dcol, t_saved, ck=ck, erf_name=erf_name,
                                       exp_name=exp_name)
-    _check_names(erf_name, exp_name)
     kernel = CHUNKED_BWD if t_saved is None else CHUNKED_BWD_T
-    threads = _threads(kernel.query("sgrt_chunked_bwd_max_threads"), rb, r)
-    f32 = dict(dtype=torch.float32, device=oc.device)
-    scratch = torch.empty(chunked_backward_scratch_floats(b, n, r, ck, threads,
-                                                          t_saved is None), **f32)
-    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
-    dsig, dmag = torch.empty((b, n), **f32), torch.empty((b, n), **f32)
-    ddirs = torch.empty((b, 3, r), **f32)
-    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
-    kernel.launch(ins + [scratch, doc, dsig, dmag, dalb, ddirs],
-                  [b, n, r, ck, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
-                  what=f"B={b}, N={n}, R={r}, ck={ck}, threads={threads}, qb={qb}")
-    return doc, dsig, dmag, dalb, ddirs
+    return _chunked_backward_launch(kernel, args, dcol, t_saved, ck=ck, rb=rb, qb=qb,
+                                    erf_name=erf_name, exp_name=exp_name)
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +284,26 @@ class ChunkedRender(torch.autograd.Function):
         return (*grads, None, None)
 
 
+def _chunked_blocks(n: int, r: int, ck: int, rb: int, rb_bwd, pb: int, qb: int):
+    """The JAX package's block rules of the chunked renderers: ck rounded up
+    to a multiple of 128 and capped at N, pb and qb capped at ck; ck | N,
+    pb | ck, qb | ck (multiples of 8), rb | R, rb_bwd | R, and N at most
+    MAX_CHUNKED_CAPACITY. Returns (ck, rb, rb_bwd, pb, qb)."""
+    rb = min(rb, r)
+    rb_bwd = rb if rb_bwd is None else min(rb_bwd, r)
+    ck = min(-(-ck // 128) * 128, n)
+    pb, qb = min(pb, ck), min(qb, ck)
+    if (n % ck or ck % pb or ck % qb or r % rb or r % rb_bwd
+            or pb % 8 or qb % 8 or ck % 128):
+        raise ValueError(f"shape (R={r}, N={n}) not divisible by chunk/blocks "
+                         f"(ck={ck}, rb={rb}, rb_bwd={rb_bwd}, pb={pb}, qb={qb}; "
+                         "ck must be a multiple of 128)")
+    if n > MAX_CHUNKED_CAPACITY:
+        raise ValueError(f"padded capacity {n} exceeds MAX_CHUNKED_CAPACITY "
+                         f"({MAX_CHUNKED_CAPACITY}); use a finer tile grid")
+    return ck, rb, rb_bwd, pb, qb
+
+
 def render_fused_chunked(scene_oc, sigma, mag, albedo, dirs_t, counts=None, *,
                          ck: int = DEFAULT_CHUNK, rb: int = 128, pb: int = 8, qb: int = 32,
                          rb_bwd: int | None = None, erf_name: str = "as5",
@@ -289,18 +322,7 @@ def render_fused_chunked(scene_oc, sigma, mag, albedo, dirs_t, counts=None, *,
     erf_name = _kernel_erf_name(erf_name)
     b, n, _ = scene_oc.shape
     r = dirs_t.shape[2]
-    rb = min(rb, r)
-    rb_bwd = rb if rb_bwd is None else min(rb_bwd, r)
-    ck = min(-(-ck // 128) * 128, n)
-    pb, qb = min(pb, ck), min(qb, ck)
-    if (n % ck or ck % pb or ck % qb or r % rb or r % rb_bwd
-            or pb % 8 or qb % 8 or ck % 128):
-        raise ValueError(f"shape (R={r}, N={n}) not divisible by chunk/blocks "
-                         f"(ck={ck}, rb={rb}, rb_bwd={rb_bwd}, pb={pb}, qb={qb}; "
-                         "ck must be a multiple of 128)")
-    if n > MAX_CHUNKED_CAPACITY:
-        raise ValueError(f"padded capacity {n} exceeds MAX_CHUNKED_CAPACITY "
-                         f"({MAX_CHUNKED_CAPACITY}); use a finer tile grid")
+    ck, rb, rb_bwd, pb, qb = _chunked_blocks(n, r, ck, rb, rb_bwd, pb, qb)
     if counts is None:
         counts = torch.full((b,), n, dtype=torch.int32, device=scene_oc.device)
     counts = torch.clamp(counts.to(torch.int32), max=n)
@@ -381,15 +403,22 @@ def tile_renderer_aniso_for(capacity: int, *, erf_name: str = "as5",
     """The anisotropic twin of tile_renderer_for (the JAX package's
     pallas_chunked_aniso.tile_renderer_aniso_for): up to
     MAX_BWD_CAPACITY_ANISO rows the fused anisotropic kernels
-    (ops.cuda_aniso) render at a multiple of lcm(pb, qb), pb/qb passed
-    through. Above it the JAX package routes to its chunked anisotropic
-    kernels, which the port does not have yet: it raises."""
+    (ops.cuda_aniso) render at a multiple of lcm(pb, qb); above it the
+    chunked anisotropic kernels (ops.cuda_chunked_aniso) at
+    chunk_plan(capacity)'s padded capacity. pb/qb override the block sizes
+    and reach the kernel on both routes (the JAX package drops them on its
+    chunked route)."""
     from sgrt_tpu_torch.ops.cuda_aniso import MAX_BWD_CAPACITY_ANISO, render_tiles_fused_aniso
 
     if capacity > MAX_BWD_CAPACITY_ANISO:
-        raise NotImplementedError(
-            f"per-tile capacity {capacity} exceeds MAX_BWD_CAPACITY_ANISO "
-            f"({MAX_BWD_CAPACITY_ANISO}): that takes the chunked anisotropic kernels "
-            "(sgrt_tpu/ops/pallas_chunked_aniso.py:78 _chunked_fwd_aniso_kernel and :199 "
-            "_chunked_bwd_aniso_kernel), which are not ported yet; use a finer tile grid")
+        from sgrt_tpu_torch.ops import cuda_chunked_aniso
+
+        cap, ck = chunk_plan(capacity)
+
+        def render_chunked(tiled, o, d, counts):
+            return cuda_chunked_aniso.render_tiles_chunked_aniso(
+                tiled, o, d, counts, ck=ck, rb=rb, pb=pb, qb=qb, erf_name=erf_name,
+                exp_name=exp_name)
+
+        return cap, render_chunked
     return _fused_route(render_tiles_fused_aniso, capacity, pb, qb, rb, erf_name, exp_name)

@@ -11,13 +11,15 @@ from sgrt_tpu_torch.ops.cuda_aniso import (
     FUSED_FWD_T_ANISO,
 )
 from sgrt_tpu_torch.ops.cuda_chunked import CHUNKED_BWD, CHUNKED_BWD_T, CHUNKED_FWD, CHUNKED_FWD_T
+from sgrt_tpu_torch.ops.cuda_chunked_aniso import CHUNKED_BWD_ANISO, CHUNKED_FWD_ANISO
 from sgrt_tpu_torch.ops.cuda_kernel import FUSED_BWD, FUSED_BWD_T, FUSED_FWD, FUSED_FWD_T
 from sgrt_tpu_torch.utils import nvcc
 
-# in the order of the kernel table (PERF.md): rows 1-12
+# in the order of the kernel table (PERF.md): rows 1-14
 KERNELS = (FUSED_FWD, FUSED_FWD_T, FUSED_BWD_T, FUSED_BWD,
            CHUNKED_FWD, CHUNKED_FWD_T, CHUNKED_BWD, CHUNKED_BWD_T,
-           FUSED_FWD_ANISO, FUSED_FWD_T_ANISO, FUSED_BWD_T_ANISO, FUSED_BWD_ANISO)
+           FUSED_FWD_ANISO, FUSED_FWD_T_ANISO, FUSED_BWD_T_ANISO, FUSED_BWD_ANISO,
+           CHUNKED_FWD_ANISO, CHUNKED_BWD_ANISO)
 
 
 def build_all() -> None:

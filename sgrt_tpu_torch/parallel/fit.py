@@ -20,11 +20,13 @@ Adam update leaves them. Steps update the state in place and return it.
 
 make_slab_frame_train_step is the fitting-scale step: one forward and
 backward per slab of count-sorted tiles, gradients summed across slabs,
-Adam applied once. make_aniso_frame_train_step fits anisotropic scenes
+Adam applied once, for isotropic or (aniso=True) anisotropic scenes.
+make_aniso_frame_train_step fits anisotropic scenes
 (ops.anisotropic.AnisoScene: per-axis scales) through the fused
-anisotropic kernels. init_state and the steps take either scene class and
-work over its dataclass fields. Distribution over a mesh is not ported:
-every step factory raises for mesh is not None.
+anisotropic kernels, or the chunked ones above MAX_BWD_CAPACITY_ANISO.
+init_state and the steps take either scene class and work over its
+dataclass fields. Distribution over a mesh is not ported: every step
+factory raises for mesh is not None.
 """
 
 from __future__ import annotations
@@ -78,8 +80,9 @@ def _check_backend(backend: str) -> None:
 
 def _check_bwd_capacity(capacity, bucket_cfg, backend) -> None:
     """Fail when the step is built, not in its first launch. Capacities up
-    to MAX_MONOLITHIC_CAPACITY take the fused kernels, above it the chunked
-    kernels (ops.cuda_chunked), whose ceiling is MAX_CHUNKED_CAPACITY: only
+    to MAX_MONOLITHIC_CAPACITY (anisotropic: MAX_BWD_CAPACITY_ANISO) take
+    the fused kernels, above it the chunked kernels (ops.cuda_chunked,
+    ops.cuda_chunked_aniso), whose ceiling is MAX_CHUNKED_CAPACITY: only
     beyond that is the tile grid too coarse for the scene."""
     if backend != "kernel":
         return
@@ -296,18 +299,29 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
     sum-of-squares loss; the slabs' losses and gradients add exactly, since
     the frame loss is a sum over pixels, and Adam applies once to their
     sum over H*W*3. A slab's saved-T residual and scratch are freed before
-    the next slab, so slab_tiles bounds the step's memory. The mesh and
-    anisotropic variants are not ported."""
-    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+    the next slab, so slab_tiles bounds the step's memory.
+
+    aniso=True fits an ops.anisotropic.AnisoScene the same way: tiles from
+    the max-scale proxy (iso_proxy), the anisotropic gather, and
+    tile_renderer_aniso_for (the chunked anisotropic kernels above
+    MAX_BWD_CAPACITY_ANISO). The mesh variant is not ported."""
     from sgrt_tpu_torch.ops.tiling import as_grid
 
     _refuse_mesh(mesh)
-    if aniso:
-        raise NotImplementedError("the anisotropic slab step (sgrt_tpu/ops/anisotropic.py) "
-                                  "is not ported yet; pass aniso=False")
     _check_bwd_capacity(capacity, None, "kernel")
-    capacity, render = tile_renderer_for(capacity, erf_name=erf_name, exp_name=exp_name)
-    trainable = FIELDS if trainable is None else trainable
+    if aniso:
+        from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
+        from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
+
+        capacity, render = tile_renderer_aniso_for(capacity, erf_name=erf_name,
+                                                   exp_name=exp_name)
+        gather, proxy, fields = gather_tiles_aniso, iso_proxy, ANISO_FIELDS
+    else:
+        from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+
+        capacity, render = tile_renderer_for(capacity, erf_name=erf_name, exp_name=exp_name)
+        gather, proxy, fields = gather_tiles, (lambda s: s), FIELDS
+    trainable = fields if trainable is None else trainable
     tx, ty = as_grid(tiles)
     t2 = tx * ty
     slab_tiles = max(1, min(slab_tiles, t2))
@@ -317,7 +331,7 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
 
     def step(state: FitState, view, o, dirs, target):
         with torch.no_grad():
-            idx, counts = tile_indices(state.scene, view, tiles, capacity,
+            idx, counts = tile_indices(proxy(state.scene), view, tiles, capacity,
                                        focal_length=focal_length)
             order = torch.argsort(-counts, stable=True)
             overflow = torch.sum(counts > capacity, dtype=torch.int32)
@@ -329,7 +343,7 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
             sl = slice(s0, s0 + slab_tiles)
 
             def loss_of(sc):
-                colors = render(gather_tiles(sc, idx[sl]), o, d[sl], counts[sl])
+                colors = render(gather(sc, idx[sl]), o, d[sl], counts[sl])
                 return torch.sum((colors - tgt[sl]) ** 2), None
 
             (loss, _), g = _value_and_grad(loss_of, state.scene, trainable)
@@ -337,8 +351,8 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
                 total, grads = loss, g
             else:
                 total = total + loss
-                grads = GaussianScene(**{f: getattr(grads, f) + getattr(g, f) for f in FIELDS})
-        grads = GaussianScene(**{f: getattr(grads, f) / norm for f in FIELDS})
+                grads = type(g)(**{f: getattr(grads, f) + getattr(g, f) for f in fields})
+        grads = type(grads)(**{f: getattr(grads, f) / norm for f in fields})
         _apply_updates(state, grads, trainable)
         return state, total / norm, overflow
 
@@ -356,14 +370,16 @@ def make_aniso_frame_train_step(*, width: int = 256, height: int = 256, tiles=16
     an ops.anisotropic.AnisoScene.
 
     Per-frame re-tiling on the conservative max-scale footprint (iso_proxy,
-    no gradient), the packed 10-column gather, the fused anisotropic
-    kernels' forward and analytic backward (ops.cuda_aniso; gradients
-    include the per-axis scales, saved-T chosen by SAVE_T_MAX_BYTES), the
-    gather's transpose as a scatter-add, Adam. bucket_cfg: dense/sparse
-    capacity bucketing as in the isotropic step, bucket membership from the
-    iso_proxy counts; a config with n_dense = 0 renders one launch at
-    max(capacity, cap_dense). Capacities route through
-    tile_renderer_aniso_for, which raises above MAX_BWD_CAPACITY_ANISO."""
+    no gradient), the packed 10-column gather, the anisotropic kernels'
+    forward and analytic backward (ops.cuda_aniso, saved-T chosen by
+    SAVE_T_MAX_BYTES, or ops.cuda_chunked_aniso; gradients include the
+    per-axis scales), the gather's transpose as a scatter-add, Adam.
+    bucket_cfg: dense/sparse capacity bucketing as in the isotropic step,
+    bucket membership from the iso_proxy counts; a config with n_dense = 0
+    renders one launch at max(capacity, cap_dense). Capacities route through
+    tile_renderer_aniso_for: above MAX_BWD_CAPACITY_ANISO to the chunked
+    anisotropic kernels (recompute backward), and above
+    MAX_CHUNKED_CAPACITY the step refuses to build."""
     from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
     from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
 
@@ -371,6 +387,7 @@ def make_aniso_frame_train_step(*, width: int = 256, height: int = 256, tiles=16
     if bucket_cfg is not None and not bucket_cfg.n_dense:
         capacity = max(capacity, bucket_cfg.cap_dense)
         bucket_cfg = None
+    _check_bwd_capacity(capacity, bucket_cfg, "kernel")
 
     if bucket_cfg is not None:
         from sgrt_tpu_torch.ops.scheduler import render_tiles_bucketed

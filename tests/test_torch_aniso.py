@@ -208,7 +208,8 @@ def test_aniso_train_step_matches_jax(step_setup, bucketed):
 
 def test_aniso_step_masks_and_refuses():
     """Frozen fields stay bit-identical; a mesh and capacities above
-    MAX_BWD_CAPACITY_ANISO raise when the step is built."""
+    MAX_CHUNKED_CAPACITY raise when the step is built, and a capacity above
+    MAX_BWD_CAPACITY_ANISO builds (the chunked anisotropic route)."""
     start = _grid_np()
     ts = an.aniso_scene_from_numpy(*start, device="cpu")
     cam = orbit_camera(20.0, -4.0, 1.0, 32, 32, device="cpu")
@@ -220,8 +221,11 @@ def test_aniso_step_masks_and_refuses():
     assert torch.equal(state.scene.mu, ts.mu) and not torch.equal(state.scene.scale, ts.scale)
     with pytest.raises(NotImplementedError, match="mesh"):
         tfit.make_aniso_frame_train_step(mesh=object())
-    with pytest.raises(NotImplementedError, match="chunked anisotropic"):
-        tfit.make_aniso_frame_train_step(capacity=6145)
+    tfit.make_aniso_frame_train_step(capacity=6145)
+    with pytest.raises(ValueError, match="chunked"):
+        tfit.make_aniso_frame_train_step(capacity=65537)
+    with pytest.raises(ValueError, match="chunked"):
+        tfit.make_aniso_frame_train_step(capacity=64, bucket_cfg=BucketConfig(4, 65537, 64))
 
 
 def test_checkpoint_roundtrip_aniso(tmp_path):

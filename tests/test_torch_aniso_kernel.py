@@ -204,12 +204,19 @@ def test_tiles_render_matches_pallas_tiles():
 def test_tile_renderer_aniso_routing(capacity, padded):
     """Up to MAX_BWD_CAPACITY_ANISO the fused anisotropic route, padded to
     lcm(pb, qb) as the JAX package pads; above it the chunked anisotropic
-    kernels, which the port does not have yet: a NotImplementedError that
-    names them."""
+    kernels at the JAX package's chunk_plan capacity, whose render refuses
+    a padded capacity past MAX_CHUNKED_CAPACITY."""
     from sgrt_tpu.ops.pallas_chunked_aniso import tile_renderer_aniso_for as j_route
+    from sgrt_tpu_torch.ops.cuda_chunked import MAX_CHUNKED_CAPACITY, chunk_plan
 
     cap, _ = tile_renderer_aniso_for(capacity)
     assert cap == padded == j_route(capacity)[0]
     assert ta.MAX_BWD_CAPACITY_ANISO == jpa.MAX_BWD_CAPACITY_ANISO
-    with pytest.raises(NotImplementedError, match="_chunked_fwd_aniso_kernel"):
-        tile_renderer_aniso_for(ta.MAX_BWD_CAPACITY_ANISO + 1)
+    above = ta.MAX_BWD_CAPACITY_ANISO + 1
+    assert tile_renderer_aniso_for(above)[0] == j_route(above)[0] == chunk_plan(above)[0]
+    cap_top, render_top = tile_renderer_aniso_for(MAX_CHUNKED_CAPACITY + 1)
+    z = torch.zeros
+    tiled = tan.AnisoScene(z(1, cap_top, 3), torch.ones(1, cap_top, 3), z(1, cap_top),
+                           z(1, cap_top, 3))
+    with pytest.raises(ValueError, match="MAX_CHUNKED_CAPACITY"):
+        render_top(tiled, z(3), z(1, 8, 3), torch.ones(1, dtype=torch.int32))

@@ -388,3 +388,77 @@ def test_fused_backward_sums_at_thousands_of_rows():
         e_k = float((a.double() - f).abs().max()) / scale
         e_p = float((p.double() - f).abs().max()) / scale
         assert e_k <= max(2e-4 if name == "oc" else 1e-5, 2 * e_p), (name, e_k, e_p)
+
+
+# the chunked anisotropic kernels (kernel 13: the anisotropic forward's entry
+# point with its own launch count; kernel 14: csrc/chunked_bwd.cu over
+# AnisoGeo rows) on _aniso_inputs' rows at N = 384 in three chunks of 128:
+# CHUNK_COUNTS give a tile with all three chunks live, one whose only live
+# chunk is partly live (17), a dead tile, one whose second chunk is partly
+# live (200) and one clamped to N; R = 200 is two ray blocks, the second
+# partial. Kernel 14 forms doc and dinvd from sums that do not cancel (its
+# source note), so its gradients are held against a float64 run of the
+# plain version: as close to it as the float32 plain version is, x2, or
+# within the JAX package's 5e-5 of scale.
+def _double(args):
+    return [x.double() if x.is_floating_point() else x for x in args]
+
+
+def _assert_grads_f64_gate(got, plain, ref, rel=5e-5):
+    for name, a, p, f in zip(GRAD_NAMES, got, plain, ref):
+        assert torch.isfinite(a).all(), name
+        scale = max(float(f.abs().max()), 1e-30)
+        e_k = float((a.double() - f).abs().max()) / scale
+        e_p = float((p.double() - f).abs().max()) / scale
+        assert e_k <= max(rel, 2 * e_p), (name, e_k, e_p)
+
+
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+def test_chunked_aniso_kernels_match_plain(erf_name, exp_name):
+    from sgrt_tpu_torch.ops import cuda_aniso as ta
+    from sgrt_tpu_torch.ops import cuda_chunked_aniso as tca
+
+    dev = _card()
+    args = _aniso_inputs(dev, n=384, counts=CHUNK_COUNTS)
+    dcol = torch.randn((5, 3, 200), generator=torch.Generator().manual_seed(5)).to(dev)
+    kw = dict(ck=128, erf_name=erf_name, exp_name=exp_name)
+    before = (tca.CHUNKED_FWD_ANISO.launches, tca.CHUNKED_BWD_ANISO.launches,
+              ta.FUSED_FWD_ANISO.launches)
+    out = tca.chunked_forward_aniso(*args, **kw)
+    got = tca.chunked_backward_aniso(*args, dcol, **kw)
+    torch.cuda.synchronize()
+    assert (tca.CHUNKED_FWD_ANISO.launches, tca.CHUNKED_BWD_ANISO.launches,
+            ta.FUSED_FWD_ANISO.launches) == (before[0] + 1, before[1] + 1, before[2])
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               tca.chunked_forward_aniso_plain(*args, **kw).cpu().numpy(),
+                               atol=2e-5)
+    _assert_grads_f64_gate(got, tca.chunked_backward_aniso_plain(*args, dcol, **kw),
+                           tca.chunked_backward_aniso_plain(*_double(args), dcol.double(), **kw))
+    assert (out[2] == 0).all()
+    for g in got[:4]:
+        assert (g[2] == 0).all() and (g[1, 17:] == 0).all() and (g[3, 200:] == 0).all()
+    assert (got[4][2] == 0).all()
+
+
+def test_chunked_aniso_route_on_card():
+    """render_fused_chunked_aniso's gradients on the card come from the
+    chunked anisotropic backward and agree with the plain backward; its
+    forward is the fused anisotropic forward's kernel, so the colors are
+    equal bit for bit; a chunk size that does not divide N raises."""
+    from sgrt_tpu_torch.ops import cuda_aniso as ta
+    from sgrt_tpu_torch.ops import cuda_chunked_aniso as tca
+
+    dev = _card()
+    args = _aniso_inputs(dev, n=384, r=256, counts=CHUNK_COUNTS)
+    dcol = torch.randn((5, 3, 256), generator=torch.Generator().manual_seed(6)).to(dev)
+    leaves = [a.clone().requires_grad_(True) for a in args[:5]]
+    before = tca.CHUNKED_BWD_ANISO.launches
+    tca.render_fused_chunked_aniso(*leaves, args[5], ck=128).backward(dcol)
+    torch.cuda.synchronize()
+    assert tca.CHUNKED_BWD_ANISO.launches == before + 1
+    _assert_grads_f64_gate([x.grad for x in leaves],
+                           tca.chunked_backward_aniso_plain(*args, dcol, ck=128),
+                           tca.chunked_backward_aniso_plain(*_double(args), dcol.double(), ck=128))
+    assert torch.equal(tca.chunked_forward_aniso(*args, ck=128), ta.fused_forward_aniso(*args))
+    with pytest.raises(ValueError, match="chunks"):
+        tca.chunked_backward_aniso(*args, dcol, ck=256)

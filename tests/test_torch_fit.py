@@ -361,10 +361,14 @@ def test_slab_step_matches_jax_and_frame_step(capacity, slab_tiles):
 
 
 def test_slab_step_refuses_mesh_and_aniso():
-    """The slab step's mesh and anisotropic variants are not ported (the
-    anisotropic scene's 50k-Gaussian cell comes with the chunked
-    anisotropic kernels)."""
+    """The slab step's mesh variant is not ported; its anisotropic variant
+    builds on both routes (tests/test_torch_chunked_aniso.py runs it), and
+    like the isotropic one refuses a capacity above MAX_CHUNKED_CAPACITY
+    when it is built."""
     with pytest.raises(NotImplementedError, match="mesh"):
         tfit.make_slab_frame_train_step(mesh=object())
-    with pytest.raises(NotImplementedError, match="anisotropic"):
-        tfit.make_slab_frame_train_step(aniso=True)
+    for capacity in (16, 6145):
+        tfit.make_slab_frame_train_step(aniso=True, capacity=capacity)
+    for aniso in (False, True):
+        with pytest.raises(ValueError, match="chunked"):
+            tfit.make_slab_frame_train_step(aniso=aniso, capacity=65537)
