@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (sgrt_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --torch-route   # only times the torch route's terms
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds the port's CUDA kernels from csrc/, holds each against its plain
@@ -23,7 +24,14 @@ comes out, and times the kernels:
             chunked anisotropic kernels): tile grid and buckets, kernels vs
             plain, the bucketed frame and the --aniso CLI, the anisotropic
             slab train step, the kernels' times and the crossover of the
-            fused and chunked anisotropic backwards.
+            fused and chunked anisotropic backwards;
+  split     the split kernels (tw and colors from precomputed planes) at
+            the training cell's 30-degree view: kernels vs plain and
+            float64 (also on the dense cell's densest tile), the split
+            render route against the fused route in colors and scene
+            gradients, the on-card verification entry point
+            (sgrt_tpu_torch.verify, full checks; its check 5 launches the
+            split kernels), and the kernels' times.
 
 Each phase prints one JSON line; any failure exits non-zero before the last
 line, which is {"ok": true, "device": {...}} on success.
@@ -136,6 +144,14 @@ ADENSE_CROSS_TILES, ADENSE_CROSS_COUNTS = 8, (1024, 2048, 4096)
 # backward's chain through A, Bt and C adds ~40 FP32 and two divisions
 PREP_FP32, PREP_SFU = 38, 3
 CHAIN_FP32, CHAIN_SFU = 40, 2
+# the split kernels (15-18): the training cell's 30-degree view, its 32-tile
+# subset for the kernels-vs-plain case and the plain versions' times, and the
+# dense cell's densest tile (4315 rows) padded to SPLIT_DENSE_CAP rows for
+# the long sums. Kernels vs their float32 plain versions: every output within
+# TRAIN_REL of its scale, as the training kernels (the planes' terms are
+# summed in another order, over at most 480 rows; nothing cancels as doc
+# does); the dense tile is held to gate_vs_f64 alone, as the dense cell.
+SPLIT_SUB_TILES, SPLIT_DENSE_CAP, SPLIT_REL = 32, 4352, TRAIN_REL
 
 
 def emit(phase: str, **fields) -> None:
@@ -1740,6 +1756,342 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> 
     return entries
 
 
+def split_planes(tiled, o, tile_dirs, counts) -> list:
+    """The split kernels' inputs (mb, co, sigma, inv, albedo, counts) from
+    gathered tiles, as render_tiles_split makes them (prep_terms_t)."""
+    import torch
+
+    from sgrt_tpu_torch.ops.cuda_split import prep_terms_t
+
+    with torch.no_grad():
+        mb, _, co, inv = prep_terms_t(o[None, None, :], tile_dirs, tiled)
+    return [mb.contiguous(), co.contiguous(), tiled.sigma.contiguous(), inv.contiguous(),
+            tiled.albedo.contiguous(),
+            torch.clamp(counts.to(torch.int32), max=mb.shape[1]).contiguous()]
+
+
+def split_ops(inp, colors: bool, backward: bool) -> tuple[float, float]:
+    """(FP32 instructions, SFU operations) of a split kernel's live work, at
+    the fused kernels' per-(p, q, ray) counts without their prep: 5 erf taps
+    per live pair, one base erf per (row, ray) of every row, 5 exps per live
+    (p, ray); a backward adds the fused backward's pair pass (BWD_PAIR_*) and
+    the base path's erf-and-gauss per (row, ray) of every row."""
+    c, r = live_counts(inp), inp[0].shape[2]
+    b, n = inp[2].shape
+    taps = float(np.sum(5 * c * c) * r + b * n * r)
+    exps = float(np.sum(5 * c) * r)
+    fp32, sfu = TAP_FP32 * taps + EXP_FP32 * exps, TAP_SFU * taps + EXP_SFU * exps
+    if backward:
+        pairs = float(np.sum(c * c) * r)
+        fp32 += BWD_PAIR_FP32 * pairs + (TAP_FP32 + 4) * b * n * r
+        sfu += BWD_PAIR_SFU * pairs + TAP_SFU * b * n * r
+    return fp32, sfu
+
+
+def compare_split_kernels(inp, g, dcol, erf_name="as5", exp_name="exact", rb: int = 128,
+                          pb: int = 16, qb: int = 32, plain_tolerance: bool = True) -> dict:
+    """Kernels 15-18 against their plain versions on `inp` (split_planes'
+    list) with the cotangents g (B,N,R) of tw and dcol (B,3,R) of the
+    colors: every output on every row against the float32 plain version
+    (max |kernel - plain| / max |plain|, within SPLIT_REL when
+    plain_tolerance) and, through gate_vs_f64, against a float64 run of the
+    plain version."""
+    import torch
+
+    from sgrt_tpu_torch.ops import cuda_split as cs
+
+    planes, alb, cnt = inp[:4], inp[4], inp[5]
+    kw = dict(erf_name=erf_name, exp_name=exp_name)
+    tw = cs.split_forward(*planes, cnt, rb=rb, pb=pb, qb=qb, **kw)
+    g_tw = cs.split_backward(*planes, cnt, g, rb=rb, qb=qb, **kw)
+    colors = cs.split_forward_color(*planes, alb, cnt, rb=rb, pb=pb, qb=qb, **kw)
+    g_col = cs.split_backward_color(*planes, alb, cnt, dcol, rb=rb, qb=qb, **kw)
+    torch.cuda.synchronize()
+    for x in (tw, colors, *g_tw, *g_col):
+        check(bool(torch.isfinite(x).all()), f"a split kernel's output is not finite "
+                                             f"({erf_name}/{exp_name})")
+    dead = torch.arange(tw.shape[1], device=tw.device)[None, :] >= cnt[:, None].long()
+    check(bool((tw[dead] == 0).all()), "split tw is not 0 past the count")
+    pin = [*planes, cnt]
+    f64 = [x.double() for x in planes]
+    p_tw = per_tile(lambda *a: cs.split_forward_plain(*a, **kw), pin)
+    r_tw = per_tile(lambda *a: cs.split_forward_plain(*a, **kw), [*f64, cnt])
+    p_g = per_tile(lambda *a: cs.split_backward_plain(*a, **kw), pin, g)
+    r_g = per_tile(lambda *a: cs.split_backward_plain(*a, **kw), [*f64, cnt], g.double())
+    p_c = per_tile(lambda *a: cs.split_forward_color_plain(*a, **kw), [*planes, alb, cnt])
+    r_c = per_tile(lambda *a: cs.split_forward_color_plain(*a, **kw), [*f64, alb.double(), cnt])
+    p_gc = per_tile(lambda *a: cs.split_backward_color_plain(*a, **kw), [*planes, alb, cnt], dcol)
+    r_gc = per_tile(lambda *a: cs.split_backward_color_plain(*a, **kw),
+                    [*f64, alb.double(), cnt], dcol.double())
+    names = ("dmb", "dco", "dsigma", "dinv", "dalbedo")
+    outs = {cs.SPLIT_FWD.name: {"tw": (tw, p_tw, r_tw)},
+            cs.SPLIT_BWD.name: {n: (a, b, c) for n, a, b, c in zip(names, g_tw, p_g, r_g)},
+            cs.SPLIT_FWD_COLOR.name: {"colors": (colors, p_c, r_c)},
+            cs.SPLIT_BWD_COLOR.name: {n: (a, b, c) for n, a, b, c in zip(names, g_col, p_gc, r_gc)}}
+    rel, vs_f64, absd, over = gate_vs_f64(outs)
+    if plain_tolerance:
+        over += [f"{k}.{o}: {v:.3g} vs the float32 plain version" for k, d in rel.items()
+                 for o, v in d.items() if v > SPLIT_REL]
+    for i in [i for i, c in enumerate(cnt.tolist()) if c <= 0]:
+        check(bool((colors[i] == 0).all()) and bool((g_tw[2][i] == 0).all()),
+              "a dead tile's split colors or dsigma are not zero")
+    return {"rel": rel, "vs_f64": vs_f64, "abs": absd, "over_tolerance": over,
+            "shape": {"B": tw.shape[0], "N": tw.shape[1], "R": tw.shape[2], "rb": rb, "pb": pb,
+                      "qb": qb,
+                      "counts": sorted(set(int(c) for c in cnt.tolist()))[-4:],
+                      "max_count": int(cnt.max())}}
+
+
+def split_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> list:
+    """The split kernels (15-18) at the training cell's 30-degree view:
+    kernels against their plain versions and a float64 run of them, the
+    split render route (prep_terms_t, colors_split) against the fused route
+    in colors and scene gradients, the on-card verification entry point
+    (sgrt_tpu_torch.verify, whose check 5 launches kernels 15-16), and the
+    kernels' times. Returns the kernel line's entries of kernels 15-18."""
+    import torch
+
+    from sgrt_tpu_torch import verify
+    from sgrt_tpu_torch.models.gaussians import GaussianScene, scene_from_vertices
+    from sgrt_tpu_torch.ops import cuda_split as cs
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+    from sgrt_tpu_torch.ops.cuda_kernel import _block_sizes, render_tiles_fused
+    from sgrt_tpu_torch.ops.frame import orbit_camera, probe_capacity
+    from sgrt_tpu_torch.ops.render import _tile_rays
+    from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
+    from sgrt_tpu_torch.utils import nvcc
+
+    # 1. the training cell's 30-degree view at its padded capacity
+    S = TRAIN_SIZE
+    scene = scene_from_vertices(smoke_points(), device=dev)
+    capacity = max(64, int(probe_capacity(scene, ANGLES, OFFSET, FOCAL, TRAIN_TILES) * 1.3))
+    cap_pad, _ = tile_renderer_for(capacity)
+    cam = orbit_camera(30.0, OFFSET, FOCAL, S, S, device=dev)
+    o, dirs = cam.rays()
+    tile_dirs = _tile_rays(dirs, S, S, TRAIN_TILES)
+    idx, counts = tile_indices(scene, cam.view_matrix, TRAIN_TILES, cap_pad, focal_length=FOCAL)
+    check(int(counts.max()) <= cap_pad, "the 30-degree view overflows the probed capacity")
+    full = split_planes(gather_tiles(scene, idx), o, tile_dirs, counts)
+    pb, qb = _block_sizes(cap_pad)
+    cnt = full[5].cpu().numpy()
+    rng = np.random.default_rng(3)
+    dense = int(np.argmax(cnt))
+    live = [i for i in np.flatnonzero(cnt > 0) if i != dense]
+    sel = [dense] + sorted(rng.choice(live, size=min(SPLIT_SUB_TILES - 1, len(live)),
+                                      replace=False).tolist())
+    sub = [t[torch.tensor(sel, device=dev)].contiguous() for t in full]
+
+    def cotangents(inp, seed):
+        gen = torch.Generator().manual_seed(seed)
+        b, n, r = inp[0].shape
+        return (torch.randn((b, n, r), generator=gen).to(dev),
+                torch.randn((b, 3, r), generator=gen).to(dev))
+
+    # seeded planes with co non-zero on every row (base runs over all N),
+    # counts below N, a dead tile and one clamped to N
+    gen = torch.Generator().manual_seed(4)
+    n = cap_pad
+    sig = torch.rand((4, n), generator=gen) * 0.3 + 0.3
+    seeded = [t.to(dev).contiguous() for t in (
+        torch.randn((4, n, 128), generator=gen), torch.rand((4, n, 128), generator=gen) * 0.01,
+        sig, 1.0 / (1.4142135623730951 * sig), torch.rand((4, n, 3), generator=gen),
+        torch.tensor([n, 137, 0, 1000], dtype=torch.int32))]
+    # the dense cell's densest tile: the 50k sphere at 512^2, 64x32 tiles, 30
+    # degrees (4315 rows), padded to SPLIT_DENSE_CAP rows
+    sphere = scene_from_vertices(sphere_points(DENSE_N), device=dev)
+    cam_d = orbit_camera(DENSE_ANGLE, OFFSET, FOCAL, DENSE_SIZE, DENSE_SIZE, device=dev)
+    o_d, dirs_d = cam_d.rays()
+    idx_d, counts_d = tile_indices(sphere, cam_d.view_matrix, (64, 32), SPLIT_DENSE_CAP,
+                                   focal_length=FOCAL)
+    t_d = int(torch.argmax(counts_d))
+    check(int(counts_d[t_d]) <= SPLIT_DENSE_CAP, "the dense tile overflows SPLIT_DENSE_CAP")
+    dense_tile = split_planes(gather_tiles(sphere, idx_d[t_d:t_d + 1]), o_d,
+                              _tile_rays(dirs_d, DENSE_SIZE, DENSE_SIZE, (64, 32))[t_d:t_d + 1],
+                              counts_d[t_d:t_d + 1])
+    # verify's check 5 (the main path's only tw_split) at its own inputs and
+    # tw_split's default blocks, pb 16 and qb 32
+    *check5, _ = verify.counts_case(dev)
+    check5.insert(4, torch.rand((1, check5[0].shape[1], 3), generator=gen).to(dev))
+    cases = {"view_32_tiles": (sub, "as5", "exact", 128, pb, 32, True),
+             "coeff_past_count": (seeded, "as5", "exact", 128, pb, 32, True),
+             "two_ray_blocks": ([t[:8] for t in sub], "as5", "exact", 64, pb, 32, True),
+             "one_tile_as3_fast": ([t[:1] for t in sub], "as3", "fast", 128, pb, 32, True),
+             "dense_tile": (dense_tile, "as5", "exact", 128, pb, 32, False),
+             "verify_check5": (check5, "as5", "exact", 128, 16, 32, True)}
+    results = {}
+    t0 = time.perf_counter()
+    for i, (name, (inp, e, x, rb, pb_c, qb_c, tol)) in enumerate(cases.items()):
+        g, dcol = cotangents(inp, 50 + i)
+        results[name] = compare_split_kernels(inp, g, dcol, e, x, rb, pb_c, qb_c, tol)
+    emit("split_kernels_vs_plain", tolerance_rel=SPLIT_REL, seconds=time.perf_counter() - t0,
+         densest_count=int(cnt.max()), dense_tile_count=int(counts_d[t_d]), cases=results)
+    over = [f"{name}: {o}" for name, r in results.items() for o in r["over_tolerance"]]
+    check(not over, f"a split kernel disagrees with its plain version: {over}")
+
+    # 2. main path: the split render route at full width, fwd and bwd,
+    # against the fused route (kernels 2-3) in colors and scene gradients
+    fields = ("mu", "sigma", "magnitude", "albedo")
+    w = torch.randn((idx.shape[0], tile_dirs.shape[1], 3),
+                    generator=torch.Generator().manual_seed(5)).to(dev)
+
+    def route(render):
+        leaves = {f: getattr(scene, f).detach().clone().requires_grad_(True) for f in fields}
+        colors = render(gather_tiles(GaussianScene(**leaves), idx), o, tile_dirs, counts)
+        torch.sum(colors * w).backward()
+        torch.cuda.synchronize()
+        return colors.detach(), {f: leaves[f].grad for f in fields}
+
+    c_fused, g_fused = route(render_tiles_fused)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    c_split, g_split = route(cs.render_tiles_split)
+    route_s = time.perf_counter() - t0
+    route_launches = {k.name: k.launches for k in kernels.KERNELS}
+    check(route_launches[cs.SPLIT_FWD_COLOR.name] > 0 and route_launches[cs.SPLIT_BWD_COLOR.name] > 0,
+          f"the split route did not launch kernels 17-18: {route_launches}")
+    # Tolerance, the Watch-list's float32 floor (ROADMAP; tests/
+    # test_torch_frame.py): two float32 evaluations of the Gaussian exponent
+    # that round mb or |oc|^2 one step apart differ by up to 2 ulp(|oc|^2) /
+    # (2 sigma^2) of co, relative; the colors and every gradient are sums of
+    # terms that carry it. prep_terms_t rounds mb and |oc|^2 as the fused
+    # kernels do, so the routes should sit well inside it.
+    oc2 = float(torch.max(torch.sum((scene.mu - o) ** 2, dim=-1)))
+    ulp = 2.0 ** (np.floor(np.log2(oc2)) - 23)
+    floor_rel = 2 * ulp / (2 * float(scene.sigma.min()) ** 2)
+    rel = {"colors": rel_err(c_split, c_fused),
+           **{f: rel_err(g_split[f], g_fused[f]) for f in fields}}
+    emit("split_route", shape={"B": idx.shape[0], "N": cap_pad, "R": tile_dirs.shape[1]},
+         seconds=route_s, launches=route_launches, rel_vs_fused=rel, tolerance_rel=floor_rel,
+         max_oc_sq=oc2)
+    check(all(v <= floor_rel for v in rel.values()),
+          f"the split route differs from the fused route: {rel} (floor {floor_rel:.3g})")
+
+    # 3. the on-card verification entry point (full checks)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = verify.run_checks(quick=False, device=dev)
+    verify_s = time.perf_counter() - t0
+    verify_launches = {k.name: k.launches for k in kernels.KERNELS}
+    emit("verify", seconds=verify_s, launches=verify_launches, **report)
+    check(report["parity_ok"], f"sgrt_tpu_torch.verify failed: {report['checks']}")
+    check(verify_launches[cs.SPLIT_FWD.name] > 0 and verify_launches[cs.SPLIT_BWD.name] > 0,
+          f"verify's check 5 did not launch kernels 15-16: {verify_launches}")
+
+    # 4. times at full width (the route's blocks), plain ms on the subset
+    g, dcol = cotangents(full, 60)
+    planes, alb, cnt_t = full[:4], full[4], full[5]
+    runs = {cs.SPLIT_FWD: lambda: cs.split_forward(*planes, cnt_t, pb=pb, qb=qb),
+            cs.SPLIT_BWD: lambda: cs.split_backward(*planes, cnt_t, g, qb=qb),
+            cs.SPLIT_FWD_COLOR: lambda: cs.split_forward_color(*planes, alb, cnt_t, pb=pb, qb=qb),
+            cs.SPLIT_BWD_COLOR: lambda: cs.split_backward_color(*planes, alb, cnt_t, dcol, qb=qb)}
+    g_s, dcol_s = cotangents(sub, 61)
+    plain_runs = {cs.SPLIT_FWD: lambda: cs.split_forward_plain(*sub[:4], sub[5]),
+                  cs.SPLIT_BWD: lambda: cs.split_backward_plain(*sub[:4], sub[5], g_s),
+                  cs.SPLIT_FWD_COLOR: lambda: cs.split_forward_color_plain(*sub),
+                  cs.SPLIT_BWD_COLOR: lambda: cs.split_backward_color_plain(*sub, dcol_s)}
+    plane = 4 * full[0].numel()
+    rows = 4 * full[2].numel()
+    # bytes, each input read once and each output written once: the planes
+    # (mb, co; g or dmb, dco; tw), per-row sigma, inv (albedo) and the rays'
+    # dcol / colors
+    rays3 = 4 * 3 * full[0].shape[0] * full[0].shape[2]
+    nbytes = {cs.SPLIT_FWD: 3 * plane + 2 * rows, cs.SPLIT_BWD: 5 * plane + 4 * rows,
+              cs.SPLIT_FWD_COLOR: 2 * plane + 5 * rows + rays3,
+              cs.SPLIT_BWD_COLOR: 4 * plane + 10 * rows + rays3}
+    times, entries = {}, []
+    launches = {cs.SPLIT_FWD: verify_launches[cs.SPLIT_FWD.name],
+                cs.SPLIT_BWD: verify_launches[cs.SPLIT_BWD.name],
+                cs.SPLIT_FWD_COLOR: route_launches[cs.SPLIT_FWD_COLOR.name],
+                cs.SPLIT_BWD_COLOR: route_launches[cs.SPLIT_BWD_COLOR.name]}
+    for k, fn in runs.items():
+        ms = time_cuda(fn, iters=5, warmup=1)
+        plain_ms = time_cuda(plain_runs[k], iters=1, warmup=0)
+        fp32, sfu = split_ops(full, k in (cs.SPLIT_FWD_COLOR, cs.SPLIT_BWD_COLOR),
+                              k in (cs.SPLIT_BWD, cs.SPLIT_BWD_COLOR))
+        b = bound(fp32, sfu, nbytes[k], clock_mhz, n_sm)
+        times[k.name] = {"ms": ms, "plain_ms": plain_ms, "fp32_instr": fp32, "sfu_ops": sfu,
+                         "bytes": nbytes[k], **b, "launches": launches[k],
+                         "library_ms": "n/a: no single PyTorch call computes it"}
+        entries.append({
+            "name": k.name, "route": k.route,
+            "source": str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
+            "replaces": k.replaces, "launches": launches[k],
+            "max_abs_err": max(r["abs"][k.name] for r in results.values()),
+            "max_rel_err": max(max(r["rel"][k.name].values()) for r in results.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None})
+    emit("split_times", shape={"B": full[0].shape[0], "N": full[0].shape[1],
+                               "R": full[0].shape[2], "max_count": int(cnt.max()), "pb": pb,
+                               "qb": qb},
+         plain_shape=f"the {len(sel)}-tile subset", kernels=times, power_limit=smi)
+    return entries
+
+
+def _terms_matmul(o, dirs, scene, erf_fn, exp_fn):
+    """The torch route's per-(ray, Gaussian) terms (ops/render.py,
+    _ray_gaussian_terms) with mu_bar as one matrix product and |oc|^2 as
+    torch.sum, the form that route had before it took the kernels'
+    rounding; kept only to time against it (--torch-route)."""
+    import torch
+
+    from sgrt_tpu_torch.ops.render import INV_SQRT_2_PI, SQRT_2
+
+    oc = scene.mu - o
+    oc_sq = torch.sum(oc * oc, dim=-1)
+    mu_bar = dirs @ oc.transpose(-1, -2)
+    inv_2s2 = 1.0 / (2.0 * scene.sigma**2)
+    cbar = scene.magnitude[..., None, :] * exp_fn(
+        -(oc_sq[..., None, :] - mu_bar**2) * inv_2s2[..., None, :])
+    coeff = (scene.sigma * INV_SQRT_2_PI)[..., None, :] * cbar
+    inv = 1.0 / (SQRT_2 * scene.sigma)
+    base = torch.sum(coeff * erf_fn(-mu_bar * inv[..., None, :]), dim=-1)
+    return mu_bar, cbar, coeff, inv, base
+
+
+def torch_route_times(dev, smi: str) -> None:
+    """The torch route (backend="torch") with its terms as ordered products
+    (ops/render.py, as the kernels round them) and as the matrix product
+    (_terms_matmul), at the training cell: the 30-degree frame and the
+    north-star train step (Adam included), in the order matmul, ordered,
+    ordered, matmul; ms by CUDA events and the step's peak memory."""
+    import torch
+
+    from sgrt_tpu_torch.models.gaussians import scene_from_vertices
+    from sgrt_tpu_torch.ops import render as render_mod
+    from sgrt_tpu_torch.ops.frame import orbit_camera, probe_capacity, render_orbit_frame
+    from sgrt_tpu_torch.parallel.fit import adam, init_state, make_frame_train_step
+
+    S = TRAIN_SIZE
+    scene = scene_from_vertices(smoke_points(), device=dev)
+    capacity = max(64, int(probe_capacity(scene, ANGLES, OFFSET, FOCAL, TRAIN_TILES) * 1.3))
+    cam = orbit_camera(30.0, OFFSET, FOCAL, S, S, device=dev)
+    o, dirs = cam.rays()
+    kw = dict(width=S, height=S, tiles=TRAIN_TILES, capacity=capacity, backend="torch")
+    with torch.no_grad():
+        target, _ = render_orbit_frame(scene, 35.0, OFFSET, FOCAL, **kw)
+    step = make_frame_train_step(**kw)
+    forms = {"matmul": _terms_matmul, "ordered": render_mod._ray_gaussian_terms}
+    runs = []
+    try:
+        for form in ("matmul", "ordered", "ordered", "matmul"):
+            render_mod._ray_gaussian_terms = forms[form]
+            with torch.no_grad():
+                frame_ms = time_cuda(
+                    lambda: render_orbit_frame(scene, 30.0, OFFSET, FOCAL, **kw), 3, 1)
+            state = init_state(scene, adam(1e-3))
+            step(state, cam.view_matrix, o, dirs, target)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = time_cuda(lambda: step(state, cam.view_matrix, o, dirs, target), 3, 0)
+            runs.append({"terms": form, "frame_ms": frame_ms, "step_ms": step_ms,
+                         "step_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    finally:
+        render_mod._ray_gaussian_terms = forms["ordered"]
+    emit("torch_route_terms", size=S, tiles=list(TRAIN_TILES), capacity=capacity, runs=runs,
+         power_limit=smi)
+
+
 def serving_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
     """The serving path: the fused forward against its plain version, the
     CLI's 8-frame orbit, the untiled route, a reference frame, and the
@@ -1918,6 +2270,9 @@ def main() -> int:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     emit("device", name=name, count=count, nvidia_smi=smi, max_sm_clock_mhz=clock_mhz,
          sms=n_sm, torch=torch.__version__, cuda=torch.version.cuda)
+    if sys.argv[1:] == ["--torch-route"]:
+        torch_route_times(dev, smi)
+        return 0
 
     # 2. build every kernel from the checkout's sources, all nvcc at once
     t0 = time.perf_counter()
@@ -1930,7 +2285,8 @@ def main() -> int:
              seconds=round(build_s, 2), ptxas=ptxas)
 
     # 3. the serving path; 4. the training path; 5. the dense cell; 6. the
-    # anisotropic cell; 7. the anisotropic dense cell
+    # anisotropic cell; 7. the anisotropic dense cell; 8. the split kernels
+    # and the verification entry point
     with tempfile.TemporaryDirectory() as tmp:
         entries = [serving_phases(dev, smi, clock_mhz, n_sm)]
         obj = os.path.join(tmp, "cube_cloud.obj")
@@ -1939,8 +2295,9 @@ def main() -> int:
         entries += dense_phases(dev, smi, clock_mhz, n_sm, tmp)
         entries += aniso_phases(dev, smi, clock_mhz, n_sm, obj)
         entries += aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp)
+    entries += split_phases(dev, smi, clock_mhz, n_sm)
 
-    # 8. the kernel line
+    # 9. the kernel line
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -125,27 +125,6 @@ constexpr int kMaxThreads = 128;
 constexpr int kWarps = kMaxThreads / 32;
 constexpr int kSums = 10;        // per-row sums over rays; Side<Geo> names them
 
-// One row's kSums values summed over the block's rays in a fixed order
-// (warp butterfly, then the warps in order); thread j < kSums writes sum j
-// to out[j], or adds it with accumulate. Every thread of the block calls it.
-__device__ __forceinline__ void row_sums(const float (&v)[kSums], float* red, float* out,
-                                         bool accumulate) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < kSums; ++j) {
-    const float s = warp_sum(v[j]);
-    if (lane == 0) red[warp * kSums + j] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < kSums) {
-    float s = 0.0f;
-    const int nw = blockDim.x >> 5;
-    for (int w = 0; w < nw; ++w) s += red[w * kSums + threadIdx.x];
-    out[threadIdx.x] = accumulate ? out[threadIdx.x] + s : s;
-  }
-  __syncthreads();
-}
-
 struct Scratch {
   float* rows_p;   // (B, n_rb, N, kSums)
   float* rows_q;   // (B, n_rb, N, kSums), summed over p chunks
@@ -630,7 +609,7 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
       float v[kSums];
       S::template p_chain<EXP>(geo, p, dx, dy, dz, cr, cg, cb, mbp[i], tw[i], A[i], dmbp[i],
                                dsbp[i], v, gx, gy, gz);
-      row_sums(v, red, rows_p + ((static_cast<size_t>(b) * n_rb + rblk) * N + p) * kSums, false);
+      row_sums<kSums>(v, red, rows_p + ((static_cast<size_t>(b) * n_rb + rblk) * N + p) * kSums);
     }
   }
 
@@ -639,22 +618,6 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   dd[0] = gx;
   dd[Rp] = gy;
   dd[2 * static_cast<size_t>(Rp)] = gz;
-}
-
-// db_a[b, r] = sum over the live 64-row blocks of chunk a, in block order.
-__global__ void db_sum_kernel(const int* __restrict__ counts, const float* __restrict__ db_part,
-                              float* __restrict__ db, int B, int N, int Rp, int ck, int a) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<size_t>(B) * Rp) return;
-  const int b = static_cast<int>(i / Rp);
-  const int r = static_cast<int>(i % Rp);
-  const int cnt = max(0, min(counts[b], N));
-  const int nb = ck / kRows;
-  const int live = min(max((cnt - a * ck + kRows - 1) / kRows, 0), nb);
-  const float* src = db_part + static_cast<size_t>(b) * nb * Rp + r;
-  float s = 0.0f;
-  for (int z = 0; z < live; ++z) s += src[static_cast<size_t>(z) * Rp];
-  db[i] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -894,9 +857,10 @@ int launch(const float* oc, const float* shape, const float* mag, const float* a
         oc, shape, mag, alb, dirs, counts, dcol, t, s.t_a, s.rows_p, s.dd_p, s.db_part, N, R, Rp,
         ck, a, qb);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    db_sum_kernel<<<blocks_for(static_cast<size_t>(B) * Rp, 256), 256, 0, st>>>(
-        counts, s.db_part, s.db, B, N, Rp, ck, a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    // db_a = the live 64-row blocks of chunk a summed in block order
+    if ((err = launch_block_sums(s.db_part, counts, s.db, B, N, Rp, ck / kRows, kRows, a * ck,
+                                 st)) != cudaSuccess)
+      return static_cast<int>(err);
     qfn<<<dim3(n_rb, N / kRows, B), threads, smem_q, st>>>(
         oc, shape, mag, alb, dirs, counts, dcol, SAVED_T ? t : s.t_a, SAVED_T ? N : ck,
         SAVED_T ? 0 : a * ck, SAVED_T ? R : Rp, s.db, s.rows_q, s.dd_q, N, R, Rp, ck, a, qb);

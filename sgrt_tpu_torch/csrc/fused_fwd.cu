@@ -167,24 +167,6 @@ fused_fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   }
 }
 
-// colors[b, c, r] = sum over the live splits of tile b, in split order.
-__global__ void sum_splits_kernel(const float* __restrict__ partial,
-                                  const int* __restrict__ counts,
-                                  float* __restrict__ colors, int B, int N, int R,
-                                  int n_split) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t per_tile = static_cast<size_t>(3) * R;
-  if (i >= per_tile * B) return;
-  const int b = static_cast<int>(i / per_tile);
-  const size_t cr = i % per_tile;
-  const int cnt = max(0, min(counts[b], N));
-  const int live_splits = (cnt + kRowsPerBlock - 1) / kRowsPerBlock;
-  const float* src = partial + static_cast<size_t>(b) * n_split * per_tile + cr;
-  float s = 0.0f;
-  for (int z = 0; z < live_splits; ++z) s += src[z * per_tile];
-  colors[i] = s;
-}
-
 using FwdKernel = void (*)(const float*, const float*, const float*, const float*,
                            const float*, const int*, float*, float*, int, int, int, int);
 
@@ -217,11 +199,9 @@ int launch(const float* oc, const float* shape, const float* mag, const float* a
                                  n_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t total = static_cast<size_t>(B) * 3 * R;
-  const int rthreads = 256;
-  sum_splits_kernel<<<static_cast<unsigned>((total + rthreads - 1) / rthreads),
-                      rthreads, 0, s>>>(partial, counts, colors, B, N, R, n_split);
-  return static_cast<int>(cudaGetLastError());
+  // colors = the live splits' partials summed in split order
+  return static_cast<int>(
+      launch_block_sums(partial, counts, colors, B, N, 3 * R, n_split, kRowsPerBlock, 0, s));
 }
 
 }  // namespace

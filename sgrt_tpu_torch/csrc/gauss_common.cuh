@@ -1,9 +1,10 @@
-// Device math shared by the fused (fused_fwd.cu, fused_bwd.cu) and the
-// chunked (chunked_bwd.cu) kernels: the erf/exp variants
-// the kernels are compiled for, the rounding-controlled Gaussian exponent,
-// the per-row constants that rows are staged with, the two row geometries
-// (isotropic and anisotropic), the five quadrature taps, a warp sum, and
-// pass A over staged rows.
+// Device math shared by the fused (fused_fwd.cu, fused_bwd.cu), the
+// chunked (chunked_bwd.cu) and the split (split.cu) kernels: the erf/exp
+// variants the kernels are compiled for, the rounding-controlled Gaussian
+// exponent, the per-row constants that rows are staged with, the two row
+// geometries (isotropic and anisotropic), the five quadrature taps, a warp
+// sum, a block's per-row sums over rays, pass A over staged rows, and the
+// ordered sum of per-block partials.
 //
 // No fast-math anywhere: the A&S reciprocal is an IEEE division and expf is
 // the accurate one, so "as5" is the float32-exact erf and the kernels agree
@@ -307,6 +308,29 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One row's S values summed over the block's rays in a fixed order (warp
+// butterfly, then the warps in order); thread j < S writes sum j to out[j],
+// or adds it with accumulate. red holds S floats per warp. Every thread of
+// the block calls it.
+template <int S>
+__device__ __forceinline__ void row_sums(const float (&v)[S], float* red, float* out,
+                                         bool accumulate = false) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const float s = warp_sum(v[j]);
+    if (lane == 0) red[warp * S + j] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < S) {
+    float s = 0.0f;
+    const int nw = blockDim.x >> 5;
+    for (int w = 0; w < nw; ++w) s += red[w * S + threadIdx.x];
+    out[threadIdx.x] = accumulate ? out[threadIdx.x] + s : s;
+  }
+  __syncthreads();
+}
+
 // Pass A of PB p rows of one ray against the q rows [q_lo, q_hi) of one
 // tile, staged qb rows at a time through shared memory:
 //   acc[i][k] += co_q erf((mb_p + k sb_p - mb_q) inv_q)
@@ -355,6 +379,35 @@ __device__ __forceinline__ void pass_a(float* stage, int qb, const Geo& geo, int
       for (int k = 0; k < kTaps; ++k) acc[i][k] += part[i][k];
     }
   }
+}
+
+// The second level of a sum split over row blocks: out[b, e] = sum of
+// part[b, z, e] over the blocks z of tile b that hold live rows, in block
+// order (no atomics, deterministic), for e < per_tile. Block z covers rows
+// row0 + z rows ..; at most n_blocks are stored per tile. It sums the fused
+// and split forwards' per-split colors and the backwards' per-block db.
+__global__ void ordered_block_sums(const float* __restrict__ part,
+                                   const int* __restrict__ counts, float* __restrict__ out,
+                                   int B, int N, int per_tile, int n_blocks, int rows,
+                                   int row0) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(B) * per_tile) return;
+  const int b = static_cast<int>(i / per_tile);
+  const int cnt = max(0, min(counts[b], N));
+  const int live = min(max((cnt - row0 + rows - 1) / rows, 0), n_blocks);
+  const float* src = part + static_cast<size_t>(b) * n_blocks * per_tile + i % per_tile;
+  float s = 0.0f;
+  for (int z = 0; z < live; ++z) s += src[static_cast<size_t>(z) * per_tile];
+  out[i] = s;
+}
+
+inline cudaError_t launch_block_sums(const float* part, const int* counts, float* out, int B,
+                                     int N, int per_tile, int n_blocks, int rows, int row0,
+                                     cudaStream_t s) {
+  const size_t n = static_cast<size_t>(B) * per_tile;
+  ordered_block_sums<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+      part, counts, out, B, N, per_tile, n_blocks, rows, row0);
+  return cudaGetLastError();
 }
 
 }  // namespace sgrt

@@ -167,7 +167,7 @@ def _check_inputs(who: str, want: dict, dev: torch.device) -> bool:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, oc on {dev}")
+            raise ValueError(f"{name} is on {t.device}, the first input on {dev}")
         dtype = torch.int32 if name == "counts" else torch.float32
         if t.dtype != dtype:
             raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")

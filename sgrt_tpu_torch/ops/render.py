@@ -47,8 +47,14 @@ def _ray_gaussian_terms(o, dirs, scene: GaussianScene, erf_fn=torch.erf,
     base = sum_q coeff*erf1.
     """
     oc = scene.mu - o                                   # (..., N, 3)
-    oc_sq = torch.sum(oc * oc, dim=-1)                  # (..., N)
-    mu_bar = dirs @ oc.transpose(-1, -2)                # (..., R, N)
+    # mu_bar and |oc|^2 as sums of products in a fixed order, rounded as the
+    # kernels round them (csrc/gauss_common.cuh, dot3_rn): the exponent
+    # below cancels the two, so a matrix product's other rounding of mu_bar
+    # would move cbar by up to 2 ulp(|oc|^2) / (2 sigma^2) against the
+    # kernel route
+    x, y, z = (oc[..., None, :, c] for c in range(3))   # (..., 1, N)
+    mu_bar = dirs[..., :, 0:1] * x + dirs[..., :, 1:2] * y + dirs[..., :, 2:3] * z  # (..., R, N)
+    oc_sq = (x * x + y * y + z * z)[..., 0, :]          # (..., N)
     inv_2s2 = 1.0 / (2.0 * scene.sigma**2)              # (..., N)
     cbar = scene.magnitude[..., None, :] * exp_fn(
         -(oc_sq[..., None, :] - mu_bar**2) * inv_2s2[..., None, :])

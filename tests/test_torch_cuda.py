@@ -462,3 +462,90 @@ def test_chunked_aniso_route_on_card():
     assert torch.equal(tca.chunked_forward_aniso(*args, ck=128), ta.fused_forward_aniso(*args))
     with pytest.raises(ValueError, match="chunks"):
         tca.chunked_backward_aniso(*args, dcol, ck=256)
+
+
+# the split kernels (15-18, csrc/split.cu) on seeded planes: co non-zero on
+# every row (base runs over all N), counts with a partial block, a dead tile
+# and one clamped to N; R = 200 is two ray blocks, the second partial. The
+# outputs are held against a float64 run of the plain versions as above
+# (_assert_grads_f64_gate): as close to it as the float32 plain version is,
+# x2, or within 2e-5 (tw, colors) and 5e-5 (gradients) of scale.
+SPLIT_COUNTS = (96, 37, 0, 1000)
+SPLIT_GRADS = ("dmb", "dco", "dsigma", "dinv", "dalbedo")
+
+
+def _planes(dev, b=4, n=96, r=200, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    mb = torch.randn((b, n, r), generator=g)
+    co = torch.rand((b, n, r), generator=g) * 0.05
+    sig = torch.rand((b, n), generator=g) * 0.3 + 0.3
+    inv = 1.0 / (1.4142135623730951 * sig)
+    alb = torch.rand((b, n, 3), generator=g)
+    cnt = torch.tensor(SPLIT_COUNTS, dtype=torch.int32)
+    return [t.to(dev).contiguous() for t in (mb, co, sig, inv, alb, cnt)]
+
+
+def _gate(names, got, plain, ref, rel):
+    for name, a, p, f in zip(names, got, plain, ref):
+        assert torch.isfinite(a).all(), name
+        scale = max(float(f.abs().max()), 1e-30)
+        e_k = float((a.double() - f).abs().max()) / scale
+        e_p = float((p.double() - f).abs().max()) / scale
+        assert e_k <= max(rel, 2 * e_p), (name, e_k, e_p)
+
+
+@pytest.mark.parametrize("erf_name,exp_name,pb", [("as5", "exact", 16), ("as5", "exact", 8),
+                                                  ("as3", "fast", 16)])
+def test_split_kernels_match_plain(erf_name, exp_name, pb):
+    from sgrt_tpu_torch.ops import cuda_split as cs
+
+    dev = _card()
+    mb, co, sig, inv, alb, cnt = _planes(dev)
+    planes = (mb, co, sig, inv)
+    g = torch.randn(mb.shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    dcol = torch.randn((4, 3, 200), generator=torch.Generator().manual_seed(2)).to(dev)
+    kw = dict(erf_name=erf_name, exp_name=exp_name)
+    kernels = (cs.SPLIT_FWD, cs.SPLIT_BWD, cs.SPLIT_FWD_COLOR, cs.SPLIT_BWD_COLOR)
+    before = [k.launches for k in kernels]
+    tw = cs.split_forward(*planes, cnt, pb=pb, **kw)
+    grads = cs.split_backward(*planes, cnt, g, **kw)
+    colors = cs.split_forward_color(*planes, alb, cnt, pb=pb, **kw)
+    grads_c = cs.split_backward_color(*planes, alb, cnt, dcol, **kw)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 1]
+    f64 = [x.double() for x in (*planes, alb)]
+    _gate(("tw",), (tw,), (cs.split_forward_plain(*planes, cnt, **kw),),
+          (cs.split_forward_plain(*f64[:4], cnt, **kw),), 2e-5)
+    _gate(SPLIT_GRADS, grads, cs.split_backward_plain(*planes, cnt, g, **kw),
+          cs.split_backward_plain(*f64[:4], cnt, g.double(), **kw), 5e-5)
+    _gate(("colors",), (colors,), (cs.split_forward_color_plain(*planes, alb, cnt, **kw),),
+          (cs.split_forward_color_plain(*f64, cnt, **kw),), 2e-5)
+    _gate(SPLIT_GRADS, grads_c, cs.split_backward_color_plain(*planes, alb, cnt, dcol, **kw),
+          cs.split_backward_color_plain(*f64, cnt, dcol.double(), **kw), 5e-5)
+    assert (tw[1, 37:] == 0).all() and (tw[2] == 0).all() and (colors[2] == 0).all()
+    for d in (grads[2], grads_c[2], grads_c[4]):   # dsigma, dalbedo: zero past the count
+        assert (d[1, 37:] == 0).all() and (d[2] == 0).all()
+    assert float(grads[1][1, 37:].abs().max()) > 0   # the base path reaches every row
+
+
+def test_split_ops_on_card():
+    """tw_split and colors_split on the card: gradients from kernels 16 and
+    18 equal the wrappers' (autograd adds nothing), and names the kernels
+    do not implement raise."""
+    from sgrt_tpu_torch.ops import cuda_split as cs
+
+    dev = _card()
+    mb, co, sig, inv, alb, cnt = _planes(dev, r=256)
+    dcol = torch.randn((4, 3, 256), generator=torch.Generator().manual_seed(3)).to(dev)
+    leaves = [t.clone().requires_grad_(True) for t in (mb, co, sig, inv, alb)]
+    before = cs.SPLIT_BWD_COLOR.launches
+    cs.colors_split(*leaves, cnt, pb=16, qb=32).backward(dcol)
+    torch.cuda.synchronize()
+    assert cs.SPLIT_BWD_COLOR.launches == before + 1
+    want = cs.split_backward_color(mb, co, sig, inv, alb, torch.clamp(cnt, max=96), dcol)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+    with pytest.raises(ValueError, match="CUDA kernels implement"):
+        cs.tw_split(mb, co, sig, inv, cnt, erf_name="taylor")
+    with pytest.raises(ValueError, match="pb in"):
+        cs.tw_split(mb, co, sig, inv, cnt, pb=32)
