@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --torch-route   # only times the torch route's terms
+    python3 chip_smoke.py --only aniso_dense[,split,...]   # some phase groups
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds the port's CUDA kernels from csrc/, holds each against its plain
@@ -22,9 +23,12 @@ comes out, and times the kernels:
             fit_cli --aniso, the bucketed anisotropic train step;
   aniso dense  the 50k-Gaussian sphere with per-axis scales at 512x512 (the
             chunked anisotropic kernels): tile grid and buckets, kernels vs
-            plain, the bucketed frame and the --aniso CLI, the anisotropic
-            slab train step, the kernels' times and the crossover of the
-            fused and chunked anisotropic backwards;
+            plain (the forward, the forward-with-T and both backwards), the
+            bucketed frame and the --aniso CLI, the anisotropic slab train
+            step on the saved-T schedule and once with the saved-T budget at
+            0 (the recompute backward), the kernels' times with each
+            backward's parts, and the crossover of the fused and chunked
+            anisotropic backwards;
   split     the split kernels (tw and colors from precomputed planes) at
             the training cell's 30-degree view: kernels vs plain and
             float64 (also on the dense cell's densest tile), the split
@@ -33,8 +37,11 @@ comes out, and times the kernels:
             (sgrt_tpu_torch.verify, full checks; its check 5 launches the
             split kernels), and the kernels' times.
 
-Each phase prints one JSON line; any failure exits non-zero before the last
-line, which is {"ok": true, "device": {...}} on success.
+After the build, kernel_resources prints each device function's registers,
+spill bytes, shared memory and resident blocks per SM, and the instructions
+of its hot loop in the built SASS. Each phase prints one JSON line; any
+failure exits non-zero before the last line, which is {"ok": true,
+"device": {...}} on success.
 
 Scenes. Serving and training: bench.py's stand-in for the teapot, 3644
 seeded points on the surface of the cube [-1, 1]^3 (np.random.default_rng(0))
@@ -363,6 +370,88 @@ def bound(fp32: float, sfu: float, nbytes: float, clock_mhz: float, n_sm: int) -
     return {"bound_ms": t * 1e3, "fp32_bound_ms": t_fp32 * 1e3, "sfu_bound_ms": t_sfu * 1e3,
             "bytes_bound_ms": t_bytes * 1e3,
             "bound_by": "bytes" if t == t_bytes else "operations"}
+
+
+def sass_loops(text: str) -> dict:
+    """Per device function of `cuobjdump -sass` output: its instruction
+    count and its hot loop, the innermost loop (a backward branch's body
+    holding no other loop) with the most MUFU (SFU) instructions: its
+    instructions, MUFU instructions by kind, and instructions per MUFU.RCP
+    (one per erf tap: the A&S reciprocal)."""
+    funcs, ins = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            ins = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and ins is not None:  # (address, instruction without its predicate)
+            ins.append((int(m.group(1), 16), re.sub(r"^@!?U?P\w+\s+", "", m.group(2))))
+    out = {}
+    for name, ins in funcs.items():
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        loops = []
+        for i, (_, op) in enumerate(ins):
+            m = re.match(r"BRA\S* 0x([0-9a-f]+)", op)
+            t = at.get(int(m.group(1), 16)) if m else None
+            if t is not None and t <= i:
+                loops.append((t, i))
+        # a loop's body holds no branch back past its head (that would be a
+        # jump back into an enclosing loop from code placed after it)
+        loops = [(t, i) for t, i in loops
+                 if not any(t < i2 < i and t2 < t for t2, i2 in loops)]
+        inner = [(t, i) for t, i in loops
+                 if not any((t2, i2) != (t, i) and t <= t2 and i2 <= i for t2, i2 in loops)]
+        best = None
+        for t, i in inner:
+            ops = [op.split()[0] for _, op in ins[t:i + 1]]
+            mufu = {}
+            for o in ops:
+                if o.startswith("MUFU"):
+                    mufu[o] = mufu.get(o, 0) + 1
+            if best is None or sum(mufu.values()) > sum(best["mufu"].values()):
+                rcp = mufu.get("MUFU.RCP", 0)
+                best = {"instructions": len(ops), "mufu": mufu,
+                        "per_rcp": len(ops) / rcp if rcp else None}
+        out[name] = {"instructions": len(ins), "hot_loop": best}
+    return out
+
+
+def kernel_resources_phase() -> None:
+    """Registers, spills, shared memory and resident blocks per SM of every
+    device function that a library reports (ops.kernels.kernel_resources,
+    at the main paths' 128 rays and 32 staged rows), and the hot loops of
+    the erf-tap kernels in the built SASS (cuobjdump -sass)."""
+    import shutil
+
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.utils import nvcc
+
+    res = kernels.kernel_resources(128, 32)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    sass = {}
+    for source in sorted({k.source for k in kernels.KERNELS}):
+        lib = nvcc.library_path(source)
+        run = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                             timeout=300)
+        if run.returncode != 0:
+            sass[source.name] = f"cuobjdump failed: {run.stderr[-500:]}"
+            continue
+        for mangled, v in sass_loops(run.stdout).items():
+            # the erf-tap kernels' as5/exact instantiations (template
+            # arguments ERF 0, EXP 0), as the main paths run them
+            if "kernel" not in mangled or "Li0ELi0E" not in mangled or v["hot_loop"] is None:
+                continue
+            name = mangled
+            if os.path.exists(filt):
+                name = subprocess.run([filt, mangled], capture_output=True, text=True,
+                                      timeout=60).stdout.strip() or mangled
+            sass[f"{source.name}: {name}"] = v
+    over = [r["kernel"] for r in res if r["local_bytes"]]
+    emit("kernel_resources", functions=res, sass=sass, spilling=over)
+    check(not [r for r in res if r["source"] == "chunked_aniso.cu" and r["local_bytes"]],
+          f"a chunked anisotropic kernel uses local memory: {over}")
 
 
 def compare_train_kernels(inp, dcol, erf_name="as5", exp_name="exact") -> dict:
@@ -1443,27 +1532,36 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
 
 def compare_chunked_aniso_kernels(inp, dcol, c_k: int, erf_name="as5", exp_name="exact",
                                   rb: int = 128) -> dict:
-    """Kernels 13-14 against their plain versions on `inp`, both held
-    against a float64 run of the plain version (gate_vs_f64, as the dense
-    and anisotropic cells' kernels: each output as close to float64 as the
-    float32 plain version is, x2, or within TRAIN_REL of scale, doc and
-    dinvd DOC_REL, colors KERNEL_ATOL); dead tiles get zero outputs.
-    Reported as compare_chunked_kernels reports, with the plain versions'
-    ms (one call each, tile by tile)."""
+    """Kernels 13-14 and their saved-T schedule (19-20: the forward-with-T
+    and the saved-T backward) against their plain versions on `inp`, each
+    held against a float64 run of the plain version (gate_vs_f64, as the
+    dense and anisotropic cells' kernels: each output as close to float64 as
+    the float32 plain version is, x2, or within TRAIN_REL of scale, doc and
+    dinvd DOC_REL, colors KERNEL_ATOL); the saved-T and recompute backwards
+    equal bit for bit (backwards_differ); T zero on dead rows; dead tiles
+    get zero outputs. Reported as compare_chunked_kernels reports, with the
+    plain versions' ms (one call each, tile by tile)."""
     import torch
 
     from sgrt_tpu_torch.ops import cuda_chunked_aniso as cca
 
     kw = dict(ck=c_k, erf_name=erf_name, exp_name=exp_name)
     colors = cca.chunked_forward_aniso(*inp, rb=rb, **kw)
+    colors_t, t = cca.chunked_forward_t_aniso(*inp, rb=rb, **kw)
+    g_t = cca.chunked_backward_aniso(*inp, dcol, t, rb=rb, **kw)
     grads = cca.chunked_backward_aniso(*inp, dcol, rb=rb, **kw)
     torch.cuda.synchronize()
     names = ("doc", "dinvd", "dmag", "dalbedo", "ddirs")
-    for x in (colors, *grads):
+    for x in (colors, colors_t, t, *g_t, *grads):
         check(bool(torch.isfinite(x).all()), f"a chunked anisotropic kernel's output is not "
                                              f"finite ({erf_name}/{exp_name})")
+    dead = torch.arange(inp[0].shape[1], device=t.device)[None, :] >= inp[5][:, None].long()
+    check(bool((t.permute(0, 2, 1, 3)[dead] == 0).all()),
+          "chunked anisotropic T is not 0 on dead rows")
     plain, plain_ms = {}, {}
     runs = {cca.CHUNKED_FWD_ANISO.name: (cca.chunked_forward_aniso_plain, ()),
+            cca.CHUNKED_FWD_T_ANISO.name: (cca.chunked_forward_t_aniso_plain, ()),
+            cca.CHUNKED_BWD_T_ANISO.name: (cca.chunked_backward_aniso_plain, (dcol, t)),
             cca.CHUNKED_BWD_ANISO.name: (cca.chunked_backward_aniso_plain, (dcol,))}
     for name, (fn, extra) in runs.items():
         t0 = time.perf_counter()
@@ -1471,16 +1569,25 @@ def compare_chunked_aniso_kernels(inp, dcol, c_k: int, erf_name="as5", exp_name=
         torch.cuda.synchronize()
         plain_ms[name] = (time.perf_counter() - t0) * 1e3
     f64 = [x.double() if x.is_floating_point() else x for x in inp]
-    ref_c = per_tile(lambda *a: cca.chunked_forward_aniso_plain(*a, **kw), f64)
-    ref_g = per_tile(lambda *a: cca.chunked_backward_aniso_plain(*a, **kw), f64, dcol.double())
+    ref_c, ref_t = per_tile(lambda *a: cca.chunked_forward_t_aniso_plain(*a, **kw), f64)
+    ref_g = per_tile(lambda *a: cca.chunked_backward_aniso_plain(*a, **kw), f64, dcol.double(),
+                     ref_t)
+    fwd_t = plain[cca.CHUNKED_FWD_T_ANISO.name]
     outs = {cca.CHUNKED_FWD_ANISO.name: {"colors": (colors, plain[cca.CHUNKED_FWD_ANISO.name],
                                                     ref_c)},
+            cca.CHUNKED_FWD_T_ANISO.name: {"colors": (colors_t, fwd_t[0], ref_c),
+                                           "T": (t, fwd_t[1], ref_t)},
+            cca.CHUNKED_BWD_T_ANISO.name: {n: (a, b, c) for n, a, b, c in
+                                           zip(names, g_t, plain[cca.CHUNKED_BWD_T_ANISO.name],
+                                               ref_g)},
             cca.CHUNKED_BWD_ANISO.name: {n: (a, b, c) for n, a, b, c in
                                          zip(names, grads, plain[cca.CHUNKED_BWD_ANISO.name],
                                              ref_g)}}
     rel, vs_f64, absd, over = gate_vs_f64(outs)
+    rel["bwd_t_vs_bwd"] = {n: rel_err(a, b) for n, a, b in zip(names, g_t, grads)}
+    over += backwards_differ(rel)
     for i in [i for i, c in enumerate(inp[5].tolist()) if c <= 0]:
-        check(all(bool((x[i] == 0).all()) for x in (colors, *grads)),
+        check(all(bool((x[i] == 0).all()) for x in (colors, colors_t, *g_t, *grads)),
               f"a dead tile's chunked anisotropic outputs are not zero ({erf_name}/{exp_name})")
     return {"rel": rel, "vs_f64": vs_f64, "abs": absd, "over_tolerance": over,
             "plain_ms": plain_ms,
@@ -1647,11 +1754,13 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> 
     slab = make_slab_frame_train_step(width=S, height=S, tiles=tiles, capacity=bucket.cap_dense,
                                       slab_tiles=ADENSE_SLAB_TILES, aniso=True)
     state = init_state(scene, adam(1e-3))
+    fields = ("mu", "scale", "magnitude", "albedo")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, loss, ov = slab(state, cam.view_matrix, o, dirs, target)   # warms up
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
+    after1 = {f: getattr(state.scene, f).clone() for f in fields}
     losses, ovfs = [loss], [ov]
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1673,34 +1782,97 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> 
     check(all(int(v) == 0 for v in ovfs), "an anisotropic slab step overflowed")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"the anisotropic slab step's loss did not fall: {losses}")
-    check(slab_launches[cca.CHUNKED_BWD_ANISO.name] > 0,
-          f"the anisotropic slab step did not run the chunked backward: {slab_launches}")
+    check(slab_launches[cca.CHUNKED_FWD_T_ANISO.name] > 0
+          and slab_launches[cca.CHUNKED_BWD_T_ANISO.name] > 0,
+          f"the anisotropic slab step did not take the saved-T schedule: {slab_launches}")
+    del state
+
+    # the first step once more with the saved-T budget at 0: the recompute
+    # backward (kernel 14) on the main path; its loss and update must equal
+    # the saved-T step's (the same forward, gradients equal bit for bit)
+    budget = cc.SAVE_T_CHUNKED_MAX_BYTES
+    cc.SAVE_T_CHUNKED_MAX_BYTES = 0
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state_r, loss_r, ov_r = slab(init_state(scene, adam(1e-3)), cam.view_matrix, o, dirs,
+                                     target)
+        torch.cuda.synchronize()
+        recompute_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cc.SAVE_T_CHUNKED_MAX_BYTES = budget
+    recompute_launches = {k.name: k.launches for k in kernels.KERNELS}
+    recompute_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss_rel = abs(float(loss_r) - losses[0]) / abs(losses[0])
+    scene_diff = {f: float(((getattr(state_r.scene, f) - want).abs()
+                            / (1e-6 + 1e-5 * want.abs())).max()) for f, want in after1.items()}
+    del state_r, after1
     emit("aniso_dense_slab_step", slab_tiles=ADENSE_SLAB_TILES, capacity=bucket.cap_dense,
          steps=3, first_step_ms=first_ms, step_ms=step_ms,
          rays_per_s=S * S / (step_ms * 1e-3), losses=losses, launches=slab_launches,
-         peak_memory_gb=peak_gb, profile_one_step=prof, power_limit=smi)
-    del state, slab, target
+         peak_memory_gb=peak_gb, profile_one_step=prof,
+         save_t_budget_0={"step_ms": recompute_ms, "rays_per_s": S * S / (recompute_ms * 1e-3),
+                          "loss": float(loss_r), "loss_rel_diff": loss_rel,
+                          "scene_diff_over_tolerance": scene_diff,
+                          "launches": recompute_launches, "peak_memory_gb": recompute_peak_gb},
+         power_limit=smi)
+    check(int(ov_r) == 0 and recompute_launches[cca.CHUNKED_BWD_ANISO.name] > 0
+          and recompute_launches[cca.CHUNKED_BWD_T_ANISO.name] == 0,
+          f"the step at saved-T budget 0 did not run the recompute backward: {recompute_launches}")
+    check(loss_rel <= 1e-6 and all(v <= 1.0 for v in scene_diff.values()),
+          f"the recompute slab step differs from the saved-T step: {loss_rel}, {scene_diff}")
+    del slab, target
 
-    # 5. times at the dense bucket's launch, one call each: both kernels ran
-    # at these shapes in the frame and the slab step, so they are warm
+    # 5. times at the dense bucket's launch, one call each: every kernel ran
+    # at these shapes in the frame and the slab steps, so they are warm.
+    # Beside them, one call each of the earlier designs at the same shapes:
+    # kernel 13's, the fused anisotropic forward (kernel 9's entry point)
     dcol = cotangent(dense_in, 99)
     pb, qb = ck._block_sizes(c_k)
     kw = dict(ck=c_k, qb=qb)
+    t_d = cca.chunked_forward_t_aniso(*dense_in, pb=pb, **kw)[1]
     ms = {cca.CHUNKED_FWD_ANISO.name: time_cuda(
               lambda: cca.chunked_forward_aniso(*dense_in, pb=pb, **kw), iters=1, warmup=0),
-          cca.CHUNKED_BWD_ANISO.name: time_cuda(
-              lambda: cca.chunked_backward_aniso(*dense_in, dcol, **kw), iters=1, warmup=0)}
+          cca.CHUNKED_FWD_T_ANISO.name: time_cuda(
+              lambda: cca.chunked_forward_t_aniso(*dense_in, pb=pb, **kw), iters=1, warmup=0)}
+    earlier = {"kernel 13 as the fused anisotropic forward (fused_fwd.cu)": time_cuda(
+        lambda: ca.fused_forward_aniso(*dense_in, pb=pb, qb=qb), iters=1, warmup=0)}
+    # the backwards, part by part: each chunk's pass A (recompute only), p
+    # side, db sum and q side and the row sums by CUDA events; a backward's
+    # time is their sum
+    n_chunks = n_d // c_k
+    parts, names = {}, ("pass_a", "p_side", "db_sum", "q_side")
+    for k, t_arg in ((cca.CHUNKED_BWD_ANISO, None), (cca.CHUNKED_BWD_T_ANISO, t_d)):
+        part_ms = torch.zeros(4 * n_chunks + 1)
+        cca.chunked_backward_aniso(*dense_in, dcol, t_arg, part_ms=part_ms, **kw)
+        pm = part_ms.tolist()
+        parts[k.name] = {
+            "chunks": [{f"{p}_ms": pm[4 * a + i] for i, p in enumerate(names)}
+                       for a in range(n_chunks)],
+            "rows_ddirs_ms": pm[-1],
+            **{f"{p}_total_ms": sum(pm[4 * a + i] for a in range(n_chunks))
+               for i, p in enumerate(names)}}
+        ms[k.name] = sum(pm)
+    del t_d
     b_, n_ = dense_in[2].shape
     r_ = dense_in[4].shape[2]
-    rays3, rows10 = 4 * 3 * b_ * r_, 4 * 10 * b_ * n_
+    rays3, rows10, t_bytes = 4 * 3 * b_ * r_, 4 * 10 * b_ * n_, ck.save_t_bytes(b_, n_, r_)
     nbytes = {cca.CHUNKED_FWD_ANISO.name: scene_bytes(dense_in) + rays3,
+              cca.CHUNKED_FWD_T_ANISO.name: scene_bytes(dense_in) + rays3 + t_bytes,
+              cca.CHUNKED_BWD_T_ANISO.name: scene_bytes(dense_in) + 2 * rays3 + rows10 + t_bytes,
               cca.CHUNKED_BWD_ANISO.name: scene_bytes(dense_in) + 2 * rays3 + rows10}
     ops = {cca.CHUNKED_FWD_ANISO.name: fwd_ops(dense_in),
+           cca.CHUNKED_FWD_T_ANISO.name: fwd_ops(dense_in),
+           cca.CHUNKED_BWD_T_ANISO.name: bwd_ops(dense_in, False),
            cca.CHUNKED_BWD_ANISO.name: bwd_ops(dense_in, True)}
     sub_case = results[f"{len(sel)}_tiles"]
-    launches = {k: frame_launches[k] + cli_launches[k] + slab_launches[k] for k in frame_launches}
+    launches = {k: frame_launches[k] + cli_launches[k] + slab_launches[k]
+                + recompute_launches[k] for k in frame_launches}
     times, entries = {}, []
-    for k in (cca.CHUNKED_FWD_ANISO, cca.CHUNKED_BWD_ANISO):
+    for k in (cca.CHUNKED_FWD_ANISO, cca.CHUNKED_BWD_ANISO, cca.CHUNKED_FWD_T_ANISO,
+              cca.CHUNKED_BWD_T_ANISO):
         check(launches[k.name] > 0, f"{k.name} was not launched on an anisotropic dense main path")
         times[k.name] = {"ms": ms[k.name], "fp32_instr": ops[k.name][0],
                          "sfu_ops": ops[k.name][1], "bytes": nbytes[k.name],
@@ -1722,7 +1894,7 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> 
     emit("aniso_dense_times", shape={"B": b_, "N": n_, "R": r_, "ck": c_k,
                                      "max_count": int(dense_in[5].max()),
                                      "live_pairs": float(np.sum(live_counts(dense_in) ** 2) * r_)},
-         kernels=times, power_limit=smi)
+         kernels=times, earlier_designs_ms=earlier, backward_parts=parts, power_limit=smi)
 
     # 6. the crossover of the two anisotropic routes: the fused saved-T
     # backward (as the step takes it) and the chunked backward on the
@@ -2249,6 +2421,25 @@ def serving_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
             "bound_by": "operations" if bound_s > t_bytes else "bytes", "library_ms": None}
 
 
+def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
+    """`--only a,b`: the named phase groups alone (for work on one path),
+    then the kernel line of their kernels."""
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, "cube_cloud.obj")
+        write_obj(obj, smoke_points())
+        groups = {"serving": lambda: [serving_phases(dev, smi, clock_mhz, n_sm)],
+                  "train": lambda: train_phases(dev, smi, clock_mhz, n_sm, obj),
+                  "dense": lambda: dense_phases(dev, smi, clock_mhz, n_sm, tmp),
+                  "aniso": lambda: aniso_phases(dev, smi, clock_mhz, n_sm, obj),
+                  "aniso_dense": lambda: aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp),
+                  "split": lambda: split_phases(dev, smi, clock_mhz, n_sm)}
+        for name in names:
+            entries += groups[name]()
+    print(json.dumps({"kernels": entries}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2283,6 +2474,9 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         emit("build", kernel=k.name, source=str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
              seconds=round(build_s, 2), ptxas=ptxas)
+    kernel_resources_phase()
+    if sys.argv[1:2] == ["--only"]:
+        return only_phases(sys.argv[2].split(","), dev, smi, clock_mhz, n_sm)
 
     # 3. the serving path; 4. the training path; 5. the dense cell; 6. the
     # anisotropic cell; 7. the anisotropic dense cell; 8. the split kernels

@@ -1,0 +1,964 @@
+// The chunked anisotropic route's kernels for Hopper (sm_90a), designed for
+// the card: the forward (colors, and with SAVE_T the transmittance factors
+// T) and the backward (p side, q side; from saved T or recomputing it).
+//
+// Replaces sgrt_tpu/ops/pallas_chunked_aniso.py::_chunked_fwd_aniso_kernel
+// (entry points sgrt_chunked_fwd_aniso and, with T, sgrt_chunked_fwd_t_aniso,
+// the saved-T schedule's forward) and ::_chunked_bwd_aniso_kernel (entry
+// point sgrt_chunked_bwd_aniso, recomputing T; sgrt_chunked_bwd_t_aniso is
+// its saved-T schedule, which the reference leaves out only for lack of TPU
+// memory, pallas_chunked_aniso.py:19-22). The functions are those of
+// fused_fwd.cu (over AnisoGeo rows) and chunked_bwd.cu, whose notes give
+// the definitions, the p-side/q-side split of the backward and its sums;
+// the scratch and the chains into the per-row sums are chunked_common.cuh's.
+//
+// What bounds them on this card: operations. Per live (p, q, ray) the
+// forward evaluates five A&S erf taps (an IEEE reciprocal and an accurate
+// expf each, ~30 issue slots with 2 MUFU), the backward's p side five
+// exp(-x^2) and its q side five erf-and-gauss taps; the recompute
+// backward adds the forward's pass A. Each staged row also needs its per-ray terms
+// (A, Bt, two IEEE square roots, a division, an exp: ~40 FP32 and 3 MUFU)
+// and, on the p side, J = d mb / d d. Bytes stay far below: T is 20 bytes
+// per (row, ray), read once per 64 q rows. Tensor cores do not apply: no
+// step is a matrix product (every term is an erf or exp of its own pair's
+// argument), and TF32 would not hold mb's cancellation anyway.
+//
+// What the design does about it (the fused/chunked templates it replaces
+// kept 8 rows a thread and both levels of every sum in registers: the
+// anisotropic forward spilled at 128 registers, the recompute p side ran
+// at 255 registers and 8 warps an SM, and each 8-row group of a block
+// recomputed every staged row's terms for its ray):
+//   * Warp-wide row groups. A block is 32 rays (one warp) by G groups of 4
+//     rows: the forward G = 8 (32 p rows, the fused forward's split, 256
+//     threads, 4 blocks and 32 warps an SM at <= 64 registers), the
+//     backward G = 16 (64 rows, chunked_bwd.cu's blocks, 512 threads: the
+//     p side 16 warps an SM at <= 128 registers, the q side 32 at <= 64).
+//     Sums over a group's rays are warp butterflies: no barrier per row.
+//   * Planes in shared memory. For each stage of qb rows of the other
+//     side, the block computes every staged row's per-ray terms once,
+//     spread over its G groups, into planes [field][row][ray] (rays minor:
+//     no bank conflicts), and all groups sweep them: pass A's mb, inv, co
+//     and base term co erf(-mb inv); the p side's mb, inv, -2/sqrt(pi) co
+//     and J; the q side's mb, sb and g = sqrt(2/pi) co (albedo . dcol) of
+//     the p rows, and the stage's T slab (5 qb rays floats, copied with
+//     cp.async). The planes are double-buffered: stage s+1 is filled (and
+//     its T copied) while stage s is summed, one barrier per stage.
+//   * A register budget without spills: the second level of every
+//     two-level sum (pass A's acc, the p side's dmb/dsb, the q side's dco/
+//     dmb/dinv), the p side's J, A and tw and the q side's own rows' mb, co
+//     and inv live in the thread's own slots of shared memory, touched once
+//     per stage, row or pair; __launch_bounds__ names the blocks per SM, so
+//     ptxas keeps each kernel within the registers that its occupancy
+//     allows, with no local memory.
+//   * The recompute backward is the saved-T one with T made per chunk: the
+//     forward-with-T kernel, over chunk a's rows only, writes chunk a's T to
+//     scratch before the p side reads it. So pass A runs at the forward's
+//     occupancy (the p side's pair pass needs twice its registers), and the
+//     recomputed T is the saved one bit for bit: both backwards give the
+//     same gradients. T is rounded with __fmul_rn whether or not it is
+//     stored, so the forward's colors equal the forward-with-T's.
+//   * Every sum keeps its order: each stage's terms summed on their own,
+//     then the stages in order; the groups' partials (colors, db, ddirs)
+//     in group order; no atomics.
+//   * Dead blocks (splits or row blocks past a tile's count) exit at once;
+//     a group past the count fills planes but sums nothing.
+// Shared memory per block at qb = 32: forward 52 KB (planes 32, pass A's
+// acc 20), p side 104 KB (planes 48, slots 56), q side 112.4 KB (planes 64,
+// slots 48, the rays' dcol 0.4: two blocks fill an SM's 228 KB).
+//
+// Layouts as fused_fwd.cu's (forward) and chunked_bwd.cu's (backward).
+
+#include <cuda_runtime.h>
+
+#include "chunked_common.cuh"
+#include "gauss_common.cuh"
+
+namespace {
+
+using namespace sgrt;
+
+constexpr int kRays = 32;                 // rays per block: one warp per row group
+constexpr int kFwdPB = 4;                 // forward: rows a thread keeps in registers
+constexpr int kFwdRows = 32;              // p rows per forward block
+constexpr int kFwdG = kFwdRows / kFwdPB;  // row groups per forward block (8)
+constexpr int kBwdPB = 4;                 // backward: rows a thread keeps in registers
+constexpr int kBwdG = kRows / kBwdPB;     // row groups per backward block (16)
+constexpr int kAPlanes = 4;               // pass A: mb, inv, co, co erf(-mb inv)
+constexpr int kPPlanes = 6;               // p side: mb, inv, -2/sqrt(pi) co, J xyz
+constexpr int kQPlanes = 3 + kTaps;       // q side: mb, sb, g of the p rows, T_k
+constexpr int kPSlots = 7 * kBwdPB;       // p side: dmb, dsb, J xyz, A, tw per row
+
+// ---------------------------------------------------------------------------
+// device helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// The warp's kSums per-row values summed over its 32 rays (a fixed
+// butterfly); lane j < kSums writes sum j to out[j], or adds it.
+__device__ __forceinline__ void warp_row_sums(const float (&v)[kSums], float* out,
+                                              bool accumulate) {
+  const int lane = threadIdx.x;
+  float mine = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kSums; ++j) {
+    const float s = warp_sum(v[j]);
+    if (lane == j) mine = s;
+  }
+  if (lane < kSums) out[lane] = accumulate ? out[lane] + mine : mine;
+}
+
+// Pass A's planes of the staged rows [q0, q0 + nq) for the block's rays:
+// mb, inv, co and the base term co erf(-mb inv), [plane][row][ray]. Group g
+// fills rows g, g + G, ... for its own ray.
+template <int ERF, int EXP>
+__device__ __forceinline__ void fill_a(float* pl, int qb, const AnisoGeo& geo, int q0, int nq,
+                                       float dx, float dy, float dz) {
+  const int plane = qb * kRays;
+  for (int j = threadIdx.y; j < nq; j += blockDim.y) {
+    const RayTerms t = geo.template row<EXP>(q0 + j, dx, dy, dz);
+    float* o = pl + j * kRays + threadIdx.x;
+    o[0] = t.mb;
+    o[plane] = t.inv;
+    o[2 * plane] = t.co;
+    o[3 * plane] = t.co * erf_fn<ERF>(-t.mb * t.inv);
+  }
+}
+
+// Pass A of this group's kFwdPB p rows (mb mbp, sb sgp) against the live q rows
+// [0, cnt), staged qb rows a stage through double-buffered planes (pl: 2
+// kAPlanes qb kRays floats):
+//   acc[i][k] = sum_q co_q erf((mb_p + k sb_p - mb_q) inv_q),
+//   base = sum_q co_q erf(-mb_q inv_q),
+// each stage's terms summed on their own, then added to the running sums:
+// base in a register, acc in the thread's slots acc2[(i kTaps + k) nt + tid]
+// (nt the block's threads). Every thread of the block calls it; a dead
+// group (live false) fills planes and sums base only.
+template <int ERF, int EXP>
+__device__ __forceinline__ void pass_a_planes(float* pl, float* acc2, int qb,
+                                              const AnisoGeo& geo, int cnt, float dx, float dy,
+                                              float dz, const float (&mbp)[kFwdPB],
+                                              const float (&sgp)[kFwdPB], bool live,
+                                              float& base) {
+  const int x = threadIdx.x, nt = kRays * blockDim.y, tid = threadIdx.y * kRays + x;
+  const int plane = qb * kRays, buf = kAPlanes * plane;
+#pragma unroll
+  for (int e = 0; e < kFwdPB * kTaps; ++e) acc2[e * nt + tid] = 0.0f;
+  base = 0.0f;
+  const int ns = (cnt + qb - 1) / qb;
+  if (ns > 0) fill_a<ERF, EXP>(pl, qb, geo, 0, min(qb, cnt), dx, dy, dz);
+  __syncthreads();
+  for (int s = 0; s < ns; ++s) {
+    const int q0 = s * qb, nq = min(qb, cnt - q0);
+    const float* cur = pl + (s & 1) * buf + x;
+    if (s + 1 < ns)
+      fill_a<ERF, EXP>(pl + ((s + 1) & 1) * buf, qb, geo, q0 + qb, min(qb, cnt - q0 - qb), dx,
+                       dy, dz);
+    float base_part = 0.0f;
+    if (live) {
+      float part[kFwdPB][kTaps];
+#pragma unroll
+      for (int i = 0; i < kFwdPB; ++i) {
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) part[i][k] = 0.0f;
+      }
+      for (int j = 0; j < nq; ++j) {
+        const float* c = cur + j * kRays;
+        const float mbq = c[0], invq = c[plane], co = c[2 * plane];
+        base_part += c[3 * plane];
+#pragma unroll
+        for (int i = 0; i < kFwdPB; ++i) {
+          const float darg = (mbp[i] - mbq) * invq;
+          const float ks = sgp[i] * invq;
+#pragma unroll
+          for (int k = 0; k < kTaps; ++k) part[i][k] += co * erf_fn<ERF>(darg + tap_k(k) * ks);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kFwdPB; ++i) {
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) acc2[(i * kTaps + k) * nt + tid] += part[i][k];
+      }
+    } else {
+      for (int j = 0; j < nq; ++j) base_part += cur[j * kRays + 3 * plane];
+    }
+    base += base_part;
+    __syncthreads();
+  }
+}
+
+// The ray and cotangent of lane r of tile b (lanes past R: a unit +z ray
+// with a zero cotangent, whose every sum is zero).
+struct Ray {
+  float dx = 0.0f, dy = 0.0f, dz = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
+  __device__ Ray(const float* dirs, const float* dcol, int b, int R, int r) {
+    if (r >= R) return;
+    const size_t o = static_cast<size_t>(b) * 3 * R;
+    dx = dirs[o + r];
+    dy = dirs[o + R + r];
+    dz = dirs[o + 2 * R + r];
+    if (dcol != nullptr) {
+      cr = dcol[o + r];
+      cg = dcol[o + R + r];
+      cb = dcol[o + 2 * R + r];
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// forward: one block per (32 rays, 32 p rows of a tile, tile)
+// ---------------------------------------------------------------------------
+
+// Blocks cover the p rows from p_row0 (gridDim.y blocks of 32). T (with
+// SAVE_T) goes to t + ((b kTaps + k) t_rows + p - t_row0) t_ld + r, zero on
+// rows at or past the count; the split's colors to partial, unless partial
+// is null (the recompute backward's T of one chunk).
+template <int ERF, int EXP, bool SAVE_T>
+__global__ void __launch_bounds__(kRays * kFwdG, 4)
+fwd_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
+           const float* __restrict__ mag, const float* __restrict__ alb,
+           const float* __restrict__ dirs, const int* __restrict__ counts,
+           float* __restrict__ partial, float* __restrict__ t, int N, int R, int qb,
+           int n_split, int p_row0, int t_rows, int t_row0, int t_ld) {
+  extern __shared__ float smem[];
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int nt = kRays * kFwdG, tid = g * kRays + x;
+  const int b = blockIdx.z, split = blockIdx.y;
+  const int r = blockIdx.x * kRays + x;
+  const int cnt = max(0, min(counts[b], N));
+  const int p_begin = p_row0 + split * kFwdRows;
+  const int p0 = p_begin + g * kFwdPB;  // this group's rows p0 .. p0 + kFwdPB - 1
+  const bool live_ray = r < R;
+
+  // t_b[(k t_rows + i) t_ld] is T_k of row p0 + i; rows at or past the
+  // count hold T = 0. The pointer is made where T is stored, so that it is
+  // not live across pass A (at 64 registers a thread that costs a spill).
+  if (p_begin >= cnt) {  // block-uniform: this split has no live rows
+    if (SAVE_T && live_ray) {
+      float* t_b = t + (static_cast<size_t>(b) * kTaps * t_rows + (p0 - t_row0)) * t_ld + r;
+      for (int i = 0; i < min(kFwdPB, N - p0); ++i) {
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) t_b[(static_cast<size_t>(k) * t_rows + i) * t_ld] = 0.0f;
+      }
+    }
+    return;
+  }
+  const int p_end = min(p_begin + kFwdRows, cnt);
+  const bool live = p0 < p_end;  // warp-uniform
+
+  const AnisoGeo geo(oc, invd, mag, b, N);
+  const Ray ray(dirs, nullptr, b, R, r);
+  float mbp[kFwdPB], sgp[kFwdPB];
+#pragma unroll
+  for (int i = 0; i < kFwdPB; ++i) {
+    mbp[i] = 0.0f;
+    sgp[i] = 1.0f;
+    if (p0 + i < p_end) {
+      const RayTerms tp = geo.template row<EXP>(p0 + i, ray.dx, ray.dy, ray.dz);
+      mbp[i] = tp.mb;
+      sgp[i] = tp.sb;
+    }
+  }
+  float* pl = smem;
+  float* acc2 = smem + 2 * kAPlanes * qb * kRays;
+  float base;
+  pass_a_planes<ERF, EXP>(pl, acc2, qb, geo, cnt, ray.dx, ray.dy, ray.dz, mbp, sgp, live, base);
+
+  float col[3] = {0.0f, 0.0f, 0.0f};
+  const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
+  float* t_b =
+      SAVE_T ? t + (static_cast<size_t>(b) * kTaps * t_rows + (p0 - t_row0)) * t_ld + r : nullptr;
+#pragma unroll
+  for (int i = 0; i < kFwdPB; ++i) {
+    const int p = p0 + i;
+    if (SAVE_T && live_ray && p >= p_end && p < N) {  // past the count
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) t_b[(static_cast<size_t>(k) * t_rows + i) * t_ld] = 0.0f;
+    }
+    if (p < p_end) {  // warp-uniform
+      float tw = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) {
+        // rounded alike whether or not T is stored: the colors of the
+        // forward and the forward-with-T are equal bit for bit
+        const float tk = __fmul_rn(tap_weight(k),
+                                   exp_fn<EXP>(base - acc2[(i * kTaps + k) * nt + tid]));
+        if (SAVE_T && live_ray) t_b[(static_cast<size_t>(k) * t_rows + i) * t_ld] = tk;
+        tw = __fadd_rn(tw, tk);
+      }
+      if (partial != nullptr) {
+        const float wp = kSqrt2Pi * geo.template row<EXP>(p, ray.dx, ray.dy, ray.dz).co * tw;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) col[c] += alb_b[3 * p + c] * wp;
+      }
+    }
+  }
+  if (partial == nullptr) return;  // kernel-uniform
+
+  // the split's colors: the groups' partials in group order (the planes are
+  // free after pass A's last barrier)
+  float* red = pl;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) red[(c * kFwdG + g) * kRays + x] = col[c];
+  __syncthreads();
+  if (g == 0 && live_ray) {
+    float* out = partial + (static_cast<size_t>(b) * n_split + split) * 3 * R;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float s = 0.0f;
+      for (int h = 0; h < kFwdG; ++h) s += red[(c * kFwdG + h) * kRays + x];
+      out[c * R + r] = s;
+    }
+  }
+}
+
+size_t fwd_smem(int qb) { return sizeof(float) * (2 * kAPlanes * qb + kFwdRows * kTaps) * kRays; }
+
+// ---------------------------------------------------------------------------
+// backward, p side: one block per (32 rays, 64 rows of p-chunk a, tile)
+// ---------------------------------------------------------------------------
+
+// The p side's planes of the staged q rows [q0, q0 + nq): mb, inv,
+// -2/sqrt(pi) co and J = d mb / d d.
+template <int EXP>
+__device__ __forceinline__ void fill_p(float* pl, int qb, const AnisoGeo& geo, int q0, int nq,
+                                       float dx, float dy, float dz) {
+  const int plane = qb * kRays;
+  for (int j = threadIdx.y; j < nq; j += blockDim.y) {
+    const AnisoGeo::Fields f = geo.fields(q0 + j);
+    const RayTerms t = AnisoGeo::terms<EXP>(f, dx, dy, dz);
+    const Jac jq = Side<AnisoGeo>::jac(f.ix, f.iy, f.iz, f.mx, f.my, f.mz, t, dx, dy, dz);
+    float* o = pl + j * kRays + threadIdx.x;
+    o[0] = t.mb;
+    o[plane] = t.inv;
+    o[2 * plane] = -kDerf * t.co;
+    o[3 * plane] = jq.x;
+    o[4 * plane] = jq.y;
+    o[5 * plane] = jq.z;
+  }
+}
+
+// T comes from tsrc (t_rows rows from t_row0, leading dimension t_ld): the
+// forward-with-T's (B,5,N,R), or the recompute backward's T of chunk a.
+template <int ERF, int EXP>
+__global__ void __launch_bounds__(kRays * kBwdG, 1)
+bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
+             const float* __restrict__ mag, const float* __restrict__ alb,
+             const float* __restrict__ dirs, const int* __restrict__ counts,
+             const float* __restrict__ dcol, const float* __restrict__ tsrc, int t_rows,
+             int t_row0, int t_ld, float* __restrict__ rows_p, double* __restrict__ dd_p,
+             float* __restrict__ db_part, int N, int R, int Rp, int ck, int a, int qb) {
+  using S = Side<AnisoGeo>;
+  extern __shared__ float smem[];
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int nt = kRays * kBwdG, tid = g * kRays + x;
+  const int b = blockIdx.z, blk = blockIdx.y, rblk = blockIdx.x;
+  const int r = rblk * kRays + x;  // < Rp always
+  const int cnt = max(0, min(counts[b], N));
+  const int p_begin = a * ck + blk * kRows;
+  if (p_begin >= cnt) return;  // block-uniform; the sums after skip dead blocks
+  const int p_end = min(p_begin + kRows, cnt);
+  const int p0 = p_begin + g * kBwdPB;
+  const bool live = p0 < p_end;  // warp-uniform
+  const Ray ray(dirs, dcol, b, R, r);
+  const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
+  const AnisoGeo geo(oc, invd, mag, b, N);
+  const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
+  const int n_rb = gridDim.x;
+  const int plane = qb * kRays, buf = kPPlanes * plane;
+  float* pl = smem;
+  float* slot = smem + 2 * buf;  // the thread's slots: slot[e * nt + tid]
+  auto at = [&](int e) -> float& { return slot[e * nt + tid]; };
+
+  // G_k = g T_k, db, and the direct terms' inputs tw and A (to the slots,
+  // with J of each row: the pass reads them per pair)
+  float mbp[kBwdPB], sgp[kBwdPB], G[kBwdPB][kTaps];
+  float db = 0.0f;
+  const float* t_b = tsrc + static_cast<size_t>(b) * kTaps * t_rows * t_ld + r;
+#pragma unroll
+  for (int i = 0; i < kBwdPB; ++i) {
+    const int p = p0 + i;
+    float A = 0.0f, tw = 0.0f;
+    mbp[i] = 0.0f;
+    sgp[i] = 1.0f;
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) G[i][k] = 0.0f;  // a dead row's or lane's G stays 0
+    if (p < p_end) {
+      const RayTerms tp = geo.template row<EXP>(p, dx, dy, dz);
+      mbp[i] = tp.mb;
+      sgp[i] = tp.sb;
+      if (r < R) {
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k)
+          G[i][k] = t_b[(static_cast<size_t>(k) * t_rows + (p - t_row0)) * t_ld];
+      }
+      A = alb_b[3 * p] * ray.cr + alb_b[3 * p + 1] * ray.cg + alb_b[3 * p + 2] * ray.cb;
+      const float gp = kSqrt2Pi * tp.co * A;
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) tw += G[i][k];
+      db += gp * tw;
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) G[i][k] *= gp;
+    }
+    const Jac jp = S::template jac_row<EXP>(geo, min(p, p_end - 1), dx, dy, dz);
+    at(2 * kBwdPB + 3 * i) = jp.x;
+    at(2 * kBwdPB + 3 * i + 1) = jp.y;
+    at(2 * kBwdPB + 3 * i + 2) = jp.z;
+    at(5 * kBwdPB + i) = A;
+    at(6 * kBwdPB + i) = tw;
+    at(i) = at(kBwdPB + i) = 0.0f;  // dmb_p, dsb_p
+  }
+
+  // the pair pass, p side (chunked_bwd.cu's bwd_p_kernel): exp(-x^2) of each
+  // tap; a pair's share of ddirs is (J_p - J_q) S0 inv_q, summed as that
+  // difference
+  double gx = 0.0, gy = 0.0, gz = 0.0;
+  const int ns = (cnt + qb - 1) / qb;
+  fill_p<EXP>(pl, qb, geo, 0, min(qb, cnt), dx, dy, dz);
+  __syncthreads();
+  for (int s = 0; s < ns; ++s) {
+    const int q0 = s * qb, nq = min(qb, cnt - q0);
+    const float* cur = pl + (s & 1) * buf + x;
+    if (s + 1 < ns)
+      fill_p<EXP>(pl + ((s + 1) & 1) * buf, qb, geo, q0 + qb, min(qb, cnt - q0 - qb), dx, dy, dz);
+    if (live) {
+      float sx = 0.0f, sy = 0.0f, sz = 0.0f, pdmb[kBwdPB], pdsb[kBwdPB];
+#pragma unroll
+      for (int i = 0; i < kBwdPB; ++i) pdmb[i] = pdsb[i] = 0.0f;
+      for (int j = 0; j < nq; ++j) {
+        const float* c = cur + j * kRays;
+        const float mbq = c[0], invq = c[plane], nco = c[2 * plane];
+        const float jqx = c[3 * plane], jqy = c[4 * plane], jqz = c[5 * plane];
+#pragma unroll
+        for (int i = 0; i < kBwdPB; ++i) {
+          const float dd = mbp[i] - mbq;
+          float t0 = 0.0f, t1 = 0.0f;
+#pragma unroll
+          for (int k = 0; k < kTaps; ++k) {
+            const float xk = (dd + tap_k(k) * sgp[i]) * invq;
+            const float gg = G[i][k] * expf(-xk * xk);  // erf_and_gauss's gauss
+            t0 += gg;
+            t1 += tap_k(k) * gg;
+          }
+          const float s0 = nco * t0, s1 = nco * t1;
+          const float di = s0 * invq;  // zero for a dead row (its G is 0)
+          pdmb[i] += di;
+          pdsb[i] += s1 * invq;
+          sx += (at(2 * kBwdPB + 3 * i) - jqx) * di;
+          sy += (at(2 * kBwdPB + 3 * i + 1) - jqy) * di;
+          sz += (at(2 * kBwdPB + 3 * i + 2) - jqz) * di;
+        }
+      }
+      gx += sx;
+      gy += sy;
+      gz += sz;
+#pragma unroll
+      for (int i = 0; i < kBwdPB; ++i) {
+        at(i) += pdmb[i];
+        at(kBwdPB + i) += pdsb[i];
+      }
+    }
+    __syncthreads();
+  }
+
+  // the prep chain of each row, reduced over the warp's rays
+#pragma unroll
+  for (int i = 0; i < kBwdPB; ++i) {
+    const int p = p0 + i;
+    if (p < p_end) {  // warp-uniform
+      float v[kSums];
+      S::template p_chain<EXP>(geo, p, dx, dy, dz, ray.cr, ray.cg, ray.cb, mbp[i],
+                               at(6 * kBwdPB + i), at(5 * kBwdPB + i), at(i), at(kBwdPB + i), v,
+                               gx, gy, gz);
+      warp_row_sums(v, rows_p + ((static_cast<size_t>(b) * n_rb + rblk) * N + p) * kSums, false);
+    }
+  }
+
+  // the block's db and ddirs share: the groups' partials in group order,
+  // through the slots once every group is past its chain
+  __syncthreads();
+  double* dds = reinterpret_cast<double*>(slot);
+  float* dbs = slot + 6 * nt;
+  dbs[tid] = db;
+  dds[tid] = gx;
+  dds[nt + tid] = gy;
+  dds[2 * nt + tid] = gz;
+  __syncthreads();
+  if (g == 0) {
+    float sdb = 0.0f;
+    double s3[3] = {0.0, 0.0, 0.0};
+    for (int h = 0; h < kBwdG; ++h) {
+      sdb += dbs[h * kRays + x];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s3[c] += dds[c * nt + h * kRays + x];
+    }
+    db_part[(static_cast<size_t>(b) * (ck / kRows) + blk) * Rp + r] = sdb;
+    double* dd = dd_p + (static_cast<size_t>(b) * (N / kRows) + p_begin / kRows) * 3 * Rp + r;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) dd[c * static_cast<size_t>(Rp)] = s3[c];
+  }
+}
+
+size_t bwd_p_smem(int qb) {
+  return sizeof(float) * (2 * kPPlanes * qb * kRays + kPSlots * kRays * kBwdG);
+}
+
+// ---------------------------------------------------------------------------
+// backward, q side: one block per (32 rays, 64 q rows, tile), against the
+// p rows of chunk a
+// ---------------------------------------------------------------------------
+
+// The q side's planes of the staged p rows [pp, pp + np): mb, sb and
+// g = sqrt(2/pi) co (albedo . dcol), and the rows' T_k copied from tsrc
+// (t_rows rows from t_row0, leading dimension t_ld) with cp.async; lanes
+// past R copy nothing (the pass reads zero for them). cot holds the block's
+// rays' dcol, [channel][ray].
+template <int EXP>
+__device__ __forceinline__ void fill_q(float* pl, int qb, const AnisoGeo& geo, const float* alb_b,
+                                       const float* t_b, int t_rows, int t_row0, int t_ld,
+                                       int pp, int np, const Ray& ray, const float* cot, int r,
+                                       bool live_ray) {
+  const int plane = qb * kRays;
+  for (int j = threadIdx.y; j < np; j += blockDim.y) {
+    const int p = pp + j;
+    float* o = pl + j * kRays + threadIdx.x;
+    if (live_ray) {
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k)
+        cp_async4(o + (3 + k) * plane,
+                  t_b + (static_cast<size_t>(k) * t_rows + (p - t_row0)) * t_ld + r);
+    }
+    const RayTerms t = geo.template row<EXP>(p, ray.dx, ray.dy, ray.dz);
+    o[0] = t.mb;
+    o[plane] = t.sb;
+    const float* c = cot + threadIdx.x;
+    o[2 * plane] = kSqrt2Pi * t.co *
+                   (alb_b[3 * p] * c[0] + alb_b[3 * p + 1] * c[kRays] + alb_b[3 * p + 2] * c[2 * kRays]);
+  }
+  cp_async_commit();
+}
+
+template <int ERF, int EXP>
+__global__ void __launch_bounds__(kRays * kBwdG, 2)
+bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
+             const float* __restrict__ mag, const float* __restrict__ alb,
+             const float* __restrict__ dirs, const int* __restrict__ counts,
+             const float* __restrict__ dcol, const float* __restrict__ tsrc, int t_rows,
+             int t_row0, int t_ld, const float* __restrict__ db, float* __restrict__ rows_q,
+             double* __restrict__ dd_q, int N, int R, int Rp, int ck, int a, int qb) {
+  using S = Side<AnisoGeo>;
+  extern __shared__ float smem[];
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int nt = kRays * kBwdG, tid = g * kRays + x;
+  const int b = blockIdx.z, blk = blockIdx.y, rblk = blockIdx.x;
+  const int r = rblk * kRays + x;
+  const int cnt = max(0, min(counts[b], N));
+  const int q_begin = blk * kRows;
+  const int p_lo = a * ck, p_hi = min(p_lo + ck, cnt);
+  if (q_begin >= cnt || p_lo >= p_hi) return;  // block-uniform
+  const int q_end = min(q_begin + kRows, cnt);
+  const int q0 = q_begin + g * kBwdPB;
+  const bool live = q0 < q_end;  // warp-uniform
+  const bool live_ray = r < R;
+  const Ray ray(dirs, nullptr, b, R, r);
+  const AnisoGeo geo(oc, invd, mag, b, N);
+  const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
+  const float* t_b = tsrc + static_cast<size_t>(b) * kTaps * t_rows * t_ld;
+  const int n_rb = gridDim.x;
+  const bool accumulate = a > 0;
+  const int plane = qb * kRays, buf = kQPlanes * plane;
+  float* pl = smem;
+  float* slot = smem + 2 * buf;  // dco, dmb, dinv, then mb, co, inv per row
+  auto at = [&](int e) -> float& { return slot[e * nt + tid]; };
+  // the rays' dcol, read by each stage's fill (in registers it would cost
+  // the second block an SM, as the rows' terms below)
+  float* cot = slot + 6 * kBwdPB * nt;
+  if (g == 0) {
+    const Ray c(dirs, dcol, b, R, r);
+    cot[x] = c.cr;
+    cot[kRays + x] = c.cg;
+    cot[2 * kRays + x] = c.cb;
+  }
+
+  // the rows' mb, co and inv, read per pair, in the slots too: in registers
+  // they would cost the second block an SM (64 registers a thread)
+  auto mbq = [&](int i) -> float& { return at(3 * kBwdPB + i); };
+  auto coq = [&](int i) -> float& { return at(4 * kBwdPB + i); };
+  auto invq = [&](int i) -> float& { return at(5 * kBwdPB + i); };
+#pragma unroll
+  for (int i = 0; i < kBwdPB; ++i) {
+    mbq(i) = coq(i) = 0.0f;  // a dead row has co = 0: every sum it makes is zero
+    invq(i) = kInvSqrt2;
+    if (q0 + i < q_end) {
+      const RayTerms t = geo.template row<EXP>(q0 + i, ray.dx, ray.dy, ray.dz);
+      mbq(i) = t.mb;
+      coq(i) = t.co;
+      invq(i) = t.inv;
+    }
+    at(3 * i) = at(3 * i + 1) = at(3 * i + 2) = 0.0f;
+  }
+
+  const int ns = (p_hi - p_lo + qb - 1) / qb;
+  __syncthreads();  // cot
+  fill_q<EXP>(pl, qb, geo, alb_b, t_b, t_rows, t_row0, t_ld, p_lo, min(qb, p_hi - p_lo), ray, cot,
+              r, live_ray);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int s = 0; s < ns; ++s) {
+    const int pp = p_lo + s * qb, np = min(qb, p_hi - pp);
+    const float* cur = pl + (s & 1) * buf + x;
+    if (s + 1 < ns)
+      fill_q<EXP>(pl + ((s + 1) & 1) * buf, qb, geo, alb_b, t_b, t_rows, t_row0, t_ld, pp + qb,
+                  min(qb, p_hi - pp - qb), ray, cot, r, live_ray);
+    if (live) {
+      // this stage's sums, added to the running ones after it (dco_q is the
+      // difference of the direct term and these sums)
+      float pdco[kBwdPB], pdmb[kBwdPB], pdinv[kBwdPB];
+#pragma unroll
+      for (int i = 0; i < kBwdPB; ++i) pdco[i] = pdmb[i] = pdinv[i] = 0.0f;
+      for (int j = 0; j < np; ++j) {
+        const float* c = cur + j * kRays;
+        const float mbp = c[0], sgp = c[plane], gp = c[2 * plane];
+        float Gk[kTaps];
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) Gk[k] = live_ray ? gp * c[(3 + k) * plane] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < kBwdPB; ++i) {
+          const float dd = mbp - mbq(i), iq = invq(i);
+          float t0 = 0.0f, t1 = 0.0f;
+#pragma unroll
+          for (int k = 0; k < kTaps; ++k) {
+            float ee, gau;
+            erf_and_gauss<ERF>((dd + tap_k(k) * sgp) * iq, ee, gau);
+            pdco[i] -= Gk[k] * ee;
+            const float gg = Gk[k] * gau;
+            t0 += gg;
+            t1 += tap_k(k) * gg;
+          }
+          const float nco = -kDerf * coq(i);
+          const float s0 = nco * t0, s1 = nco * t1;
+          pdmb[i] -= s0 * iq;
+          pdinv[i] += s0 * dd + s1 * sgp;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBwdPB; ++i) {
+        at(3 * i) += pdco[i];
+        at(3 * i + 1) += pdmb[i];
+        at(3 * i + 2) += pdinv[i];
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // the base path with chunk a's db, then the prep chain, reduced over the
+  // warp's rays
+  const float dbr = db[static_cast<size_t>(b) * Rp + r];  // zero on dead lanes
+  double gx = 0.0, gy = 0.0, gz = 0.0;
+#pragma unroll
+  for (int i = 0; i < kBwdPB; ++i) {
+    const int q = q0 + i;
+    if (q < q_end) {  // warp-uniform
+      float v[kSums];
+      S::template q_chain<ERF, EXP>(geo, q, ray.dx, ray.dy, ray.dz, mbq(i), coq(i), invq(i), dbr,
+                                    at(3 * i), at(3 * i + 1), at(3 * i + 2), v, gx, gy, gz);
+      warp_row_sums(v, rows_q + ((static_cast<size_t>(b) * n_rb + rblk) * N + q) * kSums,
+                    accumulate);
+    }
+  }
+
+  // the block's ddirs share: the groups' partials in group order, through
+  // the slots once every group is past its chain
+  __syncthreads();
+  double* dds = reinterpret_cast<double*>(slot);
+  dds[tid] = gx;
+  dds[nt + tid] = gy;
+  dds[2 * nt + tid] = gz;
+  __syncthreads();
+  if (g == 0) {
+    double* dd = dd_q + (static_cast<size_t>(b) * (N / kRows) + blk) * 3 * Rp + r;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      double s = 0.0;
+      for (int h = 0; h < kBwdG; ++h) s += dds[c * nt + h * kRays + x];
+      dd[c * static_cast<size_t>(Rp)] = accumulate ? dd[c * static_cast<size_t>(Rp)] + s : s;
+    }
+  }
+}
+
+size_t bwd_q_smem(int qb) {
+  return sizeof(float) * (2 * kQPlanes * qb * kRays + 6 * kBwdPB * kRays * kBwdG + 3 * kRays);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// Device times of the kernels of one multi-kernel launch, for measurement:
+// mark() after each kernel; finish() waits for the last and writes the ms
+// between consecutive marks to out. Records nothing when out is null.
+class PartTimer {
+ public:
+  PartTimer(float* out, cudaStream_t s) : out_(out), s_(s) { mark(); }
+  ~PartTimer() {
+    for (int i = 0; i < n_; ++i) cudaEventDestroy(ev_[i]);
+  }
+  void mark() {
+    if (out_ == nullptr || n_ == kMax) return;
+    cudaEventCreate(&ev_[n_]);
+    cudaEventRecord(ev_[n_], s_);
+    ++n_;
+  }
+  cudaError_t finish() {
+    if (out_ == nullptr) return cudaSuccess;
+    cudaError_t e = cudaEventSynchronize(ev_[n_ - 1]);
+    for (int i = 1; i < n_ && e == cudaSuccess; ++i)
+      e = cudaEventElapsedTime(&out_[i - 1], ev_[i - 1], ev_[i]);
+    return e;
+  }
+
+ private:
+  static constexpr int kMax = 4 * 512 + 2;  // 4 marks per chunk, at most 512 chunks
+  cudaEvent_t ev_[kMax];
+  int n_ = 0;
+  float* out_;
+  cudaStream_t s_;
+};
+
+using FwdKernel = void (*)(const float*, const float*, const float*, const float*,
+                           const float*, const int*, float*, float*, int, int, int, int, int,
+                           int, int, int);
+using PKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                         const int*, const float*, const float*, int, int, int, float*, double*,
+                         float*, int, int, int, int, int, int);
+
+template <bool SAVE_T>
+FwdKernel pick_fwd(int erf_id, int exp_id) {
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return fwd_kernel<kErfAs5, kExpExact, SAVE_T>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return fwd_kernel<kErfAs5, kExpFast, SAVE_T>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return fwd_kernel<kErfAs3, kExpExact, SAVE_T>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return fwd_kernel<kErfAs3, kExpFast, SAVE_T>;
+  return nullptr;
+}
+
+PKernel pick_p(int erf_id, int exp_id) {
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_p_kernel<kErfAs5, kExpExact>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_p_kernel<kErfAs5, kExpFast>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_p_kernel<kErfAs3, kExpExact>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_p_kernel<kErfAs3, kExpFast>;
+  return nullptr;
+}
+
+using QKernel = decltype(&bwd_q_kernel<kErfAs5, kExpExact>);
+
+QKernel pick_q(int erf_id, int exp_id) {
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_q_kernel<kErfAs5, kExpExact>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_q_kernel<kErfAs5, kExpFast>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_q_kernel<kErfAs3, kExpExact>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_q_kernel<kErfAs3, kExpFast>;
+  return nullptr;
+}
+
+// A block's shared memory on sm_90 (227 KB); qb >= 8 leaves the forward's
+// planes room for the groups' colors after the last stage.
+constexpr size_t kMaxSmem = 232448;
+
+bool bad_qb(int qb) {
+  return qb < 8 || qb > 1024 || fwd_smem(qb) > kMaxSmem || bwd_p_smem(qb) > kMaxSmem ||
+         bwd_q_smem(qb) > kMaxSmem;
+}
+
+template <bool SAVE_T>
+int launch_fwd(const float* oc, const float* invd, const float* mag, const float* alb,
+               const float* dirs, const int* counts, float* partial, float* colors, float* t,
+               int B, int N, int R, int threads, int pb, int qb, int erf_id, int exp_id,
+               void* stream) {
+  FwdKernel fn = pick_fwd<SAVE_T>(erf_id, exp_id);
+  const int n_split = (N + kFwdRows - 1) / kFwdRows;
+  if (fn == nullptr || B < 1 || B > 65535 || N < 1 || R < 1 || threads != kRays ||
+      (pb != 8 && pb != 16) || bad_qb(qb) || n_split > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(fn, fwd_smem(qb));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((R + kRays - 1) / kRays, n_split, B);
+  fn<<<grid, dim3(kRays, kFwdG), fwd_smem(qb), s>>>(oc, invd, mag, alb, dirs, counts, partial, t,
+                                                    N, R, qb, n_split, 0, N, 0, R);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // colors = the live splits' partials summed in split order
+  return static_cast<int>(
+      launch_block_sums(partial, counts, colors, B, N, 3 * R, n_split, kFwdRows, 0, s));
+}
+
+// The backward's host loop on `stream`: per p-chunk a in order, (recompute:
+// the forward's pass A for chunk a's rows, T into scratch), the p side,
+// chunk a's db (the live 64-row blocks summed in block order) and the q
+// side, so that the q side's sums carried across chunks are read-modify-
+// writes in stream order; then the per-row gradients and ddirs. part_ms
+// (host, 4 C + 1 floats, or null): each chunk's pass A (0 with saved T),
+// p side, db sum and q side, then the row and ddirs kernels, in device ms
+// (the call then waits for them).
+template <bool SAVED_T>
+int launch_bwd(const float* oc, const float* invd, const float* mag, const float* alb,
+               const float* dirs, const int* counts, const float* dcol, const float* t,
+               float* scratch, float* doc, float* dinvd, float* dmag, float* dalb, float* ddirs,
+               float* part_ms, int B, int N, int R, int ck, int threads, int qb, int erf_id,
+               int exp_id, void* stream) {
+  FwdKernel tfn = pick_fwd<true>(erf_id, exp_id);
+  PKernel pfn = pick_p(erf_id, exp_id);
+  QKernel qfn = pick_q(erf_id, exp_id);
+  if (tfn == nullptr || pfn == nullptr || qfn == nullptr || B < 1 || B > 65535 || N < 1 ||
+      R < 1 || ck < kRows || ck % kRows != 0 || N % ck != 0 || N / kRows > 65535 ||
+      threads != kRays || bad_qb(qb) || (SAVED_T && t == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if ((err = allow_smem(tfn, fwd_smem(qb))) != cudaSuccess ||
+      (err = allow_smem(pfn, bwd_p_smem(qb))) != cudaSuccess ||
+      (err = allow_smem(qfn, bwd_q_smem(qb))) != cudaSuccess)
+    return static_cast<int>(err);
+  Scratch s;
+  scratch_layout(B, N, R, ck, threads, !SAVED_T, scratch, &s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_rb = (R + kRays - 1) / kRays;
+  const int Rp = n_rb * kRays;
+  const dim3 block(kRays, kBwdG);
+  // T of the rows of chunk a: the saved T, or chunk a's scratch
+  const float* tsrc = SAVED_T ? t : s.t_a;
+  const int t_rows = SAVED_T ? N : ck, t_ld = SAVED_T ? R : Rp;
+  PartTimer timer(part_ms, st);
+  for (int a = 0; a < N / ck; ++a) {
+    const int t_row0 = SAVED_T ? 0 : a * ck;
+    if (!SAVED_T) {
+      tfn<<<dim3(n_rb, ck / kFwdRows, B), dim3(kRays, kFwdG), fwd_smem(qb), st>>>(
+          oc, invd, mag, alb, dirs, counts, nullptr, s.t_a, N, R, qb, 0, a * ck, ck, a * ck, Rp);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    timer.mark();
+    pfn<<<dim3(n_rb, ck / kRows, B), block, bwd_p_smem(qb), st>>>(
+        oc, invd, mag, alb, dirs, counts, dcol, tsrc, t_rows, t_row0, t_ld, s.rows_p, s.dd_p,
+        s.db_part, N, R, Rp, ck, a, qb);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    timer.mark();
+    if ((err = launch_block_sums(s.db_part, counts, s.db, B, N, Rp, ck / kRows, kRows, a * ck,
+                                 st)) != cudaSuccess)
+      return static_cast<int>(err);
+    timer.mark();
+    qfn<<<dim3(n_rb, N / kRows, B), block, bwd_q_smem(qb), st>>>(
+        oc, invd, mag, alb, dirs, counts, dcol, tsrc, t_rows, t_row0, t_ld, s.db, s.rows_q,
+        s.dd_q, N, R, Rp, ck, a, qb);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    timer.mark();
+  }
+  bwd_rows_kernel<AnisoGeo><<<blocks_for(static_cast<size_t>(B) * N, 256), 256, 0, st>>>(
+      oc, invd, mag, counts, s.rows_p, s.rows_q, doc, dinvd, dmag, dalb, B, N, n_rb);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  bwd_ddirs_kernel<<<blocks_for(static_cast<size_t>(B) * 3 * R, 256), 256, 0, st>>>(
+      counts, s.dd_p, s.dd_q, ddirs, B, N, R, Rp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  timer.mark();
+  return static_cast<int>(timer.finish());
+}
+
+}  // namespace
+
+extern "C" {
+
+int sgrt_fused_fwd_rows_per_block() { return kFwdRows; }
+
+int sgrt_fused_fwd_max_threads() { return kRays; }
+
+int sgrt_chunked_bwd_max_threads() { return kRays; }
+
+const char* sgrt_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The chunked anisotropic forward and the split reduction on `stream`:
+// colors (B,3,R) from oc, invd (B,N,3), mag (B,N), albedo (B,N,3), dirs
+// (B,3,R), counts (B,); partial (B, N/32, 3, R) scratch. threads = 32 rays
+// a block; pb (8 or 16, the route's p block) does not change the kernel,
+// which keeps 4 rows a thread. Returns a cudaError_t (cudaErrorInvalidValue
+// for a configuration the kernel does not take).
+int sgrt_chunked_fwd_aniso(const float* oc, const float* invd, const float* mag,
+                           const float* alb, const float* dirs, const int* counts,
+                           float* partial, float* colors, int B, int N, int R, int threads,
+                           int pb, int qb, int erf_id, int exp_id, void* stream) {
+  return launch_fwd<false>(oc, invd, mag, alb, dirs, counts, partial, colors, nullptr, B, N, R,
+                           threads, pb, qb, erf_id, exp_id, stream);
+}
+
+// The same forward, also writing T (B,5,N,R), zero on rows at or past the
+// count: the saved-T schedule's forward.
+int sgrt_chunked_fwd_t_aniso(const float* oc, const float* invd, const float* mag,
+                             const float* alb, const float* dirs, const int* counts,
+                             float* partial, float* colors, float* t, int B, int N, int R,
+                             int threads, int pb, int qb, int erf_id, int exp_id, void* stream) {
+  return launch_fwd<true>(oc, invd, mag, alb, dirs, counts, partial, colors, t, B, N, R, threads,
+                          pb, qb, erf_id, exp_id, stream);
+}
+
+// The recompute chunked anisotropic backward: outputs doc, dinvd, dalb
+// (B,N,3), dmag (B,N), ddirs (B,3,R); scratch of
+// sgrt_chunked_bwd_scratch_floats(B, N, R, ck, 32, 1) floats; part_ms as
+// launch_bwd's.
+int sgrt_chunked_bwd_aniso(const float* oc, const float* invd, const float* mag,
+                           const float* alb, const float* dirs, const int* counts,
+                           const float* dcol, float* scratch, float* doc, float* dinvd,
+                           float* dmag, float* dalb, float* ddirs, float* part_ms, int B, int N,
+                           int R, int ck, int threads, int qb, int erf_id, int exp_id,
+                           void* stream) {
+  return launch_bwd<false>(oc, invd, mag, alb, dirs, counts, dcol, nullptr, scratch, doc, dinvd,
+                           dmag, dalb, ddirs, part_ms, B, N, R, ck, threads, qb, erf_id, exp_id,
+                           stream);
+}
+
+// The saved-T chunked anisotropic backward: reads T (B,5,N,R) written by
+// sgrt_chunked_fwd_t_aniso with the same qb.
+int sgrt_chunked_bwd_t_aniso(const float* oc, const float* invd, const float* mag,
+                             const float* alb, const float* dirs, const int* counts,
+                             const float* dcol, const float* t, float* scratch, float* doc,
+                             float* dinvd, float* dmag, float* dalb, float* ddirs, float* part_ms,
+                             int B, int N, int R, int ck, int threads, int qb, int erf_id,
+                             int exp_id, void* stream) {
+  return launch_bwd<true>(oc, invd, mag, alb, dirs, counts, dcol, t, scratch, doc, dinvd, dmag,
+                          dalb, ddirs, part_ms, B, N, R, ck, threads, qb, erf_id, exp_id, stream);
+}
+
+long long sgrt_chunked_bwd_scratch_floats(int B, int N, int R, int ck, int threads,
+                                          int recompute) {
+  return static_cast<long long>(scratch_layout(B, N, R, ck, threads, recompute != 0));
+}
+
+// Resources of kernel i of this library (as5, exact erf/exp) at the
+// launches' own block sizes and qb staged rows (threads is ignored: a block
+// is always 32 rays): kernel_resources's seven ints into out, its name into
+// name. Returns -1 past the last kernel.
+int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
+  const int fwd = kRays * kFwdG, bwd = kRays * kBwdG;
+  switch (i) {
+    case 0:
+      *name = "chunked_aniso fwd_kernel";
+      return kernel_resources(fwd_kernel<kErfAs5, kExpExact, false>, fwd, fwd_smem(qb), out);
+    case 1:
+      *name = "chunked_aniso fwd_kernel<SAVE_T>";
+      return kernel_resources(fwd_kernel<kErfAs5, kExpExact, true>, fwd, fwd_smem(qb), out);
+    case 2:
+      *name = "chunked_aniso bwd_p_kernel";
+      return kernel_resources(bwd_p_kernel<kErfAs5, kExpExact>, bwd, bwd_p_smem(qb), out);
+    case 3:
+      *name = "chunked_aniso bwd_q_kernel";
+      return kernel_resources(bwd_q_kernel<kErfAs5, kExpExact>, bwd, bwd_q_smem(qb), out);
+    default:
+      return -1;
+  }
+}
+
+}  // extern "C"

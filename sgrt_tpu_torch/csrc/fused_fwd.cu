@@ -19,6 +19,10 @@
 // kernel over AnisoGeo rows (gauss_common.cuh), whose sb, inv and co vary
 // per (row, ray); the TPU kernel keeps them as four (N, ray block) VMEM
 // planes, here each thread recomputes a staged row's terms for its ray.
+// (The chunked anisotropic route's forward is chunked_aniso.cu's, which
+// shares each stage's per-ray terms between row groups through shared
+// memory and keeps 4 rows a thread; at the dense anisotropic cell this
+// kernel, 8 rows a thread, runs at 128 registers with a 16-byte spill.)
 // For each tile b, over the live prefix count_b = min(counts[b], N) of its
 // Gaussian rows, and each ray r (isotropic rows: sb = sigma, mb = oc . d):
 //
@@ -214,6 +218,29 @@ int sgrt_fused_fwd_max_threads() { return 128; }
 
 const char* sgrt_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Resources of kernel i of this library (as5, exact erf/exp; PB 8) at
+// `threads` rays per block and qb staged rows: kernel_resources's seven
+// ints into out, its name into name. Returns -1 past the last kernel.
+int sgrt_kernel_resources(int i, int threads, int qb, int* out, const char** name) {
+  struct Entry {
+    const char* name;
+    FwdKernel fn;
+    int fields;
+  };
+  static const Entry kEntries[] = {
+      {"fused_fwd_kernel<8, IsoGeo>", fused_fwd_kernel<8, kErfAs5, kExpExact, false, IsoGeo>,
+       IsoGeo::kFields},
+      {"fused_fwd_kernel<8, IsoGeo, SAVE_T>",
+       fused_fwd_kernel<8, kErfAs5, kExpExact, true, IsoGeo>, IsoGeo::kFields},
+      {"fused_fwd_kernel<8, AnisoGeo>", fused_fwd_kernel<8, kErfAs5, kExpExact, false, AnisoGeo>,
+       AnisoGeo::kFields},
+      {"fused_fwd_kernel<8, AnisoGeo, SAVE_T>",
+       fused_fwd_kernel<8, kErfAs5, kExpExact, true, AnisoGeo>, AnisoGeo::kFields}};
+  if (i < 0 || i >= static_cast<int>(sizeof(kEntries) / sizeof(kEntries[0]))) return -1;
+  *name = kEntries[i].name;
+  return kernel_resources(kEntries[i].fn, threads, sizeof(float) * kEntries[i].fields * qb, out);
 }
 
 // Launches the fused forward and the split reduction on `stream`. Returns

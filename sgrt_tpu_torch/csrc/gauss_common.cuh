@@ -3,8 +3,9 @@
 // variants the kernels are compiled for, the rounding-controlled Gaussian
 // exponent, the per-row constants that rows are staged with, the two row
 // geometries (isotropic and anisotropic), the five quadrature taps, a warp
-// sum, a block's per-row sums over rays, pass A over staged rows, and the
-// ordered sum of per-block partials.
+// sum, a block's per-row sums over rays, pass A over staged rows, the
+// ordered sum of per-block partials, and on the host a kernel's resources
+// per SM.
 //
 // No fast-math anywhere: the A&S reciprocal is an IEEE division and expf is
 // the accurate one, so "as5" is the float32-exact erf and the kernels agree
@@ -408,6 +409,32 @@ inline cudaError_t launch_block_sums(const float* part, const int* counts, float
   ordered_block_sums<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
       part, counts, out, B, N, per_tile, n_blocks, rows, row0);
   return cudaGetLastError();
+}
+
+// Allows a kernel more than 48 KB of dynamic shared memory (a no-op below).
+template <class F>
+inline cudaError_t allow_smem(F fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// What one kernel takes of an SM at a launch's block size and dynamic
+// shared memory: out = {registers per thread, local (spill) bytes per
+// thread, max threads per block, static shared bytes, dynamic shared bytes,
+// threads per block, resident blocks per SM}.
+template <class F>
+inline int kernel_resources(F fn, int threads, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e == cudaSuccess) e = allow_smem(fn, smem);
+  int blocks = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int v[7] = {a.numRegs, static_cast<int>(a.localSizeBytes), a.maxThreadsPerBlock,
+                    static_cast<int>(a.sharedSizeBytes), static_cast<int>(smem), threads, blocks};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // namespace sgrt

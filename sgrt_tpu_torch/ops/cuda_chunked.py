@@ -181,19 +181,25 @@ def chunked_forward_t(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int, rb: in
 
 
 def chunked_backward_scratch_floats(b: int, n: int, r: int, ck: int, threads: int,
-                                    recompute: bool) -> int:
-    """Floats of scratch one chunked backward launch takes (the kernel's
-    own count; csrc/chunked_bwd.cu lists its parts)."""
-    fn = CHUNKED_BWD.library().sgrt_chunked_bwd_scratch_floats
+                                    recompute: bool, kernel: CudaKernel = CHUNKED_BWD) -> int:
+    """Floats of scratch one launch of a chunked backward kernel takes (the
+    library's own count; csrc/chunked_bwd.cu lists its parts)."""
+    fn = kernel.library().sgrt_chunked_bwd_scratch_floats
     fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_longlong
     return int(fn(b, n, r, ck, threads, int(recompute)))
 
 
-def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_name, exp_name):
-    """Launch an entry point of csrc/chunked_bwd.cu on checked CUDA inputs:
+def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_name, exp_name,
+                             part_ms=None):
+    """Launch a chunked backward entry point on checked CUDA inputs:
     outputs (doc, dshape, dmag, dalb, ddirs), dshape shaped as args[1]
-    (sigma or invd)."""
+    (sigma or invd). A kernel that times its parts (kernel.timed) takes
+    part_ms, a float32 CPU tensor that receives the device ms of each of its
+    launches (its entry point's note lists them; the call then waits for
+    the card), or None."""
+    if part_ms is not None and not kernel.timed:
+        raise ValueError(f"{kernel.name} does not time its parts")
     _check_names(erf_name, exp_name)
     oc, shape, dirs_t = args[0], args[1], args[4]
     b, n, _ = oc.shape
@@ -201,12 +207,13 @@ def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_nam
     threads = _threads(kernel.query("sgrt_chunked_bwd_max_threads"), rb, r)
     f32 = dict(dtype=torch.float32, device=oc.device)
     scratch = torch.empty(chunked_backward_scratch_floats(b, n, r, ck, threads,
-                                                          t_saved is None), **f32)
+                                                          t_saved is None, kernel), **f32)
     doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
     dshape, dmag = torch.empty(tuple(shape.shape), **f32), torch.empty((b, n), **f32)
     ddirs = torch.empty((b, 3, r), **f32)
     ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
-    kernel.launch(ins + [scratch, doc, dshape, dmag, dalb, ddirs],
+    outs = [scratch, doc, dshape, dmag, dalb, ddirs] + ([part_ms] if kernel.timed else [])
+    kernel.launch(ins + outs,
                   [b, n, r, ck, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
                   what=f"B={b}, N={n}, R={r}, ck={ck}, threads={threads}, qb={qb}")
     return doc, dshape, dmag, dalb, ddirs

@@ -4,22 +4,25 @@ hand-written CUDA kernels (PyTorch port of sgrt_tpu.ops.pallas_chunked_aniso).
 The fused anisotropic op's function (ops.cuda_aniso) with the Gaussian axis
 cut into C = N / ck chunks of ck rows, for per-tile capacities above
 MAX_BWD_CAPACITY_ANISO; exact for the reason ops.cuda_chunked gives (the
-transmittance exponent is additive over Gaussians). Two kernels, each with
-a wrapper that launches it for tensors on the card (or raises) and runs its
-plain version for tensors on the CPU:
+transmittance exponent is additive over Gaussians). Four kernels of
+csrc/chunked_aniso.cu, each with a wrapper that launches it for tensors on
+the card (or raises) and runs its plain version for tensors on the CPU:
 
-    chunked_forward_aniso   csrc/fused_fwd.cu    colors  (_chunked_fwd_aniso_kernel)
-    chunked_backward_aniso  csrc/chunked_bwd.cu  the VJP, recomputing T
-                                                 (_chunked_bwd_aniso_kernel)
+    chunked_forward_aniso    colors         (_chunked_fwd_aniso_kernel)
+    chunked_forward_t_aniso  colors and T   (the saved-T schedule's forward)
+    chunked_backward_aniso   the VJP, from saved T (the saved-T schedule of
+                             _chunked_bwd_aniso_kernel) or recomputing it
+                             (_chunked_bwd_aniso_kernel)
 
-The forward launches the fused anisotropic forward's entry point
-(sgrt_fused_fwd_aniso) with its own launch count, for the reason the
-isotropic chunked forward does (ops.cuda_chunked): the TPU chunks only
-because a dense tile's rows do not fit VMEM, and fused_fwd.cu already
-splits the p axis over 32-row blocks. The backward is csrc/chunked_bwd.cu's
-p-side/q-side split over AnisoGeo rows (sgrt_chunked_bwd_aniso). The JAX
-package has no saved-T variant of this route (recompute is its schedule at
-chunked scale, pallas_chunked_aniso.py:19-22), and neither has the port.
+The JAX package recomputes T at chunked scale only because a TPU holds no
+multi-GB residual (pallas_chunked_aniso.py:19-22); the card does, so the
+route saves T when its 20*B*N*R bytes fit SAVE_T_CHUNKED_MAX_BYTES, by the
+isotropic chunked route's rule (ops.cuda_chunked.render_fused_chunked),
+and recomputes it above. csrc/chunked_aniso.cu's note gives the kernels'
+design: warp-wide groups of 4 rows sharing each stage's per-ray terms
+through shared-memory planes, the backward's p-side/q-side split, and the
+recompute backward as the forward-with-T per chunk ahead of the saved-T
+backward's kernels.
 
 The plain versions are the fused anisotropic ones behind the chunk-count
 contract. The JAX package's packed (B, 16, N) operand is TPU lane padding;
@@ -31,11 +34,13 @@ from __future__ import annotations
 
 import torch
 
+from sgrt_tpu_torch.ops import cuda_chunked
 from sgrt_tpu_torch.ops.anisotropic import AnisoScene
 from sgrt_tpu_torch.ops.cuda_aniso import (
     _aniso_shapes,
     fused_backward_aniso_plain,
     fused_forward_aniso_plain,
+    fused_forward_t_aniso_plain,
 )
 from sgrt_tpu_torch.ops.cuda_chunked import (
     DEFAULT_CHUNK,
@@ -45,18 +50,24 @@ from sgrt_tpu_torch.ops.cuda_chunked import (
     _ChunkedOpts,
 )
 from sgrt_tpu_torch.ops.cuda_kernel import (
+    K_TAPS,
     CudaKernel,
     _block_sizes,
     _check_inputs,
     _forward_launch,
     _kernel_erf_name,
+    save_t_bytes,
 )
 
-_TPU = "sgrt_tpu/ops/pallas_chunked_aniso.py"
-CHUNKED_FWD_ANISO = CudaKernel("chunked_fwd_aniso", "fused_fwd.cu", "sgrt_fused_fwd_aniso",
+_SRC, _TPU = "chunked_aniso.cu", "sgrt_tpu/ops/pallas_chunked_aniso.py"
+CHUNKED_FWD_ANISO = CudaKernel("chunked_fwd_aniso", _SRC, "sgrt_chunked_fwd_aniso",
                                f"{_TPU}:78", 8, 8)
-CHUNKED_BWD_ANISO = CudaKernel("chunked_bwd_aniso", "chunked_bwd.cu", "sgrt_chunked_bwd_aniso",
-                               f"{_TPU}:199", 13, 8)
+CHUNKED_FWD_T_ANISO = CudaKernel("chunked_fwd_t_aniso", _SRC, "sgrt_chunked_fwd_t_aniso",
+                                 f"{_TPU}:78", 9, 8)
+CHUNKED_BWD_ANISO = CudaKernel("chunked_bwd_aniso", _SRC, "sgrt_chunked_bwd_aniso",
+                               f"{_TPU}:199", 14, 8, timed=True)
+CHUNKED_BWD_T_ANISO = CudaKernel("chunked_bwd_t_aniso", _SRC, "sgrt_chunked_bwd_t_aniso",
+                                 f"{_TPU}:199", 15, 8, timed=True)
 
 
 # ---------------------------------------------------------------------------
@@ -72,12 +83,21 @@ def chunked_forward_aniso_plain(oc, invd, mag, albedo, dirs_t, counts, *, ck: in
                                      exp_name=exp_name)
 
 
-def chunked_backward_aniso_plain(oc, invd, mag, albedo, dirs_t, counts, dcol, *, ck: int,
-                                 erf_name: str = "as5", exp_name: str = "exact"):
-    """The chunked anisotropic backward kernel's function in tensor ops,
-    recomputing T: (doc, dinvd, dmag, dalbedo, ddirs)."""
+def chunked_forward_t_aniso_plain(oc, invd, mag, albedo, dirs_t, counts, *, ck: int,
+                                  erf_name: str = "as5", exp_name: str = "exact"):
+    """chunked_forward_aniso_plain that also returns T (B,5,N,R), zero on
+    rows at or past the count."""
     _check_chunks(oc.shape[1], ck)
-    return fused_backward_aniso_plain(oc, invd, mag, albedo, dirs_t, counts, dcol,
+    return fused_forward_t_aniso_plain(oc, invd, mag, albedo, dirs_t, counts,
+                                       erf_name=erf_name, exp_name=exp_name)
+
+
+def chunked_backward_aniso_plain(oc, invd, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
+                                 ck: int, erf_name: str = "as5", exp_name: str = "exact"):
+    """The chunked anisotropic backward kernels' function in tensor ops:
+    (doc, dinvd, dmag, dalbedo, ddirs), from t_saved or recomputing T."""
+    _check_chunks(oc.shape[1], ck)
+    return fused_backward_aniso_plain(oc, invd, mag, albedo, dirs_t, counts, dcol, t_saved,
                                       erf_name=erf_name, exp_name=exp_name)
 
 
@@ -100,25 +120,51 @@ def chunked_forward_aniso(oc, invd, mag, albedo, dirs_t, counts, *, ck: int, rb:
                            erf_name=erf_name, exp_name=exp_name)
 
 
-def chunked_backward_aniso(oc, invd, mag, albedo, dirs_t, counts, dcol, *, ck: int,
-                           rb: int = 128, qb: int = 32, erf_name: str = "as5",
-                           exp_name: str = "exact"):
-    """Wrapper of the chunked anisotropic backward kernel: the VJP for the
-    cotangent dcol (B,3,R), recomputing T → (doc (B,N,3), dinvd (B,N,3),
-    dmag (B,N), dalbedo (B,N,3), ddirs (B,3,R)). CPU tensors go to
-    chunked_backward_aniso_plain. rb caps the rays per block; qb is the rows
-    staged per shared-memory pass, the forward's, so that the recomputed T
-    is the forward's bit for bit."""
+def chunked_forward_t_aniso(oc, invd, mag, albedo, dirs_t, counts, *, ck: int, rb: int = 128,
+                            pb: int = 8, qb: int = 32, erf_name: str = "as5",
+                            exp_name: str = "exact"):
+    """Wrapper of the chunked anisotropic forward-with-T kernel: (colors
+    (B,3,R), T (B,5,N,R)), T zero on rows at or past the count. CPU tensors
+    go to chunked_forward_t_aniso_plain."""
+    args = (oc, invd, mag, albedo, dirs_t, counts)
+    _check_chunks(oc.shape[1], ck)
+    if not _check_inputs("chunked_forward_t_aniso", _aniso_shapes(*args), oc.device):
+        return chunked_forward_t_aniso_plain(*args, ck=ck, erf_name=erf_name, exp_name=exp_name)
+    b, n, _ = oc.shape
+    t = torch.empty((b, len(K_TAPS), n, dirs_t.shape[2]), dtype=torch.float32,
+                    device=oc.device)   # the kernel writes every element
+    colors = _forward_launch(CHUNKED_FWD_T_ANISO, args, t, rb=rb, pb=pb, qb=qb,
+                             erf_name=erf_name, exp_name=exp_name)
+    return colors, t
+
+
+def chunked_backward_aniso(oc, invd, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
+                           ck: int, rb: int = 128, qb: int = 32, erf_name: str = "as5",
+                           exp_name: str = "exact", part_ms: torch.Tensor | None = None):
+    """Wrapper of the chunked anisotropic backward kernels: the VJP for the
+    cotangent dcol (B,3,R) → (doc (B,N,3), dinvd (B,N,3), dmag (B,N),
+    dalbedo (B,N,3), ddirs (B,3,R)). With t_saved (B,5,N,R) from
+    chunked_forward_t_aniso it launches the saved-T kernel, without it the
+    recompute kernel. CPU tensors go to chunked_backward_aniso_plain. rb
+    caps the rays per block; qb is the rows staged per shared-memory pass,
+    the forward's, so that a recomputed T is the forward's bit for bit.
+    part_ms: a float32 CPU tensor of 4 C + 1 elements (C = N / ck) for the
+    device ms of each chunk's pass A (recompute), p side, db sum and q side
+    and of the row sums, for measurement."""
     args = (oc, invd, mag, albedo, dirs_t, counts)
     want = _aniso_shapes(*args)
     b, n, _ = oc.shape
+    r = dirs_t.shape[-1]
     _check_chunks(n, ck)
-    want["dcol"] = (dcol, (b, 3, dirs_t.shape[-1]))
+    want["dcol"] = (dcol, (b, 3, r))
+    if t_saved is not None:
+        want["t_saved"] = (t_saved, (b, len(K_TAPS), n, r))
     if not _check_inputs("chunked_backward_aniso", want, oc.device):
-        return chunked_backward_aniso_plain(*args, dcol, ck=ck, erf_name=erf_name,
+        return chunked_backward_aniso_plain(*args, dcol, t_saved, ck=ck, erf_name=erf_name,
                                             exp_name=exp_name)
-    return _chunked_backward_launch(CHUNKED_BWD_ANISO, args, dcol, None, ck=ck, rb=rb, qb=qb,
-                                    erf_name=erf_name, exp_name=exp_name)
+    kernel = CHUNKED_BWD_ANISO if t_saved is None else CHUNKED_BWD_T_ANISO
+    return _chunked_backward_launch(kernel, args, dcol, t_saved, ck=ck, rb=rb, qb=qb,
+                                    erf_name=erf_name, exp_name=exp_name, part_ms=part_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -127,42 +173,53 @@ def chunked_backward_aniso(oc, invd, mag, albedo, dirs_t, counts, dcol, *, ck: i
 
 class ChunkedRenderAniso(torch.autograd.Function):
     """colors = chunked anisotropic forward(oc, invd, mag, albedo, dirs_t,
-    counts) with the analytic backward, which recomputes T (the counterpart
-    of the JAX package's _make_chunked_aniso_op). Gradients flow to oc,
+    counts) with the analytic backward (the counterpart of the JAX package's
+    _make_chunked_aniso_op). save_t: the forward also writes T and the
+    backward reads it instead of recomputing pass A. Gradients flow to oc,
     invd, mag, albedo and the ray directions; counts gets None."""
 
     @staticmethod
     def forward(ctx, oc, invd, mag, albedo, dirs_t, counts, opts: _ChunkedOpts):
-        colors = chunked_forward_aniso(oc, invd, mag, albedo, dirs_t, counts, ck=opts.ck,
-                                       rb=opts.rb, pb=opts.pb, qb=opts.qb,
-                                       erf_name=opts.erf_name, exp_name=opts.exp_name)
-        ctx.save_for_backward(oc, invd, mag, albedo, dirs_t, counts)
+        kw = dict(ck=opts.ck, pb=opts.pb, qb=opts.qb, erf_name=opts.erf_name,
+                  exp_name=opts.exp_name)
+        if opts.save_t:
+            colors, t = chunked_forward_t_aniso(oc, invd, mag, albedo, dirs_t, counts,
+                                                rb=opts.rb_bwd, **kw)
+            ctx.save_for_backward(oc, invd, mag, albedo, dirs_t, counts, t)
+        else:
+            colors = chunked_forward_aniso(oc, invd, mag, albedo, dirs_t, counts, rb=opts.rb,
+                                           **kw)
+            ctx.save_for_backward(oc, invd, mag, albedo, dirs_t, counts)
         ctx.opts = opts
         return colors
 
     @staticmethod
     def backward(ctx, dcol):
+        oc, invd, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
         o = ctx.opts
-        grads = chunked_backward_aniso(*ctx.saved_tensors, dcol.contiguous(), ck=o.ck,
-                                       rb=o.rb_bwd, qb=o.qb, erf_name=o.erf_name,
-                                       exp_name=o.exp_name)
+        grads = chunked_backward_aniso(oc, invd, mag, albedo, dirs_t, counts, dcol.contiguous(),
+                                       t[0] if t else None, ck=o.ck, rb=o.rb_bwd, qb=o.qb,
+                                       erf_name=o.erf_name, exp_name=o.exp_name)
         return (*grads, None, None)
 
 
 def render_fused_chunked_aniso(scene_oc, invd, mag, albedo, dirs_t, counts=None, *,
                                ck: int = DEFAULT_CHUNK, rb: int = 128, pb: int = 8,
                                qb: int = 32, rb_bwd: int | None = None,
-                               erf_name: str = "as5", exp_name: str = "exact"):
+                               erf_name: str = "as5", exp_name: str = "exact",
+                               save_t: bool | None = None):
     """Chunked anisotropic render: oc (B,N,3), invd (B,N,3) = scale^-2, mag
     (B,N), albedo (B,N,3), dirs_t (B,3,R) → colors (B,3,R), the Gaussian
     axis cut into C = N/ck chunks, with the JAX package's block rules
     (ops.cuda_chunked._chunked_blocks); counts default to N and are clamped
     to N. Differentiable through ChunkedRenderAniso (d invd and d dirs
     included) when grad is enabled and an input requires it; otherwise it
-    launches the forward kernel alone."""
+    launches the forward kernel alone. save_t=None saves T when its
+    20*B*N*R bytes fit ops.cuda_chunked.SAVE_T_CHUNKED_MAX_BYTES."""
     erf_name = _kernel_erf_name(erf_name)
     b, n, _ = scene_oc.shape
-    ck, rb, rb_bwd, pb, qb = _chunked_blocks(n, dirs_t.shape[2], ck, rb, rb_bwd, pb, qb)
+    r = dirs_t.shape[2]
+    ck, rb, rb_bwd, pb, qb = _chunked_blocks(n, r, ck, rb, rb_bwd, pb, qb)
     if counts is None:
         counts = torch.full((b,), n, dtype=torch.int32, device=scene_oc.device)
     counts = torch.clamp(counts.to(torch.int32), max=n)
@@ -170,14 +227,17 @@ def render_fused_chunked_aniso(scene_oc, invd, mag, albedo, dirs_t, counts=None,
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
         return chunked_forward_aniso(*inputs, counts, ck=ck, rb=rb, pb=pb, qb=qb,
                                      erf_name=erf_name, exp_name=exp_name)
-    opts = _ChunkedOpts(ck, rb, rb_bwd, pb, qb, erf_name, exp_name, False)
+    if save_t is None:
+        save_t = save_t_bytes(b, n, r) <= cuda_chunked.SAVE_T_CHUNKED_MAX_BYTES
+    opts = _ChunkedOpts(ck, rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
     return ChunkedRenderAniso.apply(*inputs, counts, opts)
 
 
 def render_tiles_chunked_aniso(tiled: AnisoScene, o, tile_dirs, counts=None, *,
                                ck: int = DEFAULT_CHUNK, rb: int = 128, pb: int | None = None,
                                qb: int | None = None, rb_bwd: int | None = None,
-                               erf_name: str = "as5", exp_name: str = "exact") -> torch.Tensor:
+                               erf_name: str = "as5", exp_name: str = "exact",
+                               save_t: bool | None = None) -> torch.Tensor:
     """Chunked sibling of render_tiles_fused_aniso: tiled AnisoScene fields
     (T2, K, ...) with K up to MAX_CHUNKED_CAPACITY, tile_dirs (T2, P, 3),
     counts (T2,) → per-tile colors (T2, P, 3). o is one (3,) origin or a
@@ -194,5 +254,6 @@ def render_tiles_chunked_aniso(tiled: AnisoScene, o, tile_dirs, counts=None, *,
     dirs_t = tile_dirs.transpose(1, 2).contiguous()
     colors_t = render_fused_chunked_aniso(
         oc, invd, tiled.magnitude.contiguous(), tiled.albedo.contiguous(), dirs_t, counts,
-        ck=ck, rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name)
+        ck=ck, rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name,
+        save_t=save_t)
     return colors_t.transpose(1, 2)

@@ -97,12 +97,13 @@ class CudaKernel:
     route = "cuda"
 
     def __init__(self, name: str, source: str, symbol: str, replaces: str,
-                 n_ptr: int, n_int: int):
+                 n_ptr: int, n_int: int, timed: bool = False):
         self.name = name
         self.source = nvcc.CSRC_DIR / source
         self.symbol = symbol
         self.replaces = replaces
         self.launches = 0
+        self.timed = timed  # takes a host buffer for its launches' device ms
         self._argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         self._lib = None
 
@@ -124,13 +125,15 @@ class CudaKernel:
         return fn()
 
     def launch(self, tensors, ints, *, what: str) -> None:
-        """Call the entry point with the tensors' pointers, the ints and the
-        current stream; raise with the CUDA error if the launch failed."""
+        """Call the entry point with the tensors' pointers (None: a null
+        pointer), the ints and the current stream; raise with the CUDA error
+        if the launch failed."""
         lib = self.library()
         dev = tensors[0].device
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            err = getattr(lib, self.symbol)(*(t.data_ptr() for t in tensors), *ints, stream)
+            err = getattr(lib, self.symbol)(*(0 if t is None else t.data_ptr() for t in tensors),
+                                            *ints, stream)
         if err != 0:
             msg = lib.sgrt_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name} launch failed ({what}): {msg}")

@@ -134,6 +134,91 @@ def test_chunked_aniso_gradients_match_jax(setup):
         np.testing.assert_allclose(got / sc, w / sc, atol=tol, err_msg=name)
 
 
+@pytest.fixture(scope="module")
+def jax_value_and_grads(setup):
+    """sum(colors^2) of the JAX package's chunked op on the setup scene and
+    its gradients with respect to mu, scale, magnitude, albedo and dirs."""
+    n, mu, scale, mag, alb, dirs, o = setup
+    jo, counts = jnp.asarray(o), jnp.asarray([n], jnp.int32)
+
+    def loss(*a):
+        return jnp.sum(_jax_chunked(jo, *a, counts) ** 2)
+
+    value, grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, (mu, scale, mag, alb, dirs)))
+    return float(value), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("save_t", [True, False])
+def test_chunked_aniso_schedules_match_jax(setup, jax_value_and_grads, save_t, monkeypatch):
+    """The route's two schedules, T saved by the forward (the card's default
+    under the budget) and T recomputed by the backward, give the JAX
+    package's chunked op's loss and gradients (the JAX package recomputes;
+    tolerance 4 C_max 2^-24 of each output's scale, the module doc's), and
+    the backward is called with T exactly when it is saved."""
+    n, mu, scale, mag, alb, dirs, o = setup
+    seen = []
+    backward = tca.chunked_backward_aniso
+
+    def spy(*a, **kw):
+        seen.append(a[7] is not None)
+        return backward(*a, **kw)
+
+    monkeypatch.setattr(tca, "chunked_backward_aniso", spy)
+    leaves = [_t(a).requires_grad_(True) for a in (mu, scale, mag, alb, dirs)]
+    oc = leaves[0] - _t(o)[None, :]
+    invd = 1.0 / (leaves[1] * leaves[1])
+    colors = tca.render_fused_chunked_aniso(
+        oc[None], invd[None], leaves[2][None], leaves[3][None], leaves[4].T[None].contiguous(),
+        torch.tensor([n], dtype=torch.int32), save_t=save_t, **KW)
+    loss = torch.sum(colors ** 2)
+    loss.backward()
+    assert seen == [save_t]
+    tol = _scene_tol(setup)
+    want_loss, want = jax_value_and_grads
+    assert abs(float(loss.detach()) - want_loss) <= tol * abs(want_loss)
+    for name, leaf, w in zip(("mu", "scale", "magnitude", "albedo", "dirs"), leaves, want):
+        got = leaf.grad.numpy()
+        assert np.isfinite(got).all(), name
+        if name != "dirs":
+            assert np.all(got[n:] == 0), f"{name}: padding gradients are not zero"
+        sc = max(float(np.abs(w).max()), 1e-8)
+        np.testing.assert_allclose(got / sc, w / sc, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("over", [False, True])
+def test_chunked_aniso_route_picks_saved_t_by_budget(over, monkeypatch):
+    """save_t=None saves T when its 20 B N R bytes fit
+    SAVE_T_CHUNKED_MAX_BYTES (the forward-with-T runs and the backward gets
+    T) and recomputes above it, by the isotropic chunked route's rule."""
+    rng = np.random.default_rng(7)
+    b, n, r = 2, 256, 64
+    oc = _t(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32) + np.float32([0, 0, 4]))
+    invd = _t(rng.uniform(4, 25, (b, n, 3)).astype(np.float32))
+    mag, alb = _t(rng.uniform(0.5, 1, (b, n)).astype(np.float32)), _t(
+        rng.uniform(0, 1, (b, n, 3)).astype(np.float32))
+    d = rng.normal(size=(b, 3, r)).astype(np.float32) * np.float32([0.2, 0.2, 1])[None, :, None]
+    dirs = _t(d / np.linalg.norm(d, axis=1, keepdims=True))
+    nbytes = 20 * b * n * r
+    monkeypatch.setattr(tc, "SAVE_T_CHUNKED_MAX_BYTES", nbytes - 1 if over else nbytes)
+    calls = []
+    for name in ("chunked_forward_aniso", "chunked_forward_t_aniso", "chunked_backward_aniso"):
+        real = getattr(tca, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls.append((_name, len(a) > 7 and a[7] is not None))
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(tca, name, spy)
+    leaves = [x.requires_grad_(True) for x in (oc, invd, mag, alb, dirs)]
+    counts = torch.tensor([n, 100], dtype=torch.int32)
+    tca.render_fused_chunked_aniso(*leaves, counts, ck=128, qb=16).sum().backward()
+    want = ([("chunked_forward_aniso", False), ("chunked_backward_aniso", False)] if over else
+            [("chunked_forward_t_aniso", False), ("chunked_backward_aniso", True)])
+    assert calls == want
+    assert all(torch.isfinite(x.grad).all() for x in leaves)
+
+
 def _routing_tiles():
     """tests/test_chunked_aniso.py's two 128-row tiles (counts 128, 50),
     with the rows past a count the inert dummies tiling produces (mu 0,

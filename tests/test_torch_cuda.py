@@ -440,26 +440,70 @@ def test_chunked_aniso_kernels_match_plain(erf_name, exp_name):
     assert (got[4][2] == 0).all()
 
 
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+def test_chunked_aniso_saved_t_kernels_match_plain(erf_name, exp_name):
+    """The saved-T schedule's kernels (the forward-with-T and the saved-T
+    backward) against their plain versions and float64; T is 0 on dead rows
+    and the saved-T backward equals the recompute one bit for bit."""
+    from sgrt_tpu_torch.ops import cuda_chunked_aniso as tca
+
+    dev = _card()
+    args = _aniso_inputs(dev, n=384, counts=CHUNK_COUNTS)
+    dcol = torch.randn((5, 3, 200), generator=torch.Generator().manual_seed(7)).to(dev)
+    kw = dict(ck=128, erf_name=erf_name, exp_name=exp_name)
+    before = (tca.CHUNKED_FWD_T_ANISO.launches, tca.CHUNKED_BWD_T_ANISO.launches)
+    colors, t = tca.chunked_forward_t_aniso(*args, **kw)
+    got = tca.chunked_backward_aniso(*args, dcol, t, **kw)
+    torch.cuda.synchronize()
+    assert (tca.CHUNKED_FWD_T_ANISO.launches,
+            tca.CHUNKED_BWD_T_ANISO.launches) == (before[0] + 1, before[1] + 1)
+    want_c, want_t = tca.chunked_forward_t_aniso_plain(*args, **kw)
+    np.testing.assert_allclose(colors.cpu().numpy(), want_c.cpu().numpy(), atol=2e-5)
+    # T relative to its scale, as test_chunked_forward_kernels_match_plain
+    # holds it (sums of up to 384 terms in its exponent)
+    scale = float(want_t.abs().max())
+    np.testing.assert_allclose(t.cpu().numpy() / scale, want_t.cpu().numpy() / scale, atol=5e-5)
+    assert torch.equal(colors, tca.chunked_forward_aniso(*args, **kw))
+    dead = torch.arange(384, device=dev)[None, :] >= args[5].clamp(max=384)[:, None].long()
+    assert (t.permute(0, 2, 1, 3)[dead] == 0).all()
+    _assert_grads_f64_gate(got, tca.chunked_backward_aniso_plain(*args, dcol, t, **kw),
+                           tca.chunked_backward_aniso_plain(*_double(args), dcol.double(), **kw))
+    for a, b in zip(got, tca.chunked_backward_aniso(*args, dcol, **kw)):
+        assert torch.equal(a, b)
+
+
 def test_chunked_aniso_route_on_card():
     """render_fused_chunked_aniso's gradients on the card come from the
-    chunked anisotropic backward and agree with the plain backward; its
-    forward is the fused anisotropic forward's kernel, so the colors are
-    equal bit for bit; a chunk size that does not divide N raises."""
-    from sgrt_tpu_torch.ops import cuda_aniso as ta
+    saved-T schedule under the byte budget and from the recompute backward
+    above it, equal to each other and within the float64 gate of the plain
+    backward; its colors are the chunked forward's; a chunk size that does
+    not divide N raises."""
+    from sgrt_tpu_torch.ops import cuda_chunked as tc
     from sgrt_tpu_torch.ops import cuda_chunked_aniso as tca
 
     dev = _card()
     args = _aniso_inputs(dev, n=384, r=256, counts=CHUNK_COUNTS)
     dcol = torch.randn((5, 3, 256), generator=torch.Generator().manual_seed(6)).to(dev)
-    leaves = [a.clone().requires_grad_(True) for a in args[:5]]
-    before = tca.CHUNKED_BWD_ANISO.launches
-    tca.render_fused_chunked_aniso(*leaves, args[5], ck=128).backward(dcol)
-    torch.cuda.synchronize()
-    assert tca.CHUNKED_BWD_ANISO.launches == before + 1
-    _assert_grads_f64_gate([x.grad for x in leaves],
+    grads = {}
+    budget = tc.SAVE_T_CHUNKED_MAX_BYTES
+    for kernel, limit in ((tca.CHUNKED_BWD_T_ANISO, budget), (tca.CHUNKED_BWD_ANISO, 0)):
+        leaves = [a.clone().requires_grad_(True) for a in args[:5]]
+        before = kernel.launches
+        tc.SAVE_T_CHUNKED_MAX_BYTES = limit
+        try:
+            colors = tca.render_fused_chunked_aniso(*leaves, args[5], ck=128)
+            colors.backward(dcol)
+        finally:
+            tc.SAVE_T_CHUNKED_MAX_BYTES = budget
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(colors.detach(), tca.chunked_forward_aniso(*args, ck=128))
+        grads[kernel.name] = [x.grad for x in leaves]
+    _assert_grads_f64_gate(grads[tca.CHUNKED_BWD_T_ANISO.name],
                            tca.chunked_backward_aniso_plain(*args, dcol, ck=128),
                            tca.chunked_backward_aniso_plain(*_double(args), dcol.double(), ck=128))
-    assert torch.equal(tca.chunked_forward_aniso(*args, ck=128), ta.fused_forward_aniso(*args))
+    for a, b in zip(*grads.values()):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="chunks"):
         tca.chunked_backward_aniso(*args, dcol, ck=256)
 
