@@ -17,7 +17,9 @@ comes out, and times the kernels:
   dense     the 50k-Gaussian sphere at 512x512 (the Gaussian-axis chunked
             kernels): tile grid and buckets, the chunked kernels against
             their plain versions, the bucketed frame and the CLI, the
-            bucketed train step and the slab train step;
+            bucketed train step and the slab train step, and the kernels'
+            times with each backward's parts (the fused forward beside the
+            chunked one);
   aniso     the cube cloud with per-axis scales at 256x256 (the fused
             anisotropic kernels): kernels vs plain, the --aniso CLI orbit,
             fit_cli --aniso, the bucketed anisotropic train step;
@@ -449,9 +451,17 @@ def kernel_resources_phase() -> None:
                                       timeout=60).stdout.strip() or mangled
             sass[f"{source.name}: {name}"] = v
     over = [r["kernel"] for r in res if r["local_bytes"]]
-    emit("kernel_resources", functions=res, sass=sass, spilling=over)
-    check(not [r for r in res if r["source"] == "chunked_aniso.cu" and r["local_bytes"]],
-          f"a chunked anisotropic kernel uses local memory: {over}")
+    # every instantiation of csrc/chunked.cu (all erf/exp names), from the
+    # ptxas report in its build log: stack frame and spill bytes
+    chunked = [k.source for k in kernels.KERNELS if k.source.name == "chunked.cu"][0]
+    frames = re.findall(r"Compiling entry function '(\S+)'.*?(\d+) bytes stack frame, "
+                        r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        nvcc.build_log(chunked), re.S)
+    frames = [(f, [int(v) for v in vals]) for f, *vals in frames if "kernel" in f]
+    local = {f: vals for f, vals in frames if any(vals)}
+    emit("kernel_resources", functions=res, sass=sass, spilling=over,
+         chunked_instantiations=len(frames), chunked_local_bytes=local)
+    check(bool(frames) and not local, f"a chunked kernel uses local memory: {local}")
 
 
 def compare_train_kernels(inp, dcol, erf_name="as5", exp_name="exact") -> dict:
@@ -803,8 +813,9 @@ def compare_chunked_kernels(inp, dcol, c_k: int, erf_name="as5", exp_name="exact
     |kernel - plain| / max |plain| against the float32 plain version
     ("rel"), against the float64 one for kernel and float32 plain
     ("vs_f64"), the absolute max differences against the float32 plain
-    version, the saved-T and recompute backwards against each other, and
-    the plain versions' ms (one call each, tile by tile)."""
+    version, the saved-T and recompute backwards against each other (equal
+    bit for bit, backwards_differ, as the forward's and the forward-with-T's
+    colors), and the plain versions' ms (one call each, tile by tile)."""
     import torch
 
     from sgrt_tpu_torch.ops import cuda_chunked as cc
@@ -859,6 +870,9 @@ def compare_chunked_kernels(inp, dcol, c_k: int, erf_name="as5", exp_name="exact
     if with_fused_bwd:
         rel["fused_bwd_t_vs_bwd"] = {n: rel_err(a, b) for n, a, b in zip(names, f_t, f_r)}
     over += backwards_differ(rel)
+    if not torch.equal(colors, colors_t):   # T is rounded alike whether or not it is stored
+        over.append(f"chunked_fwd vs chunked_fwd_t colors: {rel_err(colors, colors_t):.3g} "
+                    "(must be 0)")
     for i in [i for i, c in enumerate(inp[5].tolist()) if c <= 0]:
         check(all(bool((x[i] == 0).all()) for x in (colors, colors_t, *g_t, *g_r)),
               f"a dead tile's chunked outputs are not zero ({erf_name}/{exp_name})")
@@ -871,9 +885,10 @@ def compare_chunked_kernels(inp, dcol, c_k: int, erf_name="as5", exp_name="exact
 def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
     """The dense cell: tile grid and buckets, the chunked kernels against
     their plain versions, the bucketed frame and the CLI, the bucketed train
-    step and the slab train step, and the chunked kernels' times (the
-    chunked saved-T backward beside the fused one). Returns the kernel
-    line's entries of kernels 5-8."""
+    step and the slab train step, and the chunked kernels' times (each
+    backward's parts; the fused forward beside kernel 5 and the fused
+    saved-T backward beside kernel 8). Returns the kernel line's entries of
+    kernels 5-8."""
     import torch
 
     from sgrt_tpu_torch import cli
@@ -1098,7 +1113,8 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
 
     # 6. times at the dense bucket's launch shapes, and the chunked saved-T
     # backward beside the fused one (the card's own MAX_MONOLITHIC_CAPACITY
-    # is to be set from that; the forwards are one kernel on the card)
+    # is to be set from that). Beside kernel 5, its earlier code path at the
+    # same shapes: the fused forward (kernel 1's entry point)
     dcol = cotangent(dense_in, 50)
     pb, qb = ck._block_sizes(c_k)
     kw = dict(ck=c_k, pb=pb, qb=qb)
@@ -1106,12 +1122,25 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
     ms = {cc.CHUNKED_FWD.name: time_cuda(lambda: cc.chunked_forward(*dense_in, **kw),
                                          iters=3, warmup=1),
           cc.CHUNKED_FWD_T.name: time_cuda(lambda: cc.chunked_forward_t(*dense_in, **kw),
-                                           iters=2, warmup=1),
-          cc.CHUNKED_BWD_T.name: time_cuda(lambda: cc.chunked_backward(*dense_in, dcol, t_d,
-                                                                       ck=c_k, qb=qb),
-                                           iters=2, warmup=1),
-          cc.CHUNKED_BWD.name: time_cuda(lambda: cc.chunked_backward(*dense_in, dcol, ck=c_k,
-                                                                     qb=qb), iters=1, warmup=1)}
+                                           iters=2, warmup=1)}
+    earlier = {"kernel 5 as the fused forward (fused_fwd.cu)": time_cuda(
+        lambda: ck.fused_forward(*dense_in, pb=pb, qb=qb), iters=3, warmup=1)}
+    # the backwards, part by part: each chunk's pass A (recompute only), p
+    # side, db sum and q side and the row sums by CUDA events; a backward's
+    # time is their sum
+    n_chunks = n_d // c_k
+    parts, names = {}, ("pass_a", "p_side", "db_sum", "q_side")
+    for k, t_arg in ((cc.CHUNKED_BWD, None), (cc.CHUNKED_BWD_T, t_d)):
+        part_ms = torch.zeros(4 * n_chunks + 1)
+        cc.chunked_backward(*dense_in, dcol, t_arg, ck=c_k, qb=qb, part_ms=part_ms)
+        pm = part_ms.tolist()
+        parts[k.name] = {
+            "chunks": [{f"{p}_ms": pm[4 * a + i] for i, p in enumerate(names)}
+                       for a in range(n_chunks)],
+            "rows_ddirs_ms": pm[-1],
+            **{f"{p}_total_ms": sum(pm[4 * a + i] for a in range(n_chunks))
+               for i, p in enumerate(names)}}
+        ms[k.name] = sum(pm)
     g_chunked = cc.chunked_backward(*dense_in, dcol, t_d, ck=c_k, qb=qb)
     fused_bwd_ms, g_fused = time_once(lambda: ck.fused_backward(*dense_in, dcol, t_d, qb=qb))
     check(all(bool(torch.isfinite(g).all()) for g in g_fused), "the fused backward at the "
@@ -1156,7 +1185,8 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
     emit("dense_times", shape={"B": b_, "N": n_, "R": r_, "ck": c_k,
                                "max_count": int(dense_in[5].max()),
                                "live_pairs": float(np.sum(live_counts(dense_in) ** 2) * r_)},
-         kernels=times, backward_side_by_side=backward_side_by_side, power_limit=smi)
+         kernels=times, earlier_designs_ms=earlier, backward_parts=parts,
+         backward_side_by_side=backward_side_by_side, power_limit=smi)
     return entries
 
 

@@ -1,39 +1,80 @@
-// The chunked anisotropic route's kernels for Hopper (sm_90a), designed for
-// the card: the forward (colors, and with SAVE_T the transmittance factors
-// T) and the backward (p side, q side; from saved T or recomputing it).
+// The Gaussian-axis chunked kernels for Hopper (sm_90a), designed for the
+// card, over both row geometries of gauss_common.cuh (IsoGeo, AnisoGeo):
+// the forward (colors, and with SAVE_T the transmittance factors T) and the
+// backward (p side, q side; from saved T or recomputing it), with the
+// Gaussian axis cut into chunks of ck rows.
 //
-// Replaces sgrt_tpu/ops/pallas_chunked_aniso.py::_chunked_fwd_aniso_kernel
-// (entry points sgrt_chunked_fwd_aniso and, with T, sgrt_chunked_fwd_t_aniso,
-// the saved-T schedule's forward) and ::_chunked_bwd_aniso_kernel (entry
-// point sgrt_chunked_bwd_aniso, recomputing T; sgrt_chunked_bwd_t_aniso is
-// its saved-T schedule, which the reference leaves out only for lack of TPU
-// memory, pallas_chunked_aniso.py:19-22). The functions are those of
-// fused_fwd.cu (over AnisoGeo rows) and chunked_bwd.cu, whose notes give
-// the definitions, the p-side/q-side split of the backward and its sums;
-// the scratch and the chains into the per-row sums are chunked_common.cuh's.
+// Replaces the TPU kernels sgrt_tpu/ops/pallas_chunked.py::
+// _chunked_fwd_kernel (entry point sgrt_chunked_fwd), ::_chunked_fwd_t_kernel
+// (sgrt_chunked_fwd_t), ::_chunked_bwd_t_kernel (sgrt_chunked_bwd_t, from
+// saved T) and ::_chunked_bwd_kernel (sgrt_chunked_bwd, recomputing T), and
+// sgrt_tpu/ops/pallas_chunked_aniso.py::_chunked_fwd_aniso_kernel
+// (sgrt_chunked_fwd_aniso and, with T, sgrt_chunked_fwd_t_aniso, the
+// saved-T schedule's forward) and ::_chunked_bwd_aniso_kernel
+// (sgrt_chunked_bwd_aniso, recomputing T; sgrt_chunked_bwd_t_aniso is its
+// saved-T schedule, which the reference leaves out only for lack of TPU
+// memory, pallas_chunked_aniso.py:19-22). Isotropic and anisotropic entry
+// points run the same templates; the geometry decides a row's per-ray terms
+// and J = d mb / d d (Side<Geo>, chunked_common.cuh).
+//
+// The forward's function is fused_fwd.cu's (its note gives the
+// definitions). The backward is the fused backward's VJP (fused_bwd.cu's
+// note, same definitions and rounding). Every cotangent that reaches the
+// raw inputs is LINEAR in the per-(row, ray) sums (dco, dmb, dinv, dsb_p,
+// the albedo weight), and the base path is linear in db
+// (pallas_chunked.py:46-51). So the pair work is split in two and summed in
+// any fixed order:
+//   p side (bwd_p_kernel), per live p row of chunk a and ray, over every
+//     live q: dmb_p += S0 inv_q, dsb_p += S1 inv_q; plus the direct terms
+//     dco_p += sqrt(2/pi) tw_p A_p and dalb_p's weight sqrt(2/pi) co_p tw_p
+//   q side (bwd_q_kernel), per live q row and ray, over the p rows of ONE
+//     p-chunk a: dco_q -= sum_k G_k ee_k, dmb_q -= S0 inv_q,
+//     dinv_q += S0 (mb_p - mb_q) + S1 sb_p; then the base path with
+//     chunk a's partial db_a = sum_{p in a} g_p tw_p, as the Pallas kernel
+//     chains it per (a, bq) (pallas_chunked.py:493-508).
+// Each side chains its own sums through the geometry's prep and reduces
+// them over the warp's rays into ten per-row sums; bwd_rows_kernel adds the
+// p side's and the q side's and forms the per-row gradients as fused_bwd.cu's
+// row reductions do. The chains are linear too, so they split by side
+// exactly, as the reference splits them (pallas_chunked_aniso.py:333-348:
+// dsb on the p side, dinv on the q side; Side<Geo> in chunked_common.cuh
+// names the sums). ddirs sums the per-block partials of each row's chain.
+// A row's dmb reaches ddirs through J = d mb / d d (isotropic: oc;
+// anisotropic: sb^2 (M - 2 mb invd d), M = oc invd), and a pair adds
+// S0 inv_q to dmb_p and takes it from dmb_q, so the pair's share is
+// (J_p - J_q) S0 inv_q: the p side sums it as that difference and the q
+// side leaves its pair terms out of ddirs, since the two sides' separate
+// sums are large and cancel (summed apart they lost ~30x the plain
+// version's accuracy at ~4000 isotropic rows). The host loops over
+// p-chunks a in order (pass A with T, P, db_a, Q per chunk), so sums
+// carried across chunks (the q side's) are read-modify-writes in stream
+// order: deterministic, no atomics.
 //
 // What bounds them on this card: operations. Per live (p, q, ray) the
 // forward evaluates five A&S erf taps (an IEEE reciprocal and an accurate
 // expf each, ~30 issue slots with 2 MUFU), the backward's p side five
-// exp(-x^2) and its q side five erf-and-gauss taps; the recompute
-// backward adds the forward's pass A. Each staged row also needs its per-ray terms
-// (A, Bt, two IEEE square roots, a division, an exp: ~40 FP32 and 3 MUFU)
-// and, on the p side, J = d mb / d d. Bytes stay far below: T is 20 bytes
-// per (row, ray), read once per 64 q rows. Tensor cores do not apply: no
-// step is a matrix product (every term is an erf or exp of its own pair's
-// argument), and TF32 would not hold mb's cancellation anyway.
+// exp(-x^2) and its q side five erf-and-gauss taps; the recompute backward
+// adds the forward's pass A. Each staged row also needs its per-ray terms
+// (isotropic: mb = oc . d and co, one exp; anisotropic: A, Bt, two IEEE
+// square roots, a division, an exp: ~40 FP32 and 3 MUFU) and, on the p
+// side, J. Bytes stay far below: T is 20 bytes per (row, ray), read once
+// per 64 q rows. Tensor cores do not apply: no step is a matrix product
+// (every term is an erf or exp of its own pair's argument), and TF32 would
+// not hold mb's cancellation anyway.
 //
-// What the design does about it (the fused/chunked templates it replaces
-// kept 8 rows a thread and both levels of every sum in registers: the
-// anisotropic forward spilled at 128 registers, the recompute p side ran
-// at 255 registers and 8 warps an SM, and each 8-row group of a block
-// recomputed every staged row's terms for its ray):
+// What the design does about it (the templates it replaces kept 8 rows a
+// thread and both levels of every sum in registers: the forward ran at 128
+// registers and 16 warps an SM, the anisotropic one spilled, the recompute
+// p side ran at 255 registers and 8 warps an SM with pass A inside it, and
+// each 8-row group of a block recomputed every staged row's terms for its
+// ray):
 //   * Warp-wide row groups. A block is 32 rays (one warp) by G groups of 4
-//     rows: the forward G = 8 (32 p rows, the fused forward's split, 256
-//     threads, 4 blocks and 32 warps an SM at <= 64 registers), the
-//     backward G = 16 (64 rows, chunked_bwd.cu's blocks, 512 threads: the
-//     p side 16 warps an SM at <= 128 registers, the q side 32 at <= 64).
-//     Sums over a group's rays are warp butterflies: no barrier per row.
+//     rows: the forward G = 8 (32 p rows a block, 256 threads, 4 blocks and
+//     32 warps an SM at <= 64 registers), the backward G = 16 (64 rows,
+//     512 threads: the p side 16 warps an SM at <= 128 registers, the q
+//     side 32 at <= 64). Sums over a group's rays are warp butterflies: no
+//     barrier per row. Blocks of 64 rows spread a 5000-row tile over ~80
+//     blocks of each side.
 //   * Planes in shared memory. For each stage of qb rows of the other
 //     side, the block computes every staged row's per-ray terms once,
 //     spread over its G groups, into planes [field][row][ray] (rays minor:
@@ -43,11 +84,16 @@
 //     the p rows, and the stage's T slab (5 qb rays floats, copied with
 //     cp.async). The planes are double-buffered: stage s+1 is filled (and
 //     its T copied) while stage s is summed, one barrier per stage.
+//     Isotropic rows' inv, sb and J = oc are per row, not per ray; they
+//     fill the planes all the same (one value across the 32 lanes): every
+//     kernel's occupancy is bound by registers (64 x 1024 or 128 x 512
+//     threads fill the 64K), not by shared memory, so planes of their own
+//     per row would buy no block an SM and add a second read path.
 //   * A register budget without spills: the second level of every
 //     two-level sum (pass A's acc, the p side's dmb/dsb, the q side's dco/
-//     dmb/dinv), the p side's J, A and tw and the q side's own rows' mb, co
-//     and inv live in the thread's own slots of shared memory, touched once
-//     per stage, row or pair; __launch_bounds__ names the blocks per SM, so
+//     dmb/dinv), the p side's J, A and tw and the q side's own rows' mb and
+//     inv live in the thread's own slots of shared memory, touched once per
+//     stage, row or pair; __launch_bounds__ names the blocks per SM, so
 //     ptxas keeps each kernel within the registers that its occupancy
 //     allows, with no local memory.
 //   * The recompute backward is the saved-T one with T made per chunk: the
@@ -57,16 +103,38 @@
 //     recomputed T is the saved one bit for bit: both backwards give the
 //     same gradients. T is rounded with __fmul_rn whether or not it is
 //     stored, so the forward's colors equal the forward-with-T's.
-//   * Every sum keeps its order: each stage's terms summed on their own,
-//     then the stages in order; the groups' partials (colors, db, ddirs)
-//     in group order; no atomics.
+//   * Float32 at thousands of rows: every sum over the other side's rows
+//     is two-level (each stage's terms summed on their own, then the stages
+//     in order), since dco and T are differences of such sums, and the q
+//     side's second level of dco in double; the groups' partials (colors,
+//     db, ddirs) in group order; ddirs' shares in double,
+//     since the p side's and the q side's chain terms cancel ~25x (the
+//     50k-Gaussian sphere); mb, |oc|^2 and |oc|^2 - mb^2 (isotropic) and
+//     A, Bt, C (anisotropic) round as the plain version rounds them. No
+//     atomics.
 //   * Dead blocks (splits or row blocks past a tile's count) exit at once;
 //     a group past the count fills planes but sums nothing.
 // Shared memory per block at qb = 32: forward 52 KB (planes 32, pass A's
 // acc 20), p side 104 KB (planes 48, slots 56), q side 112.4 KB (planes 64,
-// slots 48, the rays' dcol 0.4: two blocks fill an SM's 228 KB).
+// slots 48 with dco's doubles, the rays' dcol 0.4: two blocks fill an SM's
+// 228 KB).
 //
-// Layouts as fused_fwd.cu's (forward) and chunked_bwd.cu's (backward).
+// Peak scratch of the backward, B tiles, N = C ck rows, R rays in blocks of
+// 32 (Rp = R rounded up to 32), in brackets at the 50k-Gaussian sphere's
+// dense bucket (B = 256, N = 5376, ck = 1792, R = 128):
+//   rows_p, rows_q  2 x B (Rp/32) N 10 floats (0.44 GB)
+//   dd_p, dd_q      2 x B (N/64) 3 Rp doubles (0.13 GB)
+//   db_part, db     B (ck/64 + 1) Rp          (~0 GB)
+//   t_a (recompute) B 5 ck Rp                 (1.17 GB)
+//
+// Layouts (float32 unless noted, contiguous): oc, albedo (B,N,3); sigma
+// (B,N) or invd (B,N,3); mag (B,N); dirs, dcol (B,3,R) ray-minor; counts
+// (B,) int32; the forward's partial (B, N/32, 3, R) scratch, colors (B,3,R)
+// and, with SAVE_T, t (B,5,N,R), zero on rows at or past the count; the
+// backward's t (B,5,N,R) (saved-T only), scratch as above
+// (sgrt_chunked_bwd_scratch_floats), outputs doc, dalb (B,N,3), dsig (B,N)
+// or dinvd (B,N,3), dmag (B,N), ddirs (B,3,R). Rows at or past the count
+// get exactly zero gradient.
 
 #include <cuda_runtime.h>
 
@@ -118,8 +186,8 @@ __device__ __forceinline__ void warp_row_sums(const float (&v)[kSums], float* ou
 // Pass A's planes of the staged rows [q0, q0 + nq) for the block's rays:
 // mb, inv, co and the base term co erf(-mb inv), [plane][row][ray]. Group g
 // fills rows g, g + G, ... for its own ray.
-template <int ERF, int EXP>
-__device__ __forceinline__ void fill_a(float* pl, int qb, const AnisoGeo& geo, int q0, int nq,
+template <class Geo, int ERF, int EXP>
+__device__ __forceinline__ void fill_a(float* pl, int qb, const Geo& geo, int q0, int nq,
                                        float dx, float dy, float dz) {
   const int plane = qb * kRays;
   for (int j = threadIdx.y; j < nq; j += blockDim.y) {
@@ -141,10 +209,10 @@ __device__ __forceinline__ void fill_a(float* pl, int qb, const AnisoGeo& geo, i
 // base in a register, acc in the thread's slots acc2[(i kTaps + k) nt + tid]
 // (nt the block's threads). Every thread of the block calls it; a dead
 // group (live false) fills planes and sums base only.
-template <int ERF, int EXP>
-__device__ __forceinline__ void pass_a_planes(float* pl, float* acc2, int qb,
-                                              const AnisoGeo& geo, int cnt, float dx, float dy,
-                                              float dz, const float (&mbp)[kFwdPB],
+template <class Geo, int ERF, int EXP>
+__device__ __forceinline__ void pass_a_planes(float* pl, float* acc2, int qb, const Geo& geo,
+                                              int cnt, float dx, float dy, float dz,
+                                              const float (&mbp)[kFwdPB],
                                               const float (&sgp)[kFwdPB], bool live,
                                               float& base) {
   const int x = threadIdx.x, nt = kRays * blockDim.y, tid = threadIdx.y * kRays + x;
@@ -153,14 +221,14 @@ __device__ __forceinline__ void pass_a_planes(float* pl, float* acc2, int qb,
   for (int e = 0; e < kFwdPB * kTaps; ++e) acc2[e * nt + tid] = 0.0f;
   base = 0.0f;
   const int ns = (cnt + qb - 1) / qb;
-  if (ns > 0) fill_a<ERF, EXP>(pl, qb, geo, 0, min(qb, cnt), dx, dy, dz);
+  if (ns > 0) fill_a<Geo, ERF, EXP>(pl, qb, geo, 0, min(qb, cnt), dx, dy, dz);
   __syncthreads();
   for (int s = 0; s < ns; ++s) {
     const int q0 = s * qb, nq = min(qb, cnt - q0);
     const float* cur = pl + (s & 1) * buf + x;
     if (s + 1 < ns)
-      fill_a<ERF, EXP>(pl + ((s + 1) & 1) * buf, qb, geo, q0 + qb, min(qb, cnt - q0 - qb), dx,
-                       dy, dz);
+      fill_a<Geo, ERF, EXP>(pl + ((s + 1) & 1) * buf, qb, geo, q0 + qb, min(qb, cnt - q0 - qb),
+                            dx, dy, dz);
     float base_part = 0.0f;
     if (live) {
       float part[kFwdPB][kTaps];
@@ -220,9 +288,9 @@ struct Ray {
 // SAVE_T) goes to t + ((b kTaps + k) t_rows + p - t_row0) t_ld + r, zero on
 // rows at or past the count; the split's colors to partial, unless partial
 // is null (the recompute backward's T of one chunk).
-template <int ERF, int EXP, bool SAVE_T>
+template <class Geo, int ERF, int EXP, bool SAVE_T>
 __global__ void __launch_bounds__(kRays * kFwdG, 4)
-fwd_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
+fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
            const float* __restrict__ mag, const float* __restrict__ alb,
            const float* __restrict__ dirs, const int* __restrict__ counts,
            float* __restrict__ partial, float* __restrict__ t, int N, int R, int qb,
@@ -253,7 +321,7 @@ fwd_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
   const int p_end = min(p_begin + kFwdRows, cnt);
   const bool live = p0 < p_end;  // warp-uniform
 
-  const AnisoGeo geo(oc, invd, mag, b, N);
+  const Geo geo(oc, shape, mag, b, N);
   const Ray ray(dirs, nullptr, b, R, r);
   float mbp[kFwdPB], sgp[kFwdPB];
 #pragma unroll
@@ -269,13 +337,17 @@ fwd_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
   float* pl = smem;
   float* acc2 = smem + 2 * kAPlanes * qb * kRays;
   float base;
-  pass_a_planes<ERF, EXP>(pl, acc2, qb, geo, cnt, ray.dx, ray.dy, ray.dz, mbp, sgp, live, base);
+  pass_a_planes<Geo, ERF, EXP>(pl, acc2, qb, geo, cnt, ray.dx, ray.dy, ray.dz, mbp, sgp, live,
+                               base);
 
   float col[3] = {0.0f, 0.0f, 0.0f};
   const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
   float* t_b =
       SAVE_T ? t + (static_cast<size_t>(b) * kTaps * t_rows + (p0 - t_row0)) * t_ld + r : nullptr;
-#pragma unroll
+  // With SAVE_T the rows and taps go one at a time: unrolled, the 20 T
+  // stores' addresses spilled 8-48 bytes at 64 registers (the isotropic
+  // instantiations, and the anisotropic ones with the fast exp)
+#pragma unroll(SAVE_T ? 1 : kFwdPB)
   for (int i = 0; i < kFwdPB; ++i) {
     const int p = p0 + i;
     if (SAVE_T && live_ray && p >= p_end && p < N) {  // past the count
@@ -284,7 +356,7 @@ fwd_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
     }
     if (p < p_end) {  // warp-uniform
       float tw = 0.0f;
-#pragma unroll
+#pragma unroll(SAVE_T ? 1 : kTaps)
       for (int k = 0; k < kTaps; ++k) {
         // rounded alike whether or not T is stored: the colors of the
         // forward and the forward-with-T are equal bit for bit
@@ -327,14 +399,14 @@ size_t fwd_smem(int qb) { return sizeof(float) * (2 * kAPlanes * qb + kFwdRows *
 
 // The p side's planes of the staged q rows [q0, q0 + nq): mb, inv,
 // -2/sqrt(pi) co and J = d mb / d d.
-template <int EXP>
-__device__ __forceinline__ void fill_p(float* pl, int qb, const AnisoGeo& geo, int q0, int nq,
+template <class Geo, int EXP>
+__device__ __forceinline__ void fill_p(float* pl, int qb, const Geo& geo, int q0, int nq,
                                        float dx, float dy, float dz) {
   const int plane = qb * kRays;
   for (int j = threadIdx.y; j < nq; j += blockDim.y) {
-    const AnisoGeo::Fields f = geo.fields(q0 + j);
-    const RayTerms t = AnisoGeo::terms<EXP>(f, dx, dy, dz);
-    const Jac jq = Side<AnisoGeo>::jac(f.ix, f.iy, f.iz, f.mx, f.my, f.mz, t, dx, dy, dz);
+    const typename Geo::Fields f = geo.fields(q0 + j);
+    const RayTerms t = Geo::template terms<EXP>(f, dx, dy, dz);
+    const Jac jq = Side<Geo>::jac(f, t, dx, dy, dz);
     float* o = pl + j * kRays + threadIdx.x;
     o[0] = t.mb;
     o[plane] = t.inv;
@@ -347,15 +419,15 @@ __device__ __forceinline__ void fill_p(float* pl, int qb, const AnisoGeo& geo, i
 
 // T comes from tsrc (t_rows rows from t_row0, leading dimension t_ld): the
 // forward-with-T's (B,5,N,R), or the recompute backward's T of chunk a.
-template <int ERF, int EXP>
+template <class Geo, int ERF, int EXP>
 __global__ void __launch_bounds__(kRays * kBwdG, 1)
-bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
+bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
              const float* __restrict__ mag, const float* __restrict__ alb,
              const float* __restrict__ dirs, const int* __restrict__ counts,
              const float* __restrict__ dcol, const float* __restrict__ tsrc, int t_rows,
              int t_row0, int t_ld, float* __restrict__ rows_p, double* __restrict__ dd_p,
              float* __restrict__ db_part, int N, int R, int Rp, int ck, int a, int qb) {
-  using S = Side<AnisoGeo>;
+  using S = Side<Geo>;
   extern __shared__ float smem[];
   const int x = threadIdx.x, g = threadIdx.y;
   const int nt = kRays * kBwdG, tid = g * kRays + x;
@@ -369,7 +441,7 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
   const bool live = p0 < p_end;  // warp-uniform
   const Ray ray(dirs, dcol, b, R, r);
   const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
-  const AnisoGeo geo(oc, invd, mag, b, N);
+  const Geo geo(oc, shape, mag, b, N);
   const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
   const int n_rb = gridDim.x;
   const int plane = qb * kRays, buf = kPPlanes * plane;
@@ -416,18 +488,19 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
     at(i) = at(kBwdPB + i) = 0.0f;  // dmb_p, dsb_p
   }
 
-  // the pair pass, p side (chunked_bwd.cu's bwd_p_kernel): exp(-x^2) of each
-  // tap; a pair's share of ddirs is (J_p - J_q) S0 inv_q, summed as that
-  // difference
+  // the pair pass, p side: only exp(-x^2) of each tap is needed here; a
+  // pair's share of ddirs is (J_p - J_q) S0 inv_q, summed as that
+  // difference (the head note)
   double gx = 0.0, gy = 0.0, gz = 0.0;
   const int ns = (cnt + qb - 1) / qb;
-  fill_p<EXP>(pl, qb, geo, 0, min(qb, cnt), dx, dy, dz);
+  fill_p<Geo, EXP>(pl, qb, geo, 0, min(qb, cnt), dx, dy, dz);
   __syncthreads();
   for (int s = 0; s < ns; ++s) {
     const int q0 = s * qb, nq = min(qb, cnt - q0);
     const float* cur = pl + (s & 1) * buf + x;
     if (s + 1 < ns)
-      fill_p<EXP>(pl + ((s + 1) & 1) * buf, qb, geo, q0 + qb, min(qb, cnt - q0 - qb), dx, dy, dz);
+      fill_p<Geo, EXP>(pl + ((s + 1) & 1) * buf, qb, geo, q0 + qb, min(qb, cnt - q0 - qb), dx, dy,
+                       dz);
     if (live) {
       float sx = 0.0f, sy = 0.0f, sz = 0.0f, pdmb[kBwdPB], pdsb[kBwdPB];
 #pragma unroll
@@ -520,8 +593,8 @@ size_t bwd_p_smem(int qb) {
 // (t_rows rows from t_row0, leading dimension t_ld) with cp.async; lanes
 // past R copy nothing (the pass reads zero for them). cot holds the block's
 // rays' dcol, [channel][ray].
-template <int EXP>
-__device__ __forceinline__ void fill_q(float* pl, int qb, const AnisoGeo& geo, const float* alb_b,
+template <class Geo, int EXP>
+__device__ __forceinline__ void fill_q(float* pl, int qb, const Geo& geo, const float* alb_b,
                                        const float* t_b, int t_rows, int t_row0, int t_ld,
                                        int pp, int np, const Ray& ray, const float* cot, int r,
                                        bool live_ray) {
@@ -545,15 +618,15 @@ __device__ __forceinline__ void fill_q(float* pl, int qb, const AnisoGeo& geo, c
   cp_async_commit();
 }
 
-template <int ERF, int EXP>
+template <class Geo, int ERF, int EXP>
 __global__ void __launch_bounds__(kRays * kBwdG, 2)
-bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
+bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
              const float* __restrict__ mag, const float* __restrict__ alb,
              const float* __restrict__ dirs, const int* __restrict__ counts,
              const float* __restrict__ dcol, const float* __restrict__ tsrc, int t_rows,
              int t_row0, int t_ld, const float* __restrict__ db, float* __restrict__ rows_q,
              double* __restrict__ dd_q, int N, int R, int Rp, int ck, int a, int qb) {
-  using S = Side<AnisoGeo>;
+  using S = Side<Geo>;
   extern __shared__ float smem[];
   const int x = threadIdx.x, g = threadIdx.y;
   const int nt = kRays * kBwdG, tid = g * kRays + x;
@@ -568,15 +641,18 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
   const bool live = q0 < q_end;  // warp-uniform
   const bool live_ray = r < R;
   const Ray ray(dirs, nullptr, b, R, r);
-  const AnisoGeo geo(oc, invd, mag, b, N);
+  const Geo geo(oc, shape, mag, b, N);
   const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
   const float* t_b = tsrc + static_cast<size_t>(b) * kTaps * t_rows * t_ld;
   const int n_rb = gridDim.x;
   const bool accumulate = a > 0;
   const int plane = qb * kRays, buf = kQPlanes * plane;
   float* pl = smem;
-  float* slot = smem + 2 * buf;  // dco, dmb, dinv, then mb, co, inv per row
+  // the thread's slots: per row dmb and dinv (without the row's co, see
+  // below), mb, inv, then dco in double
+  float* slot = smem + 2 * buf;
   auto at = [&](int e) -> float& { return slot[e * nt + tid]; };
+  double* dco = reinterpret_cast<double*>(slot + 4 * kBwdPB * nt);  // dco[i * nt + tid]
   // the rays' dcol, read by each stage's fill (in registers it would cost
   // the second block an SM, as the rows' terms below)
   float* cot = slot + 6 * kBwdPB * nt;
@@ -587,39 +663,42 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
     cot[2 * kRays + x] = c.cb;
   }
 
-  // the rows' mb, co and inv, read per pair, in the slots too: in registers
+  // the rows' mb and inv, read per pair, in the slots too: in registers
   // they would cost the second block an SM (64 registers a thread)
-  auto mbq = [&](int i) -> float& { return at(3 * kBwdPB + i); };
-  auto coq = [&](int i) -> float& { return at(4 * kBwdPB + i); };
-  auto invq = [&](int i) -> float& { return at(5 * kBwdPB + i); };
+  auto mbq = [&](int i) -> float& { return at(2 * kBwdPB + i); };
+  auto invq = [&](int i) -> float& { return at(3 * kBwdPB + i); };
 #pragma unroll
   for (int i = 0; i < kBwdPB; ++i) {
-    mbq(i) = coq(i) = 0.0f;  // a dead row has co = 0: every sum it makes is zero
+    mbq(i) = 0.0f;  // a dead row's sums are made but never chained
     invq(i) = kInvSqrt2;
     if (q0 + i < q_end) {
       const RayTerms t = geo.template row<EXP>(q0 + i, ray.dx, ray.dy, ray.dz);
       mbq(i) = t.mb;
-      coq(i) = t.co;
       invq(i) = t.inv;
     }
-    at(3 * i) = at(3 * i + 1) = at(3 * i + 2) = 0.0f;
+    at(i) = at(kBwdPB + i) = 0.0f;
+    dco[i * nt + tid] = 0.0;
   }
 
   const int ns = (p_hi - p_lo + qb - 1) / qb;
   __syncthreads();  // cot
-  fill_q<EXP>(pl, qb, geo, alb_b, t_b, t_rows, t_row0, t_ld, p_lo, min(qb, p_hi - p_lo), ray, cot,
-              r, live_ray);
+  fill_q<Geo, EXP>(pl, qb, geo, alb_b, t_b, t_rows, t_row0, t_ld, p_lo, min(qb, p_hi - p_lo), ray,
+                   cot, r, live_ray);
   cp_async_wait_all();
   __syncthreads();
   for (int s = 0; s < ns; ++s) {
     const int pp = p_lo + s * qb, np = min(qb, p_hi - pp);
     const float* cur = pl + (s & 1) * buf + x;
     if (s + 1 < ns)
-      fill_q<EXP>(pl + ((s + 1) & 1) * buf, qb, geo, alb_b, t_b, t_rows, t_row0, t_ld, pp + qb,
-                  min(qb, p_hi - pp - qb), ray, cot, r, live_ray);
+      fill_q<Geo, EXP>(pl + ((s + 1) & 1) * buf, qb, geo, alb_b, t_b, t_rows, t_row0, t_ld,
+                       pp + qb, min(qb, p_hi - pp - qb), ray, cot, r, live_ray);
     if (live) {
-      // this stage's sums, added to the running ones after it (dco_q is the
-      // difference of the direct term and these sums)
+      // this stage's sums, added to the running ones after it. dco_q is the
+      // difference of the base path's term and its running sum, so that sum
+      // is kept in double (in float it made ddirs up to 2.2x as far from a
+      // float64 run as the plain version, at the dense cell). dmb and dinv
+      // leave out the row's own factor -2/sqrt(pi) co_q: the chain applies
+      // it once (no slot for co, fewer products per pair)
       float pdco[kBwdPB], pdmb[kBwdPB], pdinv[kBwdPB];
 #pragma unroll
       for (int i = 0; i < kBwdPB; ++i) pdco[i] = pdmb[i] = pdinv[i] = 0.0f;
@@ -642,17 +721,15 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
             t0 += gg;
             t1 += tap_k(k) * gg;
           }
-          const float nco = -kDerf * coq(i);
-          const float s0 = nco * t0, s1 = nco * t1;
-          pdmb[i] -= s0 * iq;
-          pdinv[i] += s0 * dd + s1 * sgp;
+          pdmb[i] -= t0 * iq;
+          pdinv[i] += t0 * dd + t1 * sgp;
         }
       }
 #pragma unroll
       for (int i = 0; i < kBwdPB; ++i) {
-        at(3 * i) += pdco[i];
-        at(3 * i + 1) += pdmb[i];
-        at(3 * i + 2) += pdinv[i];
+        dco[i * nt + tid] += pdco[i];
+        at(i) += pdmb[i];
+        at(kBwdPB + i) += pdinv[i];
       }
     }
     cp_async_wait_all();
@@ -668,8 +745,11 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
     const int q = q0 + i;
     if (q < q_end) {  // warp-uniform
       float v[kSums];
-      S::template q_chain<ERF, EXP>(geo, q, ray.dx, ray.dy, ray.dz, mbq(i), coq(i), invq(i), dbr,
-                                    at(3 * i), at(3 * i + 1), at(3 * i + 2), v, gx, gy, gz);
+      const float co = geo.template row<EXP>(q, ray.dx, ray.dy, ray.dz).co;
+      const float nco = -kDerf * co;
+      S::template q_chain<ERF, EXP>(geo, q, ray.dx, ray.dy, ray.dz, mbq(i), co, invq(i), dbr,
+                                    static_cast<float>(dco[i * nt + tid]), nco * at(i),
+                                    nco * at(kBwdPB + i), v, gx, gy, gz);
       warp_row_sums(v, rows_q + ((static_cast<size_t>(b) * n_rb + rblk) * N + q) * kSums,
                     accumulate);
     }
@@ -739,31 +819,34 @@ using FwdKernel = void (*)(const float*, const float*, const float*, const float
 using PKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                          const int*, const float*, const float*, int, int, int, float*, double*,
                          float*, int, int, int, int, int, int);
+using QKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                         const int*, const float*, const float*, int, int, int, const float*,
+                         float*, double*, int, int, int, int, int, int);
 
-template <bool SAVE_T>
+template <class Geo, bool SAVE_T>
 FwdKernel pick_fwd(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return fwd_kernel<kErfAs5, kExpExact, SAVE_T>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return fwd_kernel<kErfAs5, kExpFast, SAVE_T>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return fwd_kernel<kErfAs3, kExpExact, SAVE_T>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return fwd_kernel<kErfAs3, kExpFast, SAVE_T>;
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return fwd_kernel<Geo, kErfAs5, kExpExact, SAVE_T>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return fwd_kernel<Geo, kErfAs5, kExpFast, SAVE_T>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return fwd_kernel<Geo, kErfAs3, kExpExact, SAVE_T>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return fwd_kernel<Geo, kErfAs3, kExpFast, SAVE_T>;
   return nullptr;
 }
 
+template <class Geo>
 PKernel pick_p(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_p_kernel<kErfAs5, kExpExact>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_p_kernel<kErfAs5, kExpFast>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_p_kernel<kErfAs3, kExpExact>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_p_kernel<kErfAs3, kExpFast>;
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_p_kernel<Geo, kErfAs5, kExpExact>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_p_kernel<Geo, kErfAs5, kExpFast>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_p_kernel<Geo, kErfAs3, kExpExact>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_p_kernel<Geo, kErfAs3, kExpFast>;
   return nullptr;
 }
 
-using QKernel = decltype(&bwd_q_kernel<kErfAs5, kExpExact>);
-
+template <class Geo>
 QKernel pick_q(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_q_kernel<kErfAs5, kExpExact>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_q_kernel<kErfAs5, kExpFast>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_q_kernel<kErfAs3, kExpExact>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_q_kernel<kErfAs3, kExpFast>;
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_q_kernel<Geo, kErfAs5, kExpExact>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_q_kernel<Geo, kErfAs5, kExpFast>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_q_kernel<Geo, kErfAs3, kExpExact>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_q_kernel<Geo, kErfAs3, kExpFast>;
   return nullptr;
 }
 
@@ -776,12 +859,14 @@ bool bad_qb(int qb) {
          bwd_q_smem(qb) > kMaxSmem;
 }
 
-template <bool SAVE_T>
-int launch_fwd(const float* oc, const float* invd, const float* mag, const float* alb,
+// shape is sigma (B,N) for IsoGeo, invd (B,N,3) for AnisoGeo; dshape the
+// matching gradient.
+template <class Geo, bool SAVE_T>
+int launch_fwd(const float* oc, const float* shape, const float* mag, const float* alb,
                const float* dirs, const int* counts, float* partial, float* colors, float* t,
                int B, int N, int R, int threads, int pb, int qb, int erf_id, int exp_id,
                void* stream) {
-  FwdKernel fn = pick_fwd<SAVE_T>(erf_id, exp_id);
+  FwdKernel fn = pick_fwd<Geo, SAVE_T>(erf_id, exp_id);
   const int n_split = (N + kFwdRows - 1) / kFwdRows;
   if (fn == nullptr || B < 1 || B > 65535 || N < 1 || R < 1 || threads != kRays ||
       (pb != 8 && pb != 16) || bad_qb(qb) || n_split > 65535)
@@ -790,8 +875,8 @@ int launch_fwd(const float* oc, const float* invd, const float* mag, const float
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((R + kRays - 1) / kRays, n_split, B);
-  fn<<<grid, dim3(kRays, kFwdG), fwd_smem(qb), s>>>(oc, invd, mag, alb, dirs, counts, partial, t,
-                                                    N, R, qb, n_split, 0, N, 0, R);
+  fn<<<grid, dim3(kRays, kFwdG), fwd_smem(qb), s>>>(oc, shape, mag, alb, dirs, counts, partial,
+                                                    t, N, R, qb, n_split, 0, N, 0, R);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   // colors = the live splits' partials summed in split order
   return static_cast<int>(
@@ -799,22 +884,22 @@ int launch_fwd(const float* oc, const float* invd, const float* mag, const float
 }
 
 // The backward's host loop on `stream`: per p-chunk a in order, (recompute:
-// the forward's pass A for chunk a's rows, T into scratch), the p side,
+// the forward-with-T over chunk a's rows, T into scratch), the p side,
 // chunk a's db (the live 64-row blocks summed in block order) and the q
 // side, so that the q side's sums carried across chunks are read-modify-
 // writes in stream order; then the per-row gradients and ddirs. part_ms
 // (host, 4 C + 1 floats, or null): each chunk's pass A (0 with saved T),
 // p side, db sum and q side, then the row and ddirs kernels, in device ms
 // (the call then waits for them).
-template <bool SAVED_T>
-int launch_bwd(const float* oc, const float* invd, const float* mag, const float* alb,
+template <class Geo, bool SAVED_T>
+int launch_bwd(const float* oc, const float* shape, const float* mag, const float* alb,
                const float* dirs, const int* counts, const float* dcol, const float* t,
-               float* scratch, float* doc, float* dinvd, float* dmag, float* dalb, float* ddirs,
+               float* scratch, float* doc, float* dshape, float* dmag, float* dalb, float* ddirs,
                float* part_ms, int B, int N, int R, int ck, int threads, int qb, int erf_id,
                int exp_id, void* stream) {
-  FwdKernel tfn = pick_fwd<true>(erf_id, exp_id);
-  PKernel pfn = pick_p(erf_id, exp_id);
-  QKernel qfn = pick_q(erf_id, exp_id);
+  FwdKernel tfn = pick_fwd<Geo, true>(erf_id, exp_id);
+  PKernel pfn = pick_p<Geo>(erf_id, exp_id);
+  QKernel qfn = pick_q<Geo>(erf_id, exp_id);
   if (tfn == nullptr || pfn == nullptr || qfn == nullptr || B < 1 || B > 65535 || N < 1 ||
       R < 1 || ck < kRows || ck % kRows != 0 || N % ck != 0 || N / kRows > 65535 ||
       threads != kRays || bad_qb(qb) || (SAVED_T && t == nullptr))
@@ -838,12 +923,12 @@ int launch_bwd(const float* oc, const float* invd, const float* mag, const float
     const int t_row0 = SAVED_T ? 0 : a * ck;
     if (!SAVED_T) {
       tfn<<<dim3(n_rb, ck / kFwdRows, B), dim3(kRays, kFwdG), fwd_smem(qb), st>>>(
-          oc, invd, mag, alb, dirs, counts, nullptr, s.t_a, N, R, qb, 0, a * ck, ck, a * ck, Rp);
+          oc, shape, mag, alb, dirs, counts, nullptr, s.t_a, N, R, qb, 0, a * ck, ck, a * ck, Rp);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
     timer.mark();
     pfn<<<dim3(n_rb, ck / kRows, B), block, bwd_p_smem(qb), st>>>(
-        oc, invd, mag, alb, dirs, counts, dcol, tsrc, t_rows, t_row0, t_ld, s.rows_p, s.dd_p,
+        oc, shape, mag, alb, dirs, counts, dcol, tsrc, t_rows, t_row0, t_ld, s.rows_p, s.dd_p,
         s.db_part, N, R, Rp, ck, a, qb);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     timer.mark();
@@ -852,13 +937,13 @@ int launch_bwd(const float* oc, const float* invd, const float* mag, const float
       return static_cast<int>(err);
     timer.mark();
     qfn<<<dim3(n_rb, N / kRows, B), block, bwd_q_smem(qb), st>>>(
-        oc, invd, mag, alb, dirs, counts, dcol, tsrc, t_rows, t_row0, t_ld, s.db, s.rows_q,
+        oc, shape, mag, alb, dirs, counts, dcol, tsrc, t_rows, t_row0, t_ld, s.db, s.rows_q,
         s.dd_q, N, R, Rp, ck, a, qb);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     timer.mark();
   }
-  bwd_rows_kernel<AnisoGeo><<<blocks_for(static_cast<size_t>(B) * N, 256), 256, 0, st>>>(
-      oc, invd, mag, counts, s.rows_p, s.rows_q, doc, dinvd, dmag, dalb, B, N, n_rb);
+  bwd_rows_kernel<Geo><<<blocks_for(static_cast<size_t>(B) * N, 256), 256, 0, st>>>(
+      oc, shape, mag, counts, s.rows_p, s.rows_q, doc, dshape, dmag, dalb, B, N, n_rb);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   bwd_ddirs_kernel<<<blocks_for(static_cast<size_t>(B) * 3 * R, 256), 256, 0, st>>>(
       counts, s.dd_p, s.dd_q, ddirs, B, N, R, Rp);
@@ -871,67 +956,105 @@ int launch_bwd(const float* oc, const float* invd, const float* mag, const float
 
 extern "C" {
 
-int sgrt_fused_fwd_rows_per_block() { return kFwdRows; }
+int sgrt_chunked_fwd_rows_per_block() { return kFwdRows; }
 
-int sgrt_fused_fwd_max_threads() { return kRays; }
-
-int sgrt_chunked_bwd_max_threads() { return kRays; }
+int sgrt_chunked_max_threads() { return kRays; }
 
 const char* sgrt_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The chunked anisotropic forward and the split reduction on `stream`:
-// colors (B,3,R) from oc, invd (B,N,3), mag (B,N), albedo (B,N,3), dirs
-// (B,3,R), counts (B,); partial (B, N/32, 3, R) scratch. threads = 32 rays
-// a block; pb (8 or 16, the route's p block) does not change the kernel,
-// which keeps 4 rows a thread. Returns a cudaError_t (cudaErrorInvalidValue
-// for a configuration the kernel does not take).
+// The chunked forward and the split reduction on `stream`: colors (B,3,R)
+// from oc (B,N,3), sigma (B,N), mag (B,N), albedo (B,N,3), dirs (B,3,R),
+// counts (B,); partial (B, N/32, 3, R) scratch. threads = 32 rays a block;
+// pb (8 or 16, the route's p block) does not change the kernel, which
+// keeps 4 rows a thread. Returns a cudaError_t (cudaErrorInvalidValue for a
+// configuration the kernel does not take).
+int sgrt_chunked_fwd(const float* oc, const float* sig, const float* mag, const float* alb,
+                     const float* dirs, const int* counts, float* partial, float* colors, int B,
+                     int N, int R, int threads, int pb, int qb, int erf_id, int exp_id,
+                     void* stream) {
+  return launch_fwd<IsoGeo, false>(oc, sig, mag, alb, dirs, counts, partial, colors, nullptr, B,
+                                   N, R, threads, pb, qb, erf_id, exp_id, stream);
+}
+
+// The same forward, also writing T (B,5,N,R), zero on rows at or past the
+// count: the saved-T backward's input.
+int sgrt_chunked_fwd_t(const float* oc, const float* sig, const float* mag, const float* alb,
+                       const float* dirs, const int* counts, float* partial, float* colors,
+                       float* t, int B, int N, int R, int threads, int pb, int qb, int erf_id,
+                       int exp_id, void* stream) {
+  return launch_fwd<IsoGeo, true>(oc, sig, mag, alb, dirs, counts, partial, colors, t, B, N, R,
+                                  threads, pb, qb, erf_id, exp_id, stream);
+}
+
+// The recompute chunked backward: outputs doc, dalb (B,N,3), dsig, dmag
+// (B,N), ddirs (B,3,R); scratch of sgrt_chunked_bwd_scratch_floats(B, N, R,
+// ck, 32, 1) floats; part_ms as launch_bwd's.
+int sgrt_chunked_bwd(const float* oc, const float* sig, const float* mag, const float* alb,
+                     const float* dirs, const int* counts, const float* dcol, float* scratch,
+                     float* doc, float* dsig, float* dmag, float* dalb, float* ddirs,
+                     float* part_ms, int B, int N, int R, int ck, int threads, int qb,
+                     int erf_id, int exp_id, void* stream) {
+  return launch_bwd<IsoGeo, false>(oc, sig, mag, alb, dirs, counts, dcol, nullptr, scratch, doc,
+                                   dsig, dmag, dalb, ddirs, part_ms, B, N, R, ck, threads, qb,
+                                   erf_id, exp_id, stream);
+}
+
+// The saved-T chunked backward: reads T (B,5,N,R) written by
+// sgrt_chunked_fwd_t with the same qb.
+int sgrt_chunked_bwd_t(const float* oc, const float* sig, const float* mag, const float* alb,
+                       const float* dirs, const int* counts, const float* dcol, const float* t,
+                       float* scratch, float* doc, float* dsig, float* dmag, float* dalb,
+                       float* ddirs, float* part_ms, int B, int N, int R, int ck, int threads,
+                       int qb, int erf_id, int exp_id, void* stream) {
+  return launch_bwd<IsoGeo, true>(oc, sig, mag, alb, dirs, counts, dcol, t, scratch, doc, dsig,
+                                  dmag, dalb, ddirs, part_ms, B, N, R, ck, threads, qb, erf_id,
+                                  exp_id, stream);
+}
+
+// The anisotropic twins of the four: invd (B,N,3) = scale^-2 in place of
+// sigma, dinvd (B,N,3) in place of dsig.
 int sgrt_chunked_fwd_aniso(const float* oc, const float* invd, const float* mag,
                            const float* alb, const float* dirs, const int* counts,
                            float* partial, float* colors, int B, int N, int R, int threads,
                            int pb, int qb, int erf_id, int exp_id, void* stream) {
-  return launch_fwd<false>(oc, invd, mag, alb, dirs, counts, partial, colors, nullptr, B, N, R,
-                           threads, pb, qb, erf_id, exp_id, stream);
+  return launch_fwd<AnisoGeo, false>(oc, invd, mag, alb, dirs, counts, partial, colors, nullptr,
+                                     B, N, R, threads, pb, qb, erf_id, exp_id, stream);
 }
 
-// The same forward, also writing T (B,5,N,R), zero on rows at or past the
-// count: the saved-T schedule's forward.
 int sgrt_chunked_fwd_t_aniso(const float* oc, const float* invd, const float* mag,
                              const float* alb, const float* dirs, const int* counts,
                              float* partial, float* colors, float* t, int B, int N, int R,
                              int threads, int pb, int qb, int erf_id, int exp_id, void* stream) {
-  return launch_fwd<true>(oc, invd, mag, alb, dirs, counts, partial, colors, t, B, N, R, threads,
-                          pb, qb, erf_id, exp_id, stream);
+  return launch_fwd<AnisoGeo, true>(oc, invd, mag, alb, dirs, counts, partial, colors, t, B, N,
+                                    R, threads, pb, qb, erf_id, exp_id, stream);
 }
 
-// The recompute chunked anisotropic backward: outputs doc, dinvd, dalb
-// (B,N,3), dmag (B,N), ddirs (B,3,R); scratch of
-// sgrt_chunked_bwd_scratch_floats(B, N, R, ck, 32, 1) floats; part_ms as
-// launch_bwd's.
 int sgrt_chunked_bwd_aniso(const float* oc, const float* invd, const float* mag,
                            const float* alb, const float* dirs, const int* counts,
                            const float* dcol, float* scratch, float* doc, float* dinvd,
                            float* dmag, float* dalb, float* ddirs, float* part_ms, int B, int N,
                            int R, int ck, int threads, int qb, int erf_id, int exp_id,
                            void* stream) {
-  return launch_bwd<false>(oc, invd, mag, alb, dirs, counts, dcol, nullptr, scratch, doc, dinvd,
-                           dmag, dalb, ddirs, part_ms, B, N, R, ck, threads, qb, erf_id, exp_id,
-                           stream);
+  return launch_bwd<AnisoGeo, false>(oc, invd, mag, alb, dirs, counts, dcol, nullptr, scratch,
+                                     doc, dinvd, dmag, dalb, ddirs, part_ms, B, N, R, ck, threads,
+                                     qb, erf_id, exp_id, stream);
 }
 
-// The saved-T chunked anisotropic backward: reads T (B,5,N,R) written by
-// sgrt_chunked_fwd_t_aniso with the same qb.
 int sgrt_chunked_bwd_t_aniso(const float* oc, const float* invd, const float* mag,
                              const float* alb, const float* dirs, const int* counts,
                              const float* dcol, const float* t, float* scratch, float* doc,
                              float* dinvd, float* dmag, float* dalb, float* ddirs, float* part_ms,
                              int B, int N, int R, int ck, int threads, int qb, int erf_id,
                              int exp_id, void* stream) {
-  return launch_bwd<true>(oc, invd, mag, alb, dirs, counts, dcol, t, scratch, doc, dinvd, dmag,
-                          dalb, ddirs, part_ms, B, N, R, ck, threads, qb, erf_id, exp_id, stream);
+  return launch_bwd<AnisoGeo, true>(oc, invd, mag, alb, dirs, counts, dcol, t, scratch, doc,
+                                    dinvd, dmag, dalb, ddirs, part_ms, B, N, R, ck, threads, qb,
+                                    erf_id, exp_id, stream);
 }
 
+// Floats of scratch that one backward launch needs (recompute: without
+// saved T; the same for both geometries).
 long long sgrt_chunked_bwd_scratch_floats(int B, int N, int R, int ck, int threads,
                                           int recompute) {
   return static_cast<long long>(scratch_layout(B, N, R, ck, threads, recompute != 0));
@@ -945,17 +1068,35 @@ int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
   const int fwd = kRays * kFwdG, bwd = kRays * kBwdG;
   switch (i) {
     case 0:
-      *name = "chunked_aniso fwd_kernel";
-      return kernel_resources(fwd_kernel<kErfAs5, kExpExact, false>, fwd, fwd_smem(qb), out);
+      *name = "chunked fwd_kernel<IsoGeo>";
+      return kernel_resources(fwd_kernel<IsoGeo, kErfAs5, kExpExact, false>, fwd, fwd_smem(qb),
+                              out);
     case 1:
-      *name = "chunked_aniso fwd_kernel<SAVE_T>";
-      return kernel_resources(fwd_kernel<kErfAs5, kExpExact, true>, fwd, fwd_smem(qb), out);
+      *name = "chunked fwd_kernel<IsoGeo, SAVE_T>";
+      return kernel_resources(fwd_kernel<IsoGeo, kErfAs5, kExpExact, true>, fwd, fwd_smem(qb),
+                              out);
     case 2:
-      *name = "chunked_aniso bwd_p_kernel";
-      return kernel_resources(bwd_p_kernel<kErfAs5, kExpExact>, bwd, bwd_p_smem(qb), out);
+      *name = "chunked bwd_p_kernel<IsoGeo>";
+      return kernel_resources(bwd_p_kernel<IsoGeo, kErfAs5, kExpExact>, bwd, bwd_p_smem(qb), out);
     case 3:
-      *name = "chunked_aniso bwd_q_kernel";
-      return kernel_resources(bwd_q_kernel<kErfAs5, kExpExact>, bwd, bwd_q_smem(qb), out);
+      *name = "chunked bwd_q_kernel<IsoGeo>";
+      return kernel_resources(bwd_q_kernel<IsoGeo, kErfAs5, kExpExact>, bwd, bwd_q_smem(qb), out);
+    case 4:
+      *name = "chunked fwd_kernel<AnisoGeo>";
+      return kernel_resources(fwd_kernel<AnisoGeo, kErfAs5, kExpExact, false>, fwd, fwd_smem(qb),
+                              out);
+    case 5:
+      *name = "chunked fwd_kernel<AnisoGeo, SAVE_T>";
+      return kernel_resources(fwd_kernel<AnisoGeo, kErfAs5, kExpExact, true>, fwd, fwd_smem(qb),
+                              out);
+    case 6:
+      *name = "chunked bwd_p_kernel<AnisoGeo>";
+      return kernel_resources(bwd_p_kernel<AnisoGeo, kErfAs5, kExpExact>, bwd, bwd_p_smem(qb),
+                              out);
+    case 7:
+      *name = "chunked bwd_q_kernel<AnisoGeo>";
+      return kernel_resources(bwd_q_kernel<AnisoGeo, kErfAs5, kExpExact>, bwd, bwd_q_smem(qb),
+                              out);
     default:
       return -1;
   }

@@ -1,7 +1,7 @@
-// What the chunked backwards share (chunked_bwd.cu, chunked_aniso.cu): the
-// scratch layout, the geometries' chains into the per-row sums (Side<Geo>)
-// and the per-row gradient and ddirs kernels. chunked_bwd.cu's head note
-// states the function and the sums.
+// What the chunked backward's kernels (chunked.cu) build on: the scratch
+// layout, what the row geometries do differently there (Side<Geo>: J and
+// each side's chain into the per-row sums) and the per-row gradient and
+// ddirs kernels. chunked.cu's head note states the function and the sums.
 
 #pragma once
 
@@ -50,9 +50,9 @@ size_t scratch_layout(int B, int N, int R, int ck, int threads, bool recompute,
 }
 
 // ---------------------------------------------------------------------------
-// What the geometries do differently: how the q side stages p rows, J = d mb
-// / d d of a row (ddirs' pair terms), each side's chain into the per-row sums
-// and ddirs, and the per-row gradients from the sums.
+// What the geometries do differently: J = d mb / d d of a row (ddirs' pair
+// terms), each side's chain into the per-row sums and ddirs, and the
+// per-row gradients from the sums.
 // ---------------------------------------------------------------------------
 
 struct Jac {
@@ -65,50 +65,15 @@ struct Side;
 template <>
 struct Side<IsoGeo> {
   enum { kRow, kQmb, kDsig, kDinv, kOx, kOy, kOz, kAx, kAy, kAz };  // the sums
-  // p rows staged for the q side: x y z |oc|^2 1/(2s^2) mag s sqrt(pi/2),
-  // sigma, albedo rgb
-  static constexpr int kPFields = 10;
-  static constexpr int kAlb = 7;
 
-  static __device__ void stage_p(const IsoGeo& g, const float* alb, float* st, int qb, int p0,
-                                 int np) {
-    for (int j = threadIdx.x; j < np; j += blockDim.x) {
-      const int p = p0 + j;
-      const Row w = load_row(g.oc, g.sig, g.mag, p);
-      st[j] = w.x;
-      st[qb + j] = w.y;
-      st[2 * qb + j] = w.z;
-      st[3 * qb + j] = w.ocsq;
-      st[4 * qb + j] = w.i2s2;
-      st[5 * qb + j] = w.cs;
-      st[6 * qb + j] = g.sig[p];
-      st[7 * qb + j] = alb[3 * p];
-      st[8 * qb + j] = alb[3 * p + 1];
-      st[9 * qb + j] = alb[3 * p + 2];
-    }
+  // J = oc, of a row from its fields and of row p
+  static __device__ Jac jac(const IsoGeo::Fields& f, const RayTerms&, float, float, float) {
+    return {f.w.x, f.w.y, f.w.z};
   }
 
-  // a staged p row's mb, co and sb (= sigma) for one ray
-  template <int EXP>
-  static __device__ RayTerms staged_p(const IsoGeo&, const float* st, int qb, int j, float dx,
-                                      float dy, float dz) {
-    RayTerms t;
-    t.mb = dot3_rn(st[j], st[qb + j], st[2 * qb + j], dx, dy, dz);
-    t.co = coeff<EXP>(st[5 * qb + j], st[3 * qb + j], t.mb, st[4 * qb + j]);
-    t.sb = st[6 * qb + j];
-    t.inv = 0.0f;  // not staged: the q side needs the p rows' sigma only
-    return t;
-  }
-
-  // J = oc, of row p and of a q row staged by IsoGeo::stage
   template <int EXP>
   static __device__ Jac jac_row(const IsoGeo& g, int p, float, float, float) {
     return {g.oc[3 * p], g.oc[3 * p + 1], g.oc[3 * p + 2]};
-  }
-
-  static __device__ Jac jac_staged(const float* st, int qb, int j, const RayTerms&, float, float,
-                                   float) {
-    return {st[j], st[qb + j], st[2 * qb + j]};
   }
 
   // The p side's chain of row p: the direct dco = sqrt(2/pi) tw A and the
@@ -198,46 +163,20 @@ struct Side<AnisoGeo> {
   // the sums: s_row, P = sum (dBt d - dcoco oc), Q = sum (dA d^2 + dBt d oc
   // + dC oc^2), dalb's weight; doc = invd P, dinvd = Q (see chain)
   enum { kRow, kPx, kPy, kPz, kQx, kQy, kQz, kAx, kAy, kAz };
-  // p rows staged for the q side: AnisoGeo's fields (invd, M, C, mag
-  // sqrt(pi/2)), then albedo rgb
-  static constexpr int kPFields = AnisoGeo::kFields + 3;
-  static constexpr int kAlb = AnisoGeo::kFields;
 
-  static __device__ void stage_p(const AnisoGeo& g, const float* alb, float* st, int qb, int p0,
-                                 int np) {
-    g.stage(st, qb, p0, np);
-    for (int j = threadIdx.x; j < np; j += blockDim.x) {
-      const int p = p0 + j;
-      st[kAlb * qb + j] = alb[3 * p];
-      st[(kAlb + 1) * qb + j] = alb[3 * p + 1];
-      st[(kAlb + 2) * qb + j] = alb[3 * p + 2];
-    }
-  }
-
-  template <int EXP>
-  static __device__ RayTerms staged_p(const AnisoGeo& g, const float* st, int qb, int j,
-                                      float dx, float dy, float dz) {
-    return g.template staged<EXP>(st, qb, j, dx, dy, dz);
-  }
-
-  // J = d mb / d d = sb^2 (M - 2 mb invd d), mb = Bt / A
-  static __device__ Jac jac(float ix, float iy, float iz, float mx, float my, float mz,
-                            const RayTerms& t, float dx, float dy, float dz) {
+  // J = d mb / d d = sb^2 (M - 2 mb invd d), mb = Bt / A, of a row from its
+  // fields and terms and of row p
+  static __device__ Jac jac(const AnisoGeo::Fields& f, const RayTerms& t, float dx, float dy,
+                            float dz) {
     const float sb2 = t.sb * t.sb, m2 = 2.0f * t.mb;
-    return {sb2 * (mx - m2 * (ix * dx)), sb2 * (my - m2 * (iy * dy)), sb2 * (mz - m2 * (iz * dz))};
+    return {sb2 * (f.mx - m2 * (f.ix * dx)), sb2 * (f.my - m2 * (f.iy * dy)),
+            sb2 * (f.mz - m2 * (f.iz * dz))};
   }
 
   template <int EXP>
   static __device__ Jac jac_row(const AnisoGeo& g, int p, float dx, float dy, float dz) {
     const AnisoGeo::Fields f = g.fields(p);
-    const RayTerms t = AnisoGeo::terms<EXP>(f, dx, dy, dz);
-    return jac(f.ix, f.iy, f.iz, f.mx, f.my, f.mz, t, dx, dy, dz);
-  }
-
-  static __device__ Jac jac_staged(const float* st, int qb, int j, const RayTerms& t, float dx,
-                                   float dy, float dz) {
-    return jac(st[j], st[qb + j], st[2 * qb + j], st[3 * qb + j], st[4 * qb + j], st[5 * qb + j],
-               t, dx, dy, dz);
+    return jac(f, AnisoGeo::terms<EXP>(f, dx, dy, dz), dx, dy, dz);
   }
 
   // The sums of row q and one ray from its dcoco, dmb (the pair sums' part

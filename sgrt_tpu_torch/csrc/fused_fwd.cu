@@ -5,24 +5,18 @@
 // Replaces the TPU kernels sgrt_tpu/ops/pallas_kernel.py::_fused_fwd_kernel
 // (launched by _fused_fwd_call; entry point sgrt_fused_fwd) and
 // ::_fused_fwd_t_kernel (launched by _fused_fwd_t_call; entry point
-// sgrt_fused_fwd_t, the SAVE_T instantiation), and for capacities above
-// 4096 rows also sgrt_tpu/ops/pallas_chunked.py::_chunked_fwd_kernel and
-// ::_chunked_fwd_t_kernel: the TPU cuts the Gaussian axis into chunks only
-// because a dense tile's rows do not fit VMEM, and a q sweep chunk by chunk
-// stages here exactly the rows of one sweep over the live prefix, while the
-// p split below already spreads a dense tile over many blocks (at the
-// 50k-Gaussian sphere's dense bucket, a 64-row chunked copy of this kernel
-// took 1221 ms against this one's 1202 ms on an NVIDIA H100 80GB HBM3 at
-// 700 W, chip_smoke.py). The anisotropic entry points (sgrt_fused_fwd_aniso,
-// sgrt_fused_fwd_t_aniso) replace sgrt_tpu/ops/pallas_aniso.py's
-// ::_fused_fwd_aniso_kernel and ::_fused_fwd_t_aniso_kernel: the same
-// kernel over AnisoGeo rows (gauss_common.cuh), whose sb, inv and co vary
-// per (row, ray); the TPU kernel keeps them as four (N, ray block) VMEM
-// planes, here each thread recomputes a staged row's terms for its ray.
-// (The chunked anisotropic route's forward is chunked_aniso.cu's, which
-// shares each stage's per-ray terms between row groups through shared
-// memory and keeps 4 rows a thread; at the dense anisotropic cell this
-// kernel, 8 rows a thread, runs at 128 registers with a 16-byte spill.)
+// sgrt_fused_fwd_t, the SAVE_T instantiation). The anisotropic entry points
+// (sgrt_fused_fwd_aniso, sgrt_fused_fwd_t_aniso) replace
+// sgrt_tpu/ops/pallas_aniso.py's ::_fused_fwd_aniso_kernel and
+// ::_fused_fwd_t_aniso_kernel: the same kernel over AnisoGeo rows
+// (gauss_common.cuh), whose sb, inv and co vary per (row, ray); the TPU
+// kernel keeps them as four (N, ray block) VMEM planes, here each thread
+// recomputes a staged row's terms for its ray. (The chunked routes'
+// forwards, above 4096 isotropic or 6144 anisotropic rows, are chunked.cu's,
+// which share each stage's per-ray terms between row groups through shared
+// memory and keep 4 rows a thread; at the dense cells this kernel, 8 rows a
+// thread, runs at 128 registers and 16 warps an SM, and over anisotropic
+// rows with a 16-byte spill.)
 // For each tile b, over the live prefix count_b = min(counts[b], N) of its
 // Gaussian rows, and each ray r (isotropic rows: sb = sigma, mb = oc . d):
 //

@@ -1,5 +1,5 @@
 // Device math shared by the fused (fused_fwd.cu, fused_bwd.cu), the
-// chunked (chunked_bwd.cu) and the split (split.cu) kernels: the erf/exp
+// chunked (chunked.cu) and the split (split.cu) kernels: the erf/exp
 // variants the kernels are compiled for, the rounding-controlled Gaussian
 // exponent, the per-row constants that rows are staged with, the two row
 // geometries (isotropic and anisotropic), the five quadrature taps, a warp
@@ -157,7 +157,8 @@ __device__ __forceinline__ void stage_rows(float* stage, int qb, const float* oc
 //   inv = 1 / (sqrt2 sb)
 // A geometry stages q rows in shared memory (kFields fields each, stage),
 // reads a staged row's terms for one ray (staged) and a row's terms from
-// device memory (row); both give the same bits for the same row and ray.
+// device memory (row, which is terms(fields(row))); all give the same bits
+// for the same row and ray.
 // ---------------------------------------------------------------------------
 
 struct RayTerms {
@@ -193,15 +194,28 @@ struct IsoGeo {
     return t;
   }
 
+  // A row's own constants (load_row's, and sigma); terms() makes its
+  // per-ray terms from them, as row() does
+  struct Fields {
+    Row w;
+    float sb;
+  };
+
+  __device__ Fields fields(int q) const { return {load_row(oc, sig, mag, q), sig[q]}; }
+
+  template <int EXP>
+  static __device__ RayTerms terms(const Fields& f, float dx, float dy, float dz) {
+    RayTerms t;
+    t.mb = dot3_rn(f.w.x, f.w.y, f.w.z, dx, dy, dz);
+    t.sb = f.sb;
+    t.co = coeff<EXP>(f.w.cs, f.w.ocsq, t.mb, f.w.i2s2);
+    t.inv = f.w.inv;
+    return t;
+  }
+
   template <int EXP>
   __device__ RayTerms row(int p, float dx, float dy, float dz) const {
-    const Row w = load_row(oc, sig, mag, p);
-    RayTerms t;
-    t.mb = dot3_rn(w.x, w.y, w.z, dx, dy, dz);
-    t.sb = sig[p];
-    t.co = coeff<EXP>(w.cs, w.ocsq, t.mb, w.i2s2);
-    t.inv = w.inv;
-    return t;
+    return terms<EXP>(fields(p), dx, dy, dz);
   }
 };
 

@@ -36,7 +36,8 @@
 // move far fewer bytes: each kernel reads and writes 2-5 (B,N,R) planes of 4
 // bytes a (row, ray), against 5 to 15 taps per (row, ray) and live row.
 //
-// What the design does about it (as fused_fwd.cu and chunked_bwd.cu):
+// What the design does about it (as fused_fwd.cu, and the p/q split of the
+// chunked backward in chunked.cu):
 //   * One thread owns one ray and keeps PB rows' state in registers. The
 //     forward's and the p side's pass A is gauss_common.cuh's pass_a over
 //     PlaneGeo rows: the q rows' mb and co of each thread's ray are staged
@@ -49,9 +50,9 @@
 //     is a p-side kernel (pass A, T, G = g T to scratch, db's partials, the
 //     p side's pair sums), a db sum, and a q-side kernel (the q side's pair
 //     sums against every live p row, reading G, then the base path), as
-//     chunked_bwd.cu splits its pairs. dmb and dco are per (row, ray): the
-//     p side writes its part, the q side adds its part and the base path in
-//     stream order. Per-row sums over rays (dsigma, dinv, dalbedo) are a warp
+//     chunked.cu's backward splits its pairs. dmb and dco are per (row,
+//     ray): the p side writes its part, the q side adds its part and the
+//     base path in stream order. Per-row sums over rays (dsigma, dinv, dalbedo) are a warp
 //     butterfly, the warps in order, then the ray blocks in order. No atomics:
 //     every result is deterministic.
 //   * Float32 at thousands of rows: every sum over the other side's rows

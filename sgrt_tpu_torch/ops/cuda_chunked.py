@@ -14,22 +14,24 @@ The chunked kernels compute the fused kernels' function (ops.cuda_kernel's
 definitions) with the Gaussian axis cut into C = N / ck chunks of ck rows.
 That is exact because the transmittance exponent is additive over
 Gaussians; chunk a's live rows are clip(count - a ck, 0, ck) and dead chunk
-pairs are skipped, so work follows count^2, not capacity^2. Four kernels,
-each with a wrapper that launches it for tensors on the card (or raises)
-and runs its plain version for tensors on the CPU:
+pairs are skipped, so work follows count^2, not capacity^2. Four kernels of
+csrc/chunked.cu, each with a wrapper that launches it for tensors on the
+card (or raises) and runs its plain version for tensors on the CPU:
 
-    chunked_forward    csrc/fused_fwd.cu    colors         (_chunked_fwd_kernel)
-    chunked_forward_t  csrc/fused_fwd.cu    colors and T   (_chunked_fwd_t_kernel)
-    chunked_backward   csrc/chunked_bwd.cu  the VJP, from saved T (_chunked_bwd_t_kernel)
-                                            or recomputing it (_chunked_bwd_kernel)
+    chunked_forward    colors         (_chunked_fwd_kernel)
+    chunked_forward_t  colors and T   (_chunked_fwd_t_kernel)
+    chunked_backward   the VJP, from saved T (_chunked_bwd_t_kernel)
+                       or recomputing it (_chunked_bwd_kernel)
 
-The forwards launch the fused forward's entry points: the TPU chunks the
-forward only because a whole tile's rows do not fit VMEM, and on the card
-a sweep of the q axis chunk by chunk stages exactly the rows that one
-sweep over the live prefix stages. fused_fwd.cu already splits the p axis
-of a dense tile over blocks of 32 rows, so there is nothing left to chunk.
-The chunked forwards keep their own launch counts. The backward is a
-kernel of its own, split into p-side and q-side passes (csrc/chunked_bwd.cu).
+csrc/chunked.cu's kernels are templates over the row geometry, and the
+chunked anisotropic route (ops.cuda_chunked_aniso) runs the same ones over
+anisotropic rows; its note gives the design: warp-wide groups of 4 rows
+sharing each stage's per-ray terms through shared-memory planes, the
+backward's p-side/q-side split, and the recompute backward as the
+forward-with-T per chunk ahead of the saved-T backward's kernels. The TPU
+chunks the forward only because a whole tile's rows do not fit VMEM; on
+the card the forward sweeps the live prefix of the q axis in one pass and
+splits the p axis of a dense tile over blocks of 32 rows.
 
 The plain versions are the fused ones (the same function) behind the
 chunk-count contract: N must divide into chunks of ck rows, ck a multiple
@@ -55,7 +57,6 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     _block_sizes,
     _check_inputs,
     _check_names,
-    _forward_launch,
     _kernel_erf_name,
     _scene_shapes,
     _threads,
@@ -81,7 +82,7 @@ MAX_CHUNKED_CAPACITY = 65536
 DEFAULT_CHUNK = 2048
 
 # Byte budget of the chunked saved-T residual, 20*B*N*R logical bytes. The
-# chunked backward keeps no (row, ray) plane of its own (csrc/chunked_bwd.cu:
+# chunked backward keeps no (row, ray) plane of its own (csrc/chunked.cu:
 # its scratch is O(B N) plus, recomputing, one chunk's T), so T is the only
 # O(B N R) buffer of a chunked train step. 16 GiB is a fifth of the card's
 # 80 GB: a bucketed step holds the T of both buckets until its backward,
@@ -91,11 +92,13 @@ DEFAULT_CHUNK = 2048
 # slab step's slabs sized past the budget, take the recompute backward.
 SAVE_T_CHUNKED_MAX_BYTES = 16 << 30
 
-_FWD_SRC, _BWD_SRC, _TPU = "fused_fwd.cu", "chunked_bwd.cu", "sgrt_tpu/ops/pallas_chunked.py"
-CHUNKED_FWD = CudaKernel("chunked_fwd", _FWD_SRC, "sgrt_fused_fwd", f"{_TPU}:176", 8, 8)
-CHUNKED_FWD_T = CudaKernel("chunked_fwd_t", _FWD_SRC, "sgrt_fused_fwd_t", f"{_TPU}:245", 9, 8)
-CHUNKED_BWD_T = CudaKernel("chunked_bwd_t", _BWD_SRC, "sgrt_chunked_bwd_t", f"{_TPU}:522", 14, 8)
-CHUNKED_BWD = CudaKernel("chunked_bwd", _BWD_SRC, "sgrt_chunked_bwd", f"{_TPU}:369", 13, 8)
+_SRC, _TPU = "chunked.cu", "sgrt_tpu/ops/pallas_chunked.py"
+CHUNKED_FWD = CudaKernel("chunked_fwd", _SRC, "sgrt_chunked_fwd", f"{_TPU}:176", 8, 8)
+CHUNKED_FWD_T = CudaKernel("chunked_fwd_t", _SRC, "sgrt_chunked_fwd_t", f"{_TPU}:245", 9, 8)
+CHUNKED_BWD_T = CudaKernel("chunked_bwd_t", _SRC, "sgrt_chunked_bwd_t", f"{_TPU}:522", 15, 8,
+                           timed=True)
+CHUNKED_BWD = CudaKernel("chunked_bwd", _SRC, "sgrt_chunked_bwd", f"{_TPU}:369", 14, 8,
+                         timed=True)
 
 
 def chunk_plan(capacity: int) -> tuple[int, int]:
@@ -149,6 +152,26 @@ def chunked_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved
 # wrappers: the kernel for CUDA tensors (or raise), the plain version for CPU
 # ---------------------------------------------------------------------------
 
+def _chunked_forward_launch(kernel, args, t, *, rb, pb, qb, erf_name, exp_name):
+    """Launch a forward entry point of csrc/chunked.cu on checked CUDA
+    inputs: colors (B,3,R), and T into t. A block is 32 rays (rb is capped
+    at it); pb must be one the fused kernels take, though the kernel keeps
+    4 rows a thread whatever it is."""
+    _check_names(erf_name, exp_name, pb)
+    oc, dirs_t = args[0], args[4]
+    b, n, _ = oc.shape
+    r = dirs_t.shape[2]
+    threads = _threads(kernel.query("sgrt_chunked_max_threads"), rb, r)
+    n_split = -(-n // kernel.query("sgrt_chunked_fwd_rows_per_block"))
+    colors = torch.empty((b, 3, r), dtype=torch.float32, device=oc.device)
+    partial = torch.empty((b, n_split, 3, r), dtype=torch.float32, device=oc.device)
+    outs = [partial, colors] + ([t] if t is not None else [])
+    kernel.launch(list(args) + outs,
+                  [b, n, r, threads, pb, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  what=f"B={b}, N={n}, R={r}, threads={threads}, pb={pb}, qb={qb}")
+    return colors
+
+
 def chunked_forward(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int, rb: int = 128,
                     pb: int = 8, qb: int = 32, erf_name: str = "as5",
                     exp_name: str = "exact") -> torch.Tensor:
@@ -159,8 +182,8 @@ def chunked_forward(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int, rb: int 
     _check_chunks(oc.shape[1], ck)
     if not _check_inputs("chunked_forward", _scene_shapes(*args), oc.device):
         return chunked_forward_plain(*args, ck=ck, erf_name=erf_name, exp_name=exp_name)
-    return _forward_launch(CHUNKED_FWD, args, None, rb=rb, pb=pb, qb=qb, erf_name=erf_name,
-                           exp_name=exp_name)
+    return _chunked_forward_launch(CHUNKED_FWD, args, None, rb=rb, pb=pb, qb=qb,
+                                   erf_name=erf_name, exp_name=exp_name)
 
 
 def chunked_forward_t(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int, rb: int = 128,
@@ -175,15 +198,15 @@ def chunked_forward_t(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int, rb: in
     b, n, _ = oc.shape
     t = torch.empty((b, len(K_TAPS), n, dirs_t.shape[2]), dtype=torch.float32,
                     device=oc.device)   # the kernel writes every element
-    colors = _forward_launch(CHUNKED_FWD_T, args, t, rb=rb, pb=pb, qb=qb, erf_name=erf_name,
-                             exp_name=exp_name)
+    colors = _chunked_forward_launch(CHUNKED_FWD_T, args, t, rb=rb, pb=pb, qb=qb,
+                                     erf_name=erf_name, exp_name=exp_name)
     return colors, t
 
 
 def chunked_backward_scratch_floats(b: int, n: int, r: int, ck: int, threads: int,
                                     recompute: bool, kernel: CudaKernel = CHUNKED_BWD) -> int:
     """Floats of scratch one launch of a chunked backward kernel takes (the
-    library's own count; csrc/chunked_bwd.cu lists its parts)."""
+    library's own count; csrc/chunked.cu lists its parts)."""
     fn = kernel.library().sgrt_chunked_bwd_scratch_floats
     fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_longlong
@@ -204,7 +227,7 @@ def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_nam
     oc, shape, dirs_t = args[0], args[1], args[4]
     b, n, _ = oc.shape
     r = dirs_t.shape[-1]
-    threads = _threads(kernel.query("sgrt_chunked_bwd_max_threads"), rb, r)
+    threads = _threads(kernel.query("sgrt_chunked_max_threads"), rb, r)
     f32 = dict(dtype=torch.float32, device=oc.device)
     scratch = torch.empty(chunked_backward_scratch_floats(b, n, r, ck, threads,
                                                           t_saved is None, kernel), **f32)
@@ -221,13 +244,17 @@ def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_nam
 
 def chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
                      ck: int, rb: int = 128, qb: int = 32, erf_name: str = "as5",
-                     exp_name: str = "exact"):
+                     exp_name: str = "exact", part_ms: torch.Tensor | None = None):
     """Wrapper of the chunked backward kernels: the VJP for the cotangent
     dcol (B,3,R) → (doc (B,N,3), dsigma (B,N), dmag (B,N), dalbedo (B,N,3),
     ddirs (B,3,R)). With t_saved (B,5,N,R) from chunked_forward_t it
     launches the saved-T kernel, without it the recompute kernel. CPU
     tensors go to chunked_backward_plain. rb caps the rays per block; qb is
-    the rows staged per shared-memory pass."""
+    the rows staged per shared-memory pass, the forward's, so that a
+    recomputed T is the forward's bit for bit. part_ms: a float32 CPU
+    tensor of 4 C + 1 elements (C = N / ck) for the device ms of each
+    chunk's pass A (recompute), p side, db sum and q side and of the row
+    sums, for measurement."""
     args = (oc, sigma, mag, albedo, dirs_t, counts)
     want = _scene_shapes(*args)
     b, n, _ = oc.shape
@@ -241,7 +268,7 @@ def chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None,
                                       exp_name=exp_name)
     kernel = CHUNKED_BWD if t_saved is None else CHUNKED_BWD_T
     return _chunked_backward_launch(kernel, args, dcol, t_saved, ck=ck, rb=rb, qb=qb,
-                                    erf_name=erf_name, exp_name=exp_name)
+                                    erf_name=erf_name, exp_name=exp_name, part_ms=part_ms)
 
 
 # ---------------------------------------------------------------------------

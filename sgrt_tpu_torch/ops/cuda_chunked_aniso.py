@@ -5,8 +5,9 @@ The fused anisotropic op's function (ops.cuda_aniso) with the Gaussian axis
 cut into C = N / ck chunks of ck rows, for per-tile capacities above
 MAX_BWD_CAPACITY_ANISO; exact for the reason ops.cuda_chunked gives (the
 transmittance exponent is additive over Gaussians). Four kernels of
-csrc/chunked_aniso.cu, each with a wrapper that launches it for tensors on
-the card (or raises) and runs its plain version for tensors on the CPU:
+csrc/chunked.cu (the isotropic chunked route's templates over anisotropic
+rows), each with a wrapper that launches it for tensors on the card (or
+raises) and runs its plain version for tensors on the CPU:
 
     chunked_forward_aniso    colors         (_chunked_fwd_aniso_kernel)
     chunked_forward_t_aniso  colors and T   (the saved-T schedule's forward)
@@ -18,7 +19,7 @@ The JAX package recomputes T at chunked scale only because a TPU holds no
 multi-GB residual (pallas_chunked_aniso.py:19-22); the card does, so the
 route saves T when its 20*B*N*R bytes fit SAVE_T_CHUNKED_MAX_BYTES, by the
 isotropic chunked route's rule (ops.cuda_chunked.render_fused_chunked),
-and recomputes it above. csrc/chunked_aniso.cu's note gives the kernels'
+and recomputes it above. csrc/chunked.cu's note gives the kernels'
 design: warp-wide groups of 4 rows sharing each stage's per-ray terms
 through shared-memory planes, the backward's p-side/q-side split, and the
 recompute backward as the forward-with-T per chunk ahead of the saved-T
@@ -47,6 +48,7 @@ from sgrt_tpu_torch.ops.cuda_chunked import (
     _check_chunks,
     _chunked_backward_launch,
     _chunked_blocks,
+    _chunked_forward_launch,
     _ChunkedOpts,
 )
 from sgrt_tpu_torch.ops.cuda_kernel import (
@@ -54,12 +56,11 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     CudaKernel,
     _block_sizes,
     _check_inputs,
-    _forward_launch,
     _kernel_erf_name,
     save_t_bytes,
 )
 
-_SRC, _TPU = "chunked_aniso.cu", "sgrt_tpu/ops/pallas_chunked_aniso.py"
+_SRC, _TPU = "chunked.cu", "sgrt_tpu/ops/pallas_chunked_aniso.py"
 CHUNKED_FWD_ANISO = CudaKernel("chunked_fwd_aniso", _SRC, "sgrt_chunked_fwd_aniso",
                                f"{_TPU}:78", 8, 8)
 CHUNKED_FWD_T_ANISO = CudaKernel("chunked_fwd_t_aniso", _SRC, "sgrt_chunked_fwd_t_aniso",
@@ -116,8 +117,8 @@ def chunked_forward_aniso(oc, invd, mag, albedo, dirs_t, counts, *, ck: int, rb:
     _check_chunks(oc.shape[1], ck)
     if not _check_inputs("chunked_forward_aniso", _aniso_shapes(*args), oc.device):
         return chunked_forward_aniso_plain(*args, ck=ck, erf_name=erf_name, exp_name=exp_name)
-    return _forward_launch(CHUNKED_FWD_ANISO, args, None, rb=rb, pb=pb, qb=qb,
-                           erf_name=erf_name, exp_name=exp_name)
+    return _chunked_forward_launch(CHUNKED_FWD_ANISO, args, None, rb=rb, pb=pb, qb=qb,
+                                   erf_name=erf_name, exp_name=exp_name)
 
 
 def chunked_forward_t_aniso(oc, invd, mag, albedo, dirs_t, counts, *, ck: int, rb: int = 128,
@@ -133,8 +134,8 @@ def chunked_forward_t_aniso(oc, invd, mag, albedo, dirs_t, counts, *, ck: int, r
     b, n, _ = oc.shape
     t = torch.empty((b, len(K_TAPS), n, dirs_t.shape[2]), dtype=torch.float32,
                     device=oc.device)   # the kernel writes every element
-    colors = _forward_launch(CHUNKED_FWD_T_ANISO, args, t, rb=rb, pb=pb, qb=qb,
-                             erf_name=erf_name, exp_name=exp_name)
+    colors = _chunked_forward_launch(CHUNKED_FWD_T_ANISO, args, t, rb=rb, pb=pb, qb=qb,
+                                     erf_name=erf_name, exp_name=exp_name)
     return colors, t
 
 

@@ -57,7 +57,7 @@ def _static_model() -> dict:
             "measured": False}
 
 
-def calibrate_cost_model(device="cpu", force: bool = False) -> dict:
+def calibrate_cost_model(device="cuda", force: bool = False) -> dict:
     """Cost model of one count-bounded launch of the fused forward kernel:
     {rate_erf (erf/s), linear_s (s per capacity-row-ray), launch_s (s per
     extra launch), measured}.
@@ -68,8 +68,8 @@ def calibrate_cost_model(device="cpu", force: bool = False) -> dict:
     same total work (the launch cost), two empty-count capacities (the
     capacity-linear cost) and two dense capacities (the rate). Every
     constant is a difference of two timings, so fixed per-call costs
-    cancel. Elsewhere the JAX package's static decision constants are
-    returned."""
+    cancel. Elsewhere (device="cpu") the JAX package's static decision
+    constants are returned."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return _static_model()

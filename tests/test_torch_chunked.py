@@ -147,6 +147,39 @@ def test_render_tiles_chunked_matches_fused(setup):
     np.testing.assert_allclose(ch.numpy(), np.asarray(jch), atol=2e-5)
 
 
+@pytest.mark.parametrize("over", [False, True])
+def test_chunked_route_picks_saved_t_by_budget(over, monkeypatch):
+    """save_t=None saves T when its 20 B N R bytes fit
+    SAVE_T_CHUNKED_MAX_BYTES (the forward-with-T runs and the backward gets
+    T) and recomputes above it."""
+    rng = np.random.default_rng(8)
+    b, n, r = 2, 256, 64
+    oc = _t(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32) + np.float32([0, 0, 4]))
+    sig = _t(rng.uniform(0.2, 0.5, (b, n)).astype(np.float32))
+    mag, alb = _t(rng.uniform(0.5, 1, (b, n)).astype(np.float32)), _t(
+        rng.uniform(0, 1, (b, n, 3)).astype(np.float32))
+    d = rng.normal(size=(b, 3, r)).astype(np.float32) * np.float32([0.2, 0.2, 1])[None, :, None]
+    dirs = _t(d / np.linalg.norm(d, axis=1, keepdims=True))
+    nbytes = 20 * b * n * r
+    monkeypatch.setattr(tc, "SAVE_T_CHUNKED_MAX_BYTES", nbytes - 1 if over else nbytes)
+    calls = []
+    for name in ("chunked_forward", "chunked_forward_t", "chunked_backward"):
+        real = getattr(tc, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls.append((_name, len(a) > 7 and a[7] is not None))
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(tc, name, spy)
+    leaves = [x.requires_grad_(True) for x in (oc, sig, mag, alb, dirs)]
+    counts = torch.tensor([n, 100], dtype=torch.int32)
+    tc.render_fused_chunked(*leaves, counts, ck=128, qb=16).sum().backward()
+    want = ([("chunked_forward", False), ("chunked_backward", False)] if over else
+            [("chunked_forward_t", False), ("chunked_backward", True)])
+    assert calls == want
+    assert all(torch.isfinite(x.grad).all() for x in leaves)
+
+
 @pytest.mark.parametrize("capacity", [4097, 5000, 5248, 12000, 65536])
 def test_tile_renderer_routes_chunked_above_wall(capacity, monkeypatch):
     """Above MAX_MONOLITHIC_CAPACITY the chunked route renders at the JAX

@@ -68,6 +68,24 @@ def _assert_grads_close(got, want, rel=5e-5):
                                    atol=rel, err_msg=name)
 
 
+# The gate of the chunked kernels' gradients: T and every gradient are
+# differences of sums over hundreds of rows, so summation order moves them
+# by more than a fixed tolerance; each must be as close to a float64 run of
+# the plain version as the float32 plain version is, x2, or within the JAX
+# package's 5e-5 of scale.
+def _double(args):
+    return [x.double() if x.is_floating_point() else x for x in args]
+
+
+def _assert_grads_f64_gate(got, plain, ref, rel=5e-5):
+    for name, a, p, f in zip(GRAD_NAMES, got, plain, ref):
+        assert torch.isfinite(a).all(), name
+        scale = max(float(f.abs().max()), 1e-30)
+        e_k = float((a.double() - f).abs().max()) / scale
+        e_p = float((p.double() - f).abs().max()) / scale
+        assert e_k <= max(rel, 2 * e_p), (name, e_k, e_p)
+
+
 def test_kernel_refuses_grad_and_unported_names():
     """On the card, gradients of render_fused come from the backward
     kernels and equal the plain backward's; unported erf names raise."""
@@ -213,30 +231,61 @@ def test_chunked_forward_kernels_match_plain(erf_name, exp_name):
     for b, c in enumerate(CHUNK_COUNTS):
         assert (t[b, :, min(c, 384):] == 0).all()
     assert (out[2] == 0).all()
+    # T is rounded alike whether or not it is stored (csrc/chunked.cu)
+    assert torch.equal(out, colors)
 
 
 @pytest.mark.parametrize("saved_t", [True, False])
 @pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
 def test_chunked_backward_kernels_match_plain(saved_t, erf_name, exp_name):
     """Both chunked backwards at R = 200 (two ray blocks, the second
-    partial): q-side sums carried over three p chunks, dead rows and the
-    dead tile exactly zero."""
+    partial): q-side sums carried over three p chunks, held against a
+    float64 run of the plain version (_assert_grads_f64_gate); dead rows and
+    the dead tile exactly zero; the recompute backward redoes the forward's
+    pass A with the same code, so both give the same gradients bit for
+    bit."""
     from sgrt_tpu_torch.ops import cuda_chunked as tc
 
     dev = _card()
     args = _inputs(dev, n=384, counts=CHUNK_COUNTS)
     dcol = torch.randn((5, 3, 200), generator=torch.Generator().manual_seed(7)).to(dev)
     kw = dict(ck=128, erf_name=erf_name, exp_name=exp_name)
-    t = tc.chunked_forward_t(*args, **kw)[1] if saved_t else None
+    t_saved = tc.chunked_forward_t(*args, **kw)[1]
+    t = t_saved if saved_t else None
     kernel = tc.CHUNKED_BWD_T if saved_t else tc.CHUNKED_BWD
     before = kernel.launches
     got = tc.chunked_backward(*args, dcol, t, **kw)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    _assert_grads_close(got, tc.chunked_backward_plain(*args, dcol, t, **kw))
+    _assert_grads_f64_gate(got, tc.chunked_backward_plain(*args, dcol, t, **kw),
+                           tc.chunked_backward_plain(*_double(args), dcol.double(), **kw))
     for g in got[:4]:
         assert (g[2] == 0).all() and (g[1, 17:] == 0).all() and (g[3, 200:] == 0).all()
     assert (got[4][2] == 0).all()
+    other = tc.chunked_backward(*args, dcol, None if saved_t else t_saved, **kw)
+    for name, a, b in zip(GRAD_NAMES, got, other):
+        assert torch.equal(a, b), name
+
+
+def test_chunked_kernels_refuse_bad_qb():
+    """A qb that the chunked kernels do not take (below 8 staged rows)
+    reaches the launch, which refuses it: each wrapper raises the launch's
+    RuntimeError and counts no launch, with no plain run in its place."""
+    from sgrt_tpu_torch.ops import cuda_chunked as tc
+
+    dev = _card()
+    args = _inputs(dev, n=384, counts=CHUNK_COUNTS)
+    dcol = torch.zeros((5, 3, 200), device=dev)
+    t = tc.chunked_forward_t(*args, ck=128)[1]
+    calls = {tc.CHUNKED_FWD: lambda: tc.chunked_forward(*args, ck=128, qb=4),
+             tc.CHUNKED_FWD_T: lambda: tc.chunked_forward_t(*args, ck=128, qb=4),
+             tc.CHUNKED_BWD_T: lambda: tc.chunked_backward(*args, dcol, t, ck=128, qb=4),
+             tc.CHUNKED_BWD: lambda: tc.chunked_backward(*args, dcol, ck=128, qb=4)}
+    for kernel, call in calls.items():
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match=f"{kernel.name} launch failed"):
+            call()
+        assert kernel.launches == before
 
 
 def test_chunked_route_on_card():
@@ -390,29 +439,13 @@ def test_fused_backward_sums_at_thousands_of_rows():
         assert e_k <= max(2e-4 if name == "oc" else 1e-5, 2 * e_p), (name, e_k, e_p)
 
 
-# the chunked anisotropic kernels (kernel 13: the anisotropic forward's entry
-# point with its own launch count; kernel 14: csrc/chunked_bwd.cu over
-# AnisoGeo rows) on _aniso_inputs' rows at N = 384 in three chunks of 128:
-# CHUNK_COUNTS give a tile with all three chunks live, one whose only live
-# chunk is partly live (17), a dead tile, one whose second chunk is partly
-# live (200) and one clamped to N; R = 200 is two ray blocks, the second
-# partial. Kernel 14 forms doc and dinvd from sums that do not cancel (its
-# source note), so its gradients are held against a float64 run of the
-# plain version: as close to it as the float32 plain version is, x2, or
-# within the JAX package's 5e-5 of scale.
-def _double(args):
-    return [x.double() if x.is_floating_point() else x for x in args]
-
-
-def _assert_grads_f64_gate(got, plain, ref, rel=5e-5):
-    for name, a, p, f in zip(GRAD_NAMES, got, plain, ref):
-        assert torch.isfinite(a).all(), name
-        scale = max(float(f.abs().max()), 1e-30)
-        e_k = float((a.double() - f).abs().max()) / scale
-        e_p = float((p.double() - f).abs().max()) / scale
-        assert e_k <= max(rel, 2 * e_p), (name, e_k, e_p)
-
-
+# the chunked anisotropic kernels (kernels 13-14: csrc/chunked.cu's
+# templates over AnisoGeo rows) on _aniso_inputs' rows at N = 384 in three
+# chunks of 128: CHUNK_COUNTS give a tile with all three chunks live, one
+# whose only live chunk is partly live (17), a dead tile, one whose second
+# chunk is partly live (200) and one clamped to N; R = 200 is two ray
+# blocks, the second partial. Gradients are held to the float64 gate
+# (_assert_grads_f64_gate).
 @pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
 def test_chunked_aniso_kernels_match_plain(erf_name, exp_name):
     from sgrt_tpu_torch.ops import cuda_aniso as ta
