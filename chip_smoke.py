@@ -21,8 +21,11 @@ comes out, and times the kernels:
             times with each backward's parts (the fused forward beside the
             chunked one);
   aniso     the cube cloud with per-axis scales at 256x256 (the fused
-            anisotropic kernels): kernels vs plain, the --aniso CLI orbit,
-            fit_cli --aniso, the bucketed anisotropic train step;
+            anisotropic kernels; the backwards are csrc/chunked.cu's at one
+            chunk): kernels vs plain, the --aniso CLI orbit, fit_cli
+            --aniso, the bucketed anisotropic train step, the kernels' times
+            with the backwards' parts; under --only also the fused
+            backwards beside the chunked route's at one chunk;
   aniso dense  the 50k-Gaussian sphere with per-axis scales at 512x512 (the
             chunked anisotropic kernels): tile grid and buckets, kernels vs
             plain (the forward, the forward-with-T and both backwards), the
@@ -459,8 +462,11 @@ def kernel_resources_phase() -> None:
                         nvcc.build_log(chunked), re.S)
     frames = [(f, [int(v) for v in vals]) for f, *vals in frames if "kernel" in f]
     local = {f: vals for f, vals in frames if any(vals)}
+    by_source = {s.name: [k.name for k in kernels.KERNELS if k.source == s]
+                 for s in sorted({k.source for k in kernels.KERNELS})}
     emit("kernel_resources", functions=res, sass=sass, spilling=over,
-         chunked_instantiations=len(frames), chunked_local_bytes=local)
+         chunked_instantiations=len(frames), chunked_local_bytes=local,
+         kernels_by_source=by_source)
     check(bool(frames) and not local, f"a chunked kernel uses local memory: {local}")
 
 
@@ -1264,12 +1270,81 @@ def compare_aniso_kernels(inp, dcol, erf_name="as5", exp_name="exact", rb: int =
                       "rb": rb, "max_count": int(inp[5].max())}}
 
 
-def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
+def one_chunk_parts(part_ms) -> dict:
+    """The device ms of a one-chunk backward's launches by name (part_ms of
+    a backward of csrc/chunked.cu at C = 1): the recompute's forward-with-T
+    (T), p side, db sum, q side, the row and ddirs kernels, and their sum."""
+    pm = part_ms.tolist()
+    names = ("T_ms", "p_side_ms", "db_sum_ms", "q_side_ms", "rows_ddirs_ms")
+    return {**dict(zip(names, pm)), "sum_ms": sum(pm)}
+
+
+def aniso_fused_vs_chunked(dev, smi: str, scene, view, o, tile_dirs, bucket, dense_in) -> None:
+    """The fused anisotropic backwards (kernels 11-12: csrc/chunked.cu's
+    backward at one chunk of the view's N rows) beside the chunked route's
+    (kernels 20 and 14) at one chunk, on the aniso step's view: the fused
+    ones at its capacity, the chunked ones on the same tiles gathered at the
+    next multiple of 128 rows (their chunk contract); each timed over 5
+    calls, with its parts where it reports them. Also whether the chunked
+    forward-with-T at one chunk writes kernel 10's T bit for bit, at qb 16
+    and 32: the recompute backward's T is that forward's, so the two fused
+    backwards' gradients are equal bit for bit only if it does."""
+    import torch
+
+    from sgrt_tpu_torch.ops import cuda_aniso as ca
+    from sgrt_tpu_torch.ops import cuda_chunked_aniso as cca
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
+
+    n = dense_in[0].shape[1]
+    n_c = -(-n // 128) * 128
+    (wide,) = bucket_launches(scene, view, o, tile_dirs,
+                              bucket._replace(n_dense=0, cap_dense=n_c, cap_sparse=n_c),
+                              ANISO_TILES)
+    check(wide[0].shape[1] == n_c and torch.equal(wide[5], dense_in[5]),
+          "the view gathered at the chunked capacity holds other tiles")
+    g = torch.Generator().manual_seed(90)
+    dcol = torch.randn((dense_in[0].shape[0], 3, dense_in[4].shape[2]), generator=g).to(dev)
+    pb, qb = ck._block_sizes(n)
+    t_f = ca.fused_forward_t_aniso(*dense_in, pb=pb, qb=qb)[1]
+    t_w = ca.fused_forward_t_aniso(*wide, pb=pb, qb=qb)[1]
+
+    out = {}
+    for name, fn in (
+            ("fused_bwd_t_aniso", lambda pm=None: ca.fused_backward_aniso(
+                *dense_in, dcol, t_f, qb=qb, part_ms=pm)),
+            ("fused_bwd_aniso", lambda pm=None: ca.fused_backward_aniso(
+                *dense_in, dcol, qb=qb, part_ms=pm)),
+            ("chunked_bwd_t_aniso_C1", lambda pm=None: cca.chunked_backward_aniso(
+                *wide, dcol, t_w, ck=n_c, qb=qb, part_ms=pm)),
+            ("chunked_bwd_aniso_C1", lambda pm=None: cca.chunked_backward_aniso(
+                *wide, dcol, ck=n_c, qb=qb, part_ms=pm))):
+        part_ms = torch.zeros(5)
+        fn(part_ms)
+        out[name] = {"ms": time_cuda(fn, iters=5, warmup=1), "parts": one_chunk_parts(part_ms)}
+    same_t = {}
+    for qb_t in (16, 32):
+        c_f, t_k10 = ca.fused_forward_t_aniso(*wide, pb=8, qb=qb_t)
+        c_c, t_c = cca.chunked_forward_t_aniso(*wide, ck=n_c, pb=8, qb=qb_t)
+        torch.cuda.synchronize()
+        same_t[f"qb{qb_t}"] = {"T_equal": bool(torch.equal(t_c, t_k10)),
+                               "T_elements_differing": int((t_c != t_k10).sum()),
+                               "T_max_abs_diff": float((t_c - t_k10).abs().max()),
+                               "colors_equal": bool(torch.equal(c_c, c_f))}
+    emit("aniso_fused_vs_chunked", shape={"B": dense_in[0].shape[0], "N": n, "N_chunked": n_c,
+                                          "R": dense_in[4].shape[2], "qb": qb,
+                                          "max_count": int(dense_in[5].max())},
+         backwards=out, chunked_fwd_t_vs_kernel10=same_t, power_limit=smi)
+
+
+def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
+                 fused_vs_chunked: bool = False) -> list:
     """The anisotropic cell (config4_aniso_teapot_256): shapes, kernels 9-12
     against their plain versions (and float64), the CLI's --aniso orbit,
     fit_cli --aniso, the bucketed anisotropic train step (saved-T, then
-    recompute) with a profile, and the kernels' times. Returns the kernel
-    line's entries of kernels 9-12."""
+    recompute) with a profile, and the kernels' times (kernels 11-12 with
+    their parts); with fused_vs_chunked (--only aniso) also
+    aniso_fused_vs_chunked. Returns the kernel line's entries of kernels
+    9-12."""
     import torch
 
     from sgrt_tpu_torch import cli, fit_cli
@@ -1507,6 +1582,17 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
                                   for i, b, d in zip(per_bucket, blocks, dcols)],
     }
     ms = {k: sum(time_cuda(f, iters=5, warmup=1) for f in fs) for k, fs in runs.items()}
+    # kernels 11-12 part by part (csrc/chunked.cu at one chunk): the
+    # recompute's T, p side, db sum, q side and the row and ddirs kernels by
+    # CUDA events, one call each, summed over the train step's launches
+    parts = {}
+    for k, t_args in ((ca.FUSED_BWD_T_ANISO, ts), (ca.FUSED_BWD_ANISO, [None] * len(ts))):
+        pm = torch.zeros(5)
+        for i, b, d, t in zip(per_bucket, blocks, dcols, t_args):
+            one = torch.zeros(5)
+            ca.fused_backward_aniso(*i, d, t, qb=b[1], part_ms=one)
+            pm += one
+        parts[k.name] = one_chunk_parts(pm)
     del ts
 
     def nbytes(k, inp):
@@ -1546,7 +1632,8 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
                          **bound(fp32, sfu, nb, clock_mhz, n_sm),
                          "plain_ms": plain_ms[k.name],
                          "plain_shape": "the 32-tile case of aniso_kernels_vs_plain, tile by tile",
-                         "library_ms": "n/a: no single PyTorch call computes it"}
+                         "library_ms": "n/a: no single PyTorch call computes it",
+                         **({"parts": parts[k.name]} if k.name in parts else {})}
         entries.append({
             "name": k.name, "route": k.route,
             "source": str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
@@ -1557,6 +1644,8 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
             "bound_ms": times[k.name]["bound_ms"], "bound_by": times[k.name]["bound_by"],
             "library_ms": None})
     emit("aniso_times", kernels=times, power_limit=smi)
+    if fused_vs_chunked:
+        aniso_fused_vs_chunked(dev, smi, scene, cam.view_matrix, o, tile_dirs, bucket, dense_in)
     return entries
 
 
@@ -2461,7 +2550,8 @@ def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
         groups = {"serving": lambda: [serving_phases(dev, smi, clock_mhz, n_sm)],
                   "train": lambda: train_phases(dev, smi, clock_mhz, n_sm, obj),
                   "dense": lambda: dense_phases(dev, smi, clock_mhz, n_sm, tmp),
-                  "aniso": lambda: aniso_phases(dev, smi, clock_mhz, n_sm, obj),
+                  "aniso": lambda: aniso_phases(dev, smi, clock_mhz, n_sm, obj,
+                                                fused_vs_chunked=True),
                   "aniso_dense": lambda: aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp),
                   "split": lambda: split_phases(dev, smi, clock_mhz, n_sm)}
         for name in names:

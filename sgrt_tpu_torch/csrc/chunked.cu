@@ -17,13 +17,26 @@
 // points run the same templates; the geometry decides a row's per-ray terms
 // and J = d mb / d d (Side<Geo>, chunked_common.cuh).
 //
+// The fused anisotropic backwards, sgrt_tpu/ops/pallas_aniso.py::
+// _fused_bwd_t_aniso_kernel (sgrt_fused_bwd_t_aniso, from the T of
+// fused_fwd.cu's sgrt_fused_fwd_t_aniso) and ::_fused_bwd_aniso_kernel
+// (sgrt_fused_bwd_aniso, recomputing T), are the anisotropic backward at one
+// chunk (ck = N): the same function, since the fused backward is this
+// backward with C = 1. N need not be a multiple of 64 there (the route pads
+// it to its p and q blocks): the last 64-row block is partial, and every
+// row read or written stays below min(count, N). The recompute's
+// forward-with-T writes sgrt_fused_fwd_t_aniso's T bit for bit at the same
+// qb (both sum each stage's terms on their own, in the same order, and
+// round T alike), so the two fused backwards give the same gradients.
+//
 // The forward's function is fused_fwd.cu's (its note gives the
 // definitions). The backward is the fused backward's VJP (fused_bwd.cu's
-// note, same definitions and rounding). Every cotangent that reaches the
-// raw inputs is LINEAR in the per-(row, ray) sums (dco, dmb, dinv, dsb_p,
-// the albedo weight), and the base path is linear in db
-// (pallas_chunked.py:46-51). So the pair work is split in two and summed in
-// any fixed order:
+// note, same definitions and rounding; the anisotropic chain through A, Bt
+// and C is pallas_aniso.py's _aniso_epilogue, Side<AnisoGeo> in
+// chunked_common.cuh). Every cotangent that reaches the raw inputs is
+// LINEAR in the per-(row, ray) sums (dco, dmb, dinv, dsb_p, the albedo
+// weight), and the base path is linear in db (pallas_chunked.py:46-51). So
+// the pair work is split in two and summed in any fixed order:
 //   p side (bwd_p_kernel), per live p row of chunk a and ray, over every
 //     live q: dmb_p += S0 inv_q, dsb_p += S1 inv_q; plus the direct terms
 //     dco_p += sqrt(2/pi) tw_p A_p and dalb_p's weight sqrt(2/pi) co_p tw_p
@@ -34,8 +47,7 @@
 //     chains it per (a, bq) (pallas_chunked.py:493-508).
 // Each side chains its own sums through the geometry's prep and reduces
 // them over the warp's rays into ten per-row sums; bwd_rows_kernel adds the
-// p side's and the q side's and forms the per-row gradients as fused_bwd.cu's
-// row reductions do. The chains are linear too, so they split by side
+// p side's and the q side's and forms the per-row gradients. The chains are linear too, so they split by side
 // exactly, as the reference splits them (pallas_chunked_aniso.py:333-348:
 // dsb on the p side, dinv on the q side; Side<Geo> in chunked_common.cuh
 // names the sums). ddirs sums the per-block partials of each row's chain.
@@ -120,12 +132,15 @@
 // 228 KB).
 //
 // Peak scratch of the backward, B tiles, N = C ck rows, R rays in blocks of
-// 32 (Rp = R rounded up to 32), in brackets at the 50k-Gaussian sphere's
-// dense bucket (B = 256, N = 5376, ck = 1792, R = 128):
-//   rows_p, rows_q  2 x B (Rp/32) N 10 floats (0.44 GB)
-//   dd_p, dd_q      2 x B (N/64) 3 Rp doubles (0.13 GB)
-//   db_part, db     B (ck/64 + 1) Rp          (~0 GB)
-//   t_a (recompute) B 5 ck Rp                 (1.17 GB)
+// 32 (Rp = R rounded up to 32), nb(n) = n/64 rounded up, in brackets at the
+// 50k-Gaussian sphere's dense bucket (B = 256, N = 5376, ck = 1792, R = 128)
+// and at the anisotropic train step's one chunk (B = 512, N = ck = 736):
+//   rows_p, rows_q  2 x B (Rp/32) N 10 floats (0.44 GB; 0.12 GB)
+//   dd_p, dd_q      2 x B nb(N) 3 Rp doubles   (0.13 GB; 0.02 GB)
+//   db_part, db     B (nb(ck) + 1) Rp          (~0 GB)
+//   t_a (recompute) B 5 ck Rp                  (1.17 GB; 0.96 GB)
+// (the fused anisotropic backward it replaces kept 32 bytes per (row, ray):
+// 1.54 GB at the train step)
 //
 // Layouts (float32 unless noted, contiguous): oc, albedo (B,N,3); sigma
 // (B,N) or invd (B,N,3); mag (B,N); dirs, dcol (B,3,R) ray-minor; counts
@@ -572,8 +587,8 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
 #pragma unroll
       for (int c = 0; c < 3; ++c) s3[c] += dds[c * nt + h * kRays + x];
     }
-    db_part[(static_cast<size_t>(b) * (ck / kRows) + blk) * Rp + r] = sdb;
-    double* dd = dd_p + (static_cast<size_t>(b) * (N / kRows) + p_begin / kRows) * 3 * Rp + r;
+    db_part[(static_cast<size_t>(b) * row_blocks(ck) + blk) * Rp + r] = sdb;
+    double* dd = dd_p + (static_cast<size_t>(b) * row_blocks(N) + p_begin / kRows) * 3 * Rp + r;
 #pragma unroll
     for (int c = 0; c < 3; ++c) dd[c * static_cast<size_t>(Rp)] = s3[c];
   }
@@ -764,7 +779,7 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   dds[2 * nt + tid] = gz;
   __syncthreads();
   if (g == 0) {
-    double* dd = dd_q + (static_cast<size_t>(b) * (N / kRows) + blk) * 3 * Rp + r;
+    double* dd = dd_q + (static_cast<size_t>(b) * row_blocks(N) + blk) * 3 * Rp + r;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       double s = 0.0;
@@ -887,10 +902,11 @@ int launch_fwd(const float* oc, const float* shape, const float* mag, const floa
 // the forward-with-T over chunk a's rows, T into scratch), the p side,
 // chunk a's db (the live 64-row blocks summed in block order) and the q
 // side, so that the q side's sums carried across chunks are read-modify-
-// writes in stream order; then the per-row gradients and ddirs. part_ms
-// (host, 4 C + 1 floats, or null): each chunk's pass A (0 with saved T),
-// p side, db sum and q side, then the row and ddirs kernels, in device ms
-// (the call then waits for them).
+// writes in stream order; then the per-row gradients and ddirs. ck is a
+// multiple of 64 dividing N, or N itself (one chunk, whose last 64-row block
+// may be partial). part_ms (host, 4 C + 1 floats, or null): each chunk's
+// pass A (0 with saved T), p side, db sum and q side, then the row and
+// ddirs kernels, in device ms (the call then waits for them).
 template <class Geo, bool SAVED_T>
 int launch_bwd(const float* oc, const float* shape, const float* mag, const float* alb,
                const float* dirs, const int* counts, const float* dcol, const float* t,
@@ -901,8 +917,8 @@ int launch_bwd(const float* oc, const float* shape, const float* mag, const floa
   PKernel pfn = pick_p<Geo>(erf_id, exp_id);
   QKernel qfn = pick_q<Geo>(erf_id, exp_id);
   if (tfn == nullptr || pfn == nullptr || qfn == nullptr || B < 1 || B > 65535 || N < 1 ||
-      R < 1 || ck < kRows || ck % kRows != 0 || N % ck != 0 || N / kRows > 65535 ||
-      threads != kRays || bad_qb(qb) || (SAVED_T && t == nullptr))
+      R < 1 || ck < 1 || N % ck != 0 || (ck != N && ck % kRows != 0) ||
+      row_blocks(N) > 65535 || threads != kRays || bad_qb(qb) || (SAVED_T && t == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if ((err = allow_smem(tfn, fwd_smem(qb))) != cudaSuccess ||
@@ -918,25 +934,26 @@ int launch_bwd(const float* oc, const float* shape, const float* mag, const floa
   // T of the rows of chunk a: the saved T, or chunk a's scratch
   const float* tsrc = SAVED_T ? t : s.t_a;
   const int t_rows = SAVED_T ? N : ck, t_ld = SAVED_T ? R : Rp;
+  const dim3 t_grid(n_rb, (ck + kFwdRows - 1) / kFwdRows, B);
   PartTimer timer(part_ms, st);
   for (int a = 0; a < N / ck; ++a) {
     const int t_row0 = SAVED_T ? 0 : a * ck;
     if (!SAVED_T) {
-      tfn<<<dim3(n_rb, ck / kFwdRows, B), dim3(kRays, kFwdG), fwd_smem(qb), st>>>(
+      tfn<<<t_grid, dim3(kRays, kFwdG), fwd_smem(qb), st>>>(
           oc, shape, mag, alb, dirs, counts, nullptr, s.t_a, N, R, qb, 0, a * ck, ck, a * ck, Rp);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
     timer.mark();
-    pfn<<<dim3(n_rb, ck / kRows, B), block, bwd_p_smem(qb), st>>>(
+    pfn<<<dim3(n_rb, row_blocks(ck), B), block, bwd_p_smem(qb), st>>>(
         oc, shape, mag, alb, dirs, counts, dcol, tsrc, t_rows, t_row0, t_ld, s.rows_p, s.dd_p,
         s.db_part, N, R, Rp, ck, a, qb);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     timer.mark();
-    if ((err = launch_block_sums(s.db_part, counts, s.db, B, N, Rp, ck / kRows, kRows, a * ck,
-                                 st)) != cudaSuccess)
+    if ((err = launch_block_sums(s.db_part, counts, s.db, B, N, Rp, row_blocks(ck), kRows,
+                                 a * ck, st)) != cudaSuccess)
       return static_cast<int>(err);
     timer.mark();
-    qfn<<<dim3(n_rb, N / kRows, B), block, bwd_q_smem(qb), st>>>(
+    qfn<<<dim3(n_rb, row_blocks(N), B), block, bwd_q_smem(qb), st>>>(
         oc, shape, mag, alb, dirs, counts, dcol, tsrc, t_rows, t_row0, t_ld, s.db, s.rows_q,
         s.dd_q, N, R, Rp, ck, a, qb);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
@@ -1051,6 +1068,33 @@ int sgrt_chunked_bwd_t_aniso(const float* oc, const float* invd, const float* ma
   return launch_bwd<AnisoGeo, true>(oc, invd, mag, alb, dirs, counts, dcol, t, scratch, doc,
                                     dinvd, dmag, dalb, ddirs, part_ms, B, N, R, ck, threads, qb,
                                     erf_id, exp_id, stream);
+}
+
+// The fused anisotropic backwards: the two above at one chunk, ck = N (any
+// N >= 1). sgrt_fused_bwd_t_aniso reads T (B,5,N,R) from fused_fwd.cu's
+// sgrt_fused_fwd_t_aniso with the same qb; sgrt_fused_bwd_aniso recomputes
+// it, bit for bit. Scratch and part_ms as the chunked ones' at C = 1.
+int sgrt_fused_bwd_t_aniso(const float* oc, const float* invd, const float* mag,
+                           const float* alb, const float* dirs, const int* counts,
+                           const float* dcol, const float* t, float* scratch, float* doc,
+                           float* dinvd, float* dmag, float* dalb, float* ddirs, float* part_ms,
+                           int B, int N, int R, int ck, int threads, int qb, int erf_id,
+                           int exp_id, void* stream) {
+  if (ck != N) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd<AnisoGeo, true>(oc, invd, mag, alb, dirs, counts, dcol, t, scratch, doc,
+                                    dinvd, dmag, dalb, ddirs, part_ms, B, N, R, ck, threads, qb,
+                                    erf_id, exp_id, stream);
+}
+
+int sgrt_fused_bwd_aniso(const float* oc, const float* invd, const float* mag, const float* alb,
+                         const float* dirs, const int* counts, const float* dcol, float* scratch,
+                         float* doc, float* dinvd, float* dmag, float* dalb, float* ddirs,
+                         float* part_ms, int B, int N, int R, int ck, int threads, int qb,
+                         int erf_id, int exp_id, void* stream) {
+  if (ck != N) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd<AnisoGeo, false>(oc, invd, mag, alb, dirs, counts, dcol, nullptr, scratch,
+                                     doc, dinvd, dmag, dalb, ddirs, part_ms, B, N, R, ck, threads,
+                                     qb, erf_id, exp_id, stream);
 }
 
 // Floats of scratch that one backward launch needs (recompute: without

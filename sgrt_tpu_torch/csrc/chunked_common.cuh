@@ -11,15 +11,20 @@
 
 namespace sgrt {
 
-constexpr int kRows = 64;        // rows per block; divides every chunk (ck % 128 == 0)
+constexpr int kRows = 64;        // rows per block; divides every chunk of a launch with
+                                 // C > 1 chunks, and a one-chunk launch's (ck = N) last
+                                 // block may be partial
 constexpr int kSums = 10;        // per-row sums over rays; Side<Geo> names them
+
+// Row blocks of kRows that cover n rows (the last one possibly partial).
+__host__ __device__ constexpr int row_blocks(int n) { return (n + kRows - 1) / kRows; }
 
 struct Scratch {
   float* rows_p;   // (B, n_rb, N, kSums)
   float* rows_q;   // (B, n_rb, N, kSums), summed over p chunks
-  double* dd_p;    // (B, N/kRows, 3, Rp)
-  double* dd_q;    // (B, N/kRows, 3, Rp), summed over p chunks
-  float* db_part;  // (B, ck/kRows, Rp)
+  double* dd_p;    // (B, row_blocks(N), 3, Rp)
+  double* dd_q;    // (B, row_blocks(N), 3, Rp), summed over p chunks
+  float* db_part;  // (B, row_blocks(ck), Rp)
   float* db;       // (B, Rp)
   float* t_a;      // (B, kTaps, ck, Rp), recompute only
 };
@@ -30,10 +35,10 @@ size_t scratch_layout(int B, int N, int R, int ck, int threads, bool recompute,
   const size_t n_rb = (R + threads - 1) / threads;
   const size_t Rp = n_rb * threads;
   // in floats; the double buffers first, so that they stay 8-byte aligned
-  const size_t dd = 2 * static_cast<size_t>(B) * (N / kRows) * 3 * Rp;
+  const size_t dd = 2 * static_cast<size_t>(B) * row_blocks(N) * 3 * Rp;
   const size_t sizes[7] = {
       dd, dd, static_cast<size_t>(B) * n_rb * N * kSums, static_cast<size_t>(B) * n_rb * N * kSums,
-      static_cast<size_t>(B) * (ck / kRows) * Rp, static_cast<size_t>(B) * Rp,
+      static_cast<size_t>(B) * row_blocks(ck) * Rp, static_cast<size_t>(B) * Rp,
       recompute ? static_cast<size_t>(B) * kTaps * ck * Rp : 0};
   size_t off[8] = {0};
   for (int i = 0; i < 7; ++i) off[i + 1] = off[i] + sizes[i];
@@ -313,9 +318,10 @@ __global__ void bwd_ddirs_kernel(const int* __restrict__ counts, const double* _
   const int c = static_cast<int>((i % per_tile) / R);
   const int r = static_cast<int>(i % R);
   const int cnt = max(0, min(counts[b], N));
-  const int live = (cnt + kRows - 1) / kRows;
+  const int live = row_blocks(cnt);
   const size_t stride = static_cast<size_t>(3) * Rp;
-  const size_t o = static_cast<size_t>(b) * (N / kRows) * stride + static_cast<size_t>(c) * Rp + r;
+  const size_t o =
+      static_cast<size_t>(b) * row_blocks(N) * stride + static_cast<size_t>(c) * Rp + r;
   double s = 0.0;
   for (int z = 0; z < live; ++z) s += dd_p[o + z * stride];
   for (int z = 0; z < live; ++z) s += dd_q[o + z * stride];

@@ -1,21 +1,18 @@
 // Fused backward of the Gaussian ray tracer for Hopper (sm_90a): from the
-// colors' cotangent dcol to the gradients of the raw tile scene and of the
-// ray directions.
+// colors' cotangent dcol to the gradients of the raw isotropic tile scene
+// and of the ray directions.
 //
 // Replaces the TPU kernels sgrt_tpu/ops/pallas_kernel.py::_fused_bwd_t_kernel
 // (saved-T backward, launched by _fused_bwd_t_call; entry point
 // sgrt_fused_bwd_t) and ::_fused_bwd_kernel (recompute backward, launched
-// by _fused_bwd_call; entry point sgrt_fused_bwd), and their anisotropic
-// twins sgrt_tpu/ops/pallas_aniso.py::_fused_bwd_t_aniso_kernel (entry
-// point sgrt_fused_bwd_t_aniso) and ::_fused_bwd_aniso_kernel
-// (sgrt_fused_bwd_aniso). All four are one template,
-// bwd_rays_kernel<Geo, ..., SAVED_T> over the row geometries of
-// gauss_common.cuh, followed by a row reduction (bwd_rows_kernel, or
-// bwd_rows_aniso_kernel for the anisotropic chain).
+// by _fused_bwd_call; entry point sgrt_fused_bwd). Both are one template,
+// bwd_rays_kernel<..., SAVED_T> over IsoGeo rows (gauss_common.cuh),
+// followed by a row reduction (bwd_rows_kernel). (The anisotropic fused
+// backwards are chunked.cu's p/q-split backward at one chunk.)
 //
-// The VJP, in the reference's order (pallas_kernel.py:125-174, :1028-1070;
-// pallas_aniso.py:107-142, :180-245), with the forward's definitions
-// (fused_fwd.cu: mb, sb, co, inv per (row, ray)) and for live p, q:
+// The VJP, in the reference's order (pallas_kernel.py:125-174, :1028-1070),
+// with the forward's definitions (fused_fwd.cu: mb, co, inv per (row, ray),
+// sb = sigma) and for live p, q:
 //   A_p      = albedo_p . dcol(r);  g_p = sqrt(2/pi) co_p A_p
 //   T_k(p)   = saved, or recomputed from acc_k (pass A);  tw_p = sum_k T_k(p)
 //   G_k(p)   = g_p T_k(p);  db = sum_p g_p tw_p
@@ -27,18 +24,11 @@
 //     dsb_p += S1 inv_q
 //   base path: dco_q += db e1_q;  dmb_q -= 2/sqrt(pi) db co_q g1_q inv_q;
 //     dinv_q -= 2/sqrt(pi) db co_q g1_q mb_q,  (e1, g1) = (erf, exp(-x^2))(-mb_q inv_q)
-// then the chain through the geometry's prep to its raw inputs:
-//   isotropic: dcoco = dco co;  dmb += dcoco 2/(2 sigma^2) mb;  ddirs(r) = sum_q oc_q dmb_q;
-//     per row, summed over rays: s_row = sum dcoco, s_qmb = sum dcoco (|oc|^2 - mb^2),
-//     dsig = sum dsb_p - sum dinv inv/sigma + s_row/sigma + s_qmb/sigma^3,
-//     dmag = mag s_row / (mag == 0 ? 1 : mag^2),  doc = sum_r dmb d(r) - 2 oc s_row/(2 sigma^2)
-//   anisotropic (pallas_aniso.py's _aniso_epilogue): dcoco = dco co,
-//     dsb_tot = dsb + dcoco/sb - dinv inv/sb,  dBt = dmb sb^2 + dcoco mb,
-//     dA = -dmb mb sb^2 - dsb_tot sb^3/2 - dcoco mb^2/2,
-//     ddirs(r) = sum_q 2 d (invd_q dA_q) + M_q dBt_q  (M = oc invd);
-//     per row: s_row = sum dcoco, dM = sum dBt d, dA_d2 = sum dA d^2, dC = -s_row/2,
-//     dinvd = dA_d2 + dC oc^2 + dM oc,  doc = dM invd + 2 dC oc invd,
-//     dmag = s_row / (mag == 0 ? 1 : mag)
+// then the chain through the prep to the raw inputs: dcoco = dco co;
+//   dmb += dcoco 2/(2 sigma^2) mb;  ddirs(r) = sum_q oc_q dmb_q;
+//   per row, summed over rays: s_row = sum dcoco, s_qmb = sum dcoco (|oc|^2 - mb^2),
+//   dsig = sum dsb_p - sum dinv inv/sigma + s_row/sigma + s_qmb/sigma^3,
+//   dmag = mag s_row / (mag == 0 ? 1 : mag^2),  doc = sum_r dmb d(r) - 2 oc s_row/(2 sigma^2)
 // Rows at or past the count get exactly zero gradient.
 //
 // What bounds it on this card: operations. The grad pass costs, per live
@@ -47,11 +37,10 @@
 // one the erf needs anyway), plus 4 FP32 instructions per tap that fold the
 // cotangents (the offset, dco, S0, S1) and about 8 per (p, q) pair (mb_p -
 // mb_q, S0 and S1 scaling, dmb, dinv, dsb): about 25 FP32 and 2 SFU per
-// tap. Anisotropic rows add their per-(q, ray) terms (~25 FP32, 2 SFU) per
-// staged row and p block. The recompute variant adds pass A, the forward's
-// 5 erf taps per (p, q, ray). Bytes: the inputs and outputs are
-// O(B N + B R); the scratch planes below are O(B N R), read and written
-// once per (p block, q), 40 bytes per 8 x 5 taps.
+// tap. The recompute variant adds pass A, the forward's 5 erf taps per
+// (p, q, ray). Bytes: the inputs and outputs are O(B N + B R); the scratch
+// planes below are O(B N R), read and written once per (p block, q), 40
+// bytes per 8 x 5 taps.
 //
 // What the design does about it:
 //   * One thread owns one ray of one tile and runs the p axis serially in
@@ -79,23 +68,21 @@
 //     row, are accumulated in double. A single running float per sum was
 //     6x-20x further from a float64 run than the plain version at ~4300
 //     rows (the chunked kernels, PERF.md).
-//   * mb, |oc|^2 and |oc|^2 - mb^2 (isotropic) and A, Bt, C (anisotropic)
-//     are rounded as the plain version rounds them (gauss_common.cuh),
-//     since the chain multiplies by mb and the exponent cancels.
+//   * mb, |oc|^2 and |oc|^2 - mb^2 are rounded as the plain version rounds
+//     them (gauss_common.cuh), since the chain multiplies by mb and the
+//     exponent cancels.
 //   Known cost of this simple form: the densest tile's serial p loop bounds
 //   the launch (one block per 128-ray block of a tile).
 //
-// Layouts (float32 unless noted, contiguous): oc, albedo (B,N,3); sigma
-// (B,N) or invd (B,N,3); mag (B,N); dirs, dcol (B,3,R); counts (B,) int32;
-// t (B,5,N,R) (saved-T only); planes: kPlanes floats per (tile, row, ray
-// lane), Rp = the launched ray lanes: doubles (B,3,N,Rp) for the q-side
-// columns (dco, dmb, dinv; after the chain: dcoco, and dmb or dBt, and dinv
-// or dA), then floats (B,2,N,Rp) (dsb_p, the albedo weight w_p); outputs
-// doc, dalb (B,N,3), dsig (B,N) or dinvd (B,N,3), dmag (B,N), ddirs (B,3,R).
+// Layouts (float32 unless noted, contiguous): oc, albedo (B,N,3); sigma,
+// mag (B,N); dirs, dcol (B,3,R); counts (B,) int32; t (B,5,N,R) (saved-T
+// only); planes: kPlanes floats per (tile, row, ray lane), Rp = the
+// launched ray lanes: doubles (B,3,N,Rp) for the q-side columns (dco, dmb,
+// dinv; after the chain: dcoco and dmb), then floats (B,2,N,Rp) (dsb_p, the
+// albedo weight w_p); outputs doc, dalb (B,N,3), dsig, dmag (B,N), ddirs
+// (B,3,R).
 
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "gauss_common.cuh"
 
@@ -124,12 +111,11 @@ __device__ __forceinline__ Planes planes_of(float* planes, int B, int N, int Rp,
 }
 
 // The chain of one live row q and ray, after the base path: writes the
-// planes the row reduction reads and adds the row's share of ddirs.
-// Isotropic: dco becomes dcoco, dmb gains the prep's term.
-__device__ __forceinline__ void chain(const IsoGeo& geo, int q, const RayTerms& t, float dx,
-                                      float dy, float dz, float dco, float dmb, float dinv,
-                                      float /*dsb*/, const Planes& P, size_t o, double& gx,
-                                      double& gy, double& gz) {
+// planes the row reduction reads and adds the row's share of ddirs. dco
+// becomes dcoco, dmb gains the prep's term.
+__device__ __forceinline__ void chain(const IsoGeo& geo, int q, const RayTerms& t, float dco,
+                                      float dmb, float dinv, const Planes& P, size_t o,
+                                      double& gx, double& gy, double& gz) {
   const Row w = load_row(geo.oc, geo.sig, geo.mag, q);
   const float dcoco = dco * t.co;
   const float dmb_tot = dmb + dcoco * (2.0f * w.i2s2) * t.mb;
@@ -141,29 +127,9 @@ __device__ __forceinline__ void chain(const IsoGeo& geo, int q, const RayTerms& 
   gz += static_cast<double>(w.z * dmb_tot);
 }
 
-// Anisotropic: the plane cotangents through sb, mb and co to dBt and dA
-// (pallas_aniso.py, _aniso_epilogue), written over dmb and dinv.
-__device__ __forceinline__ void chain(const AnisoGeo& geo, int q, const RayTerms& t, float dx,
-                                      float dy, float dz, float dco, float dmb, float dinv,
-                                      float dsb, const Planes& P, size_t o, double& gx,
-                                      double& gy, double& gz) {
-  const AnisoGeo::Fields f = geo.fields(q);
-  const float dcoco = dco * t.co;
-  const float dsb_tot = dsb + dcoco / t.sb - dinv * t.inv / t.sb;
-  const float inv_a = t.sb * t.sb;
-  const float dbt = dmb * inv_a + dcoco * t.mb;
-  const float da = -dmb * t.mb * inv_a - 0.5f * dsb_tot * t.sb * inv_a - 0.5f * dcoco * t.mb * t.mb;
-  P.dco[o] = dcoco;
-  P.dmb[o] = dbt;
-  P.dinv[o] = da;
-  gx += static_cast<double>(2.0f * dx * (f.ix * da) + f.mx * dbt);
-  gy += static_cast<double>(2.0f * dy * (f.iy * da) + f.my * dbt);
-  gz += static_cast<double>(2.0f * dz * (f.iz * da) + f.mz * dbt);
-}
-
-template <class Geo, int ERF, int EXP, bool SAVED_T>
+template <int ERF, int EXP, bool SAVED_T>
 __global__ void __launch_bounds__(128)
-bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
+bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
                 const float* __restrict__ mag, const float* __restrict__ alb,
                 const float* __restrict__ dirs, const int* __restrict__ counts,
                 const float* __restrict__ dcol, const float* __restrict__ tsave,
@@ -193,7 +159,7 @@ bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
     return;
   }
 
-  const Geo geo(oc, shape, mag, b, N);
+  const IsoGeo geo(oc, sig, mag, b, N);
   const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
   const Planes P = planes_of(planes, B, N, Rp, b, r);
 
@@ -339,7 +305,7 @@ bwd_rays_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
     const float derf1 = kDerf * dbf * t.co * g1;
     const float dmb = static_cast<float>(P.dmb[o]) - derf1 * t.inv;
     const float dinv = static_cast<float>(P.dinv[o]) - derf1 * t.mb;
-    chain(geo, q, t, dx, dy, dz, dco, dmb, dinv, P.dsb[o], P, o, gx, gy, gz);
+    chain(geo, q, t, dco, dmb, dinv, P, o, gx, gy, gz);
   }
   if (live_ray) {
     dd_out[r] = static_cast<float>(gx);
@@ -424,116 +390,39 @@ bwd_rows_kernel(const float* __restrict__ oc, const float* __restrict__ sig,
   }
 }
 
-// The same reduction for anisotropic rows (pallas_aniso.py, _aniso_epilogue's
-// sums over rays): s_row = sum dcoco, dM = sum dBt d, dA_d2 = sum dA d^2,
-// dalb = sum w dcol, then dinvd, doc and dmag.
-__global__ void __launch_bounds__(32 * kRowWarps)
-bwd_rows_aniso_kernel(const float* __restrict__ oc, const float* __restrict__ invd,
-                      const float* __restrict__ mag, const float* __restrict__ dirs,
-                      const int* __restrict__ counts, const float* __restrict__ dcol,
-                      float* __restrict__ planes, float* __restrict__ doc,
-                      float* __restrict__ dinvd, float* __restrict__ dmag,
-                      float* __restrict__ dalb, int B, int N, int R, int Rp) {
-  const int b = blockIdx.y;
-  const int q = blockIdx.x * kRowWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (q >= N) return;  // warp-uniform
-  const size_t row = static_cast<size_t>(b) * N + q;
-  const int cnt = max(0, min(counts[b], N));
-  if (q >= cnt) {
-    if (lane == 0) {
-      for (int c = 0; c < 3; ++c) doc[3 * row + c] = dinvd[3 * row + c] = dalb[3 * row + c] = 0.0f;
-      dmag[row] = 0.0f;
-    }
-    return;
-  }
-  const size_t o = static_cast<size_t>(q) * Rp;
-  const Planes P = planes_of(planes, B, N, Rp, b, 0);
-  const float* d = dirs + static_cast<size_t>(b) * 3 * R;
-  const float* c = dcol + static_cast<size_t>(b) * 3 * R;
-  float s_row = 0.0f, mx = 0.0f, my = 0.0f, mz = 0.0f, qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  for (int r = lane; r < R; r += 32) {
-    const float dx = d[r], dy = d[R + r], dz = d[2 * R + r];
-    const float dbt = static_cast<float>(P.dmb[o + r]);
-    const float da = static_cast<float>(P.dinv[o + r]);
-    const float w = P.w[o + r];
-    s_row += static_cast<float>(P.dco[o + r]);
-    mx += dbt * dx;
-    my += dbt * dy;
-    mz += dbt * dz;
-    qx += da * (dx * dx);
-    qy += da * (dy * dy);
-    qz += da * (dz * dz);
-    ax += w * c[r];
-    ay += w * c[R + r];
-    az += w * c[2 * R + r];
-  }
-  s_row = warp_sum(s_row);
-  mx = warp_sum(mx);
-  my = warp_sum(my);
-  mz = warp_sum(mz);
-  qx = warp_sum(qx);
-  qy = warp_sum(qy);
-  qz = warp_sum(qz);
-  ax = warp_sum(ax);
-  ay = warp_sum(ay);
-  az = warp_sum(az);
-  if (lane == 0) {
-    const float dc = -0.5f * s_row;
-    const float dm[3] = {mx, my, mz}, dq[3] = {qx, qy, qz}, da[3] = {ax, ay, az};
-    for (int k = 0; k < 3; ++k) {
-      const float ok = oc[3 * row + k], ik = invd[3 * row + k];
-      dinvd[3 * row + k] = dq[k] + dc * (ok * ok) + dm[k] * ok;
-      doc[3 * row + k] = dm[k] * ik + 2.0f * dc * ok * ik;
-      dalb[3 * row + k] = da[k];
-    }
-    const float m = mag[row];
-    dmag[row] = s_row / (m == 0.0f ? 1.0f : m);
-  }
-}
-
 using RaysKernel = void (*)(const float*, const float*, const float*, const float*,
                             const float*, const int*, const float*, const float*, float*,
                             float*, int, int, int, int, int);
 
-template <class Geo, bool SAVED_T>
+template <bool SAVED_T>
 RaysKernel pick_fn(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_rays_kernel<Geo, kErfAs5, kExpExact, SAVED_T>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_rays_kernel<Geo, kErfAs5, kExpFast, SAVED_T>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_rays_kernel<Geo, kErfAs3, kExpExact, SAVED_T>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_rays_kernel<Geo, kErfAs3, kExpFast, SAVED_T>;
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_rays_kernel<kErfAs5, kExpExact, SAVED_T>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_rays_kernel<kErfAs5, kExpFast, SAVED_T>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_rays_kernel<kErfAs3, kExpExact, SAVED_T>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_rays_kernel<kErfAs3, kExpFast, SAVED_T>;
   return nullptr;
 }
 
-// shape is sigma (B,N) for IsoGeo, invd (B,N,3) for AnisoGeo; dshape the
-// matching gradient.
-template <class Geo, bool SAVED_T>
-int launch(const float* oc, const float* shape, const float* mag, const float* alb,
+template <bool SAVED_T>
+int launch(const float* oc, const float* sig, const float* mag, const float* alb,
            const float* dirs, const int* counts, const float* dcol, const float* t,
-           float* planes, float* doc, float* dshape, float* dmag, float* dalb, float* ddirs,
+           float* planes, float* doc, float* dsig, float* dmag, float* dalb, float* ddirs,
            int B, int N, int R, int threads, int qb, int erf_id, int exp_id, void* stream) {
-  RaysKernel fn = pick_fn<Geo, SAVED_T>(erf_id, exp_id);
+  RaysKernel fn = pick_fn<SAVED_T>(erf_id, exp_id);
   if (fn == nullptr || B < 1 || B > 65535 || N < 1 || R < 1 || threads < 32 ||
       threads > 128 || threads % 32 != 0 || qb < 1 || qb > 1024 || (SAVED_T && t == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ray_blocks = (R + threads - 1) / threads;
   const int Rp = ray_blocks * threads;
-  const size_t smem = sizeof(float) * Geo::kFields * qb;
-  fn<<<dim3(ray_blocks, B), threads, smem, s>>>(oc, shape, mag, alb, dirs, counts, dcol, t,
-                                                planes, ddirs, B, N, R, Rp, qb);
+  const size_t smem = sizeof(float) * IsoGeo::kFields * qb;
+  fn<<<dim3(ray_blocks, B), threads, smem, s>>>(oc, sig, mag, alb, dirs, counts, dcol, t, planes,
+                                                ddirs, B, N, R, Rp, qb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kRowWarps - 1) / kRowWarps, B);
-  if constexpr (std::is_same<Geo, AnisoGeo>::value) {
-    bwd_rows_aniso_kernel<<<grid, 32 * kRowWarps, 0, s>>>(oc, shape, mag, dirs, counts, dcol,
-                                                          planes, doc, dshape, dmag, dalb, B,
-                                                          N, R, Rp);
-  } else {
-    bwd_rows_kernel<<<grid, 32 * kRowWarps, 0, s>>>(oc, shape, mag, dirs, counts, dcol, planes,
-                                                    doc, dshape, dmag, dalb, B, N, R, Rp);
-  }
+  bwd_rows_kernel<<<grid, 32 * kRowWarps, 0, s>>>(oc, sig, mag, dirs, counts, dcol, planes, doc,
+                                                  dsig, dmag, dalb, B, N, R, Rp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -557,8 +446,8 @@ int sgrt_fused_bwd_t(const float* oc, const float* sig, const float* mag, const 
                      const float* t, float* planes, float* doc, float* dsig, float* dmag,
                      float* dalb, float* ddirs, int B, int N, int R, int threads, int qb,
                      int erf_id, int exp_id, void* stream) {
-  return launch<IsoGeo, true>(oc, sig, mag, alb, dirs, counts, dcol, t, planes, doc, dsig,
-                              dmag, dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id, stream);
+  return launch<true>(oc, sig, mag, alb, dirs, counts, dcol, t, planes, doc, dsig, dmag, dalb,
+                      ddirs, B, N, R, threads, qb, erf_id, exp_id, stream);
 }
 
 // Recompute backward: pass A (acc_k) is recomputed per p block.
@@ -566,32 +455,8 @@ int sgrt_fused_bwd(const float* oc, const float* sig, const float* mag, const fl
                    const float* dirs, const int* counts, const float* dcol, float* planes,
                    float* doc, float* dsig, float* dmag, float* dalb, float* ddirs, int B,
                    int N, int R, int threads, int qb, int erf_id, int exp_id, void* stream) {
-  return launch<IsoGeo, false>(oc, sig, mag, alb, dirs, counts, dcol, nullptr, planes, doc,
-                               dsig, dmag, dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id,
-                               stream);
-}
-
-// The anisotropic saved-T backward: invd (B,N,3) in place of sigma, dinvd
-// (B,N,3) in place of dsig; T from sgrt_fused_fwd_t_aniso.
-int sgrt_fused_bwd_t_aniso(const float* oc, const float* invd, const float* mag,
-                           const float* alb, const float* dirs, const int* counts,
-                           const float* dcol, const float* t, float* planes, float* doc,
-                           float* dinvd, float* dmag, float* dalb, float* ddirs, int B, int N,
-                           int R, int threads, int qb, int erf_id, int exp_id, void* stream) {
-  return launch<AnisoGeo, true>(oc, invd, mag, alb, dirs, counts, dcol, t, planes, doc, dinvd,
-                                dmag, dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id,
-                                stream);
-}
-
-// The anisotropic recompute backward.
-int sgrt_fused_bwd_aniso(const float* oc, const float* invd, const float* mag,
-                         const float* alb, const float* dirs, const int* counts,
-                         const float* dcol, float* planes, float* doc, float* dinvd,
-                         float* dmag, float* dalb, float* ddirs, int B, int N, int R,
-                         int threads, int qb, int erf_id, int exp_id, void* stream) {
-  return launch<AnisoGeo, false>(oc, invd, mag, alb, dirs, counts, dcol, nullptr, planes, doc,
-                                 dinvd, dmag, dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id,
-                                 stream);
+  return launch<false>(oc, sig, mag, alb, dirs, counts, dcol, nullptr, planes, doc, dsig, dmag,
+                       dalb, ddirs, B, N, R, threads, qb, erf_id, exp_id, stream);
 }
 
 }  // extern "C"

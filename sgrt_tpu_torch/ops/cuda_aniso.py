@@ -20,13 +20,16 @@ Four kernels, each with a wrapper that launches it for tensors on the card
 
     fused_forward_aniso    csrc/fused_fwd.cu  colors         (_fused_fwd_aniso_kernel)
     fused_forward_t_aniso  csrc/fused_fwd.cu  colors and T   (_fused_fwd_t_aniso_kernel)
-    fused_backward_aniso   csrc/fused_bwd.cu  the VJP, from saved T (_fused_bwd_t_aniso_kernel)
+    fused_backward_aniso   csrc/chunked.cu    the VJP, from saved T (_fused_bwd_t_aniso_kernel)
                                               or recomputing it (_fused_bwd_aniso_kernel)
 
-The kernels are the isotropic ones over the AnisoGeo row geometry
-(csrc/gauss_common.cuh); only the anisotropic chain and its row reduction
-are their own code. FusedRenderAniso is ops.cuda_kernel.FusedRender over
-these wrappers.
+The forwards are the isotropic fused forward over the AnisoGeo row
+geometry (csrc/gauss_common.cuh). The backwards are the chunked
+anisotropic backward's kernels (ops.cuda_chunked_aniso) at one chunk,
+ck = N: the fused backward is the chunked one with C = 1, and those kernels
+split the pair work into a p side and a q side over blocks of 64 rows and
+32 rays, so that a dense tile spreads over many blocks. FusedRenderAniso
+is ops.cuda_kernel.FusedRender over these wrappers.
 
 Rounding: C - Bt mb cancels two numbers of size |oc|^2/scale^2, so the
 plain versions compute A, Bt and C as elementwise sums in the kernels'
@@ -39,11 +42,12 @@ from __future__ import annotations
 import torch
 
 from sgrt_tpu_torch.ops.anisotropic import AnisoScene, pad_scene_aniso
+from sgrt_tpu_torch.ops.cuda_chunked import _chunked_backward_launch
 from sgrt_tpu_torch.ops.cuda_kernel import (
     K_TAPS,
     CudaKernel,
     FusedRender,
-    _backward_launch,
+    _backward_on_card,
     _backward_plain,
     _block_sizes,
     _check_inputs,
@@ -65,10 +69,10 @@ FUSED_FWD_ANISO = CudaKernel("fused_fwd_aniso", "fused_fwd.cu", "sgrt_fused_fwd_
                              f"{_TPU}:145", 8, 8)
 FUSED_FWD_T_ANISO = CudaKernel("fused_fwd_t_aniso", "fused_fwd.cu", "sgrt_fused_fwd_t_aniso",
                                f"{_TPU}:248", 9, 8)
-FUSED_BWD_T_ANISO = CudaKernel("fused_bwd_t_aniso", "fused_bwd.cu", "sgrt_fused_bwd_t_aniso",
-                               f"{_TPU}:292", 14, 7)
-FUSED_BWD_ANISO = CudaKernel("fused_bwd_aniso", "fused_bwd.cu", "sgrt_fused_bwd_aniso",
-                             f"{_TPU}:367", 13, 7)
+FUSED_BWD_T_ANISO = CudaKernel("fused_bwd_t_aniso", "chunked.cu", "sgrt_fused_bwd_t_aniso",
+                               f"{_TPU}:292", 15, 8, timed=True)
+FUSED_BWD_ANISO = CudaKernel("fused_bwd_aniso", "chunked.cu", "sgrt_fused_bwd_aniso",
+                             f"{_TPU}:367", 14, 8, timed=True)
 
 
 def _aniso_shapes(oc, invd, mag, albedo, dirs_t, counts) -> dict:
@@ -191,16 +195,23 @@ def fused_forward_t_aniso(oc, invd, mag, albedo, dirs_t, counts, *, rb: int = 12
 
 def fused_backward_aniso(oc, invd, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
                          rb: int = 128, qb: int = 32, erf_name: str = "as5",
-                         exp_name: str = "exact"):
+                         exp_name: str = "exact", part_ms: torch.Tensor | None = None):
     """Wrapper of the anisotropic backward kernels: the VJP for the
     cotangent dcol (B,3,R) → (doc, dinvd, dmag, dalbedo, ddirs). With
     t_saved (B,5,N,R) from fused_forward_t_aniso it launches the saved-T
-    kernel, without it the recompute kernel. CPU tensors go to
-    fused_backward_aniso_plain."""
+    kernel, without it the recompute kernel, whose recomputed T is
+    fused_forward_t_aniso's bit for bit at the same qb. CPU tensors go to
+    fused_backward_aniso_plain. Any N: the kernels run the chunked backward
+    at one chunk of N rows (blocks of 32 rays, rb capped at it). part_ms: a
+    float32 CPU tensor of 5 elements for the device ms of the recompute's T,
+    the p side, the db sum, the q side and the row sums, for measurement."""
     args = (oc, invd, mag, albedo, dirs_t, counts)
-    return _backward_launch((FUSED_BWD_ANISO, FUSED_BWD_T_ANISO), fused_backward_aniso_plain,
-                            "fused_backward_aniso", args, _aniso_shapes(*args), dcol,
-                            t_saved, rb=rb, qb=qb, erf_name=erf_name, exp_name=exp_name)
+    if not _backward_on_card("fused_backward_aniso", _aniso_shapes(*args), args, dcol, t_saved):
+        return fused_backward_aniso_plain(*args, dcol, t_saved, erf_name=erf_name,
+                                          exp_name=exp_name)
+    kernel = FUSED_BWD_ANISO if t_saved is None else FUSED_BWD_T_ANISO
+    return _chunked_backward_launch(kernel, args, dcol, t_saved, ck=oc.shape[1], rb=rb, qb=qb,
+                                    erf_name=erf_name, exp_name=exp_name, part_ms=part_ms)
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,7 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     KERNEL_ERFS,
     KERNEL_EXPS,
     CudaKernel,
+    _backward_on_card,
     _block_sizes,
     _check_inputs,
     _check_names,
@@ -215,8 +216,9 @@ def chunked_backward_scratch_floats(b: int, n: int, r: int, ck: int, threads: in
 
 def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_name, exp_name,
                              part_ms=None):
-    """Launch a chunked backward entry point on checked CUDA inputs:
-    outputs (doc, dshape, dmag, dalb, ddirs), dshape shaped as args[1]
+    """Launch a backward entry point of csrc/chunked.cu (a chunked one, or
+    a fused anisotropic one at ck = N) on checked CUDA inputs: outputs
+    (doc, dshape, dmag, dalb, ddirs), dshape shaped as args[1]
     (sigma or invd). A kernel that times its parts (kernel.timed) takes
     part_ms, a float32 CPU tensor that receives the device ms of each of its
     launches (its entry point's note lists them; the call then waits for
@@ -256,14 +258,8 @@ def chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None,
     chunk's pass A (recompute), p side, db sum and q side and of the row
     sums, for measurement."""
     args = (oc, sigma, mag, albedo, dirs_t, counts)
-    want = _scene_shapes(*args)
-    b, n, _ = oc.shape
-    r = dirs_t.shape[-1]
-    _check_chunks(n, ck)
-    want["dcol"] = (dcol, (b, 3, r))
-    if t_saved is not None:
-        want["t_saved"] = (t_saved, (b, len(K_TAPS), n, r))
-    if not _check_inputs("chunked_backward", want, oc.device):
+    _check_chunks(oc.shape[1], ck)
+    if not _backward_on_card("chunked_backward", _scene_shapes(*args), args, dcol, t_saved):
         return chunked_backward_plain(*args, dcol, t_saved, ck=ck, erf_name=erf_name,
                                       exp_name=exp_name)
     kernel = CHUNKED_BWD if t_saved is None else CHUNKED_BWD_T

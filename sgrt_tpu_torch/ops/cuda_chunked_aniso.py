@@ -54,6 +54,7 @@ from sgrt_tpu_torch.ops.cuda_chunked import (
 from sgrt_tpu_torch.ops.cuda_kernel import (
     K_TAPS,
     CudaKernel,
+    _backward_on_card,
     _block_sizes,
     _check_inputs,
     _kernel_erf_name,
@@ -153,14 +154,9 @@ def chunked_backward_aniso(oc, invd, mag, albedo, dirs_t, counts, dcol, t_saved=
     device ms of each chunk's pass A (recompute), p side, db sum and q side
     and of the row sums, for measurement."""
     args = (oc, invd, mag, albedo, dirs_t, counts)
-    want = _aniso_shapes(*args)
-    b, n, _ = oc.shape
-    r = dirs_t.shape[-1]
-    _check_chunks(n, ck)
-    want["dcol"] = (dcol, (b, 3, r))
-    if t_saved is not None:
-        want["t_saved"] = (t_saved, (b, len(K_TAPS), n, r))
-    if not _check_inputs("chunked_backward_aniso", want, oc.device):
+    _check_chunks(oc.shape[1], ck)
+    if not _backward_on_card("chunked_backward_aniso", _aniso_shapes(*args), args, dcol,
+                             t_saved):
         return chunked_backward_aniso_plain(*args, dcol, t_saved, ck=ck, erf_name=erf_name,
                                             exp_name=exp_name)
     kernel = CHUNKED_BWD_ANISO if t_saved is None else CHUNKED_BWD_T_ANISO

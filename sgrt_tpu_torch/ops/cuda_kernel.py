@@ -501,35 +501,16 @@ def fused_forward_t(oc, sigma, mag, albedo, dirs_t, counts, *, rb: int = 128,
     return colors, t
 
 
-def _backward_launch(kernels, plain, who, args, want, dcol, t_saved, *, rb, qb,
-                     erf_name, exp_name):
-    """Check the inputs, then run the plain version (CPU) or launch the
-    saved-T (t_saved given) or recompute entry point of csrc/fused_bwd.cu;
-    kernels = (recompute, saved-T). Outputs (doc, dshape, dmag, dalb,
-    ddirs), dshape shaped as args[1]."""
-    oc, shape, dirs_t = args[0], args[1], args[4]
+def _backward_on_card(who: str, want: dict, args, dcol, t_saved) -> bool:
+    """_check_inputs of a backward: the scene's shapes `want` with the
+    cotangent dcol (B,3,R) and, if given, t_saved (B,5,N,R)."""
+    oc, dirs_t = args[0], args[4]
     b, n, _ = oc.shape
     r = dirs_t.shape[-1]
     want["dcol"] = (dcol, (b, 3, r))
     if t_saved is not None:
         want["t_saved"] = (t_saved, (b, len(K_TAPS), n, r))
-    if not _check_inputs(who, want, oc.device):
-        return plain(*args, dcol, t_saved, erf_name=erf_name, exp_name=exp_name)
-    _check_names(erf_name, exp_name)
-    kernel = kernels[0] if t_saved is None else kernels[1]
-    threads = _threads(kernel.query("sgrt_fused_bwd_max_threads"), rb, r)
-    rp = -(-r // threads) * threads
-    planes = kernel.query("sgrt_fused_bwd_planes")
-    f32 = dict(dtype=torch.float32, device=oc.device)
-    scratch = torch.empty((b, planes, n, rp), **f32)
-    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
-    dshape, dmag = torch.empty(tuple(shape.shape), **f32), torch.empty((b, n), **f32)
-    ddirs = torch.empty((b, 3, r), **f32)
-    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
-    kernel.launch(ins + [scratch, doc, dshape, dmag, dalb, ddirs],
-                  [b, n, r, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
-                  what=f"B={b}, N={n}, R={r}, threads={threads}, qb={qb}")
-    return doc, dshape, dmag, dalb, ddirs
+    return _check_inputs(who, want, oc.device)
 
 
 def fused_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
@@ -540,13 +521,29 @@ def fused_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *
     dalbedo (B,N,3), ddirs (B,3,R)).
 
     With t_saved (B,5,N,R) from fused_forward_t it launches the saved-T
-    kernel, without it the recompute kernel. CPU tensors go to
-    fused_backward_plain. rb caps the rays per block; qb is the rows staged
-    per shared-memory pass."""
+    kernel, without it the recompute kernel (csrc/fused_bwd.cu). CPU
+    tensors go to fused_backward_plain. rb caps the rays per block; qb is
+    the rows staged per shared-memory pass."""
     args = (oc, sigma, mag, albedo, dirs_t, counts)
-    return _backward_launch((FUSED_BWD, FUSED_BWD_T), fused_backward_plain, "fused_backward",
-                            args, _scene_shapes(*args), dcol, t_saved, rb=rb, qb=qb,
-                            erf_name=erf_name, exp_name=exp_name)
+    if not _backward_on_card("fused_backward", _scene_shapes(*args), args, dcol, t_saved):
+        return fused_backward_plain(*args, dcol, t_saved, erf_name=erf_name, exp_name=exp_name)
+    _check_names(erf_name, exp_name)
+    b, n, _ = oc.shape
+    r = dirs_t.shape[-1]
+    kernel = FUSED_BWD if t_saved is None else FUSED_BWD_T
+    threads = _threads(kernel.query("sgrt_fused_bwd_max_threads"), rb, r)
+    rp = -(-r // threads) * threads
+    planes = kernel.query("sgrt_fused_bwd_planes")
+    f32 = dict(dtype=torch.float32, device=oc.device)
+    scratch = torch.empty((b, planes, n, rp), **f32)
+    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
+    dsig, dmag = torch.empty((b, n), **f32), torch.empty((b, n), **f32)
+    ddirs = torch.empty((b, 3, r), **f32)
+    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
+    kernel.launch(ins + [scratch, doc, dsig, dmag, dalb, ddirs],
+                  [b, n, r, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  what=f"B={b}, N={n}, R={r}, threads={threads}, qb={qb}")
+    return doc, dsig, dmag, dalb, ddirs
 
 
 # ---------------------------------------------------------------------------

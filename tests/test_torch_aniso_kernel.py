@@ -220,3 +220,39 @@ def test_tile_renderer_aniso_routing(capacity, padded):
                            z(1, cap_top, 3))
     with pytest.raises(ValueError, match="MAX_CHUNKED_CAPACITY"):
         render_top(tiled, z(3), z(1, 8, 3), torch.ones(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kernel,symbol,line", [
+    (ta.FUSED_BWD_T_ANISO, "sgrt_fused_bwd_t_aniso", 292),
+    (ta.FUSED_BWD_ANISO, "sgrt_fused_bwd_aniso", 367),
+])
+def test_fused_backwards_are_chunked_entry_points(kernel, symbol, line):
+    """The fused anisotropic backwards (kernels 11-12) are entry points of
+    csrc/chunked.cu, the chunked backward at one chunk: each names its
+    source, its symbol, the Pallas kernel it replaces, and times its parts
+    (it takes part_ms, as the chunked backwards do)."""
+    import re
+
+    assert kernel.source.name == "chunked.cu"
+    assert kernel.symbol == symbol
+    assert kernel.replaces == f"sgrt_tpu/ops/pallas_aniso.py:{line}"
+    assert kernel.timed
+    src = kernel.source.read_text()
+    assert re.search(rf"^int {symbol}\(", src, re.M), symbol
+    body = src[src.index(f"int {symbol}("):]
+    body = body[:body.index("\n}\n")]
+    assert "launch_bwd<AnisoGeo" in body and "if (ck != N)" in body
+
+
+def test_fused_bwd_cu_keeps_only_the_isotropic_kernels():
+    """csrc/fused_bwd.cu defines the isotropic fused backwards (kernels 3-4)
+    and no anisotropic entry point or row geometry any more."""
+    from sgrt_tpu_torch.ops import cuda_kernel as tk
+
+    src = tk.FUSED_BWD.source.read_text()
+    assert tk.FUSED_BWD.source.name == tk.FUSED_BWD_T.source.name == "fused_bwd.cu"
+    for symbol in ("sgrt_fused_bwd_t_aniso", "sgrt_fused_bwd_aniso"):
+        assert symbol not in src
+    assert "AnisoGeo" not in src
+    for symbol in (tk.FUSED_BWD.symbol, tk.FUSED_BWD_T.symbol):
+        assert f"int {symbol}(" in src

@@ -312,9 +312,9 @@ def test_chunked_route_on_card():
         tc.chunked_forward(*args, ck=128, erf_name="spline")
 
 
-# the anisotropic kernels (csrc/fused_fwd.cu, csrc/fused_bwd.cu over AnisoGeo
-# rows): _inputs' rows with per-axis scales sigma * (1.6, 0.7, 1.0), the
-# stretched teapot cell's multipliers
+# the anisotropic kernels (csrc/fused_fwd.cu over AnisoGeo rows; the
+# backwards csrc/chunked.cu's at one chunk): _inputs' rows with per-axis
+# scales sigma * (1.6, 0.7, 1.0), the stretched teapot cell's multipliers
 def _aniso_inputs(dev, **kw):
     oc, sig, mag, alb, d, cnt = _inputs(dev, **kw)
     scale = sig[..., None] * torch.tensor([1.6, 0.7, 1.0], device=dev)
@@ -347,9 +347,11 @@ def test_aniso_forward_kernels_match_plain(erf_name, exp_name, pb, qb):
 @pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
 def test_aniso_backward_kernels_match_plain(erf_name, exp_name):
     """Both anisotropic backwards at R = 200 (two ray blocks, the second
-    partial): within 5e-5 of scale of the plain backward, equal to each
-    other bit for bit (the recompute's pass A is the forward's), dead rows
-    and the dead tile exactly zero."""
+    partial) and N = 96 (one chunk of a 64-row block and a partial one):
+    within 5e-5 of scale of the plain backward and within the float64 gate
+    (_assert_grads_f64_gate), equal to each other bit for bit (the
+    recompute's T is the forward's), dead rows and the dead tile exactly
+    zero."""
     from sgrt_tpu_torch.ops import cuda_aniso as ta
 
     dev = _card()
@@ -363,11 +365,36 @@ def test_aniso_backward_kernels_match_plain(erf_name, exp_name):
     torch.cuda.synchronize()
     assert (ta.FUSED_BWD_T_ANISO.launches, ta.FUSED_BWD_ANISO.launches) == (before[0] + 1,
                                                                            before[1] + 1)
-    _assert_grads_close(g_t, ta.fused_backward_aniso_plain(*args, dcol, **kw))
+    plain = ta.fused_backward_aniso_plain(*args, dcol, **kw)
+    _assert_grads_close(g_t, plain)
+    _assert_grads_f64_gate(g_t, plain,
+                           ta.fused_backward_aniso_plain(*_double(args), dcol.double(), **kw))
     for a, b in zip(g_t, g_r):
         assert torch.equal(a, b)
     for g in g_t[:4]:
         assert (g[2] == 0).all() and (g[1, 17:] == 0).all() and (g[3, 40:] == 0).all()
+    assert (g_t[4][2] == 0).all()
+
+
+def test_fused_aniso_backward_any_row_count():
+    """The anisotropic backwards at N = 40 (pb = qb = 8: one partial 64-row
+    block, a partial 32-row forward split in the recompute): within the
+    float64 gate, equal to each other bit for bit, dead rows exactly zero."""
+    from sgrt_tpu_torch.ops import cuda_aniso as ta
+
+    dev = _card()
+    args = _aniso_inputs(dev, n=40, counts=(40, 17, 0, 33, 1000))
+    dcol = torch.randn((5, 3, 200), generator=torch.Generator().manual_seed(12)).to(dev)
+    t = ta.fused_forward_t_aniso(*args, pb=8, qb=8)[1]
+    g_t = ta.fused_backward_aniso(*args, dcol, t, qb=8)
+    g_r = ta.fused_backward_aniso(*args, dcol, qb=8)
+    torch.cuda.synchronize()
+    _assert_grads_f64_gate(g_t, ta.fused_backward_aniso_plain(*args, dcol),
+                           ta.fused_backward_aniso_plain(*_double(args), dcol.double()))
+    for a, b in zip(g_t, g_r):
+        assert torch.equal(a, b)
+    for g in g_t[:4]:
+        assert (g[2] == 0).all() and (g[1, 17:] == 0).all() and (g[3, 33:] == 0).all()
     assert (g_t[4][2] == 0).all()
 
 
@@ -437,6 +464,44 @@ def test_fused_backward_sums_at_thousands_of_rows():
         e_k = float((a.double() - f).abs().max()) / scale
         e_p = float((p.double() - f).abs().max()) / scale
         assert e_k <= max(2e-4 if name == "oc" else 1e-5, 2 * e_p), (name, e_k, e_p)
+
+
+def test_fused_aniso_backward_sums_at_thousands_of_rows():
+    """The anisotropic twin of the test above: both fused anisotropic
+    backwards (csrc/chunked.cu at one chunk) at 3072 rows a tile, counts
+    (3072, 2500), scales 0.05 x (1.6, 0.7, 1.0): every output as close to a
+    float64 run of the plain version as the float32 plain version is, up to
+    a factor of 2 (or within 1e-5 of scale; doc and dinvd, whose terms cancel
+    ~|oc|^2/scale^2, 2e-4), and the two backwards equal bit for bit."""
+    from sgrt_tpu_torch.ops import cuda_aniso as ta
+
+    dev = _card()
+    n, r = 3072, 128
+    g = torch.Generator().manual_seed(10)
+    v = torch.randn((2, n, 3), generator=g)
+    oc = v / v.norm(dim=-1, keepdim=True) + torch.tensor([0.0, 0.0, 4.0])
+    d = torch.randn((2, 3, r), generator=g) * 0.05 + torch.tensor([0.0, 0.0, 1.0])[None, :, None]
+    d = d / d.norm(dim=1, keepdim=True)
+    scale = torch.full((2, n, 1), 0.05) * torch.tensor([1.6, 0.7, 1.0])
+    args = [x.to(dev).contiguous() for x in (
+        oc, 1.0 / (scale * scale), torch.ones((2, n)), torch.rand((2, n, 3), generator=g), d,
+        torch.tensor([n, 2500], dtype=torch.int32))]
+    dcol = torch.randn((2, 3, r), generator=g).to(dev)
+    t = ta.fused_forward_t_aniso(*args)[1]
+    before = (ta.FUSED_BWD_T_ANISO.launches, ta.FUSED_BWD_ANISO.launches)
+    g_t = ta.fused_backward_aniso(*args, dcol, t)
+    g_r = ta.fused_backward_aniso(*args, dcol)
+    torch.cuda.synchronize()
+    assert (ta.FUSED_BWD_T_ANISO.launches, ta.FUSED_BWD_ANISO.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    plain = ta.fused_backward_aniso_plain(*args, dcol)
+    ref = ta.fused_backward_aniso_plain(*_double(args), dcol.double())
+    for name, a, b, p, f in zip(("oc", "invd", "mag", "albedo", "dirs"), g_t, g_r, plain, ref):
+        assert torch.equal(a, b), name
+        scale = float(f.abs().max())
+        e_k = float((a.double() - f).abs().max()) / scale
+        e_p = float((p.double() - f).abs().max()) / scale
+        assert e_k <= max(2e-4 if name in ("oc", "invd") else 1e-5, 2 * e_p), (name, e_k, e_p)
 
 
 # the chunked anisotropic kernels (kernels 13-14: csrc/chunked.cu's
