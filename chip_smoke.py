@@ -13,7 +13,10 @@ comes out, and times the kernels:
   serving   the CLI's default tiled orbit render (fused forward kernel);
   training  fit_cli (forward-with-T and saved-T backward kernels) and the
             north-star train step, once more with the saved-T budget at 0
-            so that the recompute backward kernel runs;
+            so that the recompute backward kernel runs; the kernels' times
+            with the backwards' parts (csrc/chunked.cu's backward at one
+            chunk); under --only also the fused backwards beside the
+            chunked route's at one chunk;
   dense     the 50k-Gaussian sphere at 512x512 (the Gaussian-axis chunked
             kernels): tile grid and buckets, the chunked kernels against
             their plain versions, the bucketed frame and the CLI, the
@@ -93,10 +96,11 @@ SFU_PER_CLOCK_PER_SM = 16  # MUFU results per clock per SM, compute capability 9
 # per erf tap of csrc/fused_fwd.cu (its source note): FP32 instructions and
 # SFU operations; an exp alone is ~4 FP32 and 1 SFU
 TAP_FP32, TAP_SFU, EXP_FP32, EXP_SFU = 17, 2, 4, 1
-# the backward's gradient pass per live (p, q, ray), from csrc/fused_bwd.cu's
-# source note: five erf-and-gauss taps, 4 FP32 each to fold the cotangents,
-# 8 FP32 per pair; per live (q, ray) the base path, co's exp and the prep
-# chain (~20 FP32)
+# the backward's work, whatever kernel does it: per live (p, q, ray) the
+# gradient pass's five erf-and-gauss taps, 4 FP32 each to fold the
+# cotangents, and 8 FP32 per pair (mb_p - mb_q, the S0 and S1 scaling, dmb,
+# dinv, dsb); per live (q, ray) the base path, co's exp and the prep chain
+# (~20 FP32). The counts are the yardstick of every backward's bound.
 BWD_PAIR_FP32, BWD_PAIR_SFU = 5 * (TAP_FP32 + 4) + 8, 5 * TAP_SFU
 BWD_ROW_FP32, BWD_ROW_SFU = TAP_FP32 + EXP_FP32 + 20, TAP_SFU + EXP_SFU
 # training cell: bench.py's north-star step (bench.py:103-150)
@@ -515,14 +519,84 @@ def backwards_differ(rel) -> list:
             if k.endswith("bwd_t_vs_bwd") for o, v in d.items() if v != 0]
 
 
-def train_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
+def one_chunk_parts(part_ms) -> dict:
+    """The device ms of a one-chunk backward's launches by name (part_ms of
+    a backward of csrc/chunked.cu at C = 1): the recompute's forward-with-T
+    (T), p side, db sum, q side, the row and ddirs kernels, and their sum."""
+    pm = part_ms.tolist()
+    names = ("T_ms", "p_side_ms", "db_sum_ms", "q_side_ms", "rows_ddirs_ms")
+    return {**dict(zip(names, pm)), "sum_ms": sum(pm)}
+
+
+def fused_vs_chunked_phase(phase: str, dev, smi: str, fused, chunked, scene, view, o,
+                           tile_dirs, bucket, tiles, dense_in, **extra) -> None:
+    """The fused backwards of one row geometry (csrc/chunked.cu's backward
+    at one chunk of the view's N rows) beside the chunked route's at one
+    chunk, on a train step's view: the fused ones at its capacity, the
+    chunked ones on the same tiles gathered at the next multiple of 128 rows
+    (their chunk contract); each timed over 5 calls, with its parts. Also
+    whether the chunked forward-with-T at one chunk writes the fused
+    forward-with-T's T bit for bit, at qb 16 and 32 and pb 8 and 16 (the
+    chunked forward ignores pb): the recompute backward's T is that
+    forward's, so the two fused backwards' gradients are equal bit for bit
+    only if it does. fused, chunked: each route's (forward_t, backward,
+    saved-T kernel, recompute kernel); extra is printed beside."""
+    import torch
+
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
+
+    f_fwd_t, f_bwd, f_kt, f_kr = fused
+    c_fwd_t, c_bwd, c_kt, c_kr = chunked
+    n = dense_in[0].shape[1]
+    n_c = -(-n // 128) * 128
+    (wide,) = bucket_launches(scene, view, o, tile_dirs,
+                              bucket._replace(n_dense=0, cap_dense=n_c, cap_sparse=n_c), tiles)
+    check(wide[0].shape[1] == n_c and torch.equal(wide[5], dense_in[5]),
+          "the view gathered at the chunked capacity holds other tiles")
+    g = torch.Generator().manual_seed(90)
+    dcol = torch.randn((dense_in[0].shape[0], 3, dense_in[4].shape[2]), generator=g).to(dev)
+    pb, qb = ck._block_sizes(n)
+    t_f = f_fwd_t(*dense_in, pb=pb, qb=qb)[1]
+    t_w = c_fwd_t(*wide, ck=n_c, pb=pb, qb=qb)[1]
+
+    out = {}
+    for name, fn in (
+            (f_kt.name, lambda pm: f_bwd(*dense_in, dcol, t_f, qb=qb, part_ms=pm)),
+            (f_kr.name, lambda pm: f_bwd(*dense_in, dcol, qb=qb, part_ms=pm)),
+            (f"{c_kt.name}_C1", lambda pm: c_bwd(*wide, dcol, t_w, ck=n_c, qb=qb, part_ms=pm)),
+            (f"{c_kr.name}_C1", lambda pm: c_bwd(*wide, dcol, ck=n_c, qb=qb, part_ms=pm))):
+        part_ms = torch.zeros(5)
+        fn(part_ms)
+        out[name] = {"ms": time_cuda(lambda: fn(None), iters=5, warmup=1),
+                     "parts": one_chunk_parts(part_ms)}
+    same_t = {}
+    for qb_t in (16, 32):
+        for pb_t in (8, 16):
+            c_f, t_fused = f_fwd_t(*wide, pb=pb_t, qb=qb_t)
+            c_c, t_c = c_fwd_t(*wide, ck=n_c, pb=pb_t, qb=qb_t)
+            torch.cuda.synchronize()
+            same_t[f"qb{qb_t}_pb{pb_t}"] = {
+                "T_equal": bool(torch.equal(t_c, t_fused)),
+                "T_elements_differing": int((t_c != t_fused).sum()),
+                "T_max_abs_diff": float((t_c - t_fused).abs().max()),
+                "colors_equal": bool(torch.equal(c_c, c_f))}
+    emit(phase, shape={"B": dense_in[0].shape[0], "N": n, "N_chunked": n_c,
+                       "R": dense_in[4].shape[2], "qb": qb, "max_count": int(dense_in[5].max())},
+         backwards=out, chunked_fwd_t_vs_fused_fwd_t=same_t, **extra, power_limit=smi)
+
+
+def train_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
+                 fused_vs_chunked: bool = False) -> list:
     """The training path: shapes, kernels vs plain, fit_cli, the north-star
     train step (saved-T and recompute), a profile of two steps, and the
-    kernels' times. Returns the kernel line's entries of its kernels."""
+    kernels' times; with fused_vs_chunked (--only train) also
+    train_fused_vs_chunked. Returns the kernel line's entries of its
+    kernels."""
     import torch
 
     from sgrt_tpu_torch import fit_cli
     from sgrt_tpu_torch.models.gaussians import scene_from_vertices
+    from sgrt_tpu_torch.ops import cuda_chunked as cc
     from sgrt_tpu_torch.ops import cuda_kernel as ck
     from sgrt_tpu_torch.ops import kernels
     from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
@@ -698,6 +772,17 @@ def train_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
                             for i, b, d in zip(per_bucket, blocks, dcols)],
     }
     ms = {k: sum(time_cuda(f, iters=5, warmup=1) for f in fs) for k, fs in runs.items()}
+    # kernels 3-4 part by part (csrc/chunked.cu at one chunk): the
+    # recompute's T, p side, db sum, q side and the row and ddirs kernels by
+    # CUDA events, one call each, summed over the train step's launches
+    parts = {}
+    for k, t_args in ((ck.FUSED_BWD_T, ts), (ck.FUSED_BWD, [None] * len(ts))):
+        pm = torch.zeros(5)
+        for i, b, d, t in zip(per_bucket, blocks, dcols, t_args):
+            one = torch.zeros(5)
+            ck.fused_backward(*i, d, t, qb=b[1], part_ms=one)
+            pm += one
+        parts[k.name] = one_chunk_parts(pm)
     plain = {ck.FUSED_FWD_T.name: (sum(time_cuda(lambda i=i: ck.fused_forward_t_plain(*i),
                                                  iters=1, warmup=0) for i in per_bucket),
                                    "the train step's launches")}
@@ -734,7 +819,8 @@ def train_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
                     "fp32_instr": fp32, "sfu_ops": sfu, "bytes": nbytes[k],
                     **bound(fp32, sfu, nbytes[k], clock_mhz, n_sm),
                     "plain_ms": plain[k][0], "plain_shape": plain[k][1],
-                    "library_ms": "n/a: no single PyTorch call computes it"}
+                    "library_ms": "n/a: no single PyTorch call computes it",
+                    **({"parts": parts[k]} if k in parts else {})}
     emit("train_times", shapes=[{"B": i[0].shape[0], "N": i[0].shape[1], "R": i[4].shape[2],
                                  "max_count": int(i[5].max())} for i in per_bucket],
          kernels=times, power_limit=smi)
@@ -754,6 +840,14 @@ def train_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> list:
             "ms": times[k.name]["ms"], "plain_ms": times[k.name]["plain_ms"],
             "bound_ms": times[k.name]["bound_ms"], "bound_by": times[k.name]["bound_by"],
             "library_ms": None})
+    if fused_vs_chunked:
+        fused_vs_chunked_phase(
+            "train_fused_vs_chunked", dev, smi,
+            (ck.fused_forward_t, ck.fused_backward, ck.FUSED_BWD_T, ck.FUSED_BWD),
+            (cc.chunked_forward_t, cc.chunked_backward, cc.CHUNKED_BWD_T, cc.CHUNKED_BWD),
+            scene, cam.view_matrix, o, tile_dirs, bucket, TRAIN_TILES, per_bucket[0],
+            step_peak_memory_gb={"saved_t": saved["peak_memory_gb"],
+                                 "recompute": recompute["peak_memory_gb"]})
     return entries
 
 
@@ -1270,72 +1364,6 @@ def compare_aniso_kernels(inp, dcol, erf_name="as5", exp_name="exact", rb: int =
                       "rb": rb, "max_count": int(inp[5].max())}}
 
 
-def one_chunk_parts(part_ms) -> dict:
-    """The device ms of a one-chunk backward's launches by name (part_ms of
-    a backward of csrc/chunked.cu at C = 1): the recompute's forward-with-T
-    (T), p side, db sum, q side, the row and ddirs kernels, and their sum."""
-    pm = part_ms.tolist()
-    names = ("T_ms", "p_side_ms", "db_sum_ms", "q_side_ms", "rows_ddirs_ms")
-    return {**dict(zip(names, pm)), "sum_ms": sum(pm)}
-
-
-def aniso_fused_vs_chunked(dev, smi: str, scene, view, o, tile_dirs, bucket, dense_in) -> None:
-    """The fused anisotropic backwards (kernels 11-12: csrc/chunked.cu's
-    backward at one chunk of the view's N rows) beside the chunked route's
-    (kernels 20 and 14) at one chunk, on the aniso step's view: the fused
-    ones at its capacity, the chunked ones on the same tiles gathered at the
-    next multiple of 128 rows (their chunk contract); each timed over 5
-    calls, with its parts where it reports them. Also whether the chunked
-    forward-with-T at one chunk writes kernel 10's T bit for bit, at qb 16
-    and 32: the recompute backward's T is that forward's, so the two fused
-    backwards' gradients are equal bit for bit only if it does."""
-    import torch
-
-    from sgrt_tpu_torch.ops import cuda_aniso as ca
-    from sgrt_tpu_torch.ops import cuda_chunked_aniso as cca
-    from sgrt_tpu_torch.ops import cuda_kernel as ck
-
-    n = dense_in[0].shape[1]
-    n_c = -(-n // 128) * 128
-    (wide,) = bucket_launches(scene, view, o, tile_dirs,
-                              bucket._replace(n_dense=0, cap_dense=n_c, cap_sparse=n_c),
-                              ANISO_TILES)
-    check(wide[0].shape[1] == n_c and torch.equal(wide[5], dense_in[5]),
-          "the view gathered at the chunked capacity holds other tiles")
-    g = torch.Generator().manual_seed(90)
-    dcol = torch.randn((dense_in[0].shape[0], 3, dense_in[4].shape[2]), generator=g).to(dev)
-    pb, qb = ck._block_sizes(n)
-    t_f = ca.fused_forward_t_aniso(*dense_in, pb=pb, qb=qb)[1]
-    t_w = ca.fused_forward_t_aniso(*wide, pb=pb, qb=qb)[1]
-
-    out = {}
-    for name, fn in (
-            ("fused_bwd_t_aniso", lambda pm=None: ca.fused_backward_aniso(
-                *dense_in, dcol, t_f, qb=qb, part_ms=pm)),
-            ("fused_bwd_aniso", lambda pm=None: ca.fused_backward_aniso(
-                *dense_in, dcol, qb=qb, part_ms=pm)),
-            ("chunked_bwd_t_aniso_C1", lambda pm=None: cca.chunked_backward_aniso(
-                *wide, dcol, t_w, ck=n_c, qb=qb, part_ms=pm)),
-            ("chunked_bwd_aniso_C1", lambda pm=None: cca.chunked_backward_aniso(
-                *wide, dcol, ck=n_c, qb=qb, part_ms=pm))):
-        part_ms = torch.zeros(5)
-        fn(part_ms)
-        out[name] = {"ms": time_cuda(fn, iters=5, warmup=1), "parts": one_chunk_parts(part_ms)}
-    same_t = {}
-    for qb_t in (16, 32):
-        c_f, t_k10 = ca.fused_forward_t_aniso(*wide, pb=8, qb=qb_t)
-        c_c, t_c = cca.chunked_forward_t_aniso(*wide, ck=n_c, pb=8, qb=qb_t)
-        torch.cuda.synchronize()
-        same_t[f"qb{qb_t}"] = {"T_equal": bool(torch.equal(t_c, t_k10)),
-                               "T_elements_differing": int((t_c != t_k10).sum()),
-                               "T_max_abs_diff": float((t_c - t_k10).abs().max()),
-                               "colors_equal": bool(torch.equal(c_c, c_f))}
-    emit("aniso_fused_vs_chunked", shape={"B": dense_in[0].shape[0], "N": n, "N_chunked": n_c,
-                                          "R": dense_in[4].shape[2], "qb": qb,
-                                          "max_count": int(dense_in[5].max())},
-         backwards=out, chunked_fwd_t_vs_kernel10=same_t, power_limit=smi)
-
-
 def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
                  fused_vs_chunked: bool = False) -> list:
     """The anisotropic cell (config4_aniso_teapot_256): shapes, kernels 9-12
@@ -1350,6 +1378,7 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
     from sgrt_tpu_torch import cli, fit_cli
     from sgrt_tpu_torch.ops import anisotropic as an
     from sgrt_tpu_torch.ops import cuda_aniso as ca
+    from sgrt_tpu_torch.ops import cuda_chunked_aniso as cca
     from sgrt_tpu_torch.ops import cuda_kernel as ck
     from sgrt_tpu_torch.ops import kernels
     from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
@@ -1645,7 +1674,13 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
             "library_ms": None})
     emit("aniso_times", kernels=times, power_limit=smi)
     if fused_vs_chunked:
-        aniso_fused_vs_chunked(dev, smi, scene, cam.view_matrix, o, tile_dirs, bucket, dense_in)
+        fused_vs_chunked_phase(
+            "aniso_fused_vs_chunked", dev, smi,
+            (ca.fused_forward_t_aniso, ca.fused_backward_aniso, ca.FUSED_BWD_T_ANISO,
+             ca.FUSED_BWD_ANISO),
+            (cca.chunked_forward_t_aniso, cca.chunked_backward_aniso, cca.CHUNKED_BWD_T_ANISO,
+             cca.CHUNKED_BWD_ANISO),
+            scene, cam.view_matrix, o, tile_dirs, bucket, TL, dense_in)
     return entries
 
 
@@ -2548,7 +2583,8 @@ def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
         obj = os.path.join(tmp, "cube_cloud.obj")
         write_obj(obj, smoke_points())
         groups = {"serving": lambda: [serving_phases(dev, smi, clock_mhz, n_sm)],
-                  "train": lambda: train_phases(dev, smi, clock_mhz, n_sm, obj),
+                  "train": lambda: train_phases(dev, smi, clock_mhz, n_sm, obj,
+                                               fused_vs_chunked=True),
                   "dense": lambda: dense_phases(dev, smi, clock_mhz, n_sm, tmp),
                   "aniso": lambda: aniso_phases(dev, smi, clock_mhz, n_sm, obj,
                                                 fused_vs_chunked=True),

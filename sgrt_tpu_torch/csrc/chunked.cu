@@ -17,23 +17,45 @@
 // points run the same templates; the geometry decides a row's per-ray terms
 // and J = d mb / d d (Side<Geo>, chunked_common.cuh).
 //
-// The fused anisotropic backwards, sgrt_tpu/ops/pallas_aniso.py::
-// _fused_bwd_t_aniso_kernel (sgrt_fused_bwd_t_aniso, from the T of
-// fused_fwd.cu's sgrt_fused_fwd_t_aniso) and ::_fused_bwd_aniso_kernel
-// (sgrt_fused_bwd_aniso, recomputing T), are the anisotropic backward at one
-// chunk (ck = N): the same function, since the fused backward is this
-// backward with C = 1. N need not be a multiple of 64 there (the route pads
-// it to its p and q blocks): the last 64-row block is partial, and every
-// row read or written stays below min(count, N). The recompute's
-// forward-with-T writes sgrt_fused_fwd_t_aniso's T bit for bit at the same
-// qb (both sum each stage's terms on their own, in the same order, and
-// round T alike), so the two fused backwards give the same gradients.
+// The fused backwards are this backward at one chunk (ck = N): the same
+// function, since the fused backward is the chunked one with C = 1.
+// sgrt_tpu/ops/pallas_kernel.py::_fused_bwd_t_kernel (sgrt_fused_bwd_t, from
+// the T of fused_fwd.cu's sgrt_fused_fwd_t) and ::_fused_bwd_kernel
+// (sgrt_fused_bwd, recomputing T) over isotropic rows, and
+// sgrt_tpu/ops/pallas_aniso.py::_fused_bwd_t_aniso_kernel
+// (sgrt_fused_bwd_t_aniso, from sgrt_fused_fwd_t_aniso's T) and
+// ::_fused_bwd_aniso_kernel (sgrt_fused_bwd_aniso) over anisotropic ones.
+// N need not be a multiple of 64 there (the route pads it to its p and q
+// blocks): the last 64-row block is partial, and every row read or written
+// stays below min(count, N). The recompute's forward-with-T writes the
+// fused forward-with-T's T bit for bit at the same qb, whatever that
+// forward's pb (both sum each stage's terms on their own, in the same
+// order, and round T alike), so the two fused backwards of a geometry give
+// the same gradients.
 //
 // The forward's function is fused_fwd.cu's (its note gives the
-// definitions). The backward is the fused backward's VJP (fused_bwd.cu's
-// note, same definitions and rounding; the anisotropic chain through A, Bt
-// and C is pallas_aniso.py's _aniso_epilogue, Side<AnisoGeo> in
-// chunked_common.cuh). Every cotangent that reaches the raw inputs is
+// definitions). The backward is its VJP, in the reference's order
+// (pallas_kernel.py:125-174, :1028-1070), with the forward's mb, co, inv
+// and sb per (row, ray) (isotropic: sb = sigma) and for live p, q:
+//   A_p      = albedo_p . dcol(r);  g_p = sqrt(2/pi) co_p A_p
+//   T_k(p)   = saved, or recomputed from acc_k (pass A);  tw_p = sum_k T_k(p)
+//   G_k(p)   = g_p T_k(p);  db = sum_p g_p tw_p
+//   dco_p   += sqrt(2/pi) tw_p A_p;   dalb_p += sum_r sqrt(2/pi) co_p tw_p dcol(r)
+//   grad pass, per (p, q): off_k = mb_p - mb_q + k sb_p,
+//     (ee_k, gau_k) = (erf, exp(-x^2))(off_k inv_q),
+//     dco_q -= sum_k G_k ee_k;  S0 = -2/sqrt(pi) co_q sum_k G_k gau_k;  S1 = the same with k G_k
+//     dmb_p += S0 inv_q;  dmb_q -= S0 inv_q;  dinv_q += S0 (mb_p - mb_q) + S1 sb_p;
+//     dsb_p += S1 inv_q
+//   base path: dco_q += db e1_q;  dmb_q -= 2/sqrt(pi) db co_q g1_q inv_q;
+//     dinv_q -= 2/sqrt(pi) db co_q g1_q mb_q,  (e1, g1) = (erf, exp(-x^2))(-mb_q inv_q)
+// then the chain through the prep to the raw inputs, isotropic:
+//   dcoco = dco co;  dmb += dcoco 2/(2 sigma^2) mb;  ddirs(r) = sum_q oc_q dmb_q;
+//   per row, summed over rays: s_row = sum dcoco, s_qmb = sum dcoco (|oc|^2 - mb^2),
+//   dsig = sum dsb_p - sum dinv inv/sigma + s_row/sigma + s_qmb/sigma^3,
+//   dmag = mag s_row / (mag == 0 ? 1 : mag^2),  doc = sum_r dmb d(r) - 2 oc s_row/(2 sigma^2);
+// anisotropic, through A, Bt and C: pallas_aniso.py's _aniso_epilogue,
+// Side<AnisoGeo> in chunked_common.cuh. Rows at or past the count get
+// exactly zero gradient. Every cotangent that reaches the raw inputs is
 // LINEAR in the per-(row, ray) sums (dco, dmb, dinv, dsb_p, the albedo
 // weight), and the base path is linear in db (pallas_chunked.py:46-51). So
 // the pair work is split in two and summed in any fixed order:
@@ -134,13 +156,14 @@
 // Peak scratch of the backward, B tiles, N = C ck rows, R rays in blocks of
 // 32 (Rp = R rounded up to 32), nb(n) = n/64 rounded up, in brackets at the
 // 50k-Gaussian sphere's dense bucket (B = 256, N = 5376, ck = 1792, R = 128)
-// and at the anisotropic train step's one chunk (B = 512, N = ck = 736):
-//   rows_p, rows_q  2 x B (Rp/32) N 10 floats (0.44 GB; 0.12 GB)
-//   dd_p, dd_q      2 x B nb(N) 3 Rp doubles   (0.13 GB; 0.02 GB)
+// and at the one chunk of the anisotropic and the isotropic train steps
+// (B = 512, N = ck = 736 and 480):
+//   rows_p, rows_q  2 x B (Rp/32) N 10 floats (0.44 GB; 0.12, 0.08 GB)
+//   dd_p, dd_q      2 x B nb(N) 3 Rp doubles   (0.13 GB; 0.04, 0.03 GB)
 //   db_part, db     B (nb(ck) + 1) Rp          (~0 GB)
-//   t_a (recompute) B 5 ck Rp                  (1.17 GB; 0.96 GB)
-// (the fused anisotropic backward it replaces kept 32 bytes per (row, ray):
-// 1.54 GB at the train step)
+//   t_a (recompute) B 5 ck Rp                  (1.17 GB; 0.96, 0.63 GB)
+// (the fused backwards' first form kept 32 bytes per (row, ray): 1.54 and
+// 1.01 GB at the train steps)
 //
 // Layouts (float32 unless noted, contiguous): oc, albedo (B,N,3); sigma
 // (B,N) or invd (B,N,3); mag (B,N); dirs, dcol (B,3,R) ray-minor; counts
@@ -1070,10 +1093,33 @@ int sgrt_chunked_bwd_t_aniso(const float* oc, const float* invd, const float* ma
                                     erf_id, exp_id, stream);
 }
 
-// The fused anisotropic backwards: the two above at one chunk, ck = N (any
-// N >= 1). sgrt_fused_bwd_t_aniso reads T (B,5,N,R) from fused_fwd.cu's
-// sgrt_fused_fwd_t_aniso with the same qb; sgrt_fused_bwd_aniso recomputes
-// it, bit for bit. Scratch and part_ms as the chunked ones' at C = 1.
+// The fused backwards: the chunked ones at one chunk, ck = N (any N >= 1).
+// sgrt_fused_bwd_t reads T (B,5,N,R) from fused_fwd.cu's sgrt_fused_fwd_t
+// with the same qb; sgrt_fused_bwd recomputes it, bit for bit; the _aniso
+// twins the same over anisotropic rows (T from sgrt_fused_fwd_t_aniso).
+// Scratch and part_ms as the chunked ones' at C = 1.
+int sgrt_fused_bwd_t(const float* oc, const float* sig, const float* mag, const float* alb,
+                     const float* dirs, const int* counts, const float* dcol, const float* t,
+                     float* scratch, float* doc, float* dsig, float* dmag, float* dalb,
+                     float* ddirs, float* part_ms, int B, int N, int R, int ck, int threads,
+                     int qb, int erf_id, int exp_id, void* stream) {
+  if (ck != N) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd<IsoGeo, true>(oc, sig, mag, alb, dirs, counts, dcol, t, scratch, doc, dsig,
+                                  dmag, dalb, ddirs, part_ms, B, N, R, ck, threads, qb, erf_id,
+                                  exp_id, stream);
+}
+
+int sgrt_fused_bwd(const float* oc, const float* sig, const float* mag, const float* alb,
+                   const float* dirs, const int* counts, const float* dcol, float* scratch,
+                   float* doc, float* dsig, float* dmag, float* dalb, float* ddirs,
+                   float* part_ms, int B, int N, int R, int ck, int threads, int qb, int erf_id,
+                   int exp_id, void* stream) {
+  if (ck != N) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd<IsoGeo, false>(oc, sig, mag, alb, dirs, counts, dcol, nullptr, scratch, doc,
+                                   dsig, dmag, dalb, ddirs, part_ms, B, N, R, ck, threads, qb,
+                                   erf_id, exp_id, stream);
+}
+
 int sgrt_fused_bwd_t_aniso(const float* oc, const float* invd, const float* mag,
                            const float* alb, const float* dirs, const int* counts,
                            const float* dcol, const float* t, float* scratch, float* doc,

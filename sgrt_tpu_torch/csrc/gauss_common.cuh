@@ -1,11 +1,11 @@
-// Device math shared by the fused (fused_fwd.cu, fused_bwd.cu), the
-// chunked (chunked.cu) and the split (split.cu) kernels: the erf/exp
-// variants the kernels are compiled for, the rounding-controlled Gaussian
-// exponent, the per-row constants that rows are staged with, the two row
-// geometries (isotropic and anisotropic), the five quadrature taps, a warp
-// sum, a block's per-row sums over rays, pass A over staged rows, the
-// ordered sum of per-block partials, and on the host a kernel's resources
-// per SM.
+// Device math shared by the fused forward (fused_fwd.cu), the chunked
+// kernels (chunked.cu, also the fused backwards) and the split (split.cu)
+// kernels: the erf/exp variants the kernels are compiled for, the
+// rounding-controlled Gaussian exponent, the per-row constants that rows
+// are staged with, the two row geometries (isotropic and anisotropic), the
+// five quadrature taps, a warp sum, a block's per-row sums over rays, pass
+// A over staged rows, the ordered sum of per-block partials, and on the
+// host a kernel's resources per SM.
 //
 // No fast-math anywhere: the A&S reciprocal is an IEEE division and expf is
 // the accurate one, so "as5" is the float32-exact erf and the kernels agree

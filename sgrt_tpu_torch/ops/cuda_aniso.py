@@ -42,7 +42,6 @@ from __future__ import annotations
 import torch
 
 from sgrt_tpu_torch.ops.anisotropic import AnisoScene, pad_scene_aniso
-from sgrt_tpu_torch.ops.cuda_chunked import _chunked_backward_launch
 from sgrt_tpu_torch.ops.cuda_kernel import (
     K_TAPS,
     CudaKernel,
@@ -51,6 +50,7 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     _backward_plain,
     _block_sizes,
     _check_inputs,
+    _chunked_backward_launch,
     _forward_launch,
     _forward_plain,
     _render_fused,

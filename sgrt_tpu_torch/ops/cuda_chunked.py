@@ -23,15 +23,18 @@ card (or raises) and runs its plain version for tensors on the CPU:
     chunked_backward   the VJP, from saved T (_chunked_bwd_t_kernel)
                        or recomputing it (_chunked_bwd_kernel)
 
-csrc/chunked.cu's kernels are templates over the row geometry, and the
+csrc/chunked.cu's kernels are templates over the row geometry: the
 chunked anisotropic route (ops.cuda_chunked_aniso) runs the same ones over
-anisotropic rows; its note gives the design: warp-wide groups of 4 rows
-sharing each stage's per-ray terms through shared-memory planes, the
-backward's p-side/q-side split, and the recompute backward as the
-forward-with-T per chunk ahead of the saved-T backward's kernels. The TPU
-chunks the forward only because a whole tile's rows do not fit VMEM; on
-the card the forward sweeps the live prefix of the q axis in one pass and
-splits the p axis of a dense tile over blocks of 32 rows.
+anisotropic rows, and the fused backwards of both geometries
+(ops.cuda_kernel.fused_backward, ops.cuda_aniso.fused_backward_aniso) are
+the same backward at one chunk, ck = N; every backward launches through
+ops.cuda_kernel._chunked_backward_launch. Its note gives the design:
+warp-wide groups of 4 rows sharing each stage's per-ray terms through
+shared-memory planes, the backward's p-side/q-side split, and the recompute
+backward as the forward-with-T per chunk ahead of the saved-T backward's
+kernels. The TPU chunks the forward only because a whole tile's rows do
+not fit VMEM; on the card the forward sweeps the live prefix of the q axis
+in one pass and splits the p axis of a dense tile over blocks of 32 rows.
 
 The plain versions are the fused ones (the same function) behind the
 chunk-count contract: N must divide into chunks of ck rows, ck a multiple
@@ -42,7 +45,6 @@ so the kernels take the fused kernels' unpacked operands.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 
@@ -58,6 +60,7 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     _block_sizes,
     _check_inputs,
     _check_names,
+    _chunked_backward_launch,
     _kernel_erf_name,
     _scene_shapes,
     _threads,
@@ -202,46 +205,6 @@ def chunked_forward_t(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int, rb: in
     colors = _chunked_forward_launch(CHUNKED_FWD_T, args, t, rb=rb, pb=pb, qb=qb,
                                      erf_name=erf_name, exp_name=exp_name)
     return colors, t
-
-
-def chunked_backward_scratch_floats(b: int, n: int, r: int, ck: int, threads: int,
-                                    recompute: bool, kernel: CudaKernel = CHUNKED_BWD) -> int:
-    """Floats of scratch one launch of a chunked backward kernel takes (the
-    library's own count; csrc/chunked.cu lists its parts)."""
-    fn = kernel.library().sgrt_chunked_bwd_scratch_floats
-    fn.argtypes = [ctypes.c_int] * 6
-    fn.restype = ctypes.c_longlong
-    return int(fn(b, n, r, ck, threads, int(recompute)))
-
-
-def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_name, exp_name,
-                             part_ms=None):
-    """Launch a backward entry point of csrc/chunked.cu (a chunked one, or
-    a fused anisotropic one at ck = N) on checked CUDA inputs: outputs
-    (doc, dshape, dmag, dalb, ddirs), dshape shaped as args[1]
-    (sigma or invd). A kernel that times its parts (kernel.timed) takes
-    part_ms, a float32 CPU tensor that receives the device ms of each of its
-    launches (its entry point's note lists them; the call then waits for
-    the card), or None."""
-    if part_ms is not None and not kernel.timed:
-        raise ValueError(f"{kernel.name} does not time its parts")
-    _check_names(erf_name, exp_name)
-    oc, shape, dirs_t = args[0], args[1], args[4]
-    b, n, _ = oc.shape
-    r = dirs_t.shape[-1]
-    threads = _threads(kernel.query("sgrt_chunked_max_threads"), rb, r)
-    f32 = dict(dtype=torch.float32, device=oc.device)
-    scratch = torch.empty(chunked_backward_scratch_floats(b, n, r, ck, threads,
-                                                          t_saved is None, kernel), **f32)
-    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
-    dshape, dmag = torch.empty(tuple(shape.shape), **f32), torch.empty((b, n), **f32)
-    ddirs = torch.empty((b, 3, r), **f32)
-    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
-    outs = [scratch, doc, dshape, dmag, dalb, ddirs] + ([part_ms] if kernel.timed else [])
-    kernel.launch(ins + outs,
-                  [b, n, r, ck, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
-                  what=f"B={b}, N={n}, R={r}, ck={ck}, threads={threads}, qb={qb}")
-    return doc, dshape, dmag, dalb, ddirs
 
 
 def chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,

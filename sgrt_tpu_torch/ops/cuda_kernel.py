@@ -18,8 +18,15 @@ tensors on the CPU:
 
     fused_forward     csrc/fused_fwd.cu  colors           (_fused_fwd_kernel)
     fused_forward_t   csrc/fused_fwd.cu  colors and T     (_fused_fwd_t_kernel)
-    fused_backward    csrc/fused_bwd.cu  the VJP, from saved T (_fused_bwd_t_kernel)
+    fused_backward    csrc/chunked.cu    the VJP, from saved T (_fused_bwd_t_kernel)
                                          or recomputing it (_fused_bwd_kernel)
+
+The backwards are the chunked backward's kernels (ops.cuda_chunked) at one
+chunk, ck = N: the fused backward is the chunked one with C = 1, and those
+kernels split the pair work into a p side and a q side over blocks of 64
+rows and 32 rays, so that a dense tile spreads over many blocks.
+_chunked_backward_launch launches every backward entry point of
+csrc/chunked.cu, fused or chunked, of either row geometry.
 
 `FusedRender` joins them into one differentiable op, as the JAX package's
 custom VJP does; `render_fused` uses it when a gradient is wanted.
@@ -60,11 +67,13 @@ KERNEL_PBS = (8, 16)
 # Up to it the differentiated forward writes T and the backward reads it;
 # above it the backward recomputes pass A. On an H100 (80 GB, 700 W) at the
 # north-star train step (256^2, 32x16 tiles, N = 480; chip_smoke.py,
-# "train_step") the saved-T step takes 62.5 ms against 98.3 ms recomputing,
-# for 0.63 GB of T (peak 1.40 GB against 0.77 GB): saving always pays, so
-# the budget is set by memory alone. 8 GiB is a tenth of the card's 80 GB;
-# a step holds T of every launch at once, plus the backward's scratch
-# planes of the same size (csrc/fused_bwd.cu).
+# "train_step") the saved-T step takes 13.4 ms against 17.5 ms recomputing,
+# for 0.63 GB of T (peak 0.82 GB either way: the recompute backward holds
+# the same T in scratch): saving always pays, so the budget is set by
+# memory alone. 8 GiB is a tenth of the card's 80 GB; a step holds T of
+# every launch at once. The saved-T backward's own scratch is O(B N)
+# (csrc/chunked.cu at one chunk); the recompute backward holds the T of its
+# one chunk in scratch instead.
 SAVE_T_MAX_BYTES = 8 << 30
 
 
@@ -140,11 +149,13 @@ class CudaKernel:
         self.launches += 1
 
 
-_FWD_SRC, _BWD_SRC, _TPU = "fused_fwd.cu", "fused_bwd.cu", "sgrt_tpu/ops/pallas_kernel.py"
+_FWD_SRC, _BWD_SRC, _TPU = "fused_fwd.cu", "chunked.cu", "sgrt_tpu/ops/pallas_kernel.py"
 FUSED_FWD = CudaKernel("fused_fwd", _FWD_SRC, "sgrt_fused_fwd", f"{_TPU}:862", 8, 8)
 FUSED_FWD_T = CudaKernel("fused_fwd_t", _FWD_SRC, "sgrt_fused_fwd_t", f"{_TPU}:898", 9, 8)
-FUSED_BWD_T = CudaKernel("fused_bwd_t", _BWD_SRC, "sgrt_fused_bwd_t", f"{_TPU}:948", 14, 7)
-FUSED_BWD = CudaKernel("fused_bwd", _BWD_SRC, "sgrt_fused_bwd", f"{_TPU}:1073", 13, 7)
+FUSED_BWD_T = CudaKernel("fused_bwd_t", _BWD_SRC, "sgrt_fused_bwd_t", f"{_TPU}:948", 15, 8,
+                         timed=True)
+FUSED_BWD = CudaKernel("fused_bwd", _BWD_SRC, "sgrt_fused_bwd", f"{_TPU}:1073", 14, 8,
+                       timed=True)
 
 
 def _check_names(erf_name: str, exp_name: str, pb: int | None = None) -> None:
@@ -513,37 +524,66 @@ def _backward_on_card(who: str, want: dict, args, dcol, t_saved) -> bool:
     return _check_inputs(who, want, oc.device)
 
 
+def chunked_backward_scratch_floats(b: int, n: int, r: int, ck: int, threads: int,
+                                    recompute: bool, kernel: CudaKernel) -> int:
+    """Floats of scratch one launch of a backward kernel of csrc/chunked.cu
+    takes (the library's own count; csrc/chunked.cu lists its parts)."""
+    fn = kernel.library().sgrt_chunked_bwd_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    return int(fn(b, n, r, ck, threads, int(recompute)))
+
+
+def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_name, exp_name,
+                             part_ms=None):
+    """Launch a backward entry point of csrc/chunked.cu (a chunked one, or
+    a fused one at ck = N) on checked CUDA inputs: outputs (doc, dshape,
+    dmag, dalb, ddirs), dshape shaped as args[1] (sigma or invd). A kernel
+    that times its parts (kernel.timed) takes part_ms, a float32 CPU tensor
+    that receives the device ms of each of its launches (its entry point's
+    note lists them; the call then waits for the card), or None."""
+    if part_ms is not None and not kernel.timed:
+        raise ValueError(f"{kernel.name} does not time its parts")
+    _check_names(erf_name, exp_name)
+    oc, shape, dirs_t = args[0], args[1], args[4]
+    b, n, _ = oc.shape
+    r = dirs_t.shape[-1]
+    threads = _threads(kernel.query("sgrt_chunked_max_threads"), rb, r)
+    f32 = dict(dtype=torch.float32, device=oc.device)
+    scratch = torch.empty(chunked_backward_scratch_floats(b, n, r, ck, threads,
+                                                          t_saved is None, kernel), **f32)
+    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
+    dshape, dmag = torch.empty(tuple(shape.shape), **f32), torch.empty((b, n), **f32)
+    ddirs = torch.empty((b, 3, r), **f32)
+    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
+    outs = [scratch, doc, dshape, dmag, dalb, ddirs] + ([part_ms] if kernel.timed else [])
+    kernel.launch(ins + outs,
+                  [b, n, r, ck, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  what=f"B={b}, N={n}, R={r}, ck={ck}, threads={threads}, qb={qb}")
+    return doc, dshape, dmag, dalb, ddirs
+
+
 def fused_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *,
                    rb: int = 128, qb: int = 32, erf_name: str = "as5",
-                   exp_name: str = "exact"):
+                   exp_name: str = "exact", part_ms: torch.Tensor | None = None):
     """Wrapper of the backward kernels: the VJP of the fused forward for
     the cotangent dcol (B,3,R) → (doc (B,N,3), dsigma (B,N), dmag (B,N),
     dalbedo (B,N,3), ddirs (B,3,R)).
 
     With t_saved (B,5,N,R) from fused_forward_t it launches the saved-T
-    kernel, without it the recompute kernel (csrc/fused_bwd.cu). CPU
-    tensors go to fused_backward_plain. rb caps the rays per block; qb is
-    the rows staged per shared-memory pass."""
+    kernel, without it the recompute kernel, whose recomputed T is
+    fused_forward_t's bit for bit at the same qb. CPU tensors go to
+    fused_backward_plain. Any N: the kernels run the chunked backward at one
+    chunk of N rows (blocks of 32 rays, rb capped at it); qb is the rows
+    staged per shared-memory pass, the forward's. part_ms: a float32 CPU
+    tensor of 5 elements for the device ms of the recompute's T, the p side,
+    the db sum, the q side and the row sums, for measurement."""
     args = (oc, sigma, mag, albedo, dirs_t, counts)
     if not _backward_on_card("fused_backward", _scene_shapes(*args), args, dcol, t_saved):
         return fused_backward_plain(*args, dcol, t_saved, erf_name=erf_name, exp_name=exp_name)
-    _check_names(erf_name, exp_name)
-    b, n, _ = oc.shape
-    r = dirs_t.shape[-1]
     kernel = FUSED_BWD if t_saved is None else FUSED_BWD_T
-    threads = _threads(kernel.query("sgrt_fused_bwd_max_threads"), rb, r)
-    rp = -(-r // threads) * threads
-    planes = kernel.query("sgrt_fused_bwd_planes")
-    f32 = dict(dtype=torch.float32, device=oc.device)
-    scratch = torch.empty((b, planes, n, rp), **f32)
-    doc, dalb = torch.empty((b, n, 3), **f32), torch.empty((b, n, 3), **f32)
-    dsig, dmag = torch.empty((b, n), **f32), torch.empty((b, n), **f32)
-    ddirs = torch.empty((b, 3, r), **f32)
-    ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
-    kernel.launch(ins + [scratch, doc, dsig, dmag, dalb, ddirs],
-                  [b, n, r, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
-                  what=f"B={b}, N={n}, R={r}, threads={threads}, qb={qb}")
-    return doc, dsig, dmag, dalb, ddirs
+    return _chunked_backward_launch(kernel, args, dcol, t_saved, ck=oc.shape[1], rb=rb, qb=qb,
+                                    erf_name=erf_name, exp_name=exp_name, part_ms=part_ms)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from sgrt_tpu.ops import anisotropic as jan
 from sgrt_tpu.ops import pallas_aniso as jpa
 from sgrt_tpu_torch.ops import anisotropic as tan
 from sgrt_tpu_torch.ops import cuda_aniso as ta
+from sgrt_tpu_torch.ops import cuda_kernel as tk
 from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
 from sgrt_tpu_torch.ops.cuda_kernel import FusedRender
 
@@ -225,34 +226,40 @@ def test_tile_renderer_aniso_routing(capacity, padded):
 @pytest.mark.parametrize("kernel,symbol,line", [
     (ta.FUSED_BWD_T_ANISO, "sgrt_fused_bwd_t_aniso", 292),
     (ta.FUSED_BWD_ANISO, "sgrt_fused_bwd_aniso", 367),
+    (tk.FUSED_BWD_T, "sgrt_fused_bwd_t", 948),
+    (tk.FUSED_BWD, "sgrt_fused_bwd", 1073),
 ])
 def test_fused_backwards_are_chunked_entry_points(kernel, symbol, line):
-    """The fused anisotropic backwards (kernels 11-12) are entry points of
-    csrc/chunked.cu, the chunked backward at one chunk: each names its
-    source, its symbol, the Pallas kernel it replaces, and times its parts
-    (it takes part_ms, as the chunked backwards do)."""
+    """The fused backwards (kernels 3-4 over isotropic rows, 11-12 over
+    anisotropic ones) are entry points of csrc/chunked.cu, the chunked
+    backward at one chunk: each names its source, its symbol, the Pallas
+    kernel it replaces, and times its parts (it takes part_ms, as the
+    chunked backwards do)."""
     import re
 
+    aniso = symbol.endswith("_aniso")
+    tpu = "pallas_aniso.py" if aniso else "pallas_kernel.py"
     assert kernel.source.name == "chunked.cu"
     assert kernel.symbol == symbol
-    assert kernel.replaces == f"sgrt_tpu/ops/pallas_aniso.py:{line}"
+    assert kernel.replaces == f"sgrt_tpu/ops/{tpu}:{line}"
     assert kernel.timed
     src = kernel.source.read_text()
     assert re.search(rf"^int {symbol}\(", src, re.M), symbol
     body = src[src.index(f"int {symbol}("):]
     body = body[:body.index("\n}\n")]
-    assert "launch_bwd<AnisoGeo" in body and "if (ck != N)" in body
+    geo = "AnisoGeo" if aniso else "IsoGeo"
+    assert f"launch_bwd<{geo}" in body and "if (ck != N)" in body
 
 
 def test_fused_bwd_cu_keeps_only_the_isotropic_kernels():
-    """csrc/fused_bwd.cu defines the isotropic fused backwards (kernels 3-4)
-    and no anisotropic entry point or row geometry any more."""
-    from sgrt_tpu_torch.ops import cuda_kernel as tk
+    """csrc/fused_bwd.cu, which last held the isotropic fused backwards
+    (kernels 3-4), is gone: no source of the port is that file and no kernel
+    of ops.kernels.KERNELS names it; every backward of the port but the
+    split ones is an entry point of csrc/chunked.cu."""
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.utils import nvcc
 
-    src = tk.FUSED_BWD.source.read_text()
-    assert tk.FUSED_BWD.source.name == tk.FUSED_BWD_T.source.name == "fused_bwd.cu"
-    for symbol in ("sgrt_fused_bwd_t_aniso", "sgrt_fused_bwd_aniso"):
-        assert symbol not in src
-    assert "AnisoGeo" not in src
-    for symbol in (tk.FUSED_BWD.symbol, tk.FUSED_BWD_T.symbol):
-        assert f"int {symbol}(" in src
+    assert not (nvcc.CSRC_DIR / "fused_bwd.cu").exists()
+    assert all(k.source.name != "fused_bwd.cu" for k in kernels.KERNELS)
+    for k in (tk.FUSED_BWD_T, tk.FUSED_BWD, ta.FUSED_BWD_T_ANISO, ta.FUSED_BWD_ANISO):
+        assert k in kernels.KERNELS and k.source.name == "chunked.cu"

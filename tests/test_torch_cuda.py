@@ -126,9 +126,10 @@ def test_forward_t_kernel_matches_plain(erf_name, exp_name):
 @pytest.mark.parametrize("saved_t", [True, False])
 @pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
 def test_backward_kernels_match_plain(saved_t, erf_name, exp_name):
-    """Both backwards at R = 200 (two ray blocks, the second partial) and
-    counts (96, 17, 0, 40, >N): per-ray-block partials summed in order, dead
-    rows exactly zero."""
+    """Both backwards at R = 200 (two ray blocks, the second partial), N =
+    96 (one chunk of a 64-row block and a partial one) and counts (96, 17,
+    0, 40, >N): within 5e-5 of scale of the plain backward and within the
+    float64 gate (_assert_grads_f64_gate), dead rows exactly zero."""
     dev = _card()
     args = _inputs(dev)
     dcol = torch.randn((5, 3, 200), generator=torch.Generator().manual_seed(4)).to(dev)
@@ -139,10 +140,34 @@ def test_backward_kernels_match_plain(saved_t, erf_name, exp_name):
     got = tk.fused_backward(*args, dcol, t, **kw)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    _assert_grads_close(got, tk.fused_backward_plain(*args, dcol, t, **kw))
+    plain = tk.fused_backward_plain(*args, dcol, t, **kw)
+    _assert_grads_close(got, plain)
+    _assert_grads_f64_gate(got, plain,
+                           tk.fused_backward_plain(*_double(args), dcol.double(), **kw))
     for g in got[:4]:
         assert (g[2] == 0).all() and (g[1, 17:] == 0).all() and (g[3, 40:] == 0).all()
     assert (got[4][2] == 0).all()
+
+
+def test_fused_backward_any_row_count():
+    """Both backwards at N = 40 (pb = qb = 8: one partial 64-row block, a
+    partial 32-row forward split in the recompute): within the float64
+    gate, equal to each other bit for bit, dead rows and the dead tile
+    exactly zero."""
+    dev = _card()
+    args = _inputs(dev, n=40, counts=(40, 17, 0, 33, 1000))
+    dcol = torch.randn((5, 3, 200), generator=torch.Generator().manual_seed(13)).to(dev)
+    t = tk.fused_forward_t(*args, pb=8, qb=8)[1]
+    g_t = tk.fused_backward(*args, dcol, t, qb=8)
+    g_r = tk.fused_backward(*args, dcol, qb=8)
+    torch.cuda.synchronize()
+    _assert_grads_f64_gate(g_t, tk.fused_backward_plain(*args, dcol),
+                           tk.fused_backward_plain(*_double(args), dcol.double()))
+    for a, b in zip(g_t, g_r):
+        assert torch.equal(a, b)
+    for g in g_t[:4]:
+        assert (g[2] == 0).all() and (g[1, 17:] == 0).all() and (g[3, 33:] == 0).all()
+    assert (g_t[4][2] == 0).all()
 
 
 def test_backward_untiled_many_ray_blocks():
