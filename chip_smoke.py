@@ -24,19 +24,21 @@ comes out, and times the kernels:
             times with each backward's parts (the fused forward beside the
             chunked one);
   aniso     the cube cloud with per-axis scales at 256x256 (the fused
-            anisotropic kernels; the backwards are csrc/chunked.cu's at one
-            chunk): kernels vs plain, the --aniso CLI orbit, fit_cli
-            --aniso, the bucketed anisotropic train step, the kernels' times
-            with the backwards' parts; under --only also the fused
-            backwards beside the chunked route's at one chunk;
+            anisotropic kernels, csrc/chunked.cu's at one chunk): kernels vs
+            plain, the --aniso CLI orbit, fit_cli --aniso, the bucketed
+            anisotropic train step, the kernels' times with the backwards'
+            parts; under --only also the fused backwards and forwards
+            beside the chunked route's at one chunk;
   aniso dense  the 50k-Gaussian sphere with per-axis scales at 512x512 (the
             chunked anisotropic kernels): tile grid and buckets, kernels vs
-            plain (the forward, the forward-with-T and both backwards), the
+            plain (the forward, the forward-with-T and both backwards; the
+            fused anisotropic kernels on the sparse bucket), the
             bucketed frame and the --aniso CLI, the anisotropic slab train
             step on the saved-T schedule and once with the saved-T budget at
             0 (the recompute backward), the kernels' times with each
             backward's parts, and the crossover of the fused and chunked
-            anisotropic backwards;
+            anisotropic backwards; under --only also the fused anisotropic
+            forwards beside the chunked ones on the sparse bucket;
   split     the split kernels (tw and colors from precomputed planes) at
             the training cell's 30-degree view: kernels vs plain and
             float64 (also on the dense cell's densest tile), the split
@@ -151,6 +153,9 @@ ADENSE_CAP_SPARSE, ADENSE_SLAB_TILES = 32, 256
 # the kernels-vs-plain cases' tiles: the plain versions cost ~count^2 per
 # tile, ~4x the isotropic dense cell's at these counts
 ADENSE_SUB_TILES, ADENSE_B1_COUNT = 8, 3000
+# the sparse bucket's densest tiles, held against the fused anisotropic
+# kernels' plain versions (at most 32 rows a tile: cheap)
+ADENSE_SPARSE_TILES = 32
 # the crossover of the two anisotropic routes: the densest tiles cut to
 # these counts, both backwards timed once each
 ADENSE_CROSS_TILES, ADENSE_CROSS_COUNTS = 8, (1024, 2048, 4096)
@@ -528,8 +533,50 @@ def one_chunk_parts(part_ms) -> dict:
     return {**dict(zip(names, pm)), "sum_ms": sum(pm)}
 
 
+def forwards_vs_chunked(fused, chunked, views) -> dict:
+    """The fused forwards of one row geometry (forward, forward-with-T)
+    beside the chunked route's at one chunk, on each view: the chunked ones
+    on the view's rows padded with inert rows to the next multiple of 128
+    (their chunk contract; the counts are the view's, so both sweep the
+    same live rows). Each timed over 5 calls; the max abs difference of the
+    colors, and whether T is equal on the view's rows. fused, chunked: each
+    route's (forward, forward_t); views: name -> launch inputs."""
+    import torch
+
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
+
+    (f_fwd, f_fwd_t), (c_fwd, c_fwd_t) = fused, chunked
+    out = {}
+    for name, inp in views.items():
+        b, n = inp[2].shape
+        n_c = -(-n // 128) * 128
+        wide = [torch.nn.functional.pad(x, (0, 0) * (x.dim() - 2) + (0, n_c - n), value=v)
+                .contiguous() for x, v in zip(inp[:4], (0.0, 1.0, 0.0, 0.0))] + list(inp[4:])
+        pb, qb = ck._block_sizes(n)
+        runs = {"fused_fwd": lambda: f_fwd(*inp, pb=pb, qb=qb),
+                "chunked_fwd_C1": lambda: c_fwd(*wide, ck=n_c, pb=pb, qb=qb),
+                "fused_fwd_t": lambda: f_fwd_t(*inp, pb=pb, qb=qb),
+                "chunked_fwd_t_C1": lambda: c_fwd_t(*wide, ck=n_c, pb=pb, qb=qb)}
+        res = {k: fn() for k, fn in runs.items()}
+        torch.cuda.synchronize()
+        t_f, t_c = res["fused_fwd_t"][1], res["chunked_fwd_t_C1"][1][:, :, :n]
+        out[name] = {
+            "shape": {"B": b, "N": n, "N_chunked": n_c, "R": inp[4].shape[2], "pb": pb,
+                      "qb": qb, "max_count": int(inp[5].max())},
+            "ms": {k: time_cuda(fn, iters=5, warmup=1) for k, fn in runs.items()},
+            "colors_max_abs_diff": {
+                "fwd": float((res["fused_fwd"] - res["chunked_fwd_C1"]).abs().max()),
+                "fwd_t": float((res["fused_fwd_t"][0] - res["chunked_fwd_t_C1"][0])
+                               .abs().max())},
+            "T_equal": bool(torch.equal(t_f, t_c)),
+            "T_max_abs_diff": float((t_f - t_c).abs().max())}
+        del res, t_f, t_c
+    return out
+
+
 def fused_vs_chunked_phase(phase: str, dev, smi: str, fused, chunked, scene, view, o,
-                           tile_dirs, bucket, tiles, dense_in, **extra) -> None:
+                           tile_dirs, bucket, tiles, dense_in, forwards=None,
+                           **extra) -> None:
     """The fused backwards of one row geometry (csrc/chunked.cu's backward
     at one chunk of the view's N rows) beside the chunked route's at one
     chunk, on a train step's view: the fused ones at its capacity, the
@@ -540,7 +587,8 @@ def fused_vs_chunked_phase(phase: str, dev, smi: str, fused, chunked, scene, vie
     chunked forward ignores pb): the recompute backward's T is that
     forward's, so the two fused backwards' gradients are equal bit for bit
     only if it does. fused, chunked: each route's (forward_t, backward,
-    saved-T kernel, recompute kernel); extra is printed beside."""
+    saved-T kernel, recompute kernel); forwards, if given, the arguments
+    of forwards_vs_chunked; extra is printed beside."""
     import torch
 
     from sgrt_tpu_torch.ops import cuda_kernel as ck
@@ -580,6 +628,8 @@ def fused_vs_chunked_phase(phase: str, dev, smi: str, fused, chunked, scene, vie
                 "T_elements_differing": int((t_c != t_fused).sum()),
                 "T_max_abs_diff": float((t_c - t_fused).abs().max()),
                 "colors_equal": bool(torch.equal(c_c, c_f))}
+    if forwards is not None:
+        extra["forwards"] = forwards_vs_chunked(*forwards)
     emit(phase, shape={"B": dense_in[0].shape[0], "N": n, "N_chunked": n_c,
                        "R": dense_in[4].shape[2], "qb": qb, "max_count": int(dense_in[5].max())},
          backwards=out, chunked_fwd_t_vs_fused_fwd_t=same_t, **extra, power_limit=smi)
@@ -1309,8 +1359,9 @@ def compare_aniso_kernels(inp, dcol, erf_name="as5", exp_name="exact", rb: int =
     TRAIN_REL of scale (doc and dinvd DOC_REL), or as close to float64 as
     the float32 plain version is, x2. C - Bt mb cancels |oc|^2/scale^2
     (~6400 here) in float32 on both sides alike. The saved-T and recompute
-    backwards must be equal bit for bit; dead rows hold T = 0 and dead
-    tiles get zero outputs."""
+    backwards must be equal bit for bit, and so must the colors of the
+    forward and the forward-with-T; dead rows hold T = 0 and dead tiles get
+    zero outputs."""
     import torch
 
     from sgrt_tpu_torch.ops import cuda_aniso as ca
@@ -1355,6 +1406,9 @@ def compare_aniso_kernels(inp, dcol, erf_name="as5", exp_name="exact", rb: int =
     rel, vs_f64, absd, over = gate_vs_f64(outs)
     rel["bwd_t_vs_bwd"] = {n: rel_err(a, b) for n, a, b in zip(names, g_t, g_r)}
     over += backwards_differ(rel)
+    # T is rounded alike whether or not it is stored (csrc/chunked.cu)
+    if not torch.equal(colors, colors_t):
+        over.append(f"fwd vs fwd_t colors: {rel_err(colors, colors_t):.3g} (must be equal)")
     for i in [i for i, c in enumerate(inp[5].tolist()) if c <= 0]:
         check(all(bool((x[i] == 0).all()) for x in (colors, colors_t, *g_t, *g_r)),
               f"a dead tile's anisotropic outputs are not zero ({erf_name}/{exp_name})")
@@ -1680,7 +1734,11 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
              ca.FUSED_BWD_ANISO),
             (cca.chunked_forward_t_aniso, cca.chunked_backward_aniso, cca.CHUNKED_BWD_T_ANISO,
              cca.CHUNKED_BWD_ANISO),
-            scene, cam.view_matrix, o, tile_dirs, bucket, TL, dense_in)
+            scene, cam.view_matrix, o, tile_dirs, bucket, TL, dense_in,
+            forwards=((ca.fused_forward_aniso, ca.fused_forward_t_aniso),
+                      (cca.chunked_forward_aniso, cca.chunked_forward_t_aniso),
+                      {**{f"cli_frame0[{i}]": x for i, x in enumerate(cli_launch)},
+                       "step": dense_in}))
     return entries
 
 
@@ -1749,13 +1807,18 @@ def compare_chunked_aniso_kernels(inp, dcol, c_k: int, erf_name="as5", exp_name=
                       "ck": c_k, "rb": rb, "max_count": int(inp[5].max())}}
 
 
-def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
+def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str,
+                       fused_vs_chunked: bool = False) -> list:
     """The anisotropic dense cell (scripts/large_n.py --aniso at docs/
     LARGE_N.md's fitting size): tile grid and buckets, kernels 13-14
-    against their plain versions and float64, the bucketed frame and the
+    against their plain versions and float64 (and kernels 9-12 on the
+    sparse bucket's densest tiles), the bucketed frame and the
     --aniso CLI, the anisotropic slab train step with a profile, the
     kernels' times, and the crossover of the fused and chunked anisotropic
-    backwards. Returns the kernel line's entries of kernels 13-14."""
+    backwards; with fused_vs_chunked (--only aniso_dense) also the fused
+    anisotropic forwards beside the chunked ones at one chunk on the sparse
+    bucket (aniso_dense_fwd_vs_chunked). Returns the kernel line's entries
+    of kernels 13-14."""
     import torch
 
     from sgrt_tpu_torch import cli
@@ -1858,6 +1921,15 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> 
          densest_count=int(cnt[dense_tile]), live_tiles=int((cnt > 0).sum()), cases=results)
     over = [f"{name}: {o}" for name, r in results.items() for o in r["over_tolerance"]]
     check(not over, f"a chunked anisotropic kernel disagrees with its plain version: {over}")
+    # the sparse bucket's launch takes the fused anisotropic route (kernels
+    # 9-12): its densest tiles against the plain versions and float64
+    sparse_in = per_bucket[-1]
+    top_s = np.argsort(-live_counts(sparse_in), kind="stable")[:ADENSE_SPARSE_TILES]
+    sub_s = [t[torch.tensor(top_s.tolist(), device=dev)].contiguous() for t in sparse_in]
+    sparse_case = compare_aniso_kernels(sub_s, cotangent(sub_s, 97))
+    emit("aniso_dense_sparse_vs_plain", case=sparse_case)
+    check(not sparse_case["over_tolerance"], "a fused anisotropic kernel disagrees with its "
+          f"plain version on the sparse bucket: {sparse_case['over_tolerance']}")
 
     # 3. the bucketed frame and the --aniso CLI
     def frame():
@@ -1980,9 +2052,7 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> 
     del slab, target
 
     # 5. times at the dense bucket's launch, one call each: every kernel ran
-    # at these shapes in the frame and the slab steps, so they are warm.
-    # Beside them, one call each of the earlier designs at the same shapes:
-    # kernel 13's, the fused anisotropic forward (kernel 9's entry point)
+    # at these shapes in the frame and the slab steps, so they are warm
     dcol = cotangent(dense_in, 99)
     pb, qb = ck._block_sizes(c_k)
     kw = dict(ck=c_k, qb=qb)
@@ -1991,8 +2061,6 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> 
               lambda: cca.chunked_forward_aniso(*dense_in, pb=pb, **kw), iters=1, warmup=0),
           cca.CHUNKED_FWD_T_ANISO.name: time_cuda(
               lambda: cca.chunked_forward_t_aniso(*dense_in, pb=pb, **kw), iters=1, warmup=0)}
-    earlier = {"kernel 13 as the fused anisotropic forward (fused_fwd.cu)": time_cuda(
-        lambda: ca.fused_forward_aniso(*dense_in, pb=pb, qb=qb), iters=1, warmup=0)}
     # the backwards, part by part: each chunk's pass A (recompute only), p
     # side, db sum and q side and the row sums by CUDA events; a backward's
     # time is their sum
@@ -2048,7 +2116,13 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> 
     emit("aniso_dense_times", shape={"B": b_, "N": n_, "R": r_, "ck": c_k,
                                      "max_count": int(dense_in[5].max()),
                                      "live_pairs": float(np.sum(live_counts(dense_in) ** 2) * r_)},
-         kernels=times, earlier_designs_ms=earlier, backward_parts=parts, power_limit=smi)
+         kernels=times, backward_parts=parts, power_limit=smi)
+
+    if fused_vs_chunked:
+        emit("aniso_dense_fwd_vs_chunked", power_limit=smi, forwards=forwards_vs_chunked(
+            (ca.fused_forward_aniso, ca.fused_forward_t_aniso),
+            (cca.chunked_forward_aniso, cca.chunked_forward_t_aniso),
+            {"sparse_bucket": per_bucket[-1]}))
 
     # 6. the crossover of the two anisotropic routes: the fused saved-T
     # backward (as the step takes it) and the chunked backward on the
@@ -2588,7 +2662,8 @@ def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
                   "dense": lambda: dense_phases(dev, smi, clock_mhz, n_sm, tmp),
                   "aniso": lambda: aniso_phases(dev, smi, clock_mhz, n_sm, obj,
                                                 fused_vs_chunked=True),
-                  "aniso_dense": lambda: aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp),
+                  "aniso_dense": lambda: aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp,
+                                                            fused_vs_chunked=True),
                   "split": lambda: split_phases(dev, smi, clock_mhz, n_sm)}
         for name in names:
             entries += groups[name]()

@@ -17,24 +17,31 @@
 // points run the same templates; the geometry decides a row's per-ray terms
 // and J = d mb / d d (Side<Geo>, chunked_common.cuh).
 //
-// The fused backwards are this backward at one chunk (ck = N): the same
-// function, since the fused backward is the chunked one with C = 1.
+// The fused kernels are this forward and backward at one chunk (ck = N):
+// the same functions, since a fused kernel is the chunked one with C = 1.
+// The forwards: sgrt_tpu/ops/pallas_aniso.py::_fused_fwd_aniso_kernel
+// (sgrt_fused_fwd_aniso) and ::_fused_fwd_t_aniso_kernel
+// (sgrt_fused_fwd_t_aniso) over anisotropic rows (the isotropic fused
+// forwards are still fused_fwd.cu's). The backwards:
 // sgrt_tpu/ops/pallas_kernel.py::_fused_bwd_t_kernel (sgrt_fused_bwd_t, from
 // the T of fused_fwd.cu's sgrt_fused_fwd_t) and ::_fused_bwd_kernel
 // (sgrt_fused_bwd, recomputing T) over isotropic rows, and
-// sgrt_tpu/ops/pallas_aniso.py::_fused_bwd_t_aniso_kernel
-// (sgrt_fused_bwd_t_aniso, from sgrt_fused_fwd_t_aniso's T) and
-// ::_fused_bwd_aniso_kernel (sgrt_fused_bwd_aniso) over anisotropic ones.
-// N need not be a multiple of 64 there (the route pads it to its p and q
-// blocks): the last 64-row block is partial, and every row read or written
-// stays below min(count, N). The recompute's forward-with-T writes the
-// fused forward-with-T's T bit for bit at the same qb, whatever that
-// forward's pb (both sum each stage's terms on their own, in the same
-// order, and round T alike), so the two fused backwards of a geometry give
-// the same gradients.
+// pallas_aniso.py::_fused_bwd_t_aniso_kernel (sgrt_fused_bwd_t_aniso, from
+// sgrt_fused_fwd_t_aniso's T) and ::_fused_bwd_aniso_kernel
+// (sgrt_fused_bwd_aniso) over anisotropic ones. N need not be a multiple
+// of 32 or 64 there (the route pads it to its p and q blocks): the last
+// 32-row forward split and 64-row backward block are partial, and every
+// row read or written stays below min(count, N); T rows at or past the
+// count, up to N, are written as zeros. The recompute's forward-with-T is
+// the forward-with-T itself (over isotropic rows it writes fused_fwd.cu's
+// sgrt_fused_fwd_t T bit for bit at the same qb, whatever that forward's
+// pb: both sum each stage's terms on their own, in the same order, and
+// round T alike), so the two fused backwards of a geometry give the same
+// gradients.
 //
 // The forward's function is fused_fwd.cu's (its note gives the
-// definitions). The backward is its VJP, in the reference's order
+// definitions; over anisotropic rows sb, inv and co vary per (row, ray),
+// gauss_common.cuh AnisoGeo). The backward is its VJP, in the reference's order
 // (pallas_kernel.py:125-174, :1028-1070), with the forward's mb, co, inv
 // and sb per (row, ray) (isotropic: sb = sigma) and for live p, q:
 //   A_p      = albedo_p . dcol(r);  g_p = sqrt(2/pi) co_p A_p
@@ -1091,6 +1098,25 @@ int sgrt_chunked_bwd_t_aniso(const float* oc, const float* invd, const float* ma
   return launch_bwd<AnisoGeo, true>(oc, invd, mag, alb, dirs, counts, dcol, t, scratch, doc,
                                     dinvd, dmag, dalb, ddirs, part_ms, B, N, R, ck, threads, qb,
                                     erf_id, exp_id, stream);
+}
+
+// The fused anisotropic forwards: sgrt_chunked_fwd_aniso and
+// sgrt_chunked_fwd_t_aniso under the fused kernels' own symbols (the
+// forward takes no chunk size: one chunk of N rows, any N >= 1).
+int sgrt_fused_fwd_aniso(const float* oc, const float* invd, const float* mag,
+                         const float* alb, const float* dirs, const int* counts,
+                         float* partial, float* colors, int B, int N, int R, int threads,
+                         int pb, int qb, int erf_id, int exp_id, void* stream) {
+  return launch_fwd<AnisoGeo, false>(oc, invd, mag, alb, dirs, counts, partial, colors, nullptr,
+                                     B, N, R, threads, pb, qb, erf_id, exp_id, stream);
+}
+
+int sgrt_fused_fwd_t_aniso(const float* oc, const float* invd, const float* mag,
+                           const float* alb, const float* dirs, const int* counts,
+                           float* partial, float* colors, float* t, int B, int N, int R,
+                           int threads, int pb, int qb, int erf_id, int exp_id, void* stream) {
+  return launch_fwd<AnisoGeo, true>(oc, invd, mag, alb, dirs, counts, partial, colors, t, B, N,
+                                    R, threads, pb, qb, erf_id, exp_id, stream);
 }
 
 // The fused backwards: the chunked ones at one chunk, ck = N (any N >= 1).

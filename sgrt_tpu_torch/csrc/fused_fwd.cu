@@ -1,22 +1,17 @@
-// Fused forward of the Gaussian ray tracer: per-tile colors from raw tile
-// scenes, for Hopper (sm_90a), optionally also writing the transmittance
-// factors T that the saved-T backward reads.
+// Fused forward of the Gaussian ray tracer over isotropic rows: per-tile
+// colors from raw tile scenes, for Hopper (sm_90a), optionally also writing
+// the transmittance factors T that the saved-T backward reads.
 //
 // Replaces the TPU kernels sgrt_tpu/ops/pallas_kernel.py::_fused_fwd_kernel
 // (launched by _fused_fwd_call; entry point sgrt_fused_fwd) and
 // ::_fused_fwd_t_kernel (launched by _fused_fwd_t_call; entry point
-// sgrt_fused_fwd_t, the SAVE_T instantiation). The anisotropic entry points
-// (sgrt_fused_fwd_aniso, sgrt_fused_fwd_t_aniso) replace
-// sgrt_tpu/ops/pallas_aniso.py's ::_fused_fwd_aniso_kernel and
-// ::_fused_fwd_t_aniso_kernel: the same kernel over AnisoGeo rows
-// (gauss_common.cuh), whose sb, inv and co vary per (row, ray); the TPU
-// kernel keeps them as four (N, ray block) VMEM planes, here each thread
-// recomputes a staged row's terms for its ray. (The chunked routes'
-// forwards, above 4096 isotropic or 6144 anisotropic rows, are chunked.cu's,
-// which share each stage's per-ray terms between row groups through shared
-// memory and keep 4 rows a thread; at the dense cells this kernel, 8 rows a
-// thread, runs at 128 registers and 16 warps an SM, and over anisotropic
-// rows with a 16-byte spill.)
+// sgrt_fused_fwd_t, the SAVE_T instantiation). The anisotropic fused
+// forwards, the chunked forwards of both geometries and every backward but
+// the split ones are chunked.cu's, which shares each stage's per-ray terms
+// between row groups through shared memory and keeps 4 rows a thread; this
+// kernel keeps 8 rows a thread and runs at 128 registers and 16 warps an
+// SM (the template keeps its row geometry parameter, Geo = IsoGeo).
+//
 // For each tile b, over the live prefix count_b = min(counts[b], N) of its
 // Gaussian rows, and each ray r (isotropic rows: sb = sigma, mb = oc . d):
 //
@@ -60,8 +55,7 @@
 //     is deterministic. With SAVE_T every split writes its own rows of T
 //     (zeros past the count), so T needs no clearing pass.
 //
-// Layouts (all float32, contiguous): oc (B,N,3), sigma (B,N) or, for
-// anisotropic rows, invd (B,N,3), mag (B,N),
+// Layouts (all float32, contiguous): oc (B,N,3), sigma (B,N), mag (B,N),
 // albedo (B,N,3), dirs (B,3,R) ray-minor, counts (B,) int32; partial
 // (B, n_split, 3, R) scratch, colors (B,3,R) and, with SAVE_T, t
 // (B,5,N,R) are written.
@@ -227,11 +221,7 @@ int sgrt_kernel_resources(int i, int threads, int qb, int* out, const char** nam
       {"fused_fwd_kernel<8, IsoGeo>", fused_fwd_kernel<8, kErfAs5, kExpExact, false, IsoGeo>,
        IsoGeo::kFields},
       {"fused_fwd_kernel<8, IsoGeo, SAVE_T>",
-       fused_fwd_kernel<8, kErfAs5, kExpExact, true, IsoGeo>, IsoGeo::kFields},
-      {"fused_fwd_kernel<8, AnisoGeo>", fused_fwd_kernel<8, kErfAs5, kExpExact, false, AnisoGeo>,
-       AnisoGeo::kFields},
-      {"fused_fwd_kernel<8, AnisoGeo, SAVE_T>",
-       fused_fwd_kernel<8, kErfAs5, kExpExact, true, AnisoGeo>, AnisoGeo::kFields}};
+       fused_fwd_kernel<8, kErfAs5, kExpExact, true, IsoGeo>, IsoGeo::kFields}};
   if (i < 0 || i >= static_cast<int>(sizeof(kEntries) / sizeof(kEntries[0]))) return -1;
   *name = kEntries[i].name;
   return kernel_resources(kEntries[i].fn, threads, sizeof(float) * kEntries[i].fields * qb, out);
@@ -257,26 +247,6 @@ int sgrt_fused_fwd_t(const float* oc, const float* sig, const float* mag,
                      void* stream) {
   return launch<true, IsoGeo>(oc, sig, mag, alb, dirs, counts, partial, colors, t, B, N, R,
                               threads, pb, qb, erf_id, exp_id, stream);
-}
-
-// The anisotropic forward: invd (B,N,3) = scale^-2 in place of sigma.
-int sgrt_fused_fwd_aniso(const float* oc, const float* invd, const float* mag,
-                         const float* alb, const float* dirs, const int* counts,
-                         float* partial, float* colors, int B, int N, int R,
-                         int threads, int pb, int qb, int erf_id, int exp_id,
-                         void* stream) {
-  return launch<false, AnisoGeo>(oc, invd, mag, alb, dirs, counts, partial, colors, nullptr,
-                                 B, N, R, threads, pb, qb, erf_id, exp_id, stream);
-}
-
-// The anisotropic forward, also writing T (B,5,N,R).
-int sgrt_fused_fwd_t_aniso(const float* oc, const float* invd, const float* mag,
-                           const float* alb, const float* dirs, const int* counts,
-                           float* partial, float* colors, float* t, int B, int N, int R,
-                           int threads, int pb, int qb, int erf_id, int exp_id,
-                           void* stream) {
-  return launch<true, AnisoGeo>(oc, invd, mag, alb, dirs, counts, partial, colors, t, B, N,
-                                R, threads, pb, qb, erf_id, exp_id, stream);
 }
 
 }  // extern "C"

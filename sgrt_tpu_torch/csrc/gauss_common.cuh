@@ -1,6 +1,6 @@
-// Device math shared by the fused forward (fused_fwd.cu), the chunked
-// kernels (chunked.cu, also the fused backwards) and the split (split.cu)
-// kernels: the erf/exp variants the kernels are compiled for, the
+// Device math shared by the isotropic fused forwards (fused_fwd.cu), the
+// chunked kernels (chunked.cu, also the fused backwards and the anisotropic
+// fused forwards) and the split (split.cu) kernels: the erf/exp variants the kernels are compiled for, the
 // rounding-controlled Gaussian exponent, the per-row constants that rows
 // are staged with, the two row geometries (isotropic and anisotropic), the
 // five quadrature taps, a warp sum, a block's per-row sums over rays, pass

@@ -18,18 +18,18 @@ autograd (pallas_aniso.py:18).
 Four kernels, each with a wrapper that launches it for tensors on the card
 (or raises) and runs its plain version for tensors on the CPU:
 
-    fused_forward_aniso    csrc/fused_fwd.cu  colors         (_fused_fwd_aniso_kernel)
-    fused_forward_t_aniso  csrc/fused_fwd.cu  colors and T   (_fused_fwd_t_aniso_kernel)
-    fused_backward_aniso   csrc/chunked.cu    the VJP, from saved T (_fused_bwd_t_aniso_kernel)
-                                              or recomputing it (_fused_bwd_aniso_kernel)
+    fused_forward_aniso    csrc/chunked.cu  colors         (_fused_fwd_aniso_kernel)
+    fused_forward_t_aniso  csrc/chunked.cu  colors and T   (_fused_fwd_t_aniso_kernel)
+    fused_backward_aniso   csrc/chunked.cu  the VJP, from saved T (_fused_bwd_t_aniso_kernel)
+                                            or recomputing it (_fused_bwd_aniso_kernel)
 
-The forwards are the isotropic fused forward over the AnisoGeo row
-geometry (csrc/gauss_common.cuh). The backwards are the chunked
-anisotropic backward's kernels (ops.cuda_chunked_aniso) at one chunk,
-ck = N: the fused backward is the chunked one with C = 1, and those kernels
-split the pair work into a p side and a q side over blocks of 64 rows and
-32 rays, so that a dense tile spreads over many blocks. FusedRenderAniso
-is ops.cuda_kernel.FusedRender over these wrappers.
+All four are the chunked anisotropic kernels (ops.cuda_chunked_aniso) at
+one chunk, ck = N: a fused kernel is the chunked one with C = 1. The
+forward splits a tile's p rows over blocks of 32 rows and 32 rays, the
+backward its pair work into a p side and a q side over blocks of 64 rows
+and 32 rays, so that a dense tile spreads over many blocks; the
+recompute backward's T is the forward-with-T's own. FusedRenderAniso is
+ops.cuda_kernel.FusedRender over these wrappers.
 
 Rounding: C - Bt mb cancels two numbers of size |oc|^2/scale^2, so the
 plain versions compute A, Bt and C as elementwise sums in the kernels'
@@ -51,7 +51,7 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     _block_sizes,
     _check_inputs,
     _chunked_backward_launch,
-    _forward_launch,
+    _chunked_forward_launch,
     _forward_plain,
     _render_fused,
 )
@@ -65,9 +65,9 @@ from sgrt_tpu_torch.ops.render import _unit_pad
 MAX_BWD_CAPACITY_ANISO = 6144
 
 _TPU = "sgrt_tpu/ops/pallas_aniso.py"
-FUSED_FWD_ANISO = CudaKernel("fused_fwd_aniso", "fused_fwd.cu", "sgrt_fused_fwd_aniso",
+FUSED_FWD_ANISO = CudaKernel("fused_fwd_aniso", "chunked.cu", "sgrt_fused_fwd_aniso",
                              f"{_TPU}:145", 8, 8)
-FUSED_FWD_T_ANISO = CudaKernel("fused_fwd_t_aniso", "fused_fwd.cu", "sgrt_fused_fwd_t_aniso",
+FUSED_FWD_T_ANISO = CudaKernel("fused_fwd_t_aniso", "chunked.cu", "sgrt_fused_fwd_t_aniso",
                                f"{_TPU}:248", 9, 8)
 FUSED_BWD_T_ANISO = CudaKernel("fused_bwd_t_aniso", "chunked.cu", "sgrt_fused_bwd_t_aniso",
                                f"{_TPU}:292", 15, 8, timed=True)
@@ -169,11 +169,13 @@ def fused_forward_aniso(oc, invd, mag, albedo, dirs_t, counts, *, rb: int = 128,
                         exp_name: str = "exact") -> torch.Tensor:
     """Wrapper of the anisotropic forward kernel: colors (B,3,R). CUDA
     tensors go to the kernel (which raises for what it does not take), CPU
-    tensors to fused_forward_aniso_plain."""
+    tensors to fused_forward_aniso_plain. Any N: the kernel is the chunked
+    forward at one chunk of N rows (blocks of 32 rays, rb capped at it; pb
+    is checked, though the kernel keeps 4 rows a thread)."""
     args = (oc, invd, mag, albedo, dirs_t, counts)
     if not _check_inputs("fused_forward_aniso", _aniso_shapes(*args), oc.device):
         return fused_forward_aniso_plain(*args, erf_name=erf_name, exp_name=exp_name)
-    return _forward_launch(FUSED_FWD_ANISO, args, None, rb=rb, pb=pb, qb=qb,
+    return _chunked_forward_launch(FUSED_FWD_ANISO, args, None, rb=rb, pb=pb, qb=qb,
                            erf_name=erf_name, exp_name=exp_name)
 
 
@@ -181,14 +183,16 @@ def fused_forward_t_aniso(oc, invd, mag, albedo, dirs_t, counts, *, rb: int = 12
                           pb: int = 8, qb: int = 32, erf_name: str = "as5",
                           exp_name: str = "exact"):
     """Wrapper of the anisotropic forward-with-T kernel: (colors (B,3,R),
-    T (B,5,N,R)), T zero on rows at or past the count."""
+    T (B,5,N,R)), T zero on rows at or past the count; the colors equal
+    fused_forward_aniso's bit for bit, and T is what the recompute backward
+    recomputes at the same qb."""
     args = (oc, invd, mag, albedo, dirs_t, counts)
     if not _check_inputs("fused_forward_t_aniso", _aniso_shapes(*args), oc.device):
         return fused_forward_t_aniso_plain(*args, erf_name=erf_name, exp_name=exp_name)
     b, n, _ = oc.shape
     t = torch.empty((b, len(K_TAPS), n, dirs_t.shape[2]), dtype=torch.float32,
                     device=oc.device)   # the kernel writes every element
-    colors = _forward_launch(FUSED_FWD_T_ANISO, args, t, rb=rb, pb=pb, qb=qb,
+    colors = _chunked_forward_launch(FUSED_FWD_T_ANISO, args, t, rb=rb, pb=pb, qb=qb,
                              erf_name=erf_name, exp_name=exp_name)
     return colors, t
 

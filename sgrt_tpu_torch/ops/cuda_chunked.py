@@ -26,11 +26,13 @@ card (or raises) and runs its plain version for tensors on the CPU:
 csrc/chunked.cu's kernels are templates over the row geometry: the
 chunked anisotropic route (ops.cuda_chunked_aniso) runs the same ones over
 anisotropic rows, and the fused backwards of both geometries
-(ops.cuda_kernel.fused_backward, ops.cuda_aniso.fused_backward_aniso) are
-the same backward at one chunk, ck = N; every backward launches through
-ops.cuda_kernel._chunked_backward_launch. Its note gives the design:
-warp-wide groups of 4 rows sharing each stage's per-ray terms through
-shared-memory planes, the backward's p-side/q-side split, and the recompute
+(ops.cuda_kernel.fused_backward, ops.cuda_aniso.fused_backward_aniso) and
+the fused anisotropic forwards (ops.cuda_aniso.fused_forward_aniso,
+fused_forward_t_aniso) are the same kernels at one chunk, ck = N; every
+backward launches through ops.cuda_kernel._chunked_backward_launch, every
+forward through ops.cuda_kernel._chunked_forward_launch. Its note gives
+the design: warp-wide groups of 4 rows sharing each stage's per-ray terms
+through shared-memory planes, the backward's p-side/q-side split, and the recompute
 backward as the forward-with-T per chunk ahead of the saved-T backward's
 kernels. The TPU chunks the forward only because a whole tile's rows do
 not fit VMEM; on the card the forward sweeps the live prefix of the q axis
@@ -53,17 +55,14 @@ import torch
 from sgrt_tpu_torch.models.gaussians import GaussianScene
 from sgrt_tpu_torch.ops.cuda_kernel import (
     K_TAPS,
-    KERNEL_ERFS,
-    KERNEL_EXPS,
     CudaKernel,
     _backward_on_card,
     _block_sizes,
     _check_inputs,
-    _check_names,
     _chunked_backward_launch,
+    _chunked_forward_launch,
     _kernel_erf_name,
     _scene_shapes,
-    _threads,
     fused_backward_plain,
     fused_forward_plain,
     fused_forward_t_plain,
@@ -155,26 +154,6 @@ def chunked_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved
 # ---------------------------------------------------------------------------
 # wrappers: the kernel for CUDA tensors (or raise), the plain version for CPU
 # ---------------------------------------------------------------------------
-
-def _chunked_forward_launch(kernel, args, t, *, rb, pb, qb, erf_name, exp_name):
-    """Launch a forward entry point of csrc/chunked.cu on checked CUDA
-    inputs: colors (B,3,R), and T into t. A block is 32 rays (rb is capped
-    at it); pb must be one the fused kernels take, though the kernel keeps
-    4 rows a thread whatever it is."""
-    _check_names(erf_name, exp_name, pb)
-    oc, dirs_t = args[0], args[4]
-    b, n, _ = oc.shape
-    r = dirs_t.shape[2]
-    threads = _threads(kernel.query("sgrt_chunked_max_threads"), rb, r)
-    n_split = -(-n // kernel.query("sgrt_chunked_fwd_rows_per_block"))
-    colors = torch.empty((b, 3, r), dtype=torch.float32, device=oc.device)
-    partial = torch.empty((b, n_split, 3, r), dtype=torch.float32, device=oc.device)
-    outs = [partial, colors] + ([t] if t is not None else [])
-    kernel.launch(list(args) + outs,
-                  [b, n, r, threads, pb, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
-                  what=f"B={b}, N={n}, R={r}, threads={threads}, pb={pb}, qb={qb}")
-    return colors
-
 
 def chunked_forward(oc, sigma, mag, albedo, dirs_t, counts, *, ck: int, rb: int = 128,
                     pb: int = 8, qb: int = 32, erf_name: str = "as5",

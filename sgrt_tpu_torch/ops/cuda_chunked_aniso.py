@@ -47,7 +47,6 @@ from sgrt_tpu_torch.ops.cuda_chunked import (
     DEFAULT_CHUNK,
     _check_chunks,
     _chunked_blocks,
-    _chunked_forward_launch,
     _ChunkedOpts,
 )
 from sgrt_tpu_torch.ops.cuda_kernel import (
@@ -57,6 +56,7 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     _block_sizes,
     _check_inputs,
     _chunked_backward_launch,
+    _chunked_forward_launch,
     _kernel_erf_name,
     save_t_bytes,
 )

@@ -26,7 +26,9 @@ chunk, ck = N: the fused backward is the chunked one with C = 1, and those
 kernels split the pair work into a p side and a q side over blocks of 64
 rows and 32 rays, so that a dense tile spreads over many blocks.
 _chunked_backward_launch launches every backward entry point of
-csrc/chunked.cu, fused or chunked, of either row geometry.
+csrc/chunked.cu, fused or chunked, of either row geometry, and
+_chunked_forward_launch every forward entry point there (the chunked
+forwards and the anisotropic fused ones, ops.cuda_aniso).
 
 `FusedRender` joins them into one differentiable op, as the JAX package's
 custom VJP does; `render_fused` uses it when a gradient is wanted.
@@ -471,6 +473,26 @@ def _forward_launch(kernel, args, t, *, rb, pb, qb, erf_name, exp_name):
     r = dirs_t.shape[2]
     threads = _threads(kernel.query("sgrt_fused_fwd_max_threads"), rb, r)
     n_split = -(-n // kernel.query("sgrt_fused_fwd_rows_per_block"))
+    colors = torch.empty((b, 3, r), dtype=torch.float32, device=oc.device)
+    partial = torch.empty((b, n_split, 3, r), dtype=torch.float32, device=oc.device)
+    outs = [partial, colors] + ([t] if t is not None else [])
+    kernel.launch(list(args) + outs,
+                  [b, n, r, threads, pb, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  what=f"B={b}, N={n}, R={r}, threads={threads}, pb={pb}, qb={qb}")
+    return colors
+
+
+def _chunked_forward_launch(kernel, args, t, *, rb, pb, qb, erf_name, exp_name):
+    """Launch a forward entry point of csrc/chunked.cu on checked CUDA
+    inputs: colors (B,3,R), and T into t. A block is 32 rays (rb is capped
+    at it); pb must be one the fused kernels take, though the kernel keeps
+    4 rows a thread whatever it is."""
+    _check_names(erf_name, exp_name, pb)
+    oc, dirs_t = args[0], args[4]
+    b, n, _ = oc.shape
+    r = dirs_t.shape[2]
+    threads = _threads(kernel.query("sgrt_chunked_max_threads"), rb, r)
+    n_split = -(-n // kernel.query("sgrt_chunked_fwd_rows_per_block"))
     colors = torch.empty((b, 3, r), dtype=torch.float32, device=oc.device)
     partial = torch.empty((b, n_split, 3, r), dtype=torch.float32, device=oc.device)
     outs = [partial, colors] + ([t] if t is not None else [])

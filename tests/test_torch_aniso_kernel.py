@@ -74,9 +74,12 @@ def _close(got, want, tol, name=""):
     np.testing.assert_allclose(np.asarray(got), want, atol=tol * scale, err_msg=name)
 
 
-@pytest.mark.parametrize("counts", [(32, 11, 0), (7, 32, 25)])
+@pytest.mark.parametrize("counts", [(32, 11, 0), (7, 32, 25), (48, 33, 0)])
 def test_forward_plain_matches_pallas(counts):
-    args = _inputs(counts=counts)
+    """N = max(32, counts): at N 48 (a multiple of the Pallas call's qb 16)
+    the kernel's forward sees a partial second 32-row split."""
+    n = max(32, *counts)
+    args = _inputs(n=n, counts=counts)
     tol = _tol(args[0], args[1])
     want_c, want_t = _jax_call(jpa._fused_fwd_t_aniso_call, args)
     want_colors = _jax_call(jpa._fused_fwd_aniso_call, args)
@@ -86,7 +89,7 @@ def test_forward_plain_matches_pallas(counts):
     _close(colors_t, want_c, tol, "colors (forward-with-T)")
     # T on live rows: the Pallas kernel writes T for every row of its last
     # partial p block, the port's contract is T = 0 past the count
-    live = np.arange(32)[None, None, :, None] < np.asarray(counts)[:, None, None, None]
+    live = np.arange(n)[None, None, :, None] < np.asarray(counts)[:, None, None, None]
     _close(np.where(live, t.numpy(), 0.0), np.where(live, np.asarray(want_t), 0.0), tol, "T")
     assert torch.equal(colors, colors_t)
     for b, c in enumerate(counts):
@@ -249,6 +252,46 @@ def test_fused_backwards_are_chunked_entry_points(kernel, symbol, line):
     body = body[:body.index("\n}\n")]
     geo = "AnisoGeo" if aniso else "IsoGeo"
     assert f"launch_bwd<{geo}" in body and "if (ck != N)" in body
+
+
+@pytest.mark.parametrize("kernel,symbol,line", [
+    (ta.FUSED_FWD_ANISO, "sgrt_fused_fwd_aniso", 145),
+    (ta.FUSED_FWD_T_ANISO, "sgrt_fused_fwd_t_aniso", 248),
+])
+def test_fused_aniso_forwards_are_chunked_entry_points(kernel, symbol, line):
+    """The fused anisotropic forwards (kernels 9-10) are entry points of
+    csrc/chunked.cu, its forward over AnisoGeo rows at one chunk: each names
+    its source, its symbol and the Pallas kernel it replaces, and its body
+    runs launch_fwd<AnisoGeo, ...>."""
+    import re
+
+    assert kernel.source.name == "chunked.cu"
+    assert kernel.symbol == symbol
+    assert kernel.replaces == f"sgrt_tpu/ops/pallas_aniso.py:{line}"
+    src = kernel.source.read_text()
+    assert re.search(rf"^int {symbol}\(", src, re.M), symbol
+    body = src[src.index(f"int {symbol}("):]
+    body = body[:body.index("\n}\n")]
+    assert "launch_fwd<AnisoGeo" in body
+
+
+def test_fused_fwd_cu_keeps_only_the_isotropic_forwards():
+    """csrc/fused_fwd.cu holds the isotropic fused forwards (kernels 1-2)
+    and nothing anisotropic: no AnisoGeo instantiation or entry point, no
+    sgrt_fused_fwd*_aniso symbol; no kernel of ops.kernels.KERNELS but
+    kernels 1-2 names it."""
+    import re
+
+    from sgrt_tpu_torch.ops import kernels
+
+    src = tk.FUSED_FWD.source.read_text()
+    assert tk.FUSED_FWD.source.name == tk.FUSED_FWD_T.source.name == "fused_fwd.cu"
+    assert "AnisoGeo" not in src
+    assert not re.search(r"sgrt_fused_fwd\w*_aniso", src)
+    assert re.search(r"^int sgrt_fused_fwd\(", src, re.M)
+    assert re.search(r"^int sgrt_fused_fwd_t\(", src, re.M)
+    assert [k for k in kernels.KERNELS if k.source.name == "fused_fwd.cu"] == [tk.FUSED_FWD,
+                                                                              tk.FUSED_FWD_T]
 
 
 def test_fused_bwd_cu_keeps_only_the_isotropic_kernels():

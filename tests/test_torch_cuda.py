@@ -337,22 +337,28 @@ def test_chunked_route_on_card():
         tc.chunked_forward(*args, ck=128, erf_name="spline")
 
 
-# the anisotropic kernels (csrc/fused_fwd.cu over AnisoGeo rows; the
-# backwards csrc/chunked.cu's at one chunk): _inputs' rows with per-axis
-# scales sigma * (1.6, 0.7, 1.0), the stretched teapot cell's multipliers
+# the anisotropic kernels (the forwards and the backwards csrc/chunked.cu's
+# over AnisoGeo rows at one chunk): _inputs' rows with per-axis scales
+# sigma * (1.6, 0.7, 1.0), the stretched teapot cell's multipliers
 def _aniso_inputs(dev, **kw):
     oc, sig, mag, alb, d, cnt = _inputs(dev, **kw)
     scale = sig[..., None] * torch.tensor([1.6, 0.7, 1.0], device=dev)
     return [oc, (1.0 / (scale * scale)).contiguous(), mag, alb, d, cnt]
 
 
-@pytest.mark.parametrize("erf_name,exp_name,pb,qb", [
-    ("as5", "exact", 8, 32), ("as5", "exact", 16, 16), ("as3", "fast", 8, 32),
+@pytest.mark.parametrize("erf_name,exp_name,pb,qb,n,counts", [
+    ("as5", "exact", 8, 32, 96, (96, 17, 0, 40, 1000)),
+    ("as5", "exact", 16, 16, 96, (96, 17, 0, 40, 1000)),
+    ("as3", "fast", 8, 32, 96, (96, 17, 0, 40, 1000)),
+    ("as5", "exact", 8, 8, 40, (40, 17, 0, 33, 1000)),
 ])
-def test_aniso_forward_kernels_match_plain(erf_name, exp_name, pb, qb):
+def test_aniso_forward_kernels_match_plain(erf_name, exp_name, pb, qb, n, counts):
+    """The anisotropic forwards within 2e-5 of their plain versions, T zero
+    past the count, the colors of both forwards equal bit for bit; at N 40
+    the last 32-row split is partial."""
     from sgrt_tpu_torch.ops import cuda_aniso as ta
 
-    args = _aniso_inputs(_card())
+    args = _aniso_inputs(_card(), n=n, counts=counts)
     kw = dict(erf_name=erf_name, exp_name=exp_name)
     before = (ta.FUSED_FWD_ANISO.launches, ta.FUSED_FWD_T_ANISO.launches)
     out = ta.fused_forward_aniso(*args, pb=pb, qb=qb, **kw)
@@ -364,9 +370,10 @@ def test_aniso_forward_kernels_match_plain(erf_name, exp_name, pb, qb):
     for got in (out, colors):
         np.testing.assert_allclose(got.cpu().numpy(), ref_c.cpu().numpy(), atol=2e-5)
     np.testing.assert_allclose(t.cpu().numpy(), ref_t.cpu().numpy(), atol=2e-5)
-    for b, c in enumerate((96, 17, 0, 40, 96)):
-        assert (t[b, :, c:] == 0).all()
+    for b, c in enumerate(counts):
+        assert (t[b, :, min(c, n):] == 0).all()
     assert (out[2] == 0).all()
+    assert torch.equal(out, colors)
 
 
 @pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
