@@ -19,13 +19,15 @@
 //
 // The fused kernels are this forward and backward at one chunk (ck = N):
 // the same functions, since a fused kernel is the chunked one with C = 1.
-// The forwards: sgrt_tpu/ops/pallas_aniso.py::_fused_fwd_aniso_kernel
+// The forwards: sgrt_tpu/ops/pallas_kernel.py::_fused_fwd_kernel
+// (sgrt_fused_fwd; pallas_kernel.py:862) and ::_fused_fwd_t_kernel
+// (sgrt_fused_fwd_t; :898) over isotropic rows, and
+// sgrt_tpu/ops/pallas_aniso.py::_fused_fwd_aniso_kernel
 // (sgrt_fused_fwd_aniso) and ::_fused_fwd_t_aniso_kernel
-// (sgrt_fused_fwd_t_aniso) over anisotropic rows (the isotropic fused
-// forwards are still fused_fwd.cu's). The backwards:
-// sgrt_tpu/ops/pallas_kernel.py::_fused_bwd_t_kernel (sgrt_fused_bwd_t, from
-// the T of fused_fwd.cu's sgrt_fused_fwd_t) and ::_fused_bwd_kernel
-// (sgrt_fused_bwd, recomputing T) over isotropic rows, and
+// (sgrt_fused_fwd_t_aniso) over anisotropic ones. The backwards:
+// pallas_kernel.py::_fused_bwd_t_kernel (sgrt_fused_bwd_t, from
+// sgrt_fused_fwd_t's T) and ::_fused_bwd_kernel (sgrt_fused_bwd,
+// recomputing T) over isotropic rows, and
 // pallas_aniso.py::_fused_bwd_t_aniso_kernel (sgrt_fused_bwd_t_aniso, from
 // sgrt_fused_fwd_t_aniso's T) and ::_fused_bwd_aniso_kernel
 // (sgrt_fused_bwd_aniso) over anisotropic ones. N need not be a multiple
@@ -33,15 +35,25 @@
 // 32-row forward split and 64-row backward block are partial, and every
 // row read or written stays below min(count, N); T rows at or past the
 // count, up to N, are written as zeros. The recompute's forward-with-T is
-// the forward-with-T itself (over isotropic rows it writes fused_fwd.cu's
-// sgrt_fused_fwd_t T bit for bit at the same qb, whatever that forward's
-// pb: both sum each stage's terms on their own, in the same order, and
-// round T alike), so the two fused backwards of a geometry give the same
-// gradients.
+// the fused forward-with-T itself (the same kernel at the same qb; pb
+// does not change it), so the two fused backwards of a geometry give the
+// same gradients.
 //
-// The forward's function is fused_fwd.cu's (its note gives the
-// definitions; over anisotropic rows sb, inv and co vary per (row, ray),
-// gauss_common.cuh AnisoGeo). The backward is its VJP, in the reference's order
+// The forward, for each tile b, over the live prefix count_b = min(counts[b],
+// N) of its Gaussian rows, and each ray r (isotropic rows: sb = sigma,
+// mb = oc . d; over anisotropic rows sb, inv and co vary per (row, ray),
+// gauss_common.cuh AnisoGeo):
+//   co(q,r)    = mag_q sb(q,r) sqrt(pi/2) exp(exponent(q,r))
+//   inv(q,r)   = 1 / (sqrt2 sb(q,r))
+//   base(r)    = sum_q co(q,r) erf(-mb(q,r) inv(q,r))
+//   acc_k(p,r) = sum_q co(q,r) erf((mb(p,r) + k sb(p,r) - mb(q,r)) inv(q,r)),  k = -4..0
+//   T_k(p,r)   = w_k exp(base(r) - acc_k(p,r)),  w_k = exp(-k^2/2)
+//   colors(:,r) = sum_p albedo_p sqrt(2/pi) co(p,r) sum_k T_k(p,r)
+// With SAVE_T it also writes T (B,5,N,R); rows at or past the count hold
+// T = 0, as the TPU kernel's up-front clear leaves them (the saved-T
+// backward relies on it).
+//
+// The backward is its VJP, in the reference's order
 // (pallas_kernel.py:125-174, :1028-1070), with the forward's mb, co, inv
 // and sb per (row, ray) (isotropic: sb = sigma) and for live p, q:
 //   A_p      = albedo_p . dcol(r);  g_p = sqrt(2/pi) co_p A_p
@@ -92,16 +104,24 @@
 // order: deterministic, no atomics.
 //
 // What bounds them on this card: operations. Per live (p, q, ray) the
-// forward evaluates five A&S erf taps (an IEEE reciprocal and an accurate
-// expf each, ~30 issue slots with 2 MUFU), the backward's p side five
+// forward evaluates five A&S erf taps, the backward's p side five
 // exp(-x^2) and its q side five erf-and-gauss taps; the recompute backward
-// adds the forward's pass A. Each staged row also needs its per-ray terms
+// adds the forward's pass A. Each A&S 5-term erf tap is about 17 FP32
+// instructions (FMA, MUL, the Newton steps of the IEEE reciprocal and the
+// range reduction of expf) and 2 SFU operations (MUFU.RCP, MUFU.EX2), the
+// counts that the bound is taken from (chip_smoke.py's TAP_FP32); the
+// built forward's loop issues ~43 instructions a tap with its operand
+// reads and sums (kernel_resources' SASS count). At 16 SFU results per
+// clock per SM (compute capability 9.0) the SFU pipe and the FP32 pipe
+// bound a tap at about the same rate, ~2e12 taps/s on an H100 SXM. Each
+// staged row also needs its per-ray terms
 // (isotropic: mb = oc . d and co, one exp; anisotropic: A, Bt, two IEEE
 // square roots, a division, an exp: ~40 FP32 and 3 MUFU) and, on the p
-// side, J. Bytes stay far below: T is 20 bytes per (row, ray), read once
-// per 64 q rows. Tensor cores do not apply: no step is a matrix product
-// (every term is an erf or exp of its own pair's argument), and TF32 would
-// not hold mb's cancellation anyway.
+// side, J. Bytes stay far below: T is 20 bytes per (row, ray), written once
+// by the forward-with-T and read once per 64 q rows by the backward.
+// Tensor cores do not apply: no step is a matrix product (every term is an
+// erf or exp of its own pair's argument), and TF32 would not hold mb's
+// cancellation anyway.
 //
 // What the design does about it (the templates it replaces kept 8 rows a
 // thread and both levels of every sum in registers: the forward ran at 128
@@ -1100,9 +1120,25 @@ int sgrt_chunked_bwd_t_aniso(const float* oc, const float* invd, const float* ma
                                     erf_id, exp_id, stream);
 }
 
-// The fused anisotropic forwards: sgrt_chunked_fwd_aniso and
-// sgrt_chunked_fwd_t_aniso under the fused kernels' own symbols (the
-// forward takes no chunk size: one chunk of N rows, any N >= 1).
+// The fused forwards: the chunked forwards under the fused kernels' own
+// symbols (the forward takes no chunk size: one chunk of N rows, any
+// N >= 1), over isotropic rows and, the _aniso twins, anisotropic ones.
+int sgrt_fused_fwd(const float* oc, const float* sig, const float* mag, const float* alb,
+                   const float* dirs, const int* counts, float* partial, float* colors, int B,
+                   int N, int R, int threads, int pb, int qb, int erf_id, int exp_id,
+                   void* stream) {
+  return launch_fwd<IsoGeo, false>(oc, sig, mag, alb, dirs, counts, partial, colors, nullptr, B,
+                                   N, R, threads, pb, qb, erf_id, exp_id, stream);
+}
+
+int sgrt_fused_fwd_t(const float* oc, const float* sig, const float* mag, const float* alb,
+                     const float* dirs, const int* counts, float* partial, float* colors,
+                     float* t, int B, int N, int R, int threads, int pb, int qb, int erf_id,
+                     int exp_id, void* stream) {
+  return launch_fwd<IsoGeo, true>(oc, sig, mag, alb, dirs, counts, partial, colors, t, B, N, R,
+                                  threads, pb, qb, erf_id, exp_id, stream);
+}
+
 int sgrt_fused_fwd_aniso(const float* oc, const float* invd, const float* mag,
                          const float* alb, const float* dirs, const int* counts,
                          float* partial, float* colors, int B, int N, int R, int threads,
@@ -1120,9 +1156,10 @@ int sgrt_fused_fwd_t_aniso(const float* oc, const float* invd, const float* mag,
 }
 
 // The fused backwards: the chunked ones at one chunk, ck = N (any N >= 1).
-// sgrt_fused_bwd_t reads T (B,5,N,R) from fused_fwd.cu's sgrt_fused_fwd_t
-// with the same qb; sgrt_fused_bwd recomputes it, bit for bit; the _aniso
-// twins the same over anisotropic rows (T from sgrt_fused_fwd_t_aniso).
+// sgrt_fused_bwd_t reads T (B,5,N,R) from sgrt_fused_fwd_t with the same
+// qb; sgrt_fused_bwd recomputes it with that forward, bit for bit; the
+// _aniso twins the same over anisotropic rows (T from
+// sgrt_fused_fwd_t_aniso).
 // Scratch and part_ms as the chunked ones' at C = 1.
 int sgrt_fused_bwd_t(const float* oc, const float* sig, const float* mag, const float* alb,
                      const float* dirs, const int* counts, const float* dcol, const float* t,

@@ -1,11 +1,10 @@
-// Device math shared by the isotropic fused forwards (fused_fwd.cu), the
-// chunked kernels (chunked.cu, also the fused backwards and the anisotropic
-// fused forwards) and the split (split.cu) kernels: the erf/exp variants the kernels are compiled for, the
-// rounding-controlled Gaussian exponent, the per-row constants that rows
-// are staged with, the two row geometries (isotropic and anisotropic), the
-// five quadrature taps, a warp sum, a block's per-row sums over rays, pass
-// A over staged rows, the ordered sum of per-block partials, and on the
-// host a kernel's resources per SM.
+// Device math shared by the chunked kernels (chunked.cu, also every fused
+// kernel) and the split kernels (split.cu): the erf/exp variants the
+// kernels are compiled for, the rounding-controlled Gaussian exponent, a
+// row's per-row constants, the two row geometries (isotropic and
+// anisotropic), the five quadrature taps, a warp sum, a block's per-row
+// sums over rays, pass A over staged rows, the ordered sum of per-block
+// partials, and on the host a kernel's resources per SM.
 //
 // No fast-math anywhere: the A&S reciprocal is an IEEE division and expf is
 // the accurate one, so "as5" is the float32-exact erf and the kernels agree
@@ -23,7 +22,6 @@ constexpr float kInvSqrt2Pi = 1.2533141373155001f;  // sqrt(pi/2)
 constexpr float kSqrt2Pi = 0.7978845608028654f;     // sqrt(2/pi)
 constexpr float kDerf = 1.1283791670955126f;        // 2/sqrt(pi) = erf'(0)
 constexpr int kTaps = 5;
-constexpr int kStageFields = 7;  // ocx ocy ocz |oc|^2 1/(2s^2) 1/(sqrt2 s) mag*s*sqrt(pi/2)
 
 enum { kErfAs5 = 0, kErfAs3 = 1 };
 enum { kExpExact = 0, kExpFast = 1 };
@@ -105,7 +103,8 @@ __device__ __forceinline__ float gauss_exponent_rn(float ocsq, float mb, float i
   return __fmul_rn(-ocsq_minus_mb2_rn(ocsq, mb), i2s2);
 }
 
-// Per-row constants of Gaussian q, as they are staged in shared memory.
+// Per-row constants of Gaussian q: oc, |oc|^2, 1/(2 s^2), 1/(sqrt2 s),
+// mag s sqrt(pi/2).
 struct Row {
   float x, y, z, ocsq, i2s2, inv, cs;
 };
@@ -130,35 +129,16 @@ __device__ __forceinline__ float coeff(float cs, float ocsq, float mb, float i2s
   return cs * exp_fn<EXP>(gauss_exponent_rn(ocsq, mb, i2s2));
 }
 
-// Rows q0 .. q0 + nq - 1 of one tile into shared memory, field-major
-// (stage[f * qb + j]); the caller brackets this with __syncthreads().
-__device__ __forceinline__ void stage_rows(float* stage, int qb, const float* oc,
-                                           const float* sig, const float* mag, int q0,
-                                           int nq) {
-  for (int j = threadIdx.x; j < nq; j += blockDim.x) {
-    const Row w = load_row(oc, sig, mag, q0 + j);
-    stage[j] = w.x;
-    stage[qb + j] = w.y;
-    stage[2 * qb + j] = w.z;
-    stage[3 * qb + j] = w.ocsq;
-    stage[4 * qb + j] = w.i2s2;
-    stage[5 * qb + j] = w.inv;
-    stage[6 * qb + j] = w.cs;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Row geometries. A Gaussian row seen along a ray is a 1-D Gaussian with
 // per-(row, ray) parameters; the kernels are templates over how those are
-// made, so that one pass A, one pass B and one p loop serve both:
+// made, so that one forward and one backward serve both:
 //   mb  = the ray parameter of the peak (mu_bar)
 //   sb  = the standard deviation along the ray (sigma_bar)
 //   co  = mag sb sqrt(pi/2) exp(exponent)
 //   inv = 1 / (sqrt2 sb)
-// A geometry stages q rows in shared memory (kFields fields each, stage),
-// reads a staged row's terms for one ray (staged) and a row's terms from
-// device memory (row, which is terms(fields(row))); all give the same bits
-// for the same row and ray.
+// A geometry reads a row's constants from device memory (fields) and makes
+// its terms for one ray from them (terms; row is terms(fields(row))).
 // ---------------------------------------------------------------------------
 
 struct RayTerms {
@@ -168,7 +148,6 @@ struct RayTerms {
 // Isotropic rows: sigma (B,N) is one number per row, so sb = sigma and inv
 // are per row; mb = oc . d and the exponent -(|oc|^2 - mb^2) / (2 sigma^2).
 struct IsoGeo {
-  static constexpr int kFields = kStageFields;
   const float* oc;
   const float* sig;
   const float* mag;
@@ -178,21 +157,6 @@ struct IsoGeo {
       : oc(oc_ + static_cast<size_t>(b) * N * 3),
         sig(sig_ + static_cast<size_t>(b) * N),
         mag(mag_ + static_cast<size_t>(b) * N) {}
-
-  __device__ void stage(float* st, int qb, int q0, int nq) const {
-    stage_rows(st, qb, oc, sig, mag, q0, nq);
-  }
-
-  template <int EXP>
-  __device__ RayTerms staged(const float* st, int qb, int j, float dx, float dy,
-                             float dz) const {
-    RayTerms t;
-    t.mb = dot3_rn(st[j], st[qb + j], st[2 * qb + j], dx, dy, dz);
-    t.co = coeff<EXP>(st[6 * qb + j], st[3 * qb + j], t.mb, st[4 * qb + j]);
-    t.inv = st[5 * qb + j];
-    t.sb = 0.0f;  // a q row's sigma enters only through inv
-    return t;
-  }
 
   // A row's own constants (load_row's, and sigma); terms() makes its
   // per-ray terms from them, as row() does
@@ -228,11 +192,10 @@ struct IsoGeo {
 // stretched teapot cloud), so A, Bt, C and every product after them are
 // rounded to nearest in a fixed order, as the plain version
 // (ops/cuda_aniso.py) computes them; sb is an IEEE square root and
-// division, not rsqrtf. Staged per q row: invd (3), M (3), C, mag sqrt(pi/2);
-// the ray's terms are recomputed per (row, ray), about 25 FP32 instructions
-// and 2 SFU operations against the 5 PB erf taps each staged row meets.
+// division, not rsqrtf. A row's fields: invd (3), M (3), C, mag sqrt(pi/2);
+// the ray's terms are made from them per (row, ray), about 25 FP32
+// instructions and 2 SFU operations.
 struct AnisoGeo {
-  static constexpr int kFields = 8;
   const float* oc;
   const float* invd;
   const float* mag;
@@ -274,28 +237,6 @@ struct AnisoGeo {
     t.co = __fmul_rn(__fmul_rn(f.cs, t.sb), e);
     t.inv = __fsqrt_rn(__fmul_rn(0.5f, a));
     return t;
-  }
-
-  __device__ void stage(float* st, int qb, int q0, int nq) const {
-    for (int j = threadIdx.x; j < nq; j += blockDim.x) {
-      const Fields f = fields(q0 + j);
-      st[j] = f.ix;
-      st[qb + j] = f.iy;
-      st[2 * qb + j] = f.iz;
-      st[3 * qb + j] = f.mx;
-      st[4 * qb + j] = f.my;
-      st[5 * qb + j] = f.mz;
-      st[6 * qb + j] = f.c;
-      st[7 * qb + j] = f.cs;
-    }
-  }
-
-  template <int EXP>
-  __device__ RayTerms staged(const float* st, int qb, int j, float dx, float dy,
-                             float dz) const {
-    const Fields f = {st[j],          st[qb + j],     st[2 * qb + j], st[3 * qb + j],
-                      st[4 * qb + j], st[5 * qb + j], st[6 * qb + j], st[7 * qb + j]};
-    return terms<EXP>(f, dx, dy, dz);
   }
 
   template <int EXP>
@@ -347,7 +288,9 @@ __device__ __forceinline__ void row_sums(const float (&v)[S], float* red, float*
 }
 
 // Pass A of PB p rows of one ray against the q rows [q_lo, q_hi) of one
-// tile, staged qb rows at a time through shared memory:
+// tile, staged qb rows at a time through shared memory by a geometry that
+// stages rows (stage) and reads a staged row's terms (staged; split.cu's
+// PlaneGeo):
 //   acc[i][k] += co_q erf((mb_p + k sb_p - mb_q) inv_q)
 // and, with with_base, base += co_q erf(-mb_q inv_q). sgp holds the p rows'
 // sb (sigma for isotropic rows). Every thread of the block calls it with

@@ -8,7 +8,7 @@
 //   _fwd_color_kernel  (colors_pallas's forward)  entry point sgrt_split_fwd_color
 //   _bwd_color_kernel  (colors_pallas's VJP)      entry point sgrt_split_bwd_color
 //
-// The fused kernels' math (fused_fwd.cu's note) with mb and co read from the
+// The fused kernels' math (chunked.cu's note) with mb and co read from the
 // planes instead of made from oc and the ray: for tile b, count = min(counts,
 // N), ray r, taps k = -4..0,
 //   base(r)    = sum over ALL N rows q of co(q,r) erf(-mb(q,r) inv_q)
@@ -36,8 +36,8 @@
 // move far fewer bytes: each kernel reads and writes 2-5 (B,N,R) planes of 4
 // bytes a (row, ray), against 5 to 15 taps per (row, ray) and live row.
 //
-// What the design does about it (as fused_fwd.cu, and the p/q split of the
-// chunked backward in chunked.cu):
+// What the design does about it (with the p/q split of the chunked
+// backward in chunked.cu):
 //   * One thread owns one ray and keeps PB rows' state in registers. The
 //     forward's and the p side's pass A is gauss_common.cuh's pass_a over
 //     PlaneGeo rows: the q rows' mb and co of each thread's ray are staged

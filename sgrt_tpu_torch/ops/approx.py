@@ -6,8 +6,8 @@ spline_erf (approx.cpp:9-41), spline_erf_mirror (:45-69), taylor_erf
 (:71-88), abramowitz_stegun_erf (:90-110, the production choice), fast_exp
 (Schraudolph bit trick, :112-138), spline_exp (:140-189). Here they are
 plain tensor functions: float32, elementwise, shape-preserving. The CUDA
-kernel (csrc/fused_fwd.cu) carries its own device copies of as5, as3 and
-the exact and fast exp.
+kernels carry their own device copies of as5, as3 and the exact and fast
+exp (csrc/gauss_common.cuh).
 """
 
 from __future__ import annotations

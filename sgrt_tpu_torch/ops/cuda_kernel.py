@@ -16,19 +16,19 @@ Four kernels, each with a wrapper that launches it for tensors on the card
 (or raises) and runs its plain version, the same math in tensor ops, for
 tensors on the CPU:
 
-    fused_forward     csrc/fused_fwd.cu  colors           (_fused_fwd_kernel)
-    fused_forward_t   csrc/fused_fwd.cu  colors and T     (_fused_fwd_t_kernel)
-    fused_backward    csrc/chunked.cu    the VJP, from saved T (_fused_bwd_t_kernel)
-                                         or recomputing it (_fused_bwd_kernel)
+    fused_forward     csrc/chunked.cu  colors           (_fused_fwd_kernel)
+    fused_forward_t   csrc/chunked.cu  colors and T     (_fused_fwd_t_kernel)
+    fused_backward    csrc/chunked.cu  the VJP, from saved T (_fused_bwd_t_kernel)
+                                       or recomputing it (_fused_bwd_kernel)
 
-The backwards are the chunked backward's kernels (ops.cuda_chunked) at one
-chunk, ck = N: the fused backward is the chunked one with C = 1, and those
-kernels split the pair work into a p side and a q side over blocks of 64
-rows and 32 rays, so that a dense tile spreads over many blocks.
-_chunked_backward_launch launches every backward entry point of
-csrc/chunked.cu, fused or chunked, of either row geometry, and
-_chunked_forward_launch every forward entry point there (the chunked
-forwards and the anisotropic fused ones, ops.cuda_aniso).
+All four are the chunked kernels (ops.cuda_chunked) at one chunk, ck = N:
+a fused kernel is the chunked one with C = 1. The forward splits a tile's
+p rows over blocks of 32 rows and 32 rays, the backward its pair work into
+a p side and a q side over blocks of 64 rows and 32 rays, so that a dense
+tile spreads over many blocks; the recompute backward's T is the
+forward-with-T's own. _chunked_forward_launch launches every forward entry
+point of csrc/chunked.cu, fused or chunked, of either row geometry, and
+_chunked_backward_launch every backward entry point there.
 
 `FusedRender` joins them into one differentiable op, as the JAX package's
 custom VJP does; `render_fused` uses it when a gradient is wanted.
@@ -87,9 +87,9 @@ def _kernel_erf_name(name: str) -> str:
 
 def _block_sizes(n: int) -> tuple[int, int]:
     """(pb, qb) from the Gaussian-axis extent, as in the JAX package, so
-    both pad tile capacities alike. pb is the number of p rows a forward
-    thread keeps in registers, qb the q rows staged per shared-memory
-    pass."""
+    both pad tile capacities alike. pb is the p block that N is a multiple
+    of (the split kernels keep pb rows a thread; the chunked.cu kernels 4
+    whatever it is), qb the q rows staged per shared-memory pass."""
     if n <= 256:
         return 8, 16
     return 8, 32
@@ -151,13 +151,12 @@ class CudaKernel:
         self.launches += 1
 
 
-_FWD_SRC, _BWD_SRC, _TPU = "fused_fwd.cu", "chunked.cu", "sgrt_tpu/ops/pallas_kernel.py"
-FUSED_FWD = CudaKernel("fused_fwd", _FWD_SRC, "sgrt_fused_fwd", f"{_TPU}:862", 8, 8)
-FUSED_FWD_T = CudaKernel("fused_fwd_t", _FWD_SRC, "sgrt_fused_fwd_t", f"{_TPU}:898", 9, 8)
-FUSED_BWD_T = CudaKernel("fused_bwd_t", _BWD_SRC, "sgrt_fused_bwd_t", f"{_TPU}:948", 15, 8,
+_SRC, _TPU = "chunked.cu", "sgrt_tpu/ops/pallas_kernel.py"
+FUSED_FWD = CudaKernel("fused_fwd", _SRC, "sgrt_fused_fwd", f"{_TPU}:862", 8, 8)
+FUSED_FWD_T = CudaKernel("fused_fwd_t", _SRC, "sgrt_fused_fwd_t", f"{_TPU}:898", 9, 8)
+FUSED_BWD_T = CudaKernel("fused_bwd_t", _SRC, "sgrt_fused_bwd_t", f"{_TPU}:948", 15, 8,
                          timed=True)
-FUSED_BWD = CudaKernel("fused_bwd", _BWD_SRC, "sgrt_fused_bwd", f"{_TPU}:1073", 14, 8,
-                       timed=True)
+FUSED_BWD = CudaKernel("fused_bwd", _SRC, "sgrt_fused_bwd", f"{_TPU}:1073", 14, 8, timed=True)
 
 
 def _check_names(erf_name: str, exp_name: str, pb: int | None = None) -> None:
@@ -464,24 +463,6 @@ def fused_backward_plain(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=N
 # wrappers: the kernel for CUDA tensors (or raise), the plain version for CPU
 # ---------------------------------------------------------------------------
 
-def _forward_launch(kernel, args, t, *, rb, pb, qb, erf_name, exp_name):
-    """Launch a forward entry point of csrc/fused_fwd.cu: colors (B,3,R),
-    and T into t."""
-    _check_names(erf_name, exp_name, pb)
-    oc, dirs_t = args[0], args[4]
-    b, n, _ = oc.shape
-    r = dirs_t.shape[2]
-    threads = _threads(kernel.query("sgrt_fused_fwd_max_threads"), rb, r)
-    n_split = -(-n // kernel.query("sgrt_fused_fwd_rows_per_block"))
-    colors = torch.empty((b, 3, r), dtype=torch.float32, device=oc.device)
-    partial = torch.empty((b, n_split, 3, r), dtype=torch.float32, device=oc.device)
-    outs = [partial, colors] + ([t] if t is not None else [])
-    kernel.launch(list(args) + outs,
-                  [b, n, r, threads, pb, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
-                  what=f"B={b}, N={n}, R={r}, threads={threads}, pb={pb}, qb={qb}")
-    return colors
-
-
 def _chunked_forward_launch(kernel, args, t, *, rb, pb, qb, erf_name, exp_name):
     """Launch a forward entry point of csrc/chunked.cu on checked CUDA
     inputs: colors (B,3,R), and T into t. A block is 32 rays (rb is capped
@@ -509,28 +490,32 @@ def fused_forward(oc, sigma, mag, albedo, dirs_t, counts, *, rb: int = 128,
 
     Checks shapes, dtypes, devices and contiguity. CUDA tensors go to the
     kernel (which raises for what it does not take); CPU tensors go to
-    fused_forward_plain."""
+    fused_forward_plain. Any N: the kernel is the chunked forward at one
+    chunk of N rows (blocks of 32 rays, rb capped at it; pb is checked,
+    though the kernel keeps 4 rows a thread)."""
     args = (oc, sigma, mag, albedo, dirs_t, counts)
     if not _check_inputs("fused_forward", _scene_shapes(*args), oc.device):
         return fused_forward_plain(*args, erf_name=erf_name, exp_name=exp_name)
-    return _forward_launch(FUSED_FWD, args, None, rb=rb, pb=pb, qb=qb,
-                           erf_name=erf_name, exp_name=exp_name)
+    return _chunked_forward_launch(FUSED_FWD, args, None, rb=rb, pb=pb, qb=qb,
+                                   erf_name=erf_name, exp_name=exp_name)
 
 
 def fused_forward_t(oc, sigma, mag, albedo, dirs_t, counts, *, rb: int = 128,
                     pb: int = 8, qb: int = 32, erf_name: str = "as5",
                     exp_name: str = "exact"):
     """Wrapper of the forward-with-T kernel: (colors (B,3,R), T (B,5,N,R)),
-    T zero on rows at or past the count. CUDA tensors go to the kernel,
-    CPU tensors to fused_forward_t_plain."""
+    T zero on rows at or past the count; the colors equal fused_forward's
+    bit for bit, and T is what the recompute backward recomputes at the
+    same qb. CUDA tensors go to the kernel, CPU tensors to
+    fused_forward_t_plain."""
     args = (oc, sigma, mag, albedo, dirs_t, counts)
     if not _check_inputs("fused_forward_t", _scene_shapes(*args), oc.device):
         return fused_forward_t_plain(*args, erf_name=erf_name, exp_name=exp_name)
     b, n, _ = oc.shape
     t = torch.empty((b, len(K_TAPS), n, dirs_t.shape[2]), dtype=torch.float32,
                     device=oc.device)   # the kernel writes every element
-    colors = _forward_launch(FUSED_FWD_T, args, t, rb=rb, pb=pb, qb=qb,
-                             erf_name=erf_name, exp_name=exp_name)
+    colors = _chunked_forward_launch(FUSED_FWD_T, args, t, rb=rb, pb=pb, qb=qb,
+                                     erf_name=erf_name, exp_name=exp_name)
     return colors, t
 
 

@@ -257,41 +257,47 @@ def test_fused_backwards_are_chunked_entry_points(kernel, symbol, line):
 @pytest.mark.parametrize("kernel,symbol,line", [
     (ta.FUSED_FWD_ANISO, "sgrt_fused_fwd_aniso", 145),
     (ta.FUSED_FWD_T_ANISO, "sgrt_fused_fwd_t_aniso", 248),
+    (tk.FUSED_FWD, "sgrt_fused_fwd", 862),
+    (tk.FUSED_FWD_T, "sgrt_fused_fwd_t", 898),
 ])
 def test_fused_aniso_forwards_are_chunked_entry_points(kernel, symbol, line):
-    """The fused anisotropic forwards (kernels 9-10) are entry points of
-    csrc/chunked.cu, its forward over AnisoGeo rows at one chunk: each names
-    its source, its symbol and the Pallas kernel it replaces, and its body
-    runs launch_fwd<AnisoGeo, ...>."""
+    """The fused forwards (kernels 1-2 over isotropic rows, 9-10 over
+    anisotropic ones) are entry points of csrc/chunked.cu, its forward at
+    one chunk: each names its source, its symbol and the Pallas kernel it
+    replaces, and its body runs launch_fwd<IsoGeo, ...> or
+    launch_fwd<AnisoGeo, ...>."""
     import re
 
+    aniso = symbol.endswith("_aniso")
+    tpu = "pallas_aniso.py" if aniso else "pallas_kernel.py"
     assert kernel.source.name == "chunked.cu"
     assert kernel.symbol == symbol
-    assert kernel.replaces == f"sgrt_tpu/ops/pallas_aniso.py:{line}"
+    assert kernel.replaces == f"sgrt_tpu/ops/{tpu}:{line}"
     src = kernel.source.read_text()
     assert re.search(rf"^int {symbol}\(", src, re.M), symbol
     body = src[src.index(f"int {symbol}("):]
     body = body[:body.index("\n}\n")]
-    assert "launch_fwd<AnisoGeo" in body
+    geo = "AnisoGeo" if aniso else "IsoGeo"
+    assert f"launch_fwd<{geo}" in body
 
 
 def test_fused_fwd_cu_keeps_only_the_isotropic_forwards():
-    """csrc/fused_fwd.cu holds the isotropic fused forwards (kernels 1-2)
-    and nothing anisotropic: no AnisoGeo instantiation or entry point, no
-    sgrt_fused_fwd*_aniso symbol; no kernel of ops.kernels.KERNELS but
-    kernels 1-2 names it."""
-    import re
-
+    """csrc/fused_fwd.cu, which last held the isotropic fused forwards
+    (kernels 1-2), is gone: no source of the port is that file and no kernel
+    of ops.kernels.KERNELS names it; every kernel of the port but the four
+    split ones is an entry point of csrc/chunked.cu."""
+    from sgrt_tpu_torch.ops import cuda_split as ts
     from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.utils import nvcc
 
-    src = tk.FUSED_FWD.source.read_text()
-    assert tk.FUSED_FWD.source.name == tk.FUSED_FWD_T.source.name == "fused_fwd.cu"
-    assert "AnisoGeo" not in src
-    assert not re.search(r"sgrt_fused_fwd\w*_aniso", src)
-    assert re.search(r"^int sgrt_fused_fwd\(", src, re.M)
-    assert re.search(r"^int sgrt_fused_fwd_t\(", src, re.M)
-    assert [k for k in kernels.KERNELS if k.source.name == "fused_fwd.cu"] == [tk.FUSED_FWD,
-                                                                              tk.FUSED_FWD_T]
+    assert not (nvcc.CSRC_DIR / "fused_fwd.cu").exists()
+    assert all(k.source.name != "fused_fwd.cu" for k in kernels.KERNELS)
+    split = (ts.SPLIT_FWD, ts.SPLIT_BWD, ts.SPLIT_FWD_COLOR, ts.SPLIT_BWD_COLOR)
+    assert all(k in kernels.KERNELS and k.source.name == "split.cu" for k in split)
+    assert [k for k in kernels.KERNELS if k not in split] == [
+        k for k in kernels.KERNELS if k.source.name == "chunked.cu"]
+    assert len(kernels.KERNELS) == 20 and {k.source.name for k in kernels.KERNELS} == {
+        "chunked.cu", "split.cu"}
 
 
 def test_fused_bwd_cu_keeps_only_the_isotropic_kernels():

@@ -42,19 +42,39 @@ def _inputs(dev, b=5, n=96, r=200, counts=(96, 17, 0, 40, 1000), seed=0):
     return [t.to(dev).contiguous() for t in (oc, sig, mag, alb, d, cnt)]
 
 
-@pytest.mark.parametrize("erf_name,exp_name,pb,qb", [
-    ("as5", "exact", 8, 32), ("as5", "exact", 16, 16), ("as3", "fast", 8, 32),
-])
-def test_kernel_matches_plain(erf_name, exp_name, pb, qb):
-    args = _inputs(_card())
-    before = tk.FUSED_FWD.launches
-    out = tk.fused_forward(*args, pb=pb, qb=qb, erf_name=erf_name, exp_name=exp_name)
+# the fused forwards (csrc/chunked.cu's forward at one chunk over IsoGeo
+# rows): N 96 (three 32-row splits) and N 40 (the last split partial), with
+# counts above, at and below N and 0
+def _check_forwards(args, n, counts, **kw):
+    """Both fused forwards, one launch each: within 2e-5 of their plain
+    versions, T zero past min(count, N), a dead tile's colors zero, and the
+    colors of the forward and the forward-with-T equal bit for bit."""
+    before = (tk.FUSED_FWD.launches, tk.FUSED_FWD_T.launches)
+    out = tk.fused_forward(*args, **kw)
+    colors, t = tk.fused_forward_t(*args, **kw)
     torch.cuda.synchronize()
-    assert tk.FUSED_FWD.launches == before + 1
-    ref = tk.fused_forward_plain(*args, erf_name=erf_name, exp_name=exp_name)
-    assert torch.isfinite(out).all()
-    assert (out[2] == 0).all()
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=2e-5)
+    assert (tk.FUSED_FWD.launches, tk.FUSED_FWD_T.launches) == (before[0] + 1, before[1] + 1)
+    plain = {k: v for k, v in kw.items() if k in ("erf_name", "exp_name")}
+    ref_c, ref_t = tk.fused_forward_t_plain(*args, **plain)
+    assert torch.isfinite(out).all() and torch.isfinite(t).all()
+    for got in (out, colors):
+        np.testing.assert_allclose(got.cpu().numpy(), ref_c.cpu().numpy(), atol=2e-5)
+    np.testing.assert_allclose(t.cpu().numpy(), ref_t.cpu().numpy(), atol=2e-5)
+    for b, c in enumerate(counts):
+        assert (t[b, :, min(c, n):] == 0).all()     # dead rows hold exactly T = 0
+    assert (out[counts.index(0)] == 0).all()
+    assert torch.equal(out, colors)
+
+
+@pytest.mark.parametrize("erf_name,exp_name,pb,qb,n,counts", [
+    ("as5", "exact", 8, 32, 96, (96, 17, 0, 40, 1000)),
+    ("as5", "exact", 16, 16, 96, (96, 17, 0, 40, 1000)),
+    ("as3", "fast", 8, 32, 96, (96, 17, 0, 40, 1000)),
+    ("as5", "exact", 8, 8, 40, (40, 17, 0, 33, 1000)),
+])
+def test_kernel_matches_plain(erf_name, exp_name, pb, qb, n, counts):
+    args = _inputs(_card(), n=n, counts=counts)
+    _check_forwards(args, n, counts, pb=pb, qb=qb, erf_name=erf_name, exp_name=exp_name)
 
 
 GRAD_NAMES = ("oc", "sigma", "mag", "albedo", "dirs")
@@ -106,21 +126,15 @@ def test_kernel_refuses_grad_and_unported_names():
         tk.fused_backward(*args, dcol, erf_name="spline")
 
 
-@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
-def test_forward_t_kernel_matches_plain(erf_name, exp_name):
-    args = _inputs(_card())
-    before = tk.FUSED_FWD_T.launches
-    colors, t = tk.fused_forward_t(*args, erf_name=erf_name, exp_name=exp_name)
-    torch.cuda.synchronize()
-    assert tk.FUSED_FWD_T.launches == before + 1
-    ref_c, ref_t = tk.fused_forward_t_plain(*args, erf_name=erf_name, exp_name=exp_name)
-    np.testing.assert_allclose(colors.cpu().numpy(), ref_c.cpu().numpy(), atol=2e-5)
-    np.testing.assert_allclose(t.cpu().numpy(), ref_t.cpu().numpy(), atol=2e-5)
-    counts = [96, 17, 0, 40, 96]
-    for b, c in enumerate(counts):
-        assert (t[b, :, c:] == 0).all()     # dead rows hold exactly T = 0
-    plain = tk.fused_forward(*args, erf_name=erf_name, exp_name=exp_name)
-    np.testing.assert_allclose(colors.cpu().numpy(), plain.cpu().numpy(), atol=1e-6)
+@pytest.mark.parametrize("erf_name,exp_name,qb,n,counts", [
+    ("as5", "exact", 32, 96, (96, 17, 0, 40, 1000)),
+    ("as3", "fast", 32, 96, (96, 17, 0, 40, 1000)),
+    ("as5", "exact", 8, 40, (40, 17, 0, 33, 1000)),
+])
+def test_forward_t_kernel_matches_plain(erf_name, exp_name, qb, n, counts):
+    """The forward-with-T at the wrappers' default pb."""
+    args = _inputs(_card(), n=n, counts=counts)
+    _check_forwards(args, n, counts, qb=qb, erf_name=erf_name, exp_name=exp_name)
 
 
 @pytest.mark.parametrize("saved_t", [True, False])
