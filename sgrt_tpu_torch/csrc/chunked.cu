@@ -1,5 +1,6 @@
 // The Gaussian-axis chunked kernels for Hopper (sm_90a), designed for the
-// card, over both row geometries of gauss_common.cuh (IsoGeo, AnisoGeo):
+// card, over the row geometries of gauss_common.cuh (IsoGeo, AnisoGeo, and
+// for the split backwards PlaneGeo):
 // the forward (colors, and with SAVE_T the transmittance factors T) and the
 // backward (p side, q side; from saved T or recomputing it), with the
 // Gaussian axis cut into chunks of ck rows.
@@ -38,6 +39,25 @@
 // the fused forward-with-T itself (the same kernel at the same qb; pb
 // does not change it), so the two fused backwards of a geometry give the
 // same gradients.
+//
+// The split backwards are the recompute backward at one chunk over a third
+// geometry, plane rows (PlaneGeo, Side<PlaneGeo>):
+// sgrt_tpu/ops/pallas_kernel.py::_bwd_kernel (sgrt_split_bwd; :256,
+// tw_pallas's VJP) and ::_bwd_color_kernel (sgrt_split_bwd_color; :329,
+// colors_pallas's VJP). A row's mb and co are read per (row, ray) from
+// (B,N,R) planes, sb = sigma and inv from (B,N) inputs of their own. The same
+// T, p side and q side, with the split kernels' math (split.cu's note) where
+// it differs: base sums all N rows, past the count too (pass_a_planes stages
+// the rows past the count for base alone); the cotangent of tw is g from its
+// plane (sgrt_split_bwd, no direct terms) or sqrt(2/pi) co A with the direct
+// terms (sgrt_split_bwd_color); and the outputs are the planes' own
+// gradients, dmb and dco per (row, ray) and dsig, dinv (and dalb) per row,
+// so there is no chain, no J and no ddirs. The p side writes its part of
+// dmb and dco, the q side adds its pair sums and the base path in stream
+// order; the base path reaches every row of the tile, so rows past the
+// count get dco = db e1, dmb = -2/sqrt(pi) db co g1 inv and the matching
+// dinv (q side blocks past the count run it alone), and a tile with count
+// 0 gets zeros (its db is 0).
 //
 // The forward, for each tile b, over the live prefix count_b = min(counts[b],
 // N) of its Gaussian rows, and each ray r (isotropic rows: sb = sigma,
@@ -199,7 +219,10 @@
 // backward's t (B,5,N,R) (saved-T only), scratch as above
 // (sgrt_chunked_bwd_scratch_floats), outputs doc, dalb (B,N,3), dsig (B,N)
 // or dinvd (B,N,3), dmag (B,N), ddirs (B,3,R). Rows at or past the count
-// get exactly zero gradient.
+// get exactly zero gradient. Plane rows: mb, co, g, dmb, dco (B,N,R); sigma,
+// inv, dsig, dinv (B,N); albedo, dalb (B,N,3); dcol (B,3,R); scratch of
+// sgrt_split_bwd_scratch_floats (T of the one chunk, db and 5 per-row sums
+// a (row, ray block); no ddirs shares).
 
 #include <cuda_runtime.h>
 
@@ -234,18 +257,18 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
-// The warp's kSums per-row values summed over its 32 rays (a fixed
-// butterfly); lane j < kSums writes sum j to out[j], or adds it.
-__device__ __forceinline__ void warp_row_sums(const float (&v)[kSums], float* out,
-                                              bool accumulate) {
+// The warp's S per-row values summed over its 32 rays (a fixed butterfly);
+// lane j < S writes sum j to out[j], or adds it.
+template <int S>
+__device__ __forceinline__ void warp_row_sums(const float (&v)[S], float* out, bool accumulate) {
   const int lane = threadIdx.x;
   float mine = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kSums; ++j) {
+  for (int j = 0; j < S; ++j) {
     const float s = warp_sum(v[j]);
     if (lane == j) mine = s;
   }
-  if (lane < kSums) out[lane] = accumulate ? out[lane] + mine : mine;
+  if (lane < S) out[lane] = accumulate ? out[lane] + mine : mine;
 }
 
 // Pass A's planes of the staged rows [q0, q0 + nq) for the block's rays:
@@ -272,11 +295,14 @@ __device__ __forceinline__ void fill_a(float* pl, int qb, const Geo& geo, int q0
 //   base = sum_q co_q erf(-mb_q inv_q),
 // each stage's terms summed on their own, then added to the running sums:
 // base in a register, acc in the thread's slots acc2[(i kTaps + k) nt + tid]
-// (nt the block's threads). Every thread of the block calls it; a dead
-// group (live false) fills planes and sums base only.
+// (nt the block's threads). base runs over the live rows, or for plane rows
+// over all N (the split kernels' base, pallas_kernel.py:201): the rows past
+// the count are staged after the live ones, for base alone. Every thread of
+// the block calls it; a dead group (live false) fills planes and sums base
+// only.
 template <class Geo, int ERF, int EXP>
 __device__ __forceinline__ void pass_a_planes(float* pl, float* acc2, int qb, const Geo& geo,
-                                              int cnt, float dx, float dy, float dz,
+                                              int cnt, int N, float dx, float dy, float dz,
                                               const float (&mbp)[kFwdPB],
                                               const float (&sgp)[kFwdPB], bool live,
                                               float& base) {
@@ -325,18 +351,35 @@ __device__ __forceinline__ void pass_a_planes(float* pl, float* acc2, int qb, co
     base += base_part;
     __syncthreads();
   }
+  if constexpr (Geo::kPlanes) {
+    // base's rows past the count, [cnt, N), qb a stage, two-level as above
+    // (summed inside those stages, at 64 registers, they would spill)
+    for (int q0 = cnt; q0 < N; q0 += qb) {
+      const int nb = min(qb, N - q0);
+      fill_a<Geo, ERF, EXP>(pl, qb, geo, q0, nb, dx, dy, dz);
+      __syncthreads();
+      float base_part = 0.0f;
+      for (int j = 0; j < nb; ++j) base_part += pl[j * kRays + 3 * plane + x];
+      base += base_part;
+      __syncthreads();
+    }
+  }
 }
 
 // The ray and cotangent of lane r of tile b (lanes past R: a unit +z ray
-// with a zero cotangent, whose every sum is zero).
+// with a zero cotangent, whose every sum is zero). Plane rows have no
+// directions: dirs is not read.
+template <class Geo>
 struct Ray {
   float dx = 0.0f, dy = 0.0f, dz = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
   __device__ Ray(const float* dirs, const float* dcol, int b, int R, int r) {
     if (r >= R) return;
     const size_t o = static_cast<size_t>(b) * 3 * R;
-    dx = dirs[o + r];
-    dy = dirs[o + R + r];
-    dz = dirs[o + 2 * R + r];
+    if constexpr (!Geo::kPlanes) {
+      dx = dirs[o + r];
+      dy = dirs[o + R + r];
+      dz = dirs[o + 2 * R + r];
+    }
     if (dcol != nullptr) {
       cr = dcol[o + r];
       cg = dcol[o + R + r];
@@ -344,6 +387,36 @@ struct Ray {
     }
   }
 };
+
+// Thread r's geometry of tile b: the scene's rows (oc, shape, mag), or the
+// plane rows of `in`.
+template <class Geo>
+__device__ __forceinline__ Geo make_geo(const float* oc, const float* shape, const float* mag,
+                                        const typename Geo::Args& in, int b, int N, int R,
+                                        int r) {
+  if constexpr (Geo::kPlanes) {
+    return Geo(in, b, N, R, r);
+  } else {
+    return Geo(oc, shape, mag, b, N);
+  }
+}
+
+// The cotangent g_p of tw for row p and the thread's ray, and A = albedo_p .
+// dcol (the colors' direct terms' weight): g = sqrt(2/pi) co A, or, for
+// plane rows given tw's cotangent, g from its plane and A = 0 (tw has no
+// direct terms; its albedo and dcol are null).
+template <class Geo>
+__device__ __forceinline__ float row_weight(const Geo& geo, const float* alb_b, int p, float co,
+                                            float cr, float cg, float cb, float& A) {
+  if constexpr (Geo::kPlanes) {
+    if (geo.g != nullptr) {
+      A = 0.0f;
+      return geo.g_at(p);
+    }
+  }
+  A = alb_b[3 * p] * cr + alb_b[3 * p + 1] * cg + alb_b[3 * p + 2] * cb;
+  return kSqrt2Pi * co * A;
+}
 
 // ---------------------------------------------------------------------------
 // forward: one block per (32 rays, 32 p rows of a tile, tile)
@@ -359,7 +432,8 @@ fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
            const float* __restrict__ mag, const float* __restrict__ alb,
            const float* __restrict__ dirs, const int* __restrict__ counts,
            float* __restrict__ partial, float* __restrict__ t, int N, int R, int qb,
-           int n_split, int p_row0, int t_rows, int t_row0, int t_ld) {
+           int n_split, int p_row0, int t_rows, int t_row0, int t_ld,
+           const typename Geo::Args in) {
   extern __shared__ float smem[];
   const int x = threadIdx.x, g = threadIdx.y;
   const int nt = kRays * kFwdG, tid = g * kRays + x;
@@ -386,8 +460,8 @@ fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   const int p_end = min(p_begin + kFwdRows, cnt);
   const bool live = p0 < p_end;  // warp-uniform
 
-  const Geo geo(oc, shape, mag, b, N);
-  const Ray ray(dirs, nullptr, b, R, r);
+  const Geo geo = make_geo<Geo>(oc, shape, mag, in, b, N, R, r);
+  const Ray<Geo> ray(dirs, nullptr, b, R, r);
   float mbp[kFwdPB], sgp[kFwdPB];
 #pragma unroll
   for (int i = 0; i < kFwdPB; ++i) {
@@ -402,8 +476,8 @@ fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   float* pl = smem;
   float* acc2 = smem + 2 * kAPlanes * qb * kRays;
   float base;
-  pass_a_planes<Geo, ERF, EXP>(pl, acc2, qb, geo, cnt, ray.dx, ray.dy, ray.dz, mbp, sgp, live,
-                               base);
+  pass_a_planes<Geo, ERF, EXP>(pl, acc2, qb, geo, cnt, N, ray.dx, ray.dy, ray.dz, mbp, sgp,
+                               live, base);
 
   float col[3] = {0.0f, 0.0f, 0.0f};
   const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
@@ -463,22 +537,29 @@ size_t fwd_smem(int qb) { return sizeof(float) * (2 * kAPlanes * qb + kFwdRows *
 // ---------------------------------------------------------------------------
 
 // The p side's planes of the staged q rows [q0, q0 + nq): mb, inv,
-// -2/sqrt(pi) co and J = d mb / d d.
+// -2/sqrt(pi) co and J = d mb / d d (plane rows: no J).
 template <class Geo, int EXP>
 __device__ __forceinline__ void fill_p(float* pl, int qb, const Geo& geo, int q0, int nq,
                                        float dx, float dy, float dz) {
   const int plane = qb * kRays;
   for (int j = threadIdx.y; j < nq; j += blockDim.y) {
-    const typename Geo::Fields f = geo.fields(q0 + j);
-    const RayTerms t = Geo::template terms<EXP>(f, dx, dy, dz);
-    const Jac jq = Side<Geo>::jac(f, t, dx, dy, dz);
     float* o = pl + j * kRays + threadIdx.x;
-    o[0] = t.mb;
-    o[plane] = t.inv;
-    o[2 * plane] = -kDerf * t.co;
-    o[3 * plane] = jq.x;
-    o[4 * plane] = jq.y;
-    o[5 * plane] = jq.z;
+    if constexpr (Geo::kPlanes) {
+      const RayTerms t = geo.template row<EXP>(q0 + j, dx, dy, dz);
+      o[0] = t.mb;
+      o[plane] = t.inv;
+      o[2 * plane] = -kDerf * t.co;
+    } else {
+      const typename Geo::Fields f = geo.fields(q0 + j);
+      const RayTerms t = Geo::template terms<EXP>(f, dx, dy, dz);
+      const Jac jq = Side<Geo>::jac(f, t, dx, dy, dz);
+      o[0] = t.mb;
+      o[plane] = t.inv;
+      o[2 * plane] = -kDerf * t.co;
+      o[3 * plane] = jq.x;
+      o[4 * plane] = jq.y;
+      o[5 * plane] = jq.z;
+    }
   }
 }
 
@@ -491,7 +572,8 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
              const float* __restrict__ dirs, const int* __restrict__ counts,
              const float* __restrict__ dcol, const float* __restrict__ tsrc, int t_rows,
              int t_row0, int t_ld, float* __restrict__ rows_p, double* __restrict__ dd_p,
-             float* __restrict__ db_part, int N, int R, int Rp, int ck, int a, int qb) {
+             float* __restrict__ db_part, int N, int R, int Rp, int ck, int a, int qb,
+             const typename Geo::Args in) {
   using S = Side<Geo>;
   extern __shared__ float smem[];
   const int x = threadIdx.x, g = threadIdx.y;
@@ -504,9 +586,9 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   const int p_end = min(p_begin + kRows, cnt);
   const int p0 = p_begin + g * kBwdPB;
   const bool live = p0 < p_end;  // warp-uniform
-  const Ray ray(dirs, dcol, b, R, r);
+  const Ray<Geo> ray(dirs, dcol, b, R, r);
   const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
-  const Geo geo(oc, shape, mag, b, N);
+  const Geo geo = make_geo<Geo>(oc, shape, mag, in, b, N, R, r);
   const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
   const int n_rb = gridDim.x;
   const int plane = qb * kRays, buf = kPPlanes * plane;
@@ -536,18 +618,19 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
         for (int k = 0; k < kTaps; ++k)
           G[i][k] = t_b[(static_cast<size_t>(k) * t_rows + (p - t_row0)) * t_ld];
       }
-      A = alb_b[3 * p] * ray.cr + alb_b[3 * p + 1] * ray.cg + alb_b[3 * p + 2] * ray.cb;
-      const float gp = kSqrt2Pi * tp.co * A;
+      const float gp = row_weight(geo, alb_b, p, tp.co, ray.cr, ray.cg, ray.cb, A);
 #pragma unroll
       for (int k = 0; k < kTaps; ++k) tw += G[i][k];
       db += gp * tw;
 #pragma unroll
       for (int k = 0; k < kTaps; ++k) G[i][k] *= gp;
     }
-    const Jac jp = S::template jac_row<EXP>(geo, min(p, p_end - 1), dx, dy, dz);
-    at(2 * kBwdPB + 3 * i) = jp.x;
-    at(2 * kBwdPB + 3 * i + 1) = jp.y;
-    at(2 * kBwdPB + 3 * i + 2) = jp.z;
+    if constexpr (!Geo::kPlanes) {
+      const Jac jp = S::template jac_row<EXP>(geo, min(p, p_end - 1), dx, dy, dz);
+      at(2 * kBwdPB + 3 * i) = jp.x;
+      at(2 * kBwdPB + 3 * i + 1) = jp.y;
+      at(2 * kBwdPB + 3 * i + 2) = jp.z;
+    }
     at(5 * kBwdPB + i) = A;
     at(6 * kBwdPB + i) = tw;
     at(i) = at(kBwdPB + i) = 0.0f;  // dmb_p, dsb_p
@@ -555,7 +638,7 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
 
   // the pair pass, p side: only exp(-x^2) of each tap is needed here; a
   // pair's share of ddirs is (J_p - J_q) S0 inv_q, summed as that
-  // difference (the head note)
+  // difference (the head note; plane rows have no ddirs)
   double gx = 0.0, gy = 0.0, gz = 0.0;
   const int ns = (cnt + qb - 1) / qb;
   fill_p<Geo, EXP>(pl, qb, geo, 0, min(qb, cnt), dx, dy, dz);
@@ -573,7 +656,8 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
       for (int j = 0; j < nq; ++j) {
         const float* c = cur + j * kRays;
         const float mbq = c[0], invq = c[plane], nco = c[2 * plane];
-        const float jqx = c[3 * plane], jqy = c[4 * plane], jqz = c[5 * plane];
+        // J of the q row (dead code for plane rows)
+        [[maybe_unused]] const float jqx = c[3 * plane], jqy = c[4 * plane], jqz = c[5 * plane];
 #pragma unroll
         for (int i = 0; i < kBwdPB; ++i) {
           const float dd = mbp[i] - mbq;
@@ -589,9 +673,11 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
           const float di = s0 * invq;  // zero for a dead row (its G is 0)
           pdmb[i] += di;
           pdsb[i] += s1 * invq;
-          sx += (at(2 * kBwdPB + 3 * i) - jqx) * di;
-          sy += (at(2 * kBwdPB + 3 * i + 1) - jqy) * di;
-          sz += (at(2 * kBwdPB + 3 * i + 2) - jqz) * di;
+          if constexpr (!Geo::kPlanes) {
+            sx += (at(2 * kBwdPB + 3 * i) - jqx) * di;
+            sy += (at(2 * kBwdPB + 3 * i + 1) - jqy) * di;
+            sz += (at(2 * kBwdPB + 3 * i + 2) - jqz) * di;
+          }
         }
       }
       gx += sx;
@@ -611,11 +697,11 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   for (int i = 0; i < kBwdPB; ++i) {
     const int p = p0 + i;
     if (p < p_end) {  // warp-uniform
-      float v[kSums];
+      float v[S::kN];
       S::template p_chain<EXP>(geo, p, dx, dy, dz, ray.cr, ray.cg, ray.cb, mbp[i],
                                at(6 * kBwdPB + i), at(5 * kBwdPB + i), at(i), at(kBwdPB + i), v,
                                gx, gy, gz);
-      warp_row_sums(v, rows_p + ((static_cast<size_t>(b) * n_rb + rblk) * N + p) * kSums, false);
+      warp_row_sums(v, rows_p + ((static_cast<size_t>(b) * n_rb + rblk) * N + p) * S::kN, false);
     }
   }
 
@@ -625,22 +711,29 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   double* dds = reinterpret_cast<double*>(slot);
   float* dbs = slot + 6 * nt;
   dbs[tid] = db;
-  dds[tid] = gx;
-  dds[nt + tid] = gy;
-  dds[2 * nt + tid] = gz;
+  if constexpr (!Geo::kPlanes) {
+    dds[tid] = gx;
+    dds[nt + tid] = gy;
+    dds[2 * nt + tid] = gz;
+  }
   __syncthreads();
   if (g == 0) {
     float sdb = 0.0f;
     double s3[3] = {0.0, 0.0, 0.0};
     for (int h = 0; h < kBwdG; ++h) {
       sdb += dbs[h * kRays + x];
+      if constexpr (!Geo::kPlanes) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) s3[c] += dds[c * nt + h * kRays + x];
+        for (int c = 0; c < 3; ++c) s3[c] += dds[c * nt + h * kRays + x];
+      }
     }
     db_part[(static_cast<size_t>(b) * row_blocks(ck) + blk) * Rp + r] = sdb;
-    double* dd = dd_p + (static_cast<size_t>(b) * row_blocks(N) + p_begin / kRows) * 3 * Rp + r;
+    if constexpr (!Geo::kPlanes) {
+      double* dd =
+          dd_p + (static_cast<size_t>(b) * row_blocks(N) + p_begin / kRows) * 3 * Rp + r;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) dd[c * static_cast<size_t>(Rp)] = s3[c];
+      for (int c = 0; c < 3; ++c) dd[c * static_cast<size_t>(Rp)] = s3[c];
+    }
   }
 }
 
@@ -653,16 +746,16 @@ size_t bwd_p_smem(int qb) {
 // p rows of chunk a
 // ---------------------------------------------------------------------------
 
-// The q side's planes of the staged p rows [pp, pp + np): mb, sb and
-// g = sqrt(2/pi) co (albedo . dcol), and the rows' T_k copied from tsrc
+// The q side's planes of the staged p rows [pp, pp + np): mb, sb and the
+// cotangent g (row_weight), and the rows' T_k copied from tsrc
 // (t_rows rows from t_row0, leading dimension t_ld) with cp.async; lanes
 // past R copy nothing (the pass reads zero for them). cot holds the block's
 // rays' dcol, [channel][ray].
 template <class Geo, int EXP>
 __device__ __forceinline__ void fill_q(float* pl, int qb, const Geo& geo, const float* alb_b,
                                        const float* t_b, int t_rows, int t_row0, int t_ld,
-                                       int pp, int np, const Ray& ray, const float* cot, int r,
-                                       bool live_ray) {
+                                       int pp, int np, const Ray<Geo>& ray, const float* cot,
+                                       int r, bool live_ray) {
   const int plane = qb * kRays;
   for (int j = threadIdx.y; j < np; j += blockDim.y) {
     const int p = pp + j;
@@ -677,8 +770,8 @@ __device__ __forceinline__ void fill_q(float* pl, int qb, const Geo& geo, const 
     o[0] = t.mb;
     o[plane] = t.sb;
     const float* c = cot + threadIdx.x;
-    o[2 * plane] = kSqrt2Pi * t.co *
-                   (alb_b[3 * p] * c[0] + alb_b[3 * p + 1] * c[kRays] + alb_b[3 * p + 2] * c[2 * kRays]);
+    float A;
+    o[2 * plane] = row_weight(geo, alb_b, p, t.co, c[0], c[kRays], c[2 * kRays], A);
   }
   cp_async_commit();
 }
@@ -690,7 +783,8 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
              const float* __restrict__ dirs, const int* __restrict__ counts,
              const float* __restrict__ dcol, const float* __restrict__ tsrc, int t_rows,
              int t_row0, int t_ld, const float* __restrict__ db, float* __restrict__ rows_q,
-             double* __restrict__ dd_q, int N, int R, int Rp, int ck, int a, int qb) {
+             double* __restrict__ dd_q, int N, int R, int Rp, int ck, int a, int qb,
+             const typename Geo::Args in) {
   using S = Side<Geo>;
   extern __shared__ float smem[];
   const int x = threadIdx.x, g = threadIdx.y;
@@ -700,13 +794,17 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   const int cnt = max(0, min(counts[b], N));
   const int q_begin = blk * kRows;
   const int p_lo = a * ck, p_hi = min(p_lo + ck, cnt);
-  if (q_begin >= cnt || p_lo >= p_hi) return;  // block-uniform
+  const bool pairs = q_begin < cnt && p_lo < p_hi;  // block-uniform
+  // a block without pairs exits, but over plane rows it keeps the base path
+  // of its rows (every row, past the count too)
+  if (!pairs && !Geo::kPlanes) return;
   const int q_end = min(q_begin + kRows, cnt);
+  const int q_last = Geo::kPlanes ? min(q_begin + kRows, N) : q_end;  // rows chained
   const int q0 = q_begin + g * kBwdPB;
   const bool live = q0 < q_end;  // warp-uniform
   const bool live_ray = r < R;
-  const Ray ray(dirs, nullptr, b, R, r);
-  const Geo geo(oc, shape, mag, b, N);
+  const Ray<Geo> ray(dirs, nullptr, b, R, r);
+  const Geo geo = make_geo<Geo>(oc, shape, mag, in, b, N, R, r);
   const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
   const float* t_b = tsrc + static_cast<size_t>(b) * kTaps * t_rows * t_ld;
   const int n_rb = gridDim.x;
@@ -722,7 +820,7 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   // the second block an SM, as the rows' terms below)
   float* cot = slot + 6 * kBwdPB * nt;
   if (g == 0) {
-    const Ray c(dirs, dcol, b, R, r);
+    const Ray<Geo> c(dirs, dcol, b, R, r);
     cot[x] = c.cr;
     cot[kRays + x] = c.cg;
     cot[2 * kRays + x] = c.cb;
@@ -730,13 +828,14 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
 
   // the rows' mb and inv, read per pair, in the slots too: in registers
   // they would cost the second block an SM (64 registers a thread)
+  // (plane rows: also those past the count, for the base path)
   auto mbq = [&](int i) -> float& { return at(2 * kBwdPB + i); };
   auto invq = [&](int i) -> float& { return at(3 * kBwdPB + i); };
 #pragma unroll
   for (int i = 0; i < kBwdPB; ++i) {
     mbq(i) = 0.0f;  // a dead row's sums are made but never chained
     invq(i) = kInvSqrt2;
-    if (q0 + i < q_end) {
+    if (q0 + i < q_last) {
       const RayTerms t = geo.template row<EXP>(q0 + i, ray.dx, ray.dy, ray.dz);
       mbq(i) = t.mb;
       invq(i) = t.inv;
@@ -745,10 +844,11 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
     dco[i * nt + tid] = 0.0;
   }
 
-  const int ns = (p_hi - p_lo + qb - 1) / qb;
+  const int ns = pairs ? (p_hi - p_lo + qb - 1) / qb : 0;
   __syncthreads();  // cot
-  fill_q<Geo, EXP>(pl, qb, geo, alb_b, t_b, t_rows, t_row0, t_ld, p_lo, min(qb, p_hi - p_lo), ray,
-                   cot, r, live_ray);
+  if (!Geo::kPlanes || ns > 0)
+    fill_q<Geo, EXP>(pl, qb, geo, alb_b, t_b, t_rows, t_row0, t_ld, p_lo, min(qb, p_hi - p_lo),
+                     ray, cot, r, live_ray);
   cp_async_wait_all();
   __syncthreads();
   for (int s = 0; s < ns; ++s) {
@@ -808,33 +908,41 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
 #pragma unroll
   for (int i = 0; i < kBwdPB; ++i) {
     const int q = q0 + i;
-    if (q < q_end) {  // warp-uniform
-      float v[kSums];
-      const float co = geo.template row<EXP>(q, ray.dx, ray.dy, ray.dz).co;
-      const float nco = -kDerf * co;
-      S::template q_chain<ERF, EXP>(geo, q, ray.dx, ray.dy, ray.dz, mbq(i), co, invq(i), dbr,
-                                    static_cast<float>(dco[i * nt + tid]), nco * at(i),
-                                    nco * at(kBwdPB + i), v, gx, gy, gz);
-      warp_row_sums(v, rows_q + ((static_cast<size_t>(b) * n_rb + rblk) * N + q) * kSums,
+    if (q < q_last) {  // warp-uniform
+      float v[S::kN];
+      if constexpr (Geo::kPlanes) {
+        S::template q_chain<ERF>(geo, q, q < q_end, mbq(i), invq(i), dbr,
+                                 static_cast<float>(dco[i * nt + tid]), at(i), at(kBwdPB + i),
+                                 v);
+      } else {
+        const float co = geo.template row<EXP>(q, ray.dx, ray.dy, ray.dz).co;
+        const float nco = -kDerf * co;
+        S::template q_chain<ERF, EXP>(geo, q, ray.dx, ray.dy, ray.dz, mbq(i), co, invq(i), dbr,
+                                      static_cast<float>(dco[i * nt + tid]), nco * at(i),
+                                      nco * at(kBwdPB + i), v, gx, gy, gz);
+      }
+      warp_row_sums(v, rows_q + ((static_cast<size_t>(b) * n_rb + rblk) * N + q) * S::kN,
                     accumulate);
     }
   }
 
   // the block's ddirs share: the groups' partials in group order, through
-  // the slots once every group is past its chain
-  __syncthreads();
-  double* dds = reinterpret_cast<double*>(slot);
-  dds[tid] = gx;
-  dds[nt + tid] = gy;
-  dds[2 * nt + tid] = gz;
-  __syncthreads();
-  if (g == 0) {
-    double* dd = dd_q + (static_cast<size_t>(b) * row_blocks(N) + blk) * 3 * Rp + r;
+  // the slots once every group is past its chain (plane rows: no ddirs)
+  if constexpr (!Geo::kPlanes) {
+    __syncthreads();
+    double* dds = reinterpret_cast<double*>(slot);
+    dds[tid] = gx;
+    dds[nt + tid] = gy;
+    dds[2 * nt + tid] = gz;
+    __syncthreads();
+    if (g == 0) {
+      double* dd = dd_q + (static_cast<size_t>(b) * row_blocks(N) + blk) * 3 * Rp + r;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      double s = 0.0;
-      for (int h = 0; h < kBwdG; ++h) s += dds[c * nt + h * kRays + x];
-      dd[c * static_cast<size_t>(Rp)] = accumulate ? dd[c * static_cast<size_t>(Rp)] + s : s;
+      for (int c = 0; c < 3; ++c) {
+        double s = 0.0;
+        for (int h = 0; h < kBwdG; ++h) s += dds[c * nt + h * kRays + x];
+        dd[c * static_cast<size_t>(Rp)] = accumulate ? dd[c * static_cast<size_t>(Rp)] + s : s;
+      }
     }
   }
 }
@@ -878,18 +986,21 @@ class PartTimer {
   cudaStream_t s_;
 };
 
+template <class Geo>
 using FwdKernel = void (*)(const float*, const float*, const float*, const float*,
                            const float*, const int*, float*, float*, int, int, int, int, int,
-                           int, int, int);
+                           int, int, int, typename Geo::Args);
+template <class Geo>
 using PKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                          const int*, const float*, const float*, int, int, int, float*, double*,
-                         float*, int, int, int, int, int, int);
+                         float*, int, int, int, int, int, int, typename Geo::Args);
+template <class Geo>
 using QKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                          const int*, const float*, const float*, int, int, int, const float*,
-                         float*, double*, int, int, int, int, int, int);
+                         float*, double*, int, int, int, int, int, int, typename Geo::Args);
 
 template <class Geo, bool SAVE_T>
-FwdKernel pick_fwd(int erf_id, int exp_id) {
+FwdKernel<Geo> pick_fwd(int erf_id, int exp_id) {
   if (erf_id == kErfAs5 && exp_id == kExpExact) return fwd_kernel<Geo, kErfAs5, kExpExact, SAVE_T>;
   if (erf_id == kErfAs5 && exp_id == kExpFast) return fwd_kernel<Geo, kErfAs5, kExpFast, SAVE_T>;
   if (erf_id == kErfAs3 && exp_id == kExpExact) return fwd_kernel<Geo, kErfAs3, kExpExact, SAVE_T>;
@@ -898,7 +1009,7 @@ FwdKernel pick_fwd(int erf_id, int exp_id) {
 }
 
 template <class Geo>
-PKernel pick_p(int erf_id, int exp_id) {
+PKernel<Geo> pick_p(int erf_id, int exp_id) {
   if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_p_kernel<Geo, kErfAs5, kExpExact>;
   if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_p_kernel<Geo, kErfAs5, kExpFast>;
   if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_p_kernel<Geo, kErfAs3, kExpExact>;
@@ -907,7 +1018,7 @@ PKernel pick_p(int erf_id, int exp_id) {
 }
 
 template <class Geo>
-QKernel pick_q(int erf_id, int exp_id) {
+QKernel<Geo> pick_q(int erf_id, int exp_id) {
   if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_q_kernel<Geo, kErfAs5, kExpExact>;
   if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_q_kernel<Geo, kErfAs5, kExpFast>;
   if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_q_kernel<Geo, kErfAs3, kExpExact>;
@@ -931,7 +1042,7 @@ int launch_fwd(const float* oc, const float* shape, const float* mag, const floa
                const float* dirs, const int* counts, float* partial, float* colors, float* t,
                int B, int N, int R, int threads, int pb, int qb, int erf_id, int exp_id,
                void* stream) {
-  FwdKernel fn = pick_fwd<Geo, SAVE_T>(erf_id, exp_id);
+  FwdKernel<Geo> fn = pick_fwd<Geo, SAVE_T>(erf_id, exp_id);
   const int n_split = (N + kFwdRows - 1) / kFwdRows;
   if (fn == nullptr || B < 1 || B > 65535 || N < 1 || R < 1 || threads != kRays ||
       (pb != 8 && pb != 16) || bad_qb(qb) || n_split > 65535)
@@ -941,7 +1052,7 @@ int launch_fwd(const float* oc, const float* shape, const float* mag, const floa
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((R + kRays - 1) / kRays, n_split, B);
   fn<<<grid, dim3(kRays, kFwdG), fwd_smem(qb), s>>>(oc, shape, mag, alb, dirs, counts, partial,
-                                                    t, N, R, qb, n_split, 0, N, 0, R);
+                                                    t, N, R, qb, n_split, 0, N, 0, R, NoArgs{});
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   // colors = the live splits' partials summed in split order
   return static_cast<int>(
@@ -956,19 +1067,24 @@ int launch_fwd(const float* oc, const float* shape, const float* mag, const floa
 // multiple of 64 dividing N, or N itself (one chunk, whose last 64-row block
 // may be partial). part_ms (host, 4 C + 1 floats, or null): each chunk's
 // pass A (0 with saved T), p side, db sum and q side, then the row and
-// ddirs kernels, in device ms (the call then waits for them).
+// ddirs kernels, in device ms (the call then waits for them). Plane rows
+// (in: their inputs and outputs; oc, shape, mag, dirs and the outputs doc,
+// dshape, dmag, ddirs null) take one chunk only, ck = N, whose q side
+// writes their dmb and dco planes once, and have no ddirs kernel.
 template <class Geo, bool SAVED_T>
 int launch_bwd(const float* oc, const float* shape, const float* mag, const float* alb,
                const float* dirs, const int* counts, const float* dcol, const float* t,
                float* scratch, float* doc, float* dshape, float* dmag, float* dalb, float* ddirs,
                float* part_ms, int B, int N, int R, int ck, int threads, int qb, int erf_id,
-               int exp_id, void* stream) {
-  FwdKernel tfn = pick_fwd<Geo, true>(erf_id, exp_id);
-  PKernel pfn = pick_p<Geo>(erf_id, exp_id);
-  QKernel qfn = pick_q<Geo>(erf_id, exp_id);
+               int exp_id, void* stream, const typename Geo::Args& in = {}) {
+  FwdKernel<Geo> tfn = pick_fwd<Geo, true>(erf_id, exp_id);
+  PKernel<Geo> pfn = pick_p<Geo>(erf_id, exp_id);
+  QKernel<Geo> qfn = pick_q<Geo>(erf_id, exp_id);
   if (tfn == nullptr || pfn == nullptr || qfn == nullptr || B < 1 || B > 65535 || N < 1 ||
       R < 1 || ck < 1 || N % ck != 0 || (ck != N && ck % kRows != 0) ||
-      row_blocks(N) > 65535 || threads != kRays || bad_qb(qb) || (SAVED_T && t == nullptr))
+      (Geo::kPlanes && (ck != N || static_cast<size_t>(B) * N * R > 0x7fffffff)) ||
+      row_blocks(N) > 65535 || threads != kRays || bad_qb(qb) ||
+      (SAVED_T && t == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if ((err = allow_smem(tfn, fwd_smem(qb))) != cudaSuccess ||
@@ -976,7 +1092,7 @@ int launch_bwd(const float* oc, const float* shape, const float* mag, const floa
       (err = allow_smem(qfn, bwd_q_smem(qb))) != cudaSuccess)
     return static_cast<int>(err);
   Scratch s;
-  scratch_layout(B, N, R, ck, threads, !SAVED_T, scratch, &s);
+  scratch_layout(B, N, R, ck, threads, !SAVED_T, Side<Geo>::kN, !Geo::kPlanes, scratch, &s);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rb = (R + kRays - 1) / kRays;
   const int Rp = n_rb * kRays;
@@ -990,13 +1106,14 @@ int launch_bwd(const float* oc, const float* shape, const float* mag, const floa
     const int t_row0 = SAVED_T ? 0 : a * ck;
     if (!SAVED_T) {
       tfn<<<t_grid, dim3(kRays, kFwdG), fwd_smem(qb), st>>>(
-          oc, shape, mag, alb, dirs, counts, nullptr, s.t_a, N, R, qb, 0, a * ck, ck, a * ck, Rp);
+          oc, shape, mag, alb, dirs, counts, nullptr, s.t_a, N, R, qb, 0, a * ck, ck, a * ck, Rp,
+          in);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
     timer.mark();
     pfn<<<dim3(n_rb, row_blocks(ck), B), block, bwd_p_smem(qb), st>>>(
         oc, shape, mag, alb, dirs, counts, dcol, tsrc, t_rows, t_row0, t_ld, s.rows_p, s.dd_p,
-        s.db_part, N, R, Rp, ck, a, qb);
+        s.db_part, N, R, Rp, ck, a, qb, in);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     timer.mark();
     if ((err = launch_block_sums(s.db_part, counts, s.db, B, N, Rp, row_blocks(ck), kRows,
@@ -1005,16 +1122,23 @@ int launch_bwd(const float* oc, const float* shape, const float* mag, const floa
     timer.mark();
     qfn<<<dim3(n_rb, row_blocks(N), B), block, bwd_q_smem(qb), st>>>(
         oc, shape, mag, alb, dirs, counts, dcol, tsrc, t_rows, t_row0, t_ld, s.db, s.rows_q,
-        s.dd_q, N, R, Rp, ck, a, qb);
+        s.dd_q, N, R, Rp, ck, a, qb, in);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     timer.mark();
   }
-  bwd_rows_kernel<Geo><<<blocks_for(static_cast<size_t>(B) * N, 256), 256, 0, st>>>(
-      oc, shape, mag, counts, s.rows_p, s.rows_q, doc, dshape, dmag, dalb, B, N, n_rb);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  bwd_ddirs_kernel<<<blocks_for(static_cast<size_t>(B) * 3 * R, 256), 256, 0, st>>>(
-      counts, s.dd_p, s.dd_q, ddirs, B, N, R, Rp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const unsigned row_grid = blocks_for(static_cast<size_t>(B) * N, 256);
+  if constexpr (Geo::kPlanes) {
+    plane_rows_kernel<<<row_grid, 256, 0, st>>>(counts, s.rows_p, s.rows_q, in.dsig, in.dinv,
+                                                dalb, B, N, n_rb);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  } else {
+    bwd_rows_kernel<Geo><<<row_grid, 256, 0, st>>>(oc, shape, mag, counts, s.rows_p, s.rows_q,
+                                                   doc, dshape, dmag, dalb, B, N, n_rb);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    bwd_ddirs_kernel<<<blocks_for(static_cast<size_t>(B) * 3 * R, 256), 256, 0, st>>>(
+        counts, s.dd_p, s.dd_q, ddirs, B, N, R, Rp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
   timer.mark();
   return static_cast<int>(timer.finish());
 }
@@ -1210,7 +1334,42 @@ int sgrt_fused_bwd_aniso(const float* oc, const float* invd, const float* mag, c
 // saved T; the same for both geometries).
 long long sgrt_chunked_bwd_scratch_floats(int B, int N, int R, int ck, int threads,
                                           int recompute) {
-  return static_cast<long long>(scratch_layout(B, N, R, ck, threads, recompute != 0));
+  return static_cast<long long>(
+      scratch_layout(B, N, R, ck, threads, recompute != 0, kSums, true));
+}
+
+// The split backwards: the recompute backward at one chunk (ck = N) over
+// plane rows (PlaneGeo). sgrt_split_bwd is the VJP of split.cu's
+// sgrt_split_fwd for the cotangent g (B,N,R) of tw: dmb, dco (B,N,R), dsig,
+// dinv (B,N); sgrt_split_bwd_color that of sgrt_split_fwd_color for dcol
+// (B,3,R), plus dalb (B,N,3). threads = 32 rays a block; scratch of
+// sgrt_split_bwd_scratch_floats(B, N, R, 32) floats; part_ms (4 + 1 floats,
+// or null) as launch_bwd's: T, p side, db sum, q side, the rows kernel.
+int sgrt_split_bwd(const float* mb, const float* co, const float* sig, const float* inv,
+                   const int* counts, const float* g, float* scratch, float* dmb, float* dco,
+                   float* dsig, float* dinv, float* part_ms, int B, int N, int R, int threads,
+                   int qb, int erf_id, int exp_id, void* stream) {
+  const PlaneGeo::Args in{mb, co, sig, inv, g, dmb, dco, dsig, dinv};
+  return launch_bwd<PlaneGeo, false>(nullptr, nullptr, nullptr, nullptr, nullptr, counts, nullptr,
+                                     nullptr, scratch, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                     part_ms, B, N, R, N, threads, qb, erf_id, exp_id, stream, in);
+}
+
+int sgrt_split_bwd_color(const float* mb, const float* co, const float* sig, const float* inv,
+                         const float* alb, const int* counts, const float* dcol, float* scratch,
+                         float* dmb, float* dco, float* dsig, float* dinv, float* dalb,
+                         float* part_ms, int B, int N, int R, int threads, int qb, int erf_id,
+                         int exp_id, void* stream) {
+  const PlaneGeo::Args in{mb, co, sig, inv, nullptr, dmb, dco, dsig, dinv};
+  return launch_bwd<PlaneGeo, false>(nullptr, nullptr, nullptr, alb, nullptr, counts, dcol,
+                                     nullptr, scratch, nullptr, nullptr, nullptr, dalb, nullptr,
+                                     part_ms, B, N, R, N, threads, qb, erf_id, exp_id, stream, in);
+}
+
+// Floats of scratch that one split backward launch needs (either one).
+long long sgrt_split_bwd_scratch_floats(int B, int N, int R, int threads) {
+  return static_cast<long long>(
+      scratch_layout(B, N, R, N, threads, true, Side<PlaneGeo>::kN, false));
 }
 
 // Resources of kernel i of this library (as5, exact erf/exp) at the
@@ -1249,6 +1408,18 @@ int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
     case 7:
       *name = "chunked bwd_q_kernel<AnisoGeo>";
       return kernel_resources(bwd_q_kernel<AnisoGeo, kErfAs5, kExpExact>, bwd, bwd_q_smem(qb),
+                              out);
+    case 8:
+      *name = "chunked fwd_kernel<PlaneGeo, SAVE_T>";
+      return kernel_resources(fwd_kernel<PlaneGeo, kErfAs5, kExpExact, true>, fwd, fwd_smem(qb),
+                              out);
+    case 9:
+      *name = "chunked bwd_p_kernel<PlaneGeo>";
+      return kernel_resources(bwd_p_kernel<PlaneGeo, kErfAs5, kExpExact>, bwd, bwd_p_smem(qb),
+                              out);
+    case 10:
+      *name = "chunked bwd_q_kernel<PlaneGeo>";
+      return kernel_resources(bwd_q_kernel<PlaneGeo, kErfAs5, kExpExact>, bwd, bwd_q_smem(qb),
                               out);
     default:
       return -1;

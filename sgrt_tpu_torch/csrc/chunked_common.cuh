@@ -20,24 +20,25 @@ constexpr int kSums = 10;        // per-row sums over rays; Side<Geo> names them
 __host__ __device__ constexpr int row_blocks(int n) { return (n + kRows - 1) / kRows; }
 
 struct Scratch {
-  float* rows_p;   // (B, n_rb, N, kSums)
-  float* rows_q;   // (B, n_rb, N, kSums), summed over p chunks
-  double* dd_p;    // (B, row_blocks(N), 3, Rp)
-  double* dd_q;    // (B, row_blocks(N), 3, Rp), summed over p chunks
+  float* rows_p;   // (B, n_rb, N, sums)
+  float* rows_q;   // (B, n_rb, N, sums), summed over p chunks
+  double* dd_p;    // (B, row_blocks(N), 3, Rp), with ddirs
+  double* dd_q;    // (B, row_blocks(N), 3, Rp), summed over p chunks, with ddirs
   float* db_part;  // (B, row_blocks(ck), Rp)
   float* db;       // (B, Rp)
   float* t_a;      // (B, kTaps, ck, Rp), recompute only
 };
 
-// Floats of the scratch; with base, also the pointers into it.
-size_t scratch_layout(int B, int N, int R, int ck, int threads, bool recompute,
-                      float* base = nullptr, Scratch* s = nullptr) {
+// Floats of the scratch, for `sums` per-row sums (Side<Geo>::kN) and, with
+// ddirs, the ddirs shares; with base, also the pointers into it.
+size_t scratch_layout(int B, int N, int R, int ck, int threads, bool recompute, int sums,
+                      bool ddirs, float* base = nullptr, Scratch* s = nullptr) {
   const size_t n_rb = (R + threads - 1) / threads;
   const size_t Rp = n_rb * threads;
   // in floats; the double buffers first, so that they stay 8-byte aligned
-  const size_t dd = 2 * static_cast<size_t>(B) * row_blocks(N) * 3 * Rp;
+  const size_t dd = ddirs ? 2 * static_cast<size_t>(B) * row_blocks(N) * 3 * Rp : 0;
   const size_t sizes[7] = {
-      dd, dd, static_cast<size_t>(B) * n_rb * N * kSums, static_cast<size_t>(B) * n_rb * N * kSums,
+      dd, dd, static_cast<size_t>(B) * n_rb * N * sums, static_cast<size_t>(B) * n_rb * N * sums,
       static_cast<size_t>(B) * row_blocks(ck) * Rp, static_cast<size_t>(B) * Rp,
       recompute ? static_cast<size_t>(B) * kTaps * ck * Rp : 0};
   size_t off[8] = {0};
@@ -70,6 +71,7 @@ struct Side;
 template <>
 struct Side<IsoGeo> {
   enum { kRow, kQmb, kDsig, kDinv, kOx, kOy, kOz, kAx, kAy, kAz };  // the sums
+  static constexpr int kN = kSums;
 
   // J = oc, of a row from its fields and of row p
   static __device__ Jac jac(const IsoGeo::Fields& f, const RayTerms&, float, float, float) {
@@ -168,6 +170,7 @@ struct Side<AnisoGeo> {
   // the sums: s_row, P = sum (dBt d - dcoco oc), Q = sum (dA d^2 + dBt d oc
   // + dC oc^2), dalb's weight; doc = invd P, dinvd = Q (see chain)
   enum { kRow, kPx, kPy, kPz, kQx, kQy, kQz, kAx, kAy, kAz };
+  static constexpr int kN = kSums;
 
   // J = d mb / d d = sb^2 (M - 2 mb invd d), mb = Bt / A, of a row from its
   // fields and terms and of row p
@@ -273,6 +276,59 @@ struct Side<AnisoGeo> {
   }
 };
 
+// Plane rows: the outputs are the planes' own gradients, so there is no
+// chain. The p side writes its part of each live row's dmb (the pair sums
+// S0 inv_q) and dco (the direct sqrt(2/pi) tw A, colors only); the q side
+// then adds its pair sums and the base path, in stream order, for every row
+// of the tile: rows past the count keep the base path alone (base sums all
+// N rows). dsig (the p side's dsb), dinv (the q side's) and the albedo
+// weight sqrt(2/pi) co tw dcol are the per-row sums over rays. No J, no
+// ddirs.
+template <>
+struct Side<PlaneGeo> {
+  enum { kDsig, kDinv, kAx, kAy, kAz, kN };  // the sums
+
+  template <int EXP>
+  static __device__ void p_chain(const PlaneGeo& g, int p, float, float, float, float cr,
+                                 float cg, float cb, float, float tw, float A, float dmb,
+                                 float dsb, float (&v)[kN], double&, double&, double&) {
+    if (g.live) {
+      g.dmb[g.at(p)] = dmb;
+      g.dco[g.at(p)] = kSqrt2Pi * tw * A;
+    }
+    const float wp = kSqrt2Pi * g.co_at(p) * tw;
+    v[kDsig] = dsb;
+    v[kDinv] = 0.0f;
+    v[kAx] = wp * cr;
+    v[kAy] = wp * cg;
+    v[kAz] = wp * cb;
+  }
+
+  // Row q's base path with db (dbr) and, for a live row (live_row), the
+  // pair sums: dco, and dmb and dinv without the row's -2/sqrt(pi) co_q.
+  // mb and inv are the row's, from the q side's slots (read again from the
+  // planes here, their addresses would stay live across the pair pass and
+  // spill).
+  template <int ERF>
+  static __device__ void q_chain(const PlaneGeo& g, int q, bool live_row, float mb, float inv,
+                                 float dbr, float dco, float dmb, float dinv, float (&v)[kN]) {
+    const float co = g.co_at(q);
+    float e1, g1;
+    erf_and_gauss<ERF>(-mb * inv, e1, g1);
+    const float derf1 = kDerf * dbr * co * g1;
+    const float nco = -kDerf * co;
+    if (g.live) {
+      const int at = g.at(q);
+      const float pco = live_row ? g.dco[at] : 0.0f, pmb = live_row ? g.dmb[at] : 0.0f;
+      g.dco[at] = pco + (live_row ? dco : 0.0f) + dbr * e1;
+      g.dmb[at] = pmb + (live_row ? nco * dmb : 0.0f) - derf1 * inv;
+    }
+    v[kDsig] = 0.0f;
+    v[kDinv] = (live_row ? nco * dinv : 0.0f) - derf1 * mb;
+    v[kAx] = v[kAy] = v[kAz] = 0.0f;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // per-row gradients and ddirs from the partial sums
 // ---------------------------------------------------------------------------
@@ -305,6 +361,34 @@ __global__ void bwd_rows_kernel(const float* __restrict__ oc, const float* __res
     for (int j = 0; j < kSums; ++j) s[j] += rows_p[o + j] + rows_q[o + j];
   }
   Side<Geo>::finish(oc, shape, mag, row, s, doc, dshape, dmag, dalb);
+}
+
+// Plane rows, one thread per (tile, row): dsig, dinv and, if dalb is not
+// null, dalb, the p side's sums (live rows) and the q side's (every row)
+// over the ray blocks in order; dsig and dalb are zero past the count.
+__global__ void plane_rows_kernel(const int* __restrict__ counts, const float* __restrict__ rows_p,
+                                  const float* __restrict__ rows_q, float* __restrict__ dsig,
+                                  float* __restrict__ dinv, float* __restrict__ dalb, int B, int N,
+                                  int n_rb) {
+  using S = Side<PlaneGeo>;
+  const size_t row = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (row >= static_cast<size_t>(B) * N) return;
+  const int b = static_cast<int>(row / N);
+  const int q = static_cast<int>(row % N);
+  const bool live = q < max(0, min(counts[b], N));
+  float s[S::kN];
+#pragma unroll
+  for (int j = 0; j < S::kN; ++j) s[j] = 0.0f;
+  for (int rb = 0; rb < n_rb; ++rb) {
+    const size_t o = ((static_cast<size_t>(b) * n_rb + rb) * N + q) * S::kN;
+#pragma unroll
+    for (int j = 0; j < S::kN; ++j) s[j] += (live ? rows_p[o + j] : 0.0f) + rows_q[o + j];
+  }
+  dsig[row] = s[S::kDsig];
+  dinv[row] = s[S::kDinv];
+  if (dalb != nullptr) {
+    for (int c = 0; c < 3; ++c) dalb[3 * row + c] = s[S::kAx + c];
+  }
 }
 
 // ddirs[b, c, r] = the p side's live blocks in order, then the q side's.

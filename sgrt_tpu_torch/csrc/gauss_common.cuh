@@ -1,10 +1,11 @@
 // Device math shared by the chunked kernels (chunked.cu, also every fused
-// kernel) and the split kernels (split.cu): the erf/exp variants the
-// kernels are compiled for, the rounding-controlled Gaussian exponent, a
-// row's per-row constants, the two row geometries (isotropic and
-// anisotropic), the five quadrature taps, a warp sum, a block's per-row
-// sums over rays, pass A over staged rows, the ordered sum of per-block
-// partials, and on the host a kernel's resources per SM.
+// kernel and the split backwards) and the split forwards (split.cu): the
+// erf/exp variants the kernels are compiled for, the rounding-controlled
+// Gaussian exponent, a row's per-row constants, the three row geometries
+// (isotropic, anisotropic, and plane rows read from precomputed planes),
+// the five quadrature taps, a warp sum, the split forwards' pass A over
+// staged rows, the ordered sum of per-block partials, and on the host a
+// kernel's resources per SM.
 //
 // No fast-math anywhere: the A&S reciprocal is an IEEE division and expf is
 // the accurate one, so "as5" is the float32-exact erf and the kernels agree
@@ -132,22 +133,30 @@ __device__ __forceinline__ float coeff(float cs, float ocsq, float mb, float i2s
 // ---------------------------------------------------------------------------
 // Row geometries. A Gaussian row seen along a ray is a 1-D Gaussian with
 // per-(row, ray) parameters; the kernels are templates over how those are
-// made, so that one forward and one backward serve both:
+// made, so that one forward and one backward serve every geometry:
 //   mb  = the ray parameter of the peak (mu_bar)
 //   sb  = the standard deviation along the ray (sigma_bar)
 //   co  = mag sb sqrt(pi/2) exp(exponent)
 //   inv = 1 / (sqrt2 sb)
-// A geometry reads a row's constants from device memory (fields) and makes
-// its terms for one ray from them (terms; row is terms(fields(row))).
+// A scene geometry reads a row's constants from device memory (fields) and
+// makes its terms for one ray from them (terms; row is terms(fields(row)));
+// plane rows read their terms as they are (PlaneGeo).
 // ---------------------------------------------------------------------------
 
 struct RayTerms {
   float mb, sb, co, inv;
 };
 
+// What a geometry takes beyond the chunked kernels' (oc, shape, mag, dirs)
+// arguments: nothing for the two that make their terms from the scene.
+struct NoArgs {};
+
 // Isotropic rows: sigma (B,N) is one number per row, so sb = sigma and inv
 // are per row; mb = oc . d and the exponent -(|oc|^2 - mb^2) / (2 sigma^2).
 struct IsoGeo {
+  using Args = NoArgs;
+  static constexpr bool kPlanes = false;
+
   const float* oc;
   const float* sig;
   const float* mag;
@@ -196,6 +205,9 @@ struct IsoGeo {
 // the ray's terms are made from them per (row, ray), about 25 FP32
 // instructions and 2 SFU operations.
 struct AnisoGeo {
+  using Args = NoArgs;
+  static constexpr bool kPlanes = false;
+
   const float* oc;
   const float* invd;
   const float* mag;
@@ -245,6 +257,70 @@ struct AnisoGeo {
   }
 };
 
+// Plane rows (the split kernels, pallas_kernel.py's tw and colors kernels):
+// a row's terms are made outside the kernels (ops/cuda_split.py,
+// prep_terms_t) and read here: mb and co per (row, ray) from Gaussian-major
+// (B,N,R) planes, sb = sigma and inv per row, inv an input of its own (not
+// made from sigma). There is nothing to compute, so a geometry object is one
+// thread's, bound to its ray r of tile b: a lane past R reads mb = co = 0,
+// and every sum it makes is zero. No directions and no J: the planes' own
+// gradients are the backward's outputs. Beside the inputs, Args carries the
+// backward's: g (B,N,R), the cotangent of tw (null in the colors backward,
+// whose g is sqrt(2/pi) co albedo . dcol), and the outputs dmb, dco (B,N,R)
+// and dsig, dinv (B,N).
+struct PlaneGeo {
+  struct Args {
+    const float* mb;
+    const float* co;
+    const float* sig;
+    const float* inv;
+    const float* g;
+    float* dmb;
+    float* dco;
+    float* dsig;
+    float* dinv;
+  };
+  static constexpr bool kPlanes = true;
+
+  // the inputs' and outputs' own pointers (kernel arguments, which the
+  // kernels read from the constant bank rather than hold in registers) and
+  // the thread's offsets into them
+  const float* mb;
+  const float* co;
+  const float* sig;
+  const float* inv;
+  const float* g;   // or null
+  float* dmb;
+  float* dco;
+  int at0;          // (b, 0, r) of a (B,N,R) plane (the host keeps B N R < 2^31)
+  int row0;         // tile b's first row, b N
+  int R;
+  bool live;        // r < R
+
+  __device__ PlaneGeo(const Args& a, int b, int N, int R_, int r)
+      : mb(a.mb), co(a.co), sig(a.sig), inv(a.inv), g(a.g), dmb(a.dmb), dco(a.dco),
+        at0(b * N * R_ + r), row0(b * N), R(R_), live(r < R_) {}
+
+  // row q's element of a (B,N,R) plane for the thread's ray
+  __device__ int at(int q) const { return at0 + q * R; }
+
+  __device__ float mb_at(int q) const { return live ? mb[at(q)] : 0.0f; }
+  __device__ float co_at(int q) const { return live ? co[at(q)] : 0.0f; }
+  __device__ float g_at(int q) const { return live ? g[at(q)] : 0.0f; }
+  __device__ float sig_at(int q) const { return sig[row0 + q]; }
+  __device__ float inv_at(int q) const { return inv[row0 + q]; }
+
+  template <int EXP>
+  __device__ RayTerms row(int q, float, float, float) const {
+    RayTerms t;
+    t.mb = mb_at(q);
+    t.sb = sig_at(q);
+    t.co = co_at(q);
+    t.inv = inv_at(q);
+    return t;
+  }
+};
+
 // Tap i in 0..4 is k = i - 4; its weight is w_k = exp(-k^2/2). Called with
 // unrolled constant indices, both fold to literals.
 __device__ __forceinline__ float tap_k(int i) { return static_cast<float>(i - 4); }
@@ -264,33 +340,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One row's S values summed over the block's rays in a fixed order (warp
-// butterfly, then the warps in order); thread j < S writes sum j to out[j],
-// or adds it with accumulate. red holds S floats per warp. Every thread of
-// the block calls it.
-template <int S>
-__device__ __forceinline__ void row_sums(const float (&v)[S], float* red, float* out,
-                                         bool accumulate = false) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const float s = warp_sum(v[j]);
-    if (lane == 0) red[warp * S + j] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < S) {
-    float s = 0.0f;
-    const int nw = blockDim.x >> 5;
-    for (int w = 0; w < nw; ++w) s += red[w * S + threadIdx.x];
-    out[threadIdx.x] = accumulate ? out[threadIdx.x] + s : s;
-  }
-  __syncthreads();
-}
-
 // Pass A of PB p rows of one ray against the q rows [q_lo, q_hi) of one
 // tile, staged qb rows at a time through shared memory by a geometry that
 // stages rows (stage) and reads a staged row's terms (staged; split.cu's
-// PlaneGeo):
+// StagedPlanes):
 //   acc[i][k] += co_q erf((mb_p + k sb_p - mb_q) inv_q)
 // and, with with_base, base += co_q erf(-mb_q inv_q). sgp holds the p rows'
 // sb (sigma for isotropic rows). Every thread of the block calls it with

@@ -1,12 +1,13 @@
-// Split kernels of the Gaussian ray tracer for Hopper (sm_90a): the
-// transmittance weights tw and the colors from precomputed Gaussian-major
-// (B,N,R) planes, and their VJPs.
+// The split forward kernels of the Gaussian ray tracer for Hopper (sm_90a):
+// the transmittance weights tw and the colors from precomputed
+// Gaussian-major (B,N,R) planes.
 //
 // Replaces the TPU kernels of sgrt_tpu/ops/pallas_kernel.py:
 //   _fwd_kernel        (tw_pallas's forward)      entry point sgrt_split_fwd
-//   _bwd_kernel        (tw_pallas's VJP)          entry point sgrt_split_bwd
 //   _fwd_color_kernel  (colors_pallas's forward)  entry point sgrt_split_fwd_color
-//   _bwd_color_kernel  (colors_pallas's VJP)      entry point sgrt_split_bwd_color
+// Their VJPs, _bwd_kernel and _bwd_color_kernel (sgrt_split_bwd,
+// sgrt_split_bwd_color), are chunked.cu's recompute backward at one chunk
+// over the same planes (gauss_common.cuh, PlaneGeo).
 //
 // The fused kernels' math (chunked.cu's note) with mb and co read from the
 // planes instead of made from oc and the ray: for tile b, count = min(counts,
@@ -16,56 +17,28 @@
 //   T_k(p,r)   = w_k exp(base(r) - acc_k(p,r)),  tw = sum_k T_k   (p < count; 0 past it)
 //   colors(:,r)= sum_{p < count} albedo_p sqrt(2/pi) co(p,r) tw(p,r)
 // base sums every row, as the Pallas kernels do; sigma_p of the taps and inv
-// are separate inputs (inv is not recomputed from sigma). The VJP from g =
-// d tw (or, for colors, g = sqrt(2/pi) co albedo . dcol plus the weights
-// path dco += sqrt(2/pi) tw albedo . dcol, dalbedo = sum_r sqrt(2/pi) co tw
-// dcol): G_k = g T_k, db = sum_p g tw, and per live pair with x_k = (mb_p -
-// mb_q + k sigma_p) inv_q, S0 = -2/sqrt(pi) co_q sum_k G_k exp(-x_k^2), S1 =
-// the same with k G_k:
-//   dmb_p += S0 inv_q, dsigma_p += S1 inv_q           (p side)
-//   dco_q -= sum_k G_k erf(x_k), dmb_q -= S0 inv_q,
-//   dinv_q += S0 (mb_p - mb_q) + S1 sigma_p           (q side)
-// and per row q of all N (the base path) dco_q += db erf(-mb inv), dmb_q -=
-// 2/sqrt(pi) db co exp(-(mb inv)^2) inv, dinv_q -= the same times mb / inv.
-// dsigma and dinv are summed over rays.
+// are separate inputs (inv is not recomputed from sigma).
 //
 // What bounds it on this card: operations. Per live (p, q, ray) the forward
-// evaluates five erf taps (~17 FP32, 2 SFU each, gauss_common.cuh); the
-// backward's p side redoes them (pass A) and adds five exp(-x^2) (~7 FP32, 1
-// SFU), its q side five erf-and-gauss taps (~21 FP32, 2 SFU). The planes
-// move far fewer bytes: each kernel reads and writes 2-5 (B,N,R) planes of 4
-// bytes a (row, ray), against 5 to 15 taps per (row, ray) and live row.
+// evaluates five erf taps (~17 FP32, 2 SFU each, gauss_common.cuh). The
+// planes move far fewer bytes: each kernel reads 2-3 (B,N,R) planes of 4
+// bytes a (row, ray), against 5 taps per (row, ray) and live row.
 //
-// What the design does about it (with the p/q split of the chunked
-// backward in chunked.cu):
-//   * One thread owns one ray and keeps PB rows' state in registers. The
-//     forward's and the p side's pass A is gauss_common.cuh's pass_a over
-//     PlaneGeo rows: the q rows' mb and co of each thread's ray are staged
-//     through shared memory (coalesced loads of qs rows at a time), with
-//     their inv. base runs over all N rows in its own sweep (pass_a's base
-//     would stop at the count).
-//   * The p axis is split over blocks (32 rows in the forward, 64 in the
-//     backward), so a tile spreads over many SMs. The Pallas backward's
-//     serial p loop per (tile, ray block) is not carried over: the backward
-//     is a p-side kernel (pass A, T, G = g T to scratch, db's partials, the
-//     p side's pair sums), a db sum, and a q-side kernel (the q side's pair
-//     sums against every live p row, reading G, then the base path), as
-//     chunked.cu's backward splits its pairs. dmb and dco are per (row,
-//     ray): the p side writes its part, the q side adds its part and the
-//     base path in stream order. Per-row sums over rays (dsigma, dinv, dalbedo) are a warp
-//     butterfly, the warps in order, then the ray blocks in order. No atomics:
-//     every result is deterministic.
-//   * Float32 at thousands of rows: every sum over the other side's rows
-//     (acc, base, the p side's dmb and dsigma, the q side's dco, dmb, dinv)
-//     is two-level, each block of kMaxStage rows summed on its own and then
-//     added to the running sum; db is summed per 64-row block, then over the
-//     blocks in order.
+// What the design does about it:
+//   * One thread owns one ray and keeps PB rows' state in registers; pass A
+//     is gauss_common.cuh's pass_a over StagedPlanes rows: the q rows' mb
+//     and co of each thread's ray are staged through shared memory
+//     (coalesced loads of qs rows at a time), with their inv. base runs over all N rows
+//     in its own sweep (pass_a's base would stop at the count).
+//   * The p axis is split over blocks of 32 rows, so a tile spreads over
+//     many SMs; the colors' per-split partials are summed in split order. No
+//     atomics: every result is deterministic.
+//   * Float32 at thousands of rows: acc and base are two-level, each block
+//     of kMaxStage rows summed on its own and then added to the running sum.
 //
-// Layouts (float32 unless noted, contiguous): mb, co, g, tw, dmb, dco
-// (B,N,R); sigma, inv, dsigma, dinv (B,N); albedo, dalbedo (B,N,3); dcol,
-// colors (B,3,R); counts (B,) int32. Scratch: partial (B, N/32, 3, R) for
-// the colors; one buffer for the backwards (scratch_layout: G, db's
-// partials and sums, the per-row sums).
+// Layouts (float32 unless noted, contiguous): mb, co, tw (B,N,R); sigma, inv
+// (B,N); albedo (B,N,3); colors (B,3,R); counts (B,) int32. Scratch: partial
+// (B, N/32, 3, R) for the colors.
 
 #include <cuda_runtime.h>
 
@@ -76,26 +49,23 @@ namespace {
 using namespace sgrt;
 
 constexpr int kRowsPerBlock = 32;  // forward: p rows per block
-constexpr int kRows = 64;          // backward: rows per block
-constexpr int kPB = 8;             // backward: rows a thread keeps in registers
 constexpr int kMaxThreads = 128;
-constexpr int kWarps = kMaxThreads / 32;
 constexpr int kMaxStage = 32;      // rows per staged pass and per first-level sum
-constexpr int kPSums = 4;          // per p row, summed over rays: dsigma, dalbedo rgb
 
-// The split kernels' row geometry: a row's terms for the thread's ray are
-// read from the planes. pass_a (gauss_common.cuh) calls stage and staged;
+// The split forwards' rows: a row's terms for the thread's ray are read
+// from the planes (as gauss_common.cuh's PlaneGeo reads them for the
+// backwards). pass_a (gauss_common.cuh) calls stage and staged;
 // each thread stages its own ray's mb and co of the qs rows (field-major,
 // st[j * T + t], T = blockDim.x), then the rows' inv. A lane past R reads
 // mb = co = 0, so every sum it makes is zero.
-struct PlaneGeo {
+struct StagedPlanes {
   const float* mb;   // the thread's ray in tile b: mb[q * R]
   const float* co;
   const float* inv;  // tile b's rows
   int R;
   bool live;
 
-  __device__ PlaneGeo(const float* mb_, const float* co_, const float* inv_, int b, int N,
+  __device__ StagedPlanes(const float* mb_, const float* co_, const float* inv_, int b, int N,
                       int R_, int r)
       : mb(mb_ + static_cast<size_t>(b) * N * R_ + r),
         co(co_ + static_cast<size_t>(b) * N * R_ + r),
@@ -130,31 +100,9 @@ struct PlaneGeo {
   }
 };
 
-// The backwards' scratch, n_rb ray blocks of threads rays, Rp = n_rb threads:
-struct Scratch {
-  float* G;        // (B, 5, N, Rp)  G_k = g T_k of the live rows
-  float* db_part;  // (B, N/64, Rp)  db per 64-row block
-  float* db;       // (B, Rp)
-  float* rows_p;   // (B, n_rb, N, kPSums)
-  float* rows_q;   // (B, n_rb, N)   dinv
-};
-
-// Floats of the scratch; with base, also the pointers into it.
-size_t scratch_layout(int B, int N, int R, int threads, float* base = nullptr,
-                      Scratch* s = nullptr) {
-  const size_t n_rb = (R + threads - 1) / threads, Rp = n_rb * threads;
-  const size_t nblk = (N + kRows - 1) / kRows, b = B;
-  const size_t sizes[5] = {b * kTaps * N * Rp, b * nblk * Rp, b * Rp, b * n_rb * N * kPSums,
-                           b * n_rb * N};
-  size_t off[6] = {0};
-  for (int i = 0; i < 5; ++i) off[i + 1] = off[i] + sizes[i];
-  if (s != nullptr) *s = {base + off[0], base + off[1], base + off[2], base + off[3], base + off[4]};
-  return off[5];
-}
-
 // base(r) over all N rows, two-level (blocks of kMaxStage rows).
 template <int ERF>
-__device__ float plane_base(const PlaneGeo& g, int N) {
+__device__ float plane_base(const StagedPlanes& g, int N) {
   float base = 0.0f;
   for (int q0 = 0; q0 < N; q0 += kMaxStage) {
     const int q1 = min(q0 + kMaxStage, N);
@@ -190,7 +138,7 @@ split_fwd_kernel(const float* __restrict__ mb, const float* __restrict__ co,
   if (p_begin >= cnt) return;  // block-uniform: no live rows in this split
   const int p_end = min(p_begin + kRowsPerBlock, cnt);
 
-  const PlaneGeo geo(mb, co, inv, b, N, R, r);
+  const StagedPlanes geo(mb, co, inv, b, N, R, r);
   const float* sig_b = sig + static_cast<size_t>(b) * N;
   const float* alb_b = COLORS ? alb + static_cast<size_t>(b) * N * 3 : nullptr;
   const float base = plane_base<ERF>(geo, N);
@@ -234,280 +182,11 @@ split_fwd_kernel(const float* __restrict__ mb, const float* __restrict__ co,
 }
 
 // ---------------------------------------------------------------------------
-// backward, p side: the live rows of one 64-row block
-// ---------------------------------------------------------------------------
-
-template <int ERF, int EXP, bool COLORS>
-__global__ void __launch_bounds__(kMaxThreads)
-split_bwd_p_kernel(const float* __restrict__ mb, const float* __restrict__ co,
-                   const float* __restrict__ sig, const float* __restrict__ inv,
-                   const float* __restrict__ alb, const int* __restrict__ counts,
-                   const float* __restrict__ g, const float* __restrict__ dcol,
-                   float* __restrict__ G, float* __restrict__ db_part,
-                   float* __restrict__ rows_p, float* __restrict__ dmb,
-                   float* __restrict__ dco, int N, int R, int Rp, int qs) {
-  extern __shared__ float smem[];
-  float* stage = smem;
-  float* red = smem + PlaneGeo::stage_floats(qs, blockDim.x);
-  const int b = blockIdx.z, blk = blockIdx.y, rblk = blockIdx.x;
-  const int r = rblk * blockDim.x + threadIdx.x;  // < Rp always
-  const int cnt = max(0, min(counts[b], N));
-  const int p_begin = blk * kRows;
-  if (p_begin >= cnt) return;  // block-uniform; the db sum skips dead blocks
-  const int p_end = min(p_begin + kRows, cnt);
-  const bool live_ray = r < R;
-  const PlaneGeo geo(mb, co, inv, b, N, R, r);
-  const float* sig_b = sig + static_cast<size_t>(b) * N;
-  const float* inv_b = inv + static_cast<size_t>(b) * N;
-  const size_t plane = static_cast<size_t>(b) * N * R + r;  // (b, 0, r) of a (B,N,R) plane
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  if (COLORS && live_ray) {
-    const size_t o = static_cast<size_t>(b) * 3 * R;
-    cr = dcol[o + r];
-    cg = dcol[o + R + r];
-    cb = dcol[o + 2 * R + r];
-  }
-  float* G_b = G + static_cast<size_t>(b) * kTaps * N * Rp + r;
-  const int n_rb = gridDim.x;
-  const float base = plane_base<ERF>(geo, N);
-  float db = 0.0f, unused = 0.0f;
-
-  for (int p0 = p_begin; p0 < p_end; p0 += kPB) {
-    float mbp[kPB], sgp[kPB], Gk[kPB][kTaps];
-#pragma unroll
-    for (int i = 0; i < kPB; ++i) {
-      const int p = p0 + i;
-      mbp[i] = p < p_end ? geo.mb_at(p) : 0.0f;
-      sgp[i] = p < p_end ? sig_b[p] : 1.0f;
-#pragma unroll
-      for (int k = 0; k < kTaps; ++k) Gk[i][k] = 0.0f;
-    }
-    // pass A over every live q, as the forward runs it
-    pass_a<kPB, ERF, EXP>(stage, qs, geo, 0, cnt, 0.0f, 0.0f, 1.0f, mbp, sgp, Gk, false, unused);
-
-    // T, tw, the cotangent g, G_k = g T_k (to scratch), db and the weights path
-    float tw[kPB], dco_w[kPB], wp[kPB];
-#pragma unroll
-    for (int i = 0; i < kPB; ++i) {
-      const int p = p0 + i;
-      const bool live = p < p_end;
-      tw[i] = dco_w[i] = wp[i] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kTaps; ++k) {
-        Gk[i][k] = live ? tap_weight(k) * exp_fn<EXP>(base - Gk[i][k]) : 0.0f;
-        tw[i] += Gk[i][k];
-      }
-      float gp = 0.0f;
-      if (live && live_ray) {
-        if (COLORS) {
-          const float A = alb[(static_cast<size_t>(b) * N + p) * 3] * cr +
-                          alb[(static_cast<size_t>(b) * N + p) * 3 + 1] * cg +
-                          alb[(static_cast<size_t>(b) * N + p) * 3 + 2] * cb;
-          const float cop = geo.co_at(p);
-          gp = kSqrt2Pi * cop * A;
-          dco_w[i] = kSqrt2Pi * tw[i] * A;
-          wp[i] = kSqrt2Pi * cop * tw[i];
-        } else {
-          gp = g[plane + static_cast<size_t>(p) * R];
-        }
-      }
-      db += gp * tw[i];
-#pragma unroll
-      for (int k = 0; k < kTaps; ++k) {
-        Gk[i][k] *= gp;
-        if (live) G_b[(static_cast<size_t>(k) * N + p) * Rp] = Gk[i][k];
-      }
-    }
-
-    // the pair pass, p side: only exp(-x^2) of each tap is needed here
-    float dmbp[kPB], dsgp[kPB];
-#pragma unroll
-    for (int i = 0; i < kPB; ++i) dmbp[i] = dsgp[i] = 0.0f;
-    for (int q0 = 0; q0 < cnt; q0 += kMaxStage) {
-      const int q1 = min(q0 + kMaxStage, cnt);
-      float pdmb[kPB], pdsg[kPB];
-#pragma unroll
-      for (int i = 0; i < kPB; ++i) pdmb[i] = pdsg[i] = 0.0f;
-      for (int q = q0; q < q1; ++q) {
-        const float mbq = geo.mb_at(q), invq = inv_b[q];
-        const float nco = -kDerf * geo.co_at(q);
-#pragma unroll
-        for (int i = 0; i < kPB; ++i) {
-          const float dd = mbp[i] - mbq;
-          float t0 = 0.0f, t1 = 0.0f;
-#pragma unroll
-          for (int k = 0; k < kTaps; ++k) {
-            const float x = (dd + tap_k(k) * sgp[i]) * invq;
-            const float gg = Gk[i][k] * expf(-x * x);  // erf_and_gauss's gauss
-            t0 += gg;
-            t1 += tap_k(k) * gg;
-          }
-          pdmb[i] += (nco * t0) * invq;
-          pdsg[i] += (nco * t1) * invq;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kPB; ++i) {
-        dmbp[i] += pdmb[i];
-        dsgp[i] += pdsg[i];
-      }
-    }
-
-    // the p side's parts of dmb and dco, and its per-row sums over rays
-#pragma unroll
-    for (int i = 0; i < kPB; ++i) {
-      const int p = p0 + i;
-      if (p >= p_end) break;  // block-uniform
-      if (live_ray) {
-        dmb[plane + static_cast<size_t>(p) * R] = dmbp[i];
-        dco[plane + static_cast<size_t>(p) * R] = dco_w[i];
-      }
-      const float v[kPSums] = {dsgp[i], wp[i] * cr, wp[i] * cg, wp[i] * cb};
-      row_sums<kPSums>(v, red, rows_p + ((static_cast<size_t>(b) * n_rb + rblk) * N + p) * kPSums);
-    }
-  }
-  db_part[(static_cast<size_t>(b) * gridDim.y + blk) * Rp + r] = db;
-}
-
-// ---------------------------------------------------------------------------
-// backward, q side: every row of one 64-row block (the pairs for live rows,
-// the base path for all)
-// ---------------------------------------------------------------------------
-
-template <int ERF>
-__global__ void __launch_bounds__(kMaxThreads)
-split_bwd_q_kernel(const float* __restrict__ mb, const float* __restrict__ co,
-                   const float* __restrict__ sig, const float* __restrict__ inv,
-                   const int* __restrict__ counts, const float* __restrict__ G,
-                   const float* __restrict__ db, float* __restrict__ rows_q,
-                   float* __restrict__ dmb, float* __restrict__ dco, int N, int R, int Rp) {
-  __shared__ float red[kWarps];
-  const int b = blockIdx.z, blk = blockIdx.y, rblk = blockIdx.x;
-  const int r = rblk * blockDim.x + threadIdx.x;
-  const int cnt = max(0, min(counts[b], N));
-  const int q_begin = blk * kRows, q_end = min(q_begin + kRows, N);
-  const bool live_ray = r < R;
-  const PlaneGeo geo(mb, co, inv, b, N, R, r);
-  const float* sig_b = sig + static_cast<size_t>(b) * N;
-  const float* inv_b = inv + static_cast<size_t>(b) * N;
-  const float* G_b = G + static_cast<size_t>(b) * kTaps * N * Rp + r;
-  const size_t plane = static_cast<size_t>(b) * N * R + r;
-  const float dbr = db[static_cast<size_t>(b) * Rp + r];  // zero on dead lanes
-  const int n_rb = gridDim.x;
-
-  for (int q0 = q_begin; q0 < q_end; q0 += kPB) {
-    float mbq[kPB], coq[kPB], invq[kPB], dcoq[kPB], dmbq[kPB], dinvq[kPB];
-#pragma unroll
-    for (int i = 0; i < kPB; ++i) {
-      const int q = min(q0 + i, q_end - 1);
-      mbq[i] = geo.mb_at(q);
-      coq[i] = geo.co_at(q);
-      invq[i] = inv_b[q];
-      dcoq[i] = dmbq[i] = dinvq[i] = 0.0f;
-    }
-    if (q0 < cnt) {  // block-uniform: the group has live rows
-      for (int pp = 0; pp < cnt; pp += kMaxStage) {
-        const int p1 = min(pp + kMaxStage, cnt);
-        float pdco[kPB], pdmb[kPB], pdinv[kPB];
-#pragma unroll
-        for (int i = 0; i < kPB; ++i) pdco[i] = pdmb[i] = pdinv[i] = 0.0f;
-        for (int p = pp; p < p1; ++p) {
-          const float mbp = geo.mb_at(p), sgp = sig_b[p];
-          float Gp[kTaps];
-#pragma unroll
-          for (int k = 0; k < kTaps; ++k) Gp[k] = G_b[(static_cast<size_t>(k) * N + p) * Rp];
-#pragma unroll
-          for (int i = 0; i < kPB; ++i) {
-            const float dd = mbp - mbq[i];
-            float t0 = 0.0f, t1 = 0.0f;
-#pragma unroll
-            for (int k = 0; k < kTaps; ++k) {
-              float ee, gau;
-              erf_and_gauss<ERF>((dd + tap_k(k) * sgp) * invq[i], ee, gau);
-              pdco[i] -= Gp[k] * ee;
-              const float gg = Gp[k] * gau;
-              t0 += gg;
-              t1 += tap_k(k) * gg;
-            }
-            const float nco = -kDerf * coq[i];
-            const float s0 = nco * t0, s1 = nco * t1;
-            pdmb[i] -= s0 * invq[i];
-            pdinv[i] += s0 * dd + s1 * sgp;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kPB; ++i) {
-          dcoq[i] += pdco[i];
-          dmbq[i] += pdmb[i];
-          dinvq[i] += pdinv[i];
-        }
-      }
-    }
-
-    // rows past the count keep only the base path; live rows add the p
-    // side's parts written before
-#pragma unroll
-    for (int i = 0; i < kPB; ++i) {
-      const int q = q0 + i;
-      if (q >= q_end) break;  // block-uniform
-      const bool live = q < cnt;
-      float e1, g1;
-      erf_and_gauss<ERF>(-mbq[i] * invq[i], e1, g1);
-      const float derf1 = kDerf * dbr * coq[i] * g1;
-      const size_t at = plane + static_cast<size_t>(q) * R;
-      if (live_ray) {
-        const float pco = live ? dco[at] : 0.0f, pmb = live ? dmb[at] : 0.0f;
-        dco[at] = pco + (live ? dcoq[i] : 0.0f) + dbr * e1;
-        dmb[at] = pmb + (live ? dmbq[i] : 0.0f) - derf1 * invq[i];
-      }
-      const float v[1] = {(live ? dinvq[i] : 0.0f) - derf1 * mbq[i]};
-      row_sums<1>(v, red, rows_q + (static_cast<size_t>(b) * n_rb + rblk) * N + q);
-    }
-  }
-}
-
-// One thread per (tile, row): dsigma, dinv and dalbedo summed over the ray
-// blocks in order; dsigma and dalbedo are zero past the count.
-template <bool COLORS>
-__global__ void split_rows_kernel(const int* __restrict__ counts,
-                                  const float* __restrict__ rows_p,
-                                  const float* __restrict__ rows_q, float* __restrict__ dsig,
-                                  float* __restrict__ dinv, float* __restrict__ dalb, int B,
-                                  int N, int n_rb) {
-  const size_t row = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= static_cast<size_t>(B) * N) return;
-  const int b = static_cast<int>(row / N);
-  const int p = static_cast<int>(row % N);
-  const bool live = p < max(0, min(counts[b], N));
-  float s[kPSums] = {0.0f, 0.0f, 0.0f, 0.0f}, si = 0.0f;
-  for (int rb = 0; rb < n_rb; ++rb) {
-    const size_t o = (static_cast<size_t>(b) * n_rb + rb) * N + p;
-    si += rows_q[o];
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < kPSums; ++j) s[j] += rows_p[o * kPSums + j];
-    }
-  }
-  dinv[row] = si;
-  dsig[row] = s[0];
-  if (COLORS) {
-    dalb[3 * row] = s[1];
-    dalb[3 * row + 1] = s[2];
-    dalb[3 * row + 2] = s[3];
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 using FwdKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                            const int*, float*, float*, int, int, int, int);
-using PKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
-                         const int*, const float*, const float*, float*, float*, float*, float*,
-                         float*, int, int, int, int);
-using QKernel = void (*)(const float*, const float*, const float*, const float*, const int*,
-                         const float*, const float*, float*, float*, float*, int, int, int);
 
 template <int PB, bool COLORS>
 FwdKernel pick_fwd_pb(int erf_id, int exp_id) {
@@ -516,25 +195,6 @@ FwdKernel pick_fwd_pb(int erf_id, int exp_id) {
   if (erf_id == kErfAs3 && exp_id == kExpExact) return split_fwd_kernel<PB, kErfAs3, kExpExact, COLORS>;
   if (erf_id == kErfAs3 && exp_id == kExpFast) return split_fwd_kernel<PB, kErfAs3, kExpFast, COLORS>;
   return nullptr;
-}
-
-template <bool COLORS>
-PKernel pick_p(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return split_bwd_p_kernel<kErfAs5, kExpExact, COLORS>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return split_bwd_p_kernel<kErfAs5, kExpFast, COLORS>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return split_bwd_p_kernel<kErfAs3, kExpExact, COLORS>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return split_bwd_p_kernel<kErfAs3, kExpFast, COLORS>;
-  return nullptr;
-}
-
-QKernel pick_q(int erf_id) {
-  if (erf_id == kErfAs5) return split_bwd_q_kernel<kErfAs5>;
-  if (erf_id == kErfAs3) return split_bwd_q_kernel<kErfAs3>;
-  return nullptr;
-}
-
-unsigned blocks_for(size_t n, int threads) {
-  return static_cast<unsigned>((n + threads - 1) / threads);
 }
 
 bool bad_shape(int B, int N, int R, int threads, int qb) {
@@ -555,7 +215,7 @@ int launch_fwd(const float* mb, const float* co, const float* sig, const float* 
     return static_cast<int>(cudaErrorInvalidValue);
   const int qs = min(qb, kMaxStage);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * PlaneGeo::stage_floats(qs, threads);
+  const size_t smem = sizeof(float) * StagedPlanes::stage_floats(qs, threads);
   fn<<<dim3((R + threads - 1) / threads, n_split, B), threads, smem, s>>>(
       mb, co, sig, inv, alb, counts, tw, partial, N, R, qs, n_split);
   cudaError_t err = cudaGetLastError();
@@ -565,39 +225,6 @@ int launch_fwd(const float* mb, const float* co, const float* sig, const float* 
       launch_block_sums(partial, counts, colors, B, N, 3 * R, n_split, kRowsPerBlock, 0, s));
 }
 
-template <bool COLORS>
-int launch_bwd(const float* mb, const float* co, const float* sig, const float* inv,
-               const float* alb, const int* counts, const float* g, const float* dcol,
-               float* scratch, float* dmb, float* dco, float* dsig, float* dinv, float* dalb,
-               int B, int N, int R, int threads, int qb, int erf_id, int exp_id, void* stream) {
-  PKernel pfn = pick_p<COLORS>(erf_id, exp_id);
-  QKernel qfn = pick_q(erf_id);
-  const int nblk = (N + kRows - 1) / kRows;
-  if (pfn == nullptr || qfn == nullptr || bad_shape(B, N, R, threads, qb) || nblk > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int qs = min(qb, kMaxStage);
-  const int n_rb = (R + threads - 1) / threads;
-  const int Rp = n_rb * threads;
-  Scratch sc;
-  scratch_layout(B, N, R, threads, scratch, &sc);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem_p = sizeof(float) * (PlaneGeo::stage_floats(qs, threads) + kWarps * kPSums);
-  cudaError_t err;
-  pfn<<<dim3(n_rb, nblk, B), threads, smem_p, st>>>(mb, co, sig, inv, alb, counts, g, dcol, sc.G,
-                                                    sc.db_part, sc.rows_p, dmb, dco, N, R, Rp, qs);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  // db = the live 64-row blocks summed in block order
-  if ((err = launch_block_sums(sc.db_part, counts, sc.db, B, N, Rp, nblk, kRows, 0, st)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  qfn<<<dim3(n_rb, nblk, B), threads, 0, st>>>(mb, co, sig, inv, counts, sc.G, sc.db, sc.rows_q,
-                                               dmb, dco, N, R, Rp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  split_rows_kernel<COLORS><<<blocks_for(static_cast<size_t>(B) * N, 256), 256, 0, st>>>(
-      counts, sc.rows_p, sc.rows_q, dsig, dinv, dalb, B, N, n_rb);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -605,11 +232,6 @@ extern "C" {
 int sgrt_split_fwd_rows_per_block() { return kRowsPerBlock; }
 
 int sgrt_split_max_threads() { return kMaxThreads; }
-
-// Floats of scratch that one backward launch needs (either backward).
-long long sgrt_split_bwd_scratch_floats(int B, int N, int R, int threads) {
-  return static_cast<long long>(scratch_layout(B, N, R, threads));
-}
 
 const char* sgrt_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -631,26 +253,6 @@ int sgrt_split_fwd_color(const float* mb, const float* co, const float* sig, con
                          int exp_id, void* stream) {
   return launch_fwd<true>(mb, co, sig, inv, alb, counts, nullptr, partial, colors, B, N, R,
                           threads, pb, qb, erf_id, exp_id, stream);
-}
-
-// The VJP of sgrt_split_fwd for g (B,N,R): dmb, dco (B,N,R), dsig, dinv (B,N).
-int sgrt_split_bwd(const float* mb, const float* co, const float* sig, const float* inv,
-                   const int* counts, const float* g, float* scratch, float* dmb, float* dco,
-                   float* dsig, float* dinv, int B, int N, int R, int threads, int qb,
-                   int erf_id, int exp_id, void* stream) {
-  return launch_bwd<false>(mb, co, sig, inv, nullptr, counts, g, nullptr, scratch, dmb, dco,
-                           dsig, dinv, nullptr, B, N, R, threads, qb, erf_id, exp_id, stream);
-}
-
-// The VJP of sgrt_split_fwd_color for dcol (B,3,R): as sgrt_split_bwd, plus
-// dalb (B,N,3).
-int sgrt_split_bwd_color(const float* mb, const float* co, const float* sig, const float* inv,
-                         const float* alb, const int* counts, const float* dcol, float* scratch,
-                         float* dmb, float* dco, float* dsig, float* dinv, float* dalb, int B,
-                         int N, int R, int threads, int qb, int erf_id, int exp_id,
-                         void* stream) {
-  return launch_bwd<true>(mb, co, sig, inv, alb, counts, nullptr, dcol, scratch, dmb, dco, dsig,
-                          dinv, dalb, B, N, R, threads, qb, erf_id, exp_id, stream);
 }
 
 }  // extern "C"

@@ -24,14 +24,19 @@ sums q < count, and g past the count is ignored (tw there is a constant).
 The two agree whenever counts are multiples of pb and qb, or rows past the
 count are inert (co = 0), as tiling makes them.
 
-Four kernels (csrc/split.cu), each with a wrapper that launches it for
-tensors on the card (or raises) and runs its plain version for tensors on
-the CPU:
+Four kernels, each with a wrapper that launches it for tensors on the card
+(or raises) and runs its plain version for tensors on the CPU:
 
-    split_forward          tw              (_fwd_kernel)
-    split_backward         dmb, dco, dsigma, dinv from dtw       (_bwd_kernel)
-    split_forward_color    colors          (_fwd_color_kernel)
-    split_backward_color   ... and dalbedo from dcolors          (_bwd_color_kernel)
+    split_forward          csrc/split.cu    tw          (_fwd_kernel)
+    split_backward         csrc/chunked.cu  dmb, dco, dsigma, dinv from dtw  (_bwd_kernel)
+    split_forward_color    csrc/split.cu    colors      (_fwd_color_kernel)
+    split_backward_color   csrc/chunked.cu  ... and dalbedo from dcolors     (_bwd_color_kernel)
+
+The backwards are csrc/chunked.cu's recompute backward at one chunk over
+plane rows (PlaneGeo): the forward-with-T over the planes writes T to
+scratch, then its p side, db sum, q side and a rows kernel, in blocks of 32
+rays. They take qb (the rows staged per shared-memory pass); rb and rb_bwd
+stay the Pallas API's block rule on the host.
 
 TwSplit and ColorsSplit join them into differentiable ops, tw_split and
 colors_split the counterparts of tw_pallas and colors_pallas, with their
@@ -70,13 +75,14 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
 )
 from sgrt_tpu_torch.ops.reference import INV_SQRT_2_PI, SQRT_2
 
-_SRC, _TPU = "split.cu", "sgrt_tpu/ops/pallas_kernel.py"
+_SRC, _BWD_SRC, _TPU = "split.cu", "chunked.cu", "sgrt_tpu/ops/pallas_kernel.py"
 SPLIT_FWD = CudaKernel("split_fwd", _SRC, "sgrt_split_fwd", f"{_TPU}:181", 6, 8)
-SPLIT_BWD = CudaKernel("split_bwd", _SRC, "sgrt_split_bwd", f"{_TPU}:256", 11, 7)
+SPLIT_BWD = CudaKernel("split_bwd", _BWD_SRC, "sgrt_split_bwd", f"{_TPU}:256", 12, 7,
+                       timed=True)
 SPLIT_FWD_COLOR = CudaKernel("split_fwd_color", _SRC, "sgrt_split_fwd_color",
                              f"{_TPU}:213", 8, 8)
-SPLIT_BWD_COLOR = CudaKernel("split_bwd_color", _SRC, "sgrt_split_bwd_color",
-                             f"{_TPU}:329", 13, 7)
+SPLIT_BWD_COLOR = CudaKernel("split_bwd_color", _BWD_SRC, "sgrt_split_bwd_color",
+                             f"{_TPU}:329", 14, 7, timed=True)
 
 
 # ---------------------------------------------------------------------------
@@ -241,10 +247,10 @@ def _plane_shapes(mb, co, sigma, inv, counts, albedo=None) -> dict:
     return want
 
 
-def _ints(kernel, mb, rb, blocks, erf_name, exp_name):
+def _ints(kernel, mb, rb, blocks, erf_name, exp_name, max_threads="sgrt_split_max_threads"):
     """The launch's ints: B, N, R, threads, the block sizes, erf and exp."""
     b, n, r = mb.shape
-    threads = _threads(kernel.query("sgrt_split_max_threads"), rb, r)
+    threads = _threads(kernel.query(max_threads), rb, r)
     return [b, n, r, threads, *blocks, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]]
 
 
@@ -284,13 +290,16 @@ def split_forward_color(mb, co, sigma, inv, albedo, counts, *, rb: int = 128, pb
     return colors
 
 
-def _backward_launch(kernel, ins, albedo, *, rb, qb, erf_name, exp_name):
-    """Launch a backward entry point of csrc/split.cu on checked CUDA
-    inputs with its scratch (the kernel's own count of floats):
-    (dmb, dco, dsigma, dinv[, dalbedo])."""
+def _backward_launch(kernel, ins, albedo, *, rb, qb, erf_name, exp_name, part_ms):
+    """Launch a split backward entry point of csrc/chunked.cu on checked
+    CUDA inputs with its scratch (the kernel's own count of floats):
+    (dmb, dco, dsigma, dinv[, dalbedo]). part_ms: a float32 CPU tensor of 5
+    that receives the device ms of the launch's kernels (the forward-with-T,
+    p side, db sum, q side, rows kernel; the call then waits for the card),
+    or None."""
     _check_names(erf_name, exp_name)
     mb = ins[0]
-    ints = _ints(kernel, mb, rb, (qb,), erf_name, exp_name)
+    ints = _ints(kernel, mb, rb, (qb,), erf_name, exp_name, "sgrt_chunked_max_threads")
     b, n, _, _ = ints[:4]
     count = kernel.library().sgrt_split_bwd_scratch_floats
     count.argtypes = [ctypes.c_int] * 4
@@ -301,27 +310,31 @@ def _backward_launch(kernel, ins, albedo, *, rb, qb, erf_name, exp_name):
             torch.empty((b, n), **f32)]
     if albedo is not None:
         outs.append(torch.empty((b, n, 3), **f32))
-    kernel.launch(ins + scratch + outs, ints, what=f"(B, N, R, threads, qb) = {ints[:5]}")
+    kernel.launch(ins + scratch + outs + [part_ms], ints,
+                  what=f"(B, N, R, threads, qb) = {ints[:5]}")
     return tuple(outs)
 
 
 def split_backward(mb, co, sigma, inv, counts, g, *, rb: int = 128, qb: int = 32,
-                   erf_name: str = "as5", exp_name: str = "exact"):
+                   erf_name: str = "as5", exp_name: str = "exact",
+                   part_ms: torch.Tensor | None = None):
     """Wrapper of the tw backward kernel: the VJP of split_forward for the
     cotangent g (B,N,R) → (dmb, dco (B,N,R), dsigma, dinv (B,N)). CPU
-    tensors go to split_backward_plain. rb caps the rays per block, qb the
-    q rows staged per pass of the recomputed pass A."""
+    tensors go to split_backward_plain. The kernel runs 32 rays a block
+    (rb only caps it), qb rows staged per shared-memory pass; part_ms as
+    _backward_launch's."""
     args = (mb, co, sigma, inv, counts)
     want = _plane_shapes(*args)
     want["g"] = (g, tuple(mb.shape))
     if not _check_inputs("split_backward", want, mb.device):
         return split_backward_plain(*args, g, erf_name=erf_name, exp_name=exp_name)
     return _backward_launch(SPLIT_BWD, [*args, g], None, rb=rb, qb=qb, erf_name=erf_name,
-                            exp_name=exp_name)
+                            exp_name=exp_name, part_ms=part_ms)
 
 
 def split_backward_color(mb, co, sigma, inv, albedo, counts, dcol, *, rb: int = 128,
-                         qb: int = 32, erf_name: str = "as5", exp_name: str = "exact"):
+                         qb: int = 32, erf_name: str = "as5", exp_name: str = "exact",
+                         part_ms: torch.Tensor | None = None):
     """Wrapper of the colors backward kernel: the VJP of split_forward_color
     for dcol (B,3,R) → (dmb, dco, dsigma, dinv, dalbedo (B,N,3)). CPU
     tensors go to split_backward_color_plain."""
@@ -331,7 +344,7 @@ def split_backward_color(mb, co, sigma, inv, albedo, counts, dcol, *, rb: int = 
     if not _check_inputs("split_backward_color", want, mb.device):
         return split_backward_color_plain(*args, dcol, erf_name=erf_name, exp_name=exp_name)
     return _backward_launch(SPLIT_BWD_COLOR, [*args, dcol], albedo, rb=rb, qb=qb,
-                            erf_name=erf_name, exp_name=exp_name)
+                            erf_name=erf_name, exp_name=exp_name, part_ms=part_ms)
 
 
 # ---------------------------------------------------------------------------

@@ -284,15 +284,15 @@ def test_fused_aniso_forwards_are_chunked_entry_points(kernel, symbol, line):
 def test_fused_fwd_cu_keeps_only_the_isotropic_forwards():
     """csrc/fused_fwd.cu, which last held the isotropic fused forwards
     (kernels 1-2), is gone: no source of the port is that file and no kernel
-    of ops.kernels.KERNELS names it; every kernel of the port but the four
-    split ones is an entry point of csrc/chunked.cu."""
+    of ops.kernels.KERNELS names it; every kernel of the port but the two
+    split forwards is an entry point of csrc/chunked.cu."""
     from sgrt_tpu_torch.ops import cuda_split as ts
     from sgrt_tpu_torch.ops import kernels
     from sgrt_tpu_torch.utils import nvcc
 
     assert not (nvcc.CSRC_DIR / "fused_fwd.cu").exists()
     assert all(k.source.name != "fused_fwd.cu" for k in kernels.KERNELS)
-    split = (ts.SPLIT_FWD, ts.SPLIT_BWD, ts.SPLIT_FWD_COLOR, ts.SPLIT_BWD_COLOR)
+    split = (ts.SPLIT_FWD, ts.SPLIT_FWD_COLOR)
     assert all(k in kernels.KERNELS and k.source.name == "split.cu" for k in split)
     assert [k for k in kernels.KERNELS if k not in split] == [
         k for k in kernels.KERNELS if k.source.name == "chunked.cu"]
@@ -303,12 +303,42 @@ def test_fused_fwd_cu_keeps_only_the_isotropic_forwards():
 def test_fused_bwd_cu_keeps_only_the_isotropic_kernels():
     """csrc/fused_bwd.cu, which last held the isotropic fused backwards
     (kernels 3-4), is gone: no source of the port is that file and no kernel
-    of ops.kernels.KERNELS names it; every backward of the port but the
-    split ones is an entry point of csrc/chunked.cu."""
+    of ops.kernels.KERNELS names it; every backward of the port, the split
+    ones too, is an entry point of csrc/chunked.cu."""
     from sgrt_tpu_torch.ops import kernels
     from sgrt_tpu_torch.utils import nvcc
 
     assert not (nvcc.CSRC_DIR / "fused_bwd.cu").exists()
     assert all(k.source.name != "fused_bwd.cu" for k in kernels.KERNELS)
-    for k in (tk.FUSED_BWD_T, tk.FUSED_BWD, ta.FUSED_BWD_T_ANISO, ta.FUSED_BWD_ANISO):
+    from sgrt_tpu_torch.ops import cuda_split as ts
+
+    for k in (tk.FUSED_BWD_T, tk.FUSED_BWD, ta.FUSED_BWD_T_ANISO, ta.FUSED_BWD_ANISO,
+              ts.SPLIT_BWD, ts.SPLIT_BWD_COLOR):
         assert k in kernels.KERNELS and k.source.name == "chunked.cu"
+
+
+@pytest.mark.parametrize("name,symbol,line", [("SPLIT_BWD", "sgrt_split_bwd", 256),
+                                              ("SPLIT_BWD_COLOR", "sgrt_split_bwd_color", 329)])
+def test_split_backwards_are_chunked_entry_points(name, symbol, line):
+    """The split backwards (kernels 16 and 18) are csrc/chunked.cu's
+    recompute backward at one chunk over plane rows: each names its source,
+    its symbol and the Pallas kernel it replaces, its body runs
+    launch_bwd<PlaneGeo, false> with ck = N, and csrc/split.cu holds no
+    backward kernel any more."""
+    import re
+
+    from sgrt_tpu_torch.ops import cuda_split as ts
+
+    kernel = getattr(ts, name)
+    assert kernel.source.name == "chunked.cu" and kernel.timed
+    assert kernel.symbol == symbol
+    assert kernel.replaces == f"sgrt_tpu/ops/pallas_kernel.py:{line}"
+    src = kernel.source.read_text()
+    assert re.search(rf"^int {symbol}\(", src, re.M), symbol
+    body = src[src.index(f"int {symbol}("):]
+    body = body[:body.index("\n}\n")]
+    assert "launch_bwd<PlaneGeo, false>" in body and "B, N, R, N, threads" in body
+    split = (kernel.source.parent / "split.cu").read_text()
+    names = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", split)
+    assert names and not [n for n in names if "fwd" not in n], names
+    assert f"int {symbol}(" not in split

@@ -652,13 +652,15 @@ def test_chunked_aniso_route_on_card():
         tca.chunked_backward_aniso(*args, dcol, ck=256)
 
 
-# the split kernels (15-18, csrc/split.cu) on seeded planes: co non-zero on
-# every row (base runs over all N), counts with a partial block, a dead tile
-# and one clamped to N; R = 200 is two ray blocks, the second partial. The
-# outputs are held against a float64 run of the plain versions as above
-# (_assert_grads_f64_gate): as close to it as the float32 plain version is,
-# x2, or within 2e-5 (tw, colors) and 5e-5 (gradients) of scale.
-SPLIT_COUNTS = (96, 37, 0, 1000)
+# the split kernels (15 and 17 in csrc/split.cu, 16 and 18 csrc/chunked.cu's
+# recompute backward at one chunk over plane rows) on seeded planes: co
+# non-zero on every row (base runs over all N), counts (N, 37, 0, 1000): a
+# full tile, one with a partial block, a dead tile and one clamped to N; N 96
+# (two 64-row backward blocks) and N 40 (one, partial); R = 200 is several
+# ray blocks, the last partial. The outputs are held against a float64 run
+# of the plain versions as above (_assert_grads_f64_gate): as close to it as
+# the float32 plain version is, x2, or within 2e-5 (tw, colors) and 5e-5
+# (gradients) of scale.
 SPLIT_GRADS = ("dmb", "dco", "dsigma", "dinv", "dalbedo")
 
 
@@ -669,7 +671,7 @@ def _planes(dev, b=4, n=96, r=200, seed=0):
     sig = torch.rand((b, n), generator=g) * 0.3 + 0.3
     inv = 1.0 / (1.4142135623730951 * sig)
     alb = torch.rand((b, n, 3), generator=g)
-    cnt = torch.tensor(SPLIT_COUNTS, dtype=torch.int32)
+    cnt = torch.tensor((n, 37, 0, 1000), dtype=torch.int32)
     return [t.to(dev).contiguous() for t in (mb, co, sig, inv, alb, cnt)]
 
 
@@ -682,13 +684,15 @@ def _gate(names, got, plain, ref, rel):
         assert e_k <= max(rel, 2 * e_p), (name, e_k, e_p)
 
 
-@pytest.mark.parametrize("erf_name,exp_name,pb", [("as5", "exact", 16), ("as5", "exact", 8),
-                                                  ("as3", "fast", 16)])
-def test_split_kernels_match_plain(erf_name, exp_name, pb):
+@pytest.mark.parametrize("erf_name,exp_name,pb,n", [("as5", "exact", 16, 96),
+                                                    ("as5", "exact", 8, 96),
+                                                    ("as3", "fast", 16, 96),
+                                                    ("as5", "exact", 8, 40)])
+def test_split_kernels_match_plain(erf_name, exp_name, pb, n):
     from sgrt_tpu_torch.ops import cuda_split as cs
 
     dev = _card()
-    mb, co, sig, inv, alb, cnt = _planes(dev)
+    mb, co, sig, inv, alb, cnt = _planes(dev, n=n)
     planes = (mb, co, sig, inv)
     g = torch.randn(mb.shape, generator=torch.Generator().manual_seed(1)).to(dev)
     dcol = torch.randn((4, 3, 200), generator=torch.Generator().manual_seed(2)).to(dev)
@@ -714,6 +718,36 @@ def test_split_kernels_match_plain(erf_name, exp_name, pb):
     for d in (grads[2], grads_c[2], grads_c[4]):   # dsigma, dalbedo: zero past the count
         assert (d[1, 37:] == 0).all() and (d[2] == 0).all()
     assert float(grads[1][1, 37:].abs().max()) > 0   # the base path reaches every row
+    for d in (*grads[:2], grads[3], *grads_c[:2], grads_c[3]):   # a dead tile's: db is 0
+        assert (d[2] == 0).all()
+
+
+@pytest.mark.parametrize("n", [96, 40])
+def test_split_backwards_agree(n):
+    """Kernel 18's VJP equals kernel 16's given g = sqrt(2/pi) co (albedo .
+    dcol), the colors' cotangent of tw, as its plane: dmb, dsigma and dinv
+    within 1e-6 of scale (the two sum the same terms; g is rounded apart),
+    and dco differs by the colors' direct term sqrt(2/pi) tw (albedo .
+    dcol) alone."""
+    from sgrt_tpu_torch.ops import cuda_split as cs
+
+    dev = _card()
+    mb, co, sig, inv, alb, cnt = _planes(dev, n=n)
+    planes = (mb, co, sig, inv)
+    dcol = torch.randn((4, 3, 200), generator=torch.Generator().manual_seed(4)).to(dev)
+    A = torch.einsum("bnc,bcr->bnr", alb, dcol)
+    g = (0.7978845608028654 * co * A).contiguous()
+    tw = cs.split_forward(*planes, cnt)
+    g16 = cs.split_backward(*planes, cnt, g)
+    g18 = cs.split_backward_color(*planes, alb, cnt, dcol)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dmb", "dsigma", "dinv"), (g16[0], g16[2], g16[3]),
+                          (g18[0], g18[2], g18[3])):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-6 * scale, name
+    direct = 0.7978845608028654 * tw * A
+    scale = float(g18[1].abs().max())
+    assert float((g18[1] - g16[1] - direct).abs().max()) <= 1e-6 * scale
 
 
 def test_split_ops_on_card():

@@ -43,21 +43,21 @@ CASES = {
 }
 
 
-def _planes(seed=0):
-    """mb, co (B,N,R), sigma, inv (B,N), albedo (B,N,3): co is non-zero on
+def _planes(seed=0, n=N, r=R):
+    """mb, co (B,n,r), sigma, inv (B,n), albedo (B,n,3): co is non-zero on
     every row, past the count too."""
     rng = np.random.default_rng(seed)
-    mb = rng.normal(0, 1, (B, N, R)).astype(np.float32)
-    co = rng.uniform(0, 0.05, (B, N, R)).astype(np.float32)
-    sig = rng.uniform(0.3, 0.6, (B, N)).astype(np.float32)
+    mb = rng.normal(0, 1, (B, n, r)).astype(np.float32)
+    co = rng.uniform(0, 0.05, (B, n, r)).astype(np.float32)
+    sig = rng.uniform(0.3, 0.6, (B, n)).astype(np.float32)
     inv = (1.0 / (np.sqrt(2.0) * sig)).astype(np.float32)
-    alb = rng.uniform(0, 1, (B, N, 3)).astype(np.float32)
+    alb = rng.uniform(0, 1, (B, n, 3)).astype(np.float32)
     return mb, co, sig, inv, alb
 
 
-def _live(counts):
-    cnt = np.full(B, N) if counts is None else np.minimum(counts, N)
-    return np.arange(N)[None, :] < cnt[:, None]
+def _live(counts, n=N):
+    cnt = np.full(B, n) if counts is None else np.minimum(counts, n)
+    return np.arange(n)[None, :] < cnt[:, None]
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,6 +125,36 @@ def test_colors_split_matches_pallas(case):
     assert colors.shape == (B, 3, R)
     np.testing.assert_allclose(colors, np.asarray(want_c), atol=2e-5)
     _assert_grads(grads, want_g, ("dmb", "dco", "dsigma", "dinv", "dalbedo"))
+
+
+@pytest.mark.parametrize("colors", [False, True], ids=["tw", "colors"])
+def test_split_vjps_match_pallas_one_partial_block(colors):
+    """N = 40 at pb = qb = 8: the shape of the CUDA backwards' one partial
+    64-row block, at which tests/test_torch_cuda.py holds the kernels
+    against these plain versions. Counts (40, 16): a full tile, and one
+    whose rows past the count carry co (a multiple of pb and qb, so Pallas
+    and the port compute the same function); one ray block of 64."""
+    n, r = 40, RB
+    args = _planes(seed=7, n=n, r=r)
+    counts = (40, 16)
+    live = _live(counts, n)
+    rng = np.random.default_rng(8)
+    if colors:
+        ct = rng.normal(size=(B, 3, r)).astype(np.float32)
+    else:
+        ct = np.where(live[..., None], rng.normal(size=(B, n, r)), 0.0).astype(np.float32)
+        args = args[:4]
+    want, want_g = _pallas_vjp(colors, True, 8, 8, "as5", "exact")(
+        tuple(jnp.asarray(a) for a in args), jnp.asarray(counts, jnp.int32), jnp.asarray(ct))
+    got, grads = _port_vjp(cs.colors_split if colors else cs.tw_split, args, counts, ct, 8, 8,
+                           "as5", "exact")
+    want = np.asarray(want)
+    if colors:
+        np.testing.assert_allclose(got, want, atol=2e-5)
+    else:
+        np.testing.assert_allclose(got[live], want[live], rtol=2e-5, atol=2e-5)
+    _assert_grads(grads, want_g, ("dmb", "dco", "dsigma", "dinv", "dalbedo"))
+    assert np.abs(grads[1][~live]).max() > 0.1   # the base path reaches the rows past the count
 
 
 def test_split_block_rules_and_names():
