@@ -44,15 +44,16 @@ comes out, and times the kernels:
             backward's parts, and the crossover of the fused and chunked
             anisotropic backwards; under --only also the fused anisotropic
             forwards beside the chunked ones on the sparse bucket;
-  split     the split kernels (tw and colors from precomputed planes; the
-            backwards csrc/chunked.cu's recompute backward at one chunk
+  split     the split kernels (tw and colors from precomputed planes,
+            csrc/chunked.cu's forward and recompute backward at one chunk
             over plane rows) at the training cell's 30-degree view: kernels
             vs plain and float64 (also on the dense cell's densest tile),
             the split render route against the fused route in colors and
             scene gradients, the on-card verification entry point
             (sgrt_tpu_torch.verify, full checks; its check 5 launches the
-            split kernels), and the kernels' times with the backwards'
-            parts and peak memory, kernel 4 on the same tiles beside them.
+            split kernels), and the kernels' times with their device
+            profiles and peak memory and the backwards' parts, kernels 1,
+            2 and 4 on the same tiles beside them.
 
 After the build, kernel_resources prints each device function's registers,
 spill bytes, shared memory and resident blocks per SM, and the instructions
@@ -469,33 +470,6 @@ def kernel_resources_phase() -> None:
                 name = subprocess.run([filt, mangled], capture_output=True, text=True,
                                       timeout=60).stdout.strip() or mangled
             sass[f"{source.name}: {name}"] = v
-    # the sources that do not report their resources (csrc/split.cu): each
-    # as5/exact function's registers, stack, static shared and local bytes
-    # from the built library (cuobjdump --dump-resource-usage), with the
-    # warps an SM its registers allow at 128 threads a block (registers are
-    # allocated per warp in units of 256; 64 warps and 32 blocks an SM at
-    # most; dynamic shared memory not counted)
-    usage = {}
-    reported = {r["source"] for r in res}
-    for source in sorted({k.source for k in kernels.KERNELS}):
-        if source.name in reported:
-            continue
-        run = subprocess.run([cuobjdump, "--dump-resource-usage",
-                              str(nvcc.library_path(source))],
-                             capture_output=True, text=True, timeout=300)
-        for mangled, regs, stack, shared, local in re.findall(
-                r"Function (\S+):\s+REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", run.stdout):
-            if not re.search(r"Li0E(?:Li0E|E)", mangled):
-                continue
-            name = mangled
-            if os.path.exists(filt):
-                name = subprocess.run([filt, mangled], capture_output=True, text=True,
-                                      timeout=60).stdout.strip() or mangled
-            warp_regs = -(-int(regs) * 32 // 256) * 256
-            blocks = min(32, 65536 // (4 * warp_regs) if warp_regs else 32)
-            usage[f"{source.name}: {name}"] = {
-                "registers": int(regs), "stack": int(stack), "static_smem": int(shared),
-                "local_bytes": int(local), "warps_per_sm_by_registers": min(64, 4 * blocks)}
     over = [r["kernel"] for r in res if r["local_bytes"]]
     # every instantiation of csrc/chunked.cu (all erf/exp names), from the
     # ptxas report in its build log: stack frame and spill bytes
@@ -507,9 +481,10 @@ def kernel_resources_phase() -> None:
     local = {f: vals for f, vals in frames if any(vals)}
     by_source = {s.name: [k.name for k in kernels.KERNELS if k.source == s]
                  for s in sorted({k.source for k in kernels.KERNELS})}
-    emit("kernel_resources", functions=res, resource_usage=usage, sass=sass, spilling=over,
+    emit("kernel_resources", functions=res, sass=sass, spilling=over,
          chunked_instantiations=len(frames), chunked_local_bytes=local,
          kernels_by_source=by_source)
+    check(not over, f"a device function uses local memory: {over}")
     check(bool(frames) and not local, f"a chunked kernel uses local memory: {local}")
 
 
@@ -2517,19 +2492,21 @@ def split_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> list:
             "max_rel_err": max(max(r["rel"][k.name].values()) for r in results.values()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": None})
-    # each backward's parts (csrc/chunked.cu at one chunk: the forward-with-T,
-    # p side, db sum, q side and rows kernel, by CUDA events, one call), its
-    # launches by device time (torch.profiler, one call) and its peak memory
-    # above what the inputs hold; kernel 4 (the fused recompute backward) on
-    # the same gathered tiles as the yardstick of the same pair work
+    # each kernel's launches by device time (torch.profiler, one call) and
+    # its peak memory above what the inputs hold; each backward's parts
+    # (csrc/chunked.cu at one chunk: the forward-with-T, p side, db sum, q
+    # side and rows kernel, by CUDA events, one call); kernels 1, 2 and 4
+    # (the fused forward, forward-with-T and recompute backward) on the same
+    # gathered tiles as the yardsticks of the same pair work
     part_runs = {
         cs.SPLIT_BWD: lambda pm: cs.split_backward(*planes, cnt_t, g, qb=qb, part_ms=pm),
         cs.SPLIT_BWD_COLOR: lambda pm: cs.split_backward_color(*planes, alb, cnt_t, dcol, qb=qb,
                                                                part_ms=pm)}
-    for k in (cs.SPLIT_BWD, cs.SPLIT_BWD_COLOR):
-        pm = torch.zeros(5)
-        part_runs[k](pm)
-        times[k.name]["parts"] = one_chunk_parts(pm)
+    for k in runs:
+        if k in part_runs:
+            pm = torch.zeros(5)
+            part_runs[k](pm)
+            times[k.name]["parts"] = one_chunk_parts(pm)
         times[k.name]["profile"] = profile_device(lambda _, fn=runs[k]: fn(), [0])
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
@@ -2540,14 +2517,15 @@ def split_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> list:
     fused_inp = launch_inputs(gather_tiles(scene, idx), o, tile_dirs, counts)
     yard_parts = torch.zeros(5)
     ck.fused_backward(*fused_inp, dcol, qb=qb, part_ms=yard_parts)
-    yardstick = {"name": ck.FUSED_BWD.name,
-                 "ms": time_cuda(lambda: ck.fused_backward(*fused_inp, dcol, qb=qb), iters=5,
-                                 warmup=1),
-                 "parts": one_chunk_parts(yard_parts)}
+    yard_runs = {ck.FUSED_FWD: lambda: ck.fused_forward(*fused_inp, pb=pb, qb=qb),
+                 ck.FUSED_FWD_T: lambda: ck.fused_forward_t(*fused_inp, pb=pb, qb=qb),
+                 ck.FUSED_BWD: lambda: ck.fused_backward(*fused_inp, dcol, qb=qb)}
+    yardsticks = {k.name: {"ms": time_cuda(fn, iters=5, warmup=1)} for k, fn in yard_runs.items()}
+    yardsticks[ck.FUSED_BWD.name]["parts"] = one_chunk_parts(yard_parts)
     emit("split_times", shape={"B": full[0].shape[0], "N": full[0].shape[1],
                                "R": full[0].shape[2], "max_count": int(cnt.max()), "pb": pb,
                                "qb": qb},
-         plain_shape=f"the {len(sel)}-tile subset", kernels=times, yardstick=yardstick,
+         plain_shape=f"the {len(sel)}-tile subset", kernels=times, yardsticks=yardsticks,
          power_limit=smi)
     return entries
 

@@ -1,9 +1,9 @@
 // The Gaussian-axis chunked kernels for Hopper (sm_90a), designed for the
 // card, over the row geometries of gauss_common.cuh (IsoGeo, AnisoGeo, and
-// for the split backwards PlaneGeo):
-// the forward (colors, and with SAVE_T the transmittance factors T) and the
-// backward (p side, q side; from saved T or recomputing it), with the
-// Gaussian axis cut into chunks of ck rows.
+// for the split kernels PlaneGeo):
+// the forward (colors, and by its store mode the transmittance factors T or
+// their sum tw) and the backward (p side, q side; from saved T or
+// recomputing it), with the Gaussian axis cut into chunks of ck rows.
 //
 // Replaces the TPU kernels sgrt_tpu/ops/pallas_chunked.py::
 // _chunked_fwd_kernel (entry point sgrt_chunked_fwd), ::_chunked_fwd_t_kernel
@@ -40,24 +40,30 @@
 // does not change it), so the two fused backwards of a geometry give the
 // same gradients.
 //
-// The split backwards are the recompute backward at one chunk over a third
-// geometry, plane rows (PlaneGeo, Side<PlaneGeo>):
-// sgrt_tpu/ops/pallas_kernel.py::_bwd_kernel (sgrt_split_bwd; :256,
-// tw_pallas's VJP) and ::_bwd_color_kernel (sgrt_split_bwd_color; :329,
-// colors_pallas's VJP). A row's mb and co are read per (row, ray) from
-// (B,N,R) planes, sb = sigma and inv from (B,N) inputs of their own. The same
-// T, p side and q side, with the split kernels' math (split.cu's note) where
-// it differs: base sums all N rows, past the count too (pass_a_planes stages
-// the rows past the count for base alone); the cotangent of tw is g from its
-// plane (sgrt_split_bwd, no direct terms) or sqrt(2/pi) co A with the direct
-// terms (sgrt_split_bwd_color); and the outputs are the planes' own
-// gradients, dmb and dco per (row, ray) and dsig, dinv (and dalb) per row,
-// so there is no chain, no J and no ddirs. The p side writes its part of
-// dmb and dco, the q side adds its pair sums and the base path in stream
-// order; the base path reaches every row of the tile, so rows past the
-// count get dco = db e1, dmb = -2/sqrt(pi) db co g1 inv and the matching
-// dinv (q side blocks past the count run it alone), and a tile with count
-// 0 gets zeros (its db is 0).
+// The split kernels are this forward and the recompute backward at one
+// chunk over a third geometry, plane rows (PlaneGeo, Side<PlaneGeo>). The
+// forwards: sgrt_tpu/ops/pallas_kernel.py::_fwd_kernel (sgrt_split_fwd;
+// :181, tw_pallas's forward, storing tw) and ::_fwd_color_kernel
+// (sgrt_split_fwd_color; :213, colors_pallas's forward, colors only). The
+// backwards: ::_bwd_kernel (sgrt_split_bwd; :256, tw_pallas's VJP) and
+// ::_bwd_color_kernel (sgrt_split_bwd_color; :329, colors_pallas's VJP). A
+// row's mb and co are read per (row, ray) from (B,N,R) planes, sb = sigma
+// and inv from (B,N) inputs of their own (inv is not made from sigma). The
+// math below with one difference: base sums ALL N rows, past the count too,
+// as the Pallas kernels do (pass_a_planes stages the rows past the count
+// for base alone):
+//   base(r)    = sum over all N rows q of co(q,r) erf(-mb(q,r) inv_q)
+//   tw(p,r)    = sum_k T_k(p,r)   (p < count; 0 at or past it, up to N)
+// The backwards are the same T, p side and q side, where the cotangent of
+// tw is g from its plane (sgrt_split_bwd, no direct terms) or sqrt(2/pi) co
+// A with the direct terms (sgrt_split_bwd_color); and the outputs are the
+// planes' own gradients, dmb and dco per (row, ray) and dsig, dinv (and
+// dalb) per row, so there is no chain, no J and no ddirs. The p side writes
+// its part of dmb and dco, the q side adds its pair sums and the base path
+// in stream order; the base path reaches every row of the tile, so rows
+// past the count get dco = db e1, dmb = -2/sqrt(pi) db co g1 inv and the
+// matching dinv (q side blocks past the count run it alone), and a tile
+// with count 0 gets zeros (its db is 0).
 //
 // The forward, for each tile b, over the live prefix count_b = min(counts[b],
 // N) of its Gaussian rows, and each ray r (isotropic rows: sb = sigma,
@@ -69,9 +75,10 @@
 //   acc_k(p,r) = sum_q co(q,r) erf((mb(p,r) + k sb(p,r) - mb(q,r)) inv(q,r)),  k = -4..0
 //   T_k(p,r)   = w_k exp(base(r) - acc_k(p,r)),  w_k = exp(-k^2/2)
 //   colors(:,r) = sum_p albedo_p sqrt(2/pi) co(p,r) sum_k T_k(p,r)
-// With SAVE_T it also writes T (B,5,N,R); rows at or past the count hold
-// T = 0, as the TPU kernel's up-front clear leaves them (the saved-T
-// backward relies on it).
+// Its store mode (Store) adds T (B,5,N,R) (the forward-with-T) or tw
+// (B,N,R) (the split forward, which leaves the colors out); rows at or past
+// the count hold T = 0 and tw = 0, as the TPU kernels' up-front clear
+// leaves them (the saved-T backward relies on it).
 //
 // The backward is its VJP, in the reference's order
 // (pallas_kernel.py:125-174, :1028-1070), with the forward's mb, co, inv
@@ -215,12 +222,13 @@
 // Layouts (float32 unless noted, contiguous): oc, albedo (B,N,3); sigma
 // (B,N) or invd (B,N,3); mag (B,N); dirs, dcol (B,3,R) ray-minor; counts
 // (B,) int32; the forward's partial (B, N/32, 3, R) scratch, colors (B,3,R)
-// and, with SAVE_T, t (B,5,N,R), zero on rows at or past the count; the
+// and, storing T, t (B,5,N,R), zero on rows at or past the count; the
 // backward's t (B,5,N,R) (saved-T only), scratch as above
 // (sgrt_chunked_bwd_scratch_floats), outputs doc, dalb (B,N,3), dsig (B,N)
 // or dinvd (B,N,3), dmag (B,N), ddirs (B,3,R). Rows at or past the count
 // get exactly zero gradient. Plane rows: mb, co, g, dmb, dco (B,N,R); sigma,
-// inv, dsig, dinv (B,N); albedo, dalb (B,N,3); dcol (B,3,R); scratch of
+// inv, dsig, dinv (B,N); albedo, dalb (B,N,3); dcol (B,3,R); tw (B,N,R),
+// zero on rows at or past the count; scratch of
 // sgrt_split_bwd_scratch_floats (T of the one chunk, db and 5 per-row sums
 // a (row, ray block); no ddirs shares).
 
@@ -243,6 +251,11 @@ constexpr int kAPlanes = 4;               // pass A: mb, inv, co, co erf(-mb inv
 constexpr int kPPlanes = 6;               // p side: mb, inv, -2/sqrt(pi) co, J xyz
 constexpr int kQPlanes = 3 + kTaps;       // q side: mb, sb, g of the p rows, T_k
 constexpr int kPSlots = 7 * kBwdPB;       // p side: dmb, dsb, J xyz, A, tw per row
+
+// What the forward stores beside the split's colors: nothing, T (the
+// forward-with-T: T_k in kTaps planes), or tw = sum_k T_k in one plane (the
+// split forward sgrt_split_fwd, which computes no colors).
+enum Store { kStoreNone = 0, kStoreT = 1, kStoreTw = 2 };
 
 // ---------------------------------------------------------------------------
 // device helpers
@@ -422,11 +435,12 @@ __device__ __forceinline__ float row_weight(const Geo& geo, const float* alb_b, 
 // forward: one block per (32 rays, 32 p rows of a tile, tile)
 // ---------------------------------------------------------------------------
 
-// Blocks cover the p rows from p_row0 (gridDim.y blocks of 32). T (with
-// SAVE_T) goes to t + ((b kTaps + k) t_rows + p - t_row0) t_ld + r, zero on
-// rows at or past the count; the split's colors to partial, unless partial
-// is null (the recompute backward's T of one chunk).
-template <class Geo, int ERF, int EXP, bool SAVE_T>
+// Blocks cover the p rows from p_row0 (gridDim.y blocks of 32). What STORE
+// names goes to t + ((b P + k) t_rows + p - t_row0) t_ld + r, its P planes k
+// (P = kTaps for T, 1 for tw), zero on rows at or past the count; the
+// split's colors to partial, unless partial is null (the recompute
+// backward's T of one chunk, and tw).
+template <class Geo, int ERF, int EXP, int STORE>
 __global__ void __launch_bounds__(kRays * kFwdG, 4)
 fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
            const float* __restrict__ mag, const float* __restrict__ alb,
@@ -443,16 +457,18 @@ fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
   const int p_begin = p_row0 + split * kFwdRows;
   const int p0 = p_begin + g * kFwdPB;  // this group's rows p0 .. p0 + kFwdPB - 1
   const bool live_ray = r < R;
+  constexpr int kOut = STORE == kStoreT ? kTaps : 1;  // planes stored
 
-  // t_b[(k t_rows + i) t_ld] is T_k of row p0 + i; rows at or past the
-  // count hold T = 0. The pointer is made where T is stored, so that it is
-  // not live across pass A (at 64 registers a thread that costs a spill).
+  // t_b[(k t_rows + i) t_ld] is plane k of row p0 + i (T_k, or tw); rows at
+  // or past the count hold 0. The pointer is made where it is stored, so
+  // that it is not live across pass A (at 64 registers a thread that costs
+  // a spill).
   if (p_begin >= cnt) {  // block-uniform: this split has no live rows
-    if (SAVE_T && live_ray) {
-      float* t_b = t + (static_cast<size_t>(b) * kTaps * t_rows + (p0 - t_row0)) * t_ld + r;
+    if (STORE != kStoreNone && live_ray) {
+      float* t_b = t + (static_cast<size_t>(b) * kOut * t_rows + (p0 - t_row0)) * t_ld + r;
       for (int i = 0; i < min(kFwdPB, N - p0); ++i) {
 #pragma unroll
-        for (int k = 0; k < kTaps; ++k) t_b[(static_cast<size_t>(k) * t_rows + i) * t_ld] = 0.0f;
+        for (int k = 0; k < kOut; ++k) t_b[(static_cast<size_t>(k) * t_rows + i) * t_ld] = 0.0f;
       }
     }
     return;
@@ -481,29 +497,32 @@ fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
 
   float col[3] = {0.0f, 0.0f, 0.0f};
   const float* alb_b = alb + static_cast<size_t>(b) * N * 3;
-  float* t_b =
-      SAVE_T ? t + (static_cast<size_t>(b) * kTaps * t_rows + (p0 - t_row0)) * t_ld + r : nullptr;
-  // With SAVE_T the rows and taps go one at a time: unrolled, the 20 T
-  // stores' addresses spilled 8-48 bytes at 64 registers (the isotropic
-  // instantiations, and the anisotropic ones with the fast exp)
-#pragma unroll(SAVE_T ? 1 : kFwdPB)
+  float* t_b = STORE != kStoreNone
+                   ? t + (static_cast<size_t>(b) * kOut * t_rows + (p0 - t_row0)) * t_ld + r
+                   : nullptr;
+  // Storing, the rows go one at a time, and storing T the taps too:
+  // unrolled, the 20 T stores' addresses spilled 8-48 bytes at 64 registers
+  // (the isotropic instantiations, and the anisotropic ones with the fast
+  // exp)
+#pragma unroll(STORE == kStoreNone ? kFwdPB : 1)
   for (int i = 0; i < kFwdPB; ++i) {
     const int p = p0 + i;
-    if (SAVE_T && live_ray && p >= p_end && p < N) {  // past the count
+    if (STORE != kStoreNone && live_ray && p >= p_end && p < N) {  // past the count
 #pragma unroll
-      for (int k = 0; k < kTaps; ++k) t_b[(static_cast<size_t>(k) * t_rows + i) * t_ld] = 0.0f;
+      for (int k = 0; k < kOut; ++k) t_b[(static_cast<size_t>(k) * t_rows + i) * t_ld] = 0.0f;
     }
     if (p < p_end) {  // warp-uniform
       float tw = 0.0f;
-#pragma unroll(SAVE_T ? 1 : kTaps)
+#pragma unroll(STORE == kStoreT ? 1 : kTaps)
       for (int k = 0; k < kTaps; ++k) {
-        // rounded alike whether or not T is stored: the colors of the
-        // forward and the forward-with-T are equal bit for bit
+        // rounded alike whatever is stored: the colors of the forward and
+        // the forward-with-T are equal bit for bit, and tw is their sum
         const float tk = __fmul_rn(tap_weight(k),
                                    exp_fn<EXP>(base - acc2[(i * kTaps + k) * nt + tid]));
-        if (SAVE_T && live_ray) t_b[(static_cast<size_t>(k) * t_rows + i) * t_ld] = tk;
+        if (STORE == kStoreT && live_ray) t_b[(static_cast<size_t>(k) * t_rows + i) * t_ld] = tk;
         tw = __fadd_rn(tw, tk);
       }
+      if (STORE == kStoreTw && live_ray) t_b[static_cast<size_t>(i) * t_ld] = tw;
       if (partial != nullptr) {
         const float wp = kSqrt2Pi * geo.template row<EXP>(p, ray.dx, ray.dy, ray.dz).co * tw;
 #pragma unroll
@@ -999,12 +1018,12 @@ using QKernel = void (*)(const float*, const float*, const float*, const float*,
                          const int*, const float*, const float*, int, int, int, const float*,
                          float*, double*, int, int, int, int, int, int, typename Geo::Args);
 
-template <class Geo, bool SAVE_T>
+template <class Geo, int STORE>
 FwdKernel<Geo> pick_fwd(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return fwd_kernel<Geo, kErfAs5, kExpExact, SAVE_T>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return fwd_kernel<Geo, kErfAs5, kExpFast, SAVE_T>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return fwd_kernel<Geo, kErfAs3, kExpExact, SAVE_T>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return fwd_kernel<Geo, kErfAs3, kExpFast, SAVE_T>;
+  if (erf_id == kErfAs5 && exp_id == kExpExact) return fwd_kernel<Geo, kErfAs5, kExpExact, STORE>;
+  if (erf_id == kErfAs5 && exp_id == kExpFast) return fwd_kernel<Geo, kErfAs5, kExpFast, STORE>;
+  if (erf_id == kErfAs3 && exp_id == kExpExact) return fwd_kernel<Geo, kErfAs3, kExpExact, STORE>;
+  if (erf_id == kErfAs3 && exp_id == kExpFast) return fwd_kernel<Geo, kErfAs3, kExpFast, STORE>;
   return nullptr;
 }
 
@@ -1036,24 +1055,29 @@ bool bad_qb(int qb) {
 }
 
 // shape is sigma (B,N) for IsoGeo, invd (B,N,3) for AnisoGeo; dshape the
-// matching gradient.
-template <class Geo, bool SAVE_T>
+// matching gradient. Plane rows (in: their inputs; oc, shape, mag and dirs
+// null) keep their plane offsets in 32 bits, so B N R must stay below 2^31.
+// Storing tw there is no colors: partial and colors are null.
+template <class Geo, int STORE>
 int launch_fwd(const float* oc, const float* shape, const float* mag, const float* alb,
                const float* dirs, const int* counts, float* partial, float* colors, float* t,
                int B, int N, int R, int threads, int pb, int qb, int erf_id, int exp_id,
-               void* stream) {
-  FwdKernel<Geo> fn = pick_fwd<Geo, SAVE_T>(erf_id, exp_id);
+               void* stream, const typename Geo::Args& in = {}) {
+  FwdKernel<Geo> fn = pick_fwd<Geo, STORE>(erf_id, exp_id);
   const int n_split = (N + kFwdRows - 1) / kFwdRows;
   if (fn == nullptr || B < 1 || B > 65535 || N < 1 || R < 1 || threads != kRays ||
-      (pb != 8 && pb != 16) || bad_qb(qb) || n_split > 65535)
+      (pb != 8 && pb != 16) || bad_qb(qb) || n_split > 65535 ||
+      (Geo::kPlanes && static_cast<size_t>(B) * N * R > 0x7fffffff) ||
+      (STORE != kStoreNone && t == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(fn, fwd_smem(qb));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((R + kRays - 1) / kRays, n_split, B);
   fn<<<grid, dim3(kRays, kFwdG), fwd_smem(qb), s>>>(oc, shape, mag, alb, dirs, counts, partial,
-                                                    t, N, R, qb, n_split, 0, N, 0, R, NoArgs{});
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+                                                    t, N, R, qb, n_split, 0, N, 0, R, in);
+  if ((err = cudaGetLastError()) != cudaSuccess || STORE == kStoreTw)
+    return static_cast<int>(err);
   // colors = the live splits' partials summed in split order
   return static_cast<int>(
       launch_block_sums(partial, counts, colors, B, N, 3 * R, n_split, kFwdRows, 0, s));
@@ -1077,7 +1101,7 @@ int launch_bwd(const float* oc, const float* shape, const float* mag, const floa
                float* scratch, float* doc, float* dshape, float* dmag, float* dalb, float* ddirs,
                float* part_ms, int B, int N, int R, int ck, int threads, int qb, int erf_id,
                int exp_id, void* stream, const typename Geo::Args& in = {}) {
-  FwdKernel<Geo> tfn = pick_fwd<Geo, true>(erf_id, exp_id);
+  FwdKernel<Geo> tfn = pick_fwd<Geo, kStoreT>(erf_id, exp_id);
   PKernel<Geo> pfn = pick_p<Geo>(erf_id, exp_id);
   QKernel<Geo> qfn = pick_q<Geo>(erf_id, exp_id);
   if (tfn == nullptr || pfn == nullptr || qfn == nullptr || B < 1 || B > 65535 || N < 1 ||
@@ -1165,8 +1189,8 @@ int sgrt_chunked_fwd(const float* oc, const float* sig, const float* mag, const 
                      const float* dirs, const int* counts, float* partial, float* colors, int B,
                      int N, int R, int threads, int pb, int qb, int erf_id, int exp_id,
                      void* stream) {
-  return launch_fwd<IsoGeo, false>(oc, sig, mag, alb, dirs, counts, partial, colors, nullptr, B,
-                                   N, R, threads, pb, qb, erf_id, exp_id, stream);
+  return launch_fwd<IsoGeo, kStoreNone>(oc, sig, mag, alb, dirs, counts, partial, colors, nullptr,
+                                        B, N, R, threads, pb, qb, erf_id, exp_id, stream);
 }
 
 // The same forward, also writing T (B,5,N,R), zero on rows at or past the
@@ -1175,8 +1199,8 @@ int sgrt_chunked_fwd_t(const float* oc, const float* sig, const float* mag, cons
                        const float* dirs, const int* counts, float* partial, float* colors,
                        float* t, int B, int N, int R, int threads, int pb, int qb, int erf_id,
                        int exp_id, void* stream) {
-  return launch_fwd<IsoGeo, true>(oc, sig, mag, alb, dirs, counts, partial, colors, t, B, N, R,
-                                  threads, pb, qb, erf_id, exp_id, stream);
+  return launch_fwd<IsoGeo, kStoreT>(oc, sig, mag, alb, dirs, counts, partial, colors, t, B, N, R,
+                                     threads, pb, qb, erf_id, exp_id, stream);
 }
 
 // The recompute chunked backward: outputs doc, dalb (B,N,3), dsig, dmag
@@ -1210,16 +1234,17 @@ int sgrt_chunked_fwd_aniso(const float* oc, const float* invd, const float* mag,
                            const float* alb, const float* dirs, const int* counts,
                            float* partial, float* colors, int B, int N, int R, int threads,
                            int pb, int qb, int erf_id, int exp_id, void* stream) {
-  return launch_fwd<AnisoGeo, false>(oc, invd, mag, alb, dirs, counts, partial, colors, nullptr,
-                                     B, N, R, threads, pb, qb, erf_id, exp_id, stream);
+  return launch_fwd<AnisoGeo, kStoreNone>(oc, invd, mag, alb, dirs, counts, partial, colors,
+                                          nullptr, B, N, R, threads, pb, qb, erf_id, exp_id,
+                                          stream);
 }
 
 int sgrt_chunked_fwd_t_aniso(const float* oc, const float* invd, const float* mag,
                              const float* alb, const float* dirs, const int* counts,
                              float* partial, float* colors, float* t, int B, int N, int R,
                              int threads, int pb, int qb, int erf_id, int exp_id, void* stream) {
-  return launch_fwd<AnisoGeo, true>(oc, invd, mag, alb, dirs, counts, partial, colors, t, B, N,
-                                    R, threads, pb, qb, erf_id, exp_id, stream);
+  return launch_fwd<AnisoGeo, kStoreT>(oc, invd, mag, alb, dirs, counts, partial, colors, t, B, N,
+                                       R, threads, pb, qb, erf_id, exp_id, stream);
 }
 
 int sgrt_chunked_bwd_aniso(const float* oc, const float* invd, const float* mag,
@@ -1251,32 +1276,33 @@ int sgrt_fused_fwd(const float* oc, const float* sig, const float* mag, const fl
                    const float* dirs, const int* counts, float* partial, float* colors, int B,
                    int N, int R, int threads, int pb, int qb, int erf_id, int exp_id,
                    void* stream) {
-  return launch_fwd<IsoGeo, false>(oc, sig, mag, alb, dirs, counts, partial, colors, nullptr, B,
-                                   N, R, threads, pb, qb, erf_id, exp_id, stream);
+  return launch_fwd<IsoGeo, kStoreNone>(oc, sig, mag, alb, dirs, counts, partial, colors, nullptr,
+                                        B, N, R, threads, pb, qb, erf_id, exp_id, stream);
 }
 
 int sgrt_fused_fwd_t(const float* oc, const float* sig, const float* mag, const float* alb,
                      const float* dirs, const int* counts, float* partial, float* colors,
                      float* t, int B, int N, int R, int threads, int pb, int qb, int erf_id,
                      int exp_id, void* stream) {
-  return launch_fwd<IsoGeo, true>(oc, sig, mag, alb, dirs, counts, partial, colors, t, B, N, R,
-                                  threads, pb, qb, erf_id, exp_id, stream);
+  return launch_fwd<IsoGeo, kStoreT>(oc, sig, mag, alb, dirs, counts, partial, colors, t, B, N, R,
+                                     threads, pb, qb, erf_id, exp_id, stream);
 }
 
 int sgrt_fused_fwd_aniso(const float* oc, const float* invd, const float* mag,
                          const float* alb, const float* dirs, const int* counts,
                          float* partial, float* colors, int B, int N, int R, int threads,
                          int pb, int qb, int erf_id, int exp_id, void* stream) {
-  return launch_fwd<AnisoGeo, false>(oc, invd, mag, alb, dirs, counts, partial, colors, nullptr,
-                                     B, N, R, threads, pb, qb, erf_id, exp_id, stream);
+  return launch_fwd<AnisoGeo, kStoreNone>(oc, invd, mag, alb, dirs, counts, partial, colors,
+                                          nullptr, B, N, R, threads, pb, qb, erf_id, exp_id,
+                                          stream);
 }
 
 int sgrt_fused_fwd_t_aniso(const float* oc, const float* invd, const float* mag,
                            const float* alb, const float* dirs, const int* counts,
                            float* partial, float* colors, float* t, int B, int N, int R,
                            int threads, int pb, int qb, int erf_id, int exp_id, void* stream) {
-  return launch_fwd<AnisoGeo, true>(oc, invd, mag, alb, dirs, counts, partial, colors, t, B, N,
-                                    R, threads, pb, qb, erf_id, exp_id, stream);
+  return launch_fwd<AnisoGeo, kStoreT>(oc, invd, mag, alb, dirs, counts, partial, colors, t, B, N,
+                                       R, threads, pb, qb, erf_id, exp_id, stream);
 }
 
 // The fused backwards: the chunked ones at one chunk, ck = N (any N >= 1).
@@ -1338,9 +1364,35 @@ long long sgrt_chunked_bwd_scratch_floats(int B, int N, int R, int ck, int threa
       scratch_layout(B, N, R, ck, threads, recompute != 0, kSums, true));
 }
 
+// The split forwards: the forward at one chunk (ck = N, any N >= 1) over
+// plane rows (PlaneGeo), mb, co (B,N,R), sigma, inv (B,N), counts (B,).
+// sgrt_split_fwd writes tw (B,N,R), zero on rows at or past the count, and
+// no colors; sgrt_split_fwd_color the colors (B,3,R) from albedo (B,N,3),
+// partial (B, N/32, 3, R) scratch. threads = 32 rays a block; pb (8 or 16,
+// the route's p block) does not change the kernel. Returns a cudaError_t
+// (cudaErrorInvalidValue for a configuration the kernel does not take).
+int sgrt_split_fwd(const float* mb, const float* co, const float* sig, const float* inv,
+                   const int* counts, float* tw, int B, int N, int R, int threads, int pb,
+                   int qb, int erf_id, int exp_id, void* stream) {
+  const PlaneGeo::Args in{mb, co, sig, inv, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch_fwd<PlaneGeo, kStoreTw>(nullptr, nullptr, nullptr, nullptr, nullptr, counts,
+                                        nullptr, nullptr, tw, B, N, R, threads, pb, qb, erf_id,
+                                        exp_id, stream, in);
+}
+
+int sgrt_split_fwd_color(const float* mb, const float* co, const float* sig, const float* inv,
+                         const float* alb, const int* counts, float* partial, float* colors,
+                         int B, int N, int R, int threads, int pb, int qb, int erf_id,
+                         int exp_id, void* stream) {
+  const PlaneGeo::Args in{mb, co, sig, inv, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch_fwd<PlaneGeo, kStoreNone>(nullptr, nullptr, nullptr, alb, nullptr, counts,
+                                          partial, colors, nullptr, B, N, R, threads, pb, qb,
+                                          erf_id, exp_id, stream, in);
+}
+
 // The split backwards: the recompute backward at one chunk (ck = N) over
-// plane rows (PlaneGeo). sgrt_split_bwd is the VJP of split.cu's
-// sgrt_split_fwd for the cotangent g (B,N,R) of tw: dmb, dco (B,N,R), dsig,
+// plane rows (PlaneGeo). sgrt_split_bwd is the VJP of sgrt_split_fwd for
+// the cotangent g (B,N,R) of tw: dmb, dco (B,N,R), dsig,
 // dinv (B,N); sgrt_split_bwd_color that of sgrt_split_fwd_color for dcol
 // (B,3,R), plus dalb (B,N,3). threads = 32 rays a block; scratch of
 // sgrt_split_bwd_scratch_floats(B, N, R, 32) floats; part_ms (4 + 1 floats,
@@ -1381,12 +1433,12 @@ int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
   switch (i) {
     case 0:
       *name = "chunked fwd_kernel<IsoGeo>";
-      return kernel_resources(fwd_kernel<IsoGeo, kErfAs5, kExpExact, false>, fwd, fwd_smem(qb),
-                              out);
+      return kernel_resources(fwd_kernel<IsoGeo, kErfAs5, kExpExact, kStoreNone>, fwd,
+                              fwd_smem(qb), out);
     case 1:
-      *name = "chunked fwd_kernel<IsoGeo, SAVE_T>";
-      return kernel_resources(fwd_kernel<IsoGeo, kErfAs5, kExpExact, true>, fwd, fwd_smem(qb),
-                              out);
+      *name = "chunked fwd_kernel<IsoGeo, STORE_T>";
+      return kernel_resources(fwd_kernel<IsoGeo, kErfAs5, kExpExact, kStoreT>, fwd,
+                              fwd_smem(qb), out);
     case 2:
       *name = "chunked bwd_p_kernel<IsoGeo>";
       return kernel_resources(bwd_p_kernel<IsoGeo, kErfAs5, kExpExact>, bwd, bwd_p_smem(qb), out);
@@ -1395,12 +1447,12 @@ int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
       return kernel_resources(bwd_q_kernel<IsoGeo, kErfAs5, kExpExact>, bwd, bwd_q_smem(qb), out);
     case 4:
       *name = "chunked fwd_kernel<AnisoGeo>";
-      return kernel_resources(fwd_kernel<AnisoGeo, kErfAs5, kExpExact, false>, fwd, fwd_smem(qb),
-                              out);
+      return kernel_resources(fwd_kernel<AnisoGeo, kErfAs5, kExpExact, kStoreNone>, fwd,
+                              fwd_smem(qb), out);
     case 5:
-      *name = "chunked fwd_kernel<AnisoGeo, SAVE_T>";
-      return kernel_resources(fwd_kernel<AnisoGeo, kErfAs5, kExpExact, true>, fwd, fwd_smem(qb),
-                              out);
+      *name = "chunked fwd_kernel<AnisoGeo, STORE_T>";
+      return kernel_resources(fwd_kernel<AnisoGeo, kErfAs5, kExpExact, kStoreT>, fwd,
+                              fwd_smem(qb), out);
     case 6:
       *name = "chunked bwd_p_kernel<AnisoGeo>";
       return kernel_resources(bwd_p_kernel<AnisoGeo, kErfAs5, kExpExact>, bwd, bwd_p_smem(qb),
@@ -1410,8 +1462,8 @@ int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
       return kernel_resources(bwd_q_kernel<AnisoGeo, kErfAs5, kExpExact>, bwd, bwd_q_smem(qb),
                               out);
     case 8:
-      *name = "chunked fwd_kernel<PlaneGeo, SAVE_T>";
-      return kernel_resources(fwd_kernel<PlaneGeo, kErfAs5, kExpExact, true>, fwd, fwd_smem(qb),
+      *name = "chunked fwd_kernel<PlaneGeo, STORE_T>";
+      return kernel_resources(fwd_kernel<PlaneGeo, kErfAs5, kExpExact, kStoreT>, fwd, fwd_smem(qb),
                               out);
     case 9:
       *name = "chunked bwd_p_kernel<PlaneGeo>";
@@ -1421,6 +1473,14 @@ int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
       *name = "chunked bwd_q_kernel<PlaneGeo>";
       return kernel_resources(bwd_q_kernel<PlaneGeo, kErfAs5, kExpExact>, bwd, bwd_q_smem(qb),
                               out);
+    case 11:
+      *name = "chunked fwd_kernel<PlaneGeo>";
+      return kernel_resources(fwd_kernel<PlaneGeo, kErfAs5, kExpExact, kStoreNone>, fwd,
+                              fwd_smem(qb), out);
+    case 12:
+      *name = "chunked fwd_kernel<PlaneGeo, STORE_TW>";
+      return kernel_resources(fwd_kernel<PlaneGeo, kErfAs5, kExpExact, kStoreTw>, fwd,
+                              fwd_smem(qb), out);
     default:
       return -1;
   }

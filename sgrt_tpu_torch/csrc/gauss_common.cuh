@@ -1,11 +1,10 @@
-// Device math shared by the chunked kernels (chunked.cu, also every fused
-// kernel and the split backwards) and the split forwards (split.cu): the
-// erf/exp variants the kernels are compiled for, the rounding-controlled
-// Gaussian exponent, a row's per-row constants, the three row geometries
-// (isotropic, anisotropic, and plane rows read from precomputed planes),
-// the five quadrature taps, a warp sum, the split forwards' pass A over
-// staged rows, the ordered sum of per-block partials, and on the host a
-// kernel's resources per SM.
+// Device math of the chunked kernels (chunked.cu, also every fused kernel
+// and every split kernel): the erf/exp variants the kernels are compiled
+// for, the rounding-controlled Gaussian exponent, a row's per-row
+// constants, the three row geometries (isotropic, anisotropic, and plane
+// rows read from precomputed planes), the five quadrature taps, a warp sum,
+// the ordered sum of per-block partials, and on the host a kernel's
+// resources per SM.
 //
 // No fast-math anywhere: the A&S reciprocal is an IEEE division and expf is
 // the accurate one, so "as5" is the float32-exact erf and the kernels agree
@@ -265,9 +264,9 @@ struct AnisoGeo {
 // thread's, bound to its ray r of tile b: a lane past R reads mb = co = 0,
 // and every sum it makes is zero. No directions and no J: the planes' own
 // gradients are the backward's outputs. Beside the inputs, Args carries the
-// backward's: g (B,N,R), the cotangent of tw (null in the colors backward,
-// whose g is sqrt(2/pi) co albedo . dcol), and the outputs dmb, dco (B,N,R)
-// and dsig, dinv (B,N).
+// backward's (null in the forwards): g (B,N,R), the cotangent of tw (null in
+// the colors backward, whose g is sqrt(2/pi) co albedo . dcol), and the
+// outputs dmb, dco (B,N,R) and dsig, dinv (B,N).
 struct PlaneGeo {
   struct Args {
     const float* mb;
@@ -340,63 +339,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Pass A of PB p rows of one ray against the q rows [q_lo, q_hi) of one
-// tile, staged qb rows at a time through shared memory by a geometry that
-// stages rows (stage) and reads a staged row's terms (staged; split.cu's
-// StagedPlanes):
-//   acc[i][k] += co_q erf((mb_p + k sb_p - mb_q) inv_q)
-// and, with with_base, base += co_q erf(-mb_q inv_q). sgp holds the p rows'
-// sb (sigma for isotropic rows). Every thread of the block calls it with
-// the same bounds (it stages rows between barriers).
-//
-// The sums are two-level: each stage's qb terms are summed on their own,
-// then added to the running sum. T = w exp(base - acc) subtracts two sums
-// of up to N terms, so their rounding error is T's relative error; a single
-// running sum over N terms loses ~N ulp in the worst case, two levels
-// ~(qb + N/qb). At N ~ 4000 (the 50k-Gaussian sphere) a single running sum
-// made T several times less accurate than the plain version's blocked sums.
-template <int PB, int ERF, int EXP, class Geo>
-__device__ __forceinline__ void pass_a(float* stage, int qb, const Geo& geo, int q_lo,
-                                       int q_hi, float dx, float dy, float dz,
-                                       const float (&mbp)[PB], const float (&sgp)[PB],
-                                       float (&acc)[PB][kTaps], bool with_base, float& base) {
-  for (int q0 = q_lo; q0 < q_hi; q0 += qb) {
-    const int nq = min(qb, q_hi - q0);
-    __syncthreads();
-    geo.stage(stage, qb, q0, nq);
-    __syncthreads();
-    float part[PB][kTaps], base_part = 0.0f;
-#pragma unroll
-    for (int i = 0; i < PB; ++i) {
-#pragma unroll
-      for (int k = 0; k < kTaps; ++k) part[i][k] = 0.0f;
-    }
-    for (int j = 0; j < nq; ++j) {
-      const RayTerms tq = geo.template staged<EXP>(stage, qb, j, dx, dy, dz);
-      const float mbq = tq.mb, co = tq.co, invq = tq.inv;
-      if (with_base) base_part += co * erf_fn<ERF>(-mbq * invq);
-#pragma unroll
-      for (int i = 0; i < PB; ++i) {
-        const float darg = (mbp[i] - mbq) * invq;
-        const float ks = sgp[i] * invq;
-#pragma unroll
-        for (int k = 0; k < kTaps; ++k) part[i][k] += co * erf_fn<ERF>(darg + tap_k(k) * ks);
-      }
-    }
-    base += base_part;
-#pragma unroll
-    for (int i = 0; i < PB; ++i) {
-#pragma unroll
-      for (int k = 0; k < kTaps; ++k) acc[i][k] += part[i][k];
-    }
-  }
-}
-
 // The second level of a sum split over row blocks: out[b, e] = sum of
 // part[b, z, e] over the blocks z of tile b that hold live rows, in block
 // order (no atomics, deterministic), for e < per_tile. Block z covers rows
-// row0 + z rows ..; at most n_blocks are stored per tile. It sums the fused
-// and split forwards' per-split colors and the backwards' per-block db.
+// row0 + z rows ..; at most n_blocks are stored per tile. It sums the
+// forwards' per-split colors and the backwards' per-block db.
 __global__ void ordered_block_sums(const float* __restrict__ part,
                                    const int* __restrict__ counts, float* __restrict__ out,
                                    int B, int N, int per_tile, int n_blocks, int rows,

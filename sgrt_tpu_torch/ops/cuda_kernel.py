@@ -88,8 +88,8 @@ def _kernel_erf_name(name: str) -> str:
 def _block_sizes(n: int) -> tuple[int, int]:
     """(pb, qb) from the Gaussian-axis extent, as in the JAX package, so
     both pad tile capacities alike. pb is the p block that N is a multiple
-    of (the split kernels keep pb rows a thread; the chunked.cu kernels 4
-    whatever it is), qb the q rows staged per shared-memory pass."""
+    of (the kernels keep 4 rows a thread whatever it is), qb the q rows
+    staged per shared-memory pass."""
     if n <= 256:
         return 8, 16
     return 8, 32

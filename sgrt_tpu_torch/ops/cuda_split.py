@@ -27,16 +27,18 @@ count are inert (co = 0), as tiling makes them.
 Four kernels, each with a wrapper that launches it for tensors on the card
 (or raises) and runs its plain version for tensors on the CPU:
 
-    split_forward          csrc/split.cu    tw          (_fwd_kernel)
+    split_forward          csrc/chunked.cu  tw          (_fwd_kernel)
     split_backward         csrc/chunked.cu  dmb, dco, dsigma, dinv from dtw  (_bwd_kernel)
-    split_forward_color    csrc/split.cu    colors      (_fwd_color_kernel)
+    split_forward_color    csrc/chunked.cu  colors      (_fwd_color_kernel)
     split_backward_color   csrc/chunked.cu  ... and dalbedo from dcolors     (_bwd_color_kernel)
 
-The backwards are csrc/chunked.cu's recompute backward at one chunk over
-plane rows (PlaneGeo): the forward-with-T over the planes writes T to
-scratch, then its p side, db sum, q side and a rows kernel, in blocks of 32
-rays. They take qb (the rows staged per shared-memory pass); rb and rb_bwd
-stay the Pallas API's block rule on the host.
+They are csrc/chunked.cu's forward and recompute backward at one chunk over
+plane rows (PlaneGeo), in blocks of 32 rays: the forward stores tw in place
+of the colors (split_forward) or its colors alone (split_forward_color); the
+backwards run the forward-with-T over the planes into scratch, then its p
+side, db sum, q side and a rows kernel. They take qb (the rows staged per
+shared-memory pass); pb is checked but does not change the kernels, and rb
+and rb_bwd stay the Pallas API's block rule on the host.
 
 TwSplit and ColorsSplit join them into differentiable ops, tw_split and
 colors_split the counterparts of tw_pallas and colors_pallas, with their
@@ -75,13 +77,12 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
 )
 from sgrt_tpu_torch.ops.reference import INV_SQRT_2_PI, SQRT_2
 
-_SRC, _BWD_SRC, _TPU = "split.cu", "chunked.cu", "sgrt_tpu/ops/pallas_kernel.py"
+_SRC, _TPU = "chunked.cu", "sgrt_tpu/ops/pallas_kernel.py"
 SPLIT_FWD = CudaKernel("split_fwd", _SRC, "sgrt_split_fwd", f"{_TPU}:181", 6, 8)
-SPLIT_BWD = CudaKernel("split_bwd", _BWD_SRC, "sgrt_split_bwd", f"{_TPU}:256", 12, 7,
-                       timed=True)
+SPLIT_BWD = CudaKernel("split_bwd", _SRC, "sgrt_split_bwd", f"{_TPU}:256", 12, 7, timed=True)
 SPLIT_FWD_COLOR = CudaKernel("split_fwd_color", _SRC, "sgrt_split_fwd_color",
                              f"{_TPU}:213", 8, 8)
-SPLIT_BWD_COLOR = CudaKernel("split_bwd_color", _BWD_SRC, "sgrt_split_bwd_color",
+SPLIT_BWD_COLOR = CudaKernel("split_bwd_color", _SRC, "sgrt_split_bwd_color",
                              f"{_TPU}:329", 14, 7, timed=True)
 
 
@@ -247,10 +248,11 @@ def _plane_shapes(mb, co, sigma, inv, counts, albedo=None) -> dict:
     return want
 
 
-def _ints(kernel, mb, rb, blocks, erf_name, exp_name, max_threads="sgrt_split_max_threads"):
-    """The launch's ints: B, N, R, threads, the block sizes, erf and exp."""
+def _ints(kernel, mb, rb, blocks, erf_name, exp_name):
+    """The launch's ints: B, N, R, threads (32 rays a block, rb only caps
+    it), the block sizes, erf and exp."""
     b, n, r = mb.shape
-    threads = _threads(kernel.query(max_threads), rb, r)
+    threads = _threads(kernel.query("sgrt_chunked_max_threads"), rb, r)
     return [b, n, r, threads, *blocks, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]]
 
 
@@ -258,8 +260,8 @@ def split_forward(mb, co, sigma, inv, counts, *, rb: int = 128, pb: int = 16, qb
                   erf_name: str = "as5", exp_name: str = "exact") -> torch.Tensor:
     """Wrapper of the tw kernel: tw (B,N,R), zero past the count. CUDA
     tensors go to the kernel (which raises for what it does not take), CPU
-    tensors to split_forward_plain. pb is the p rows a thread keeps in
-    registers, qb caps the q rows staged per shared-memory pass."""
+    tensors to split_forward_plain. pb is checked (8 or 16) but does not
+    change the kernel, qb is the q rows staged per shared-memory pass."""
     args = (mb, co, sigma, inv, counts)
     if not _check_inputs("split_forward", _plane_shapes(*args), mb.device):
         return split_forward_plain(*args, erf_name=erf_name, exp_name=exp_name)
@@ -281,7 +283,7 @@ def split_forward_color(mb, co, sigma, inv, albedo, counts, *, rb: int = 128, pb
         return split_forward_color_plain(*args, erf_name=erf_name, exp_name=exp_name)
     _check_names(erf_name, exp_name, pb)
     b, n, r = mb.shape
-    n_split = -(-n // SPLIT_FWD_COLOR.query("sgrt_split_fwd_rows_per_block"))
+    n_split = -(-n // SPLIT_FWD_COLOR.query("sgrt_chunked_fwd_rows_per_block"))
     f32 = dict(dtype=torch.float32, device=mb.device)
     partial, colors = torch.empty((b, n_split, 3, r), **f32), torch.empty((b, 3, r), **f32)
     ints = _ints(SPLIT_FWD_COLOR, mb, rb, (pb, qb), erf_name, exp_name)
@@ -299,7 +301,7 @@ def _backward_launch(kernel, ins, albedo, *, rb, qb, erf_name, exp_name, part_ms
     or None."""
     _check_names(erf_name, exp_name)
     mb = ins[0]
-    ints = _ints(kernel, mb, rb, (qb,), erf_name, exp_name, "sgrt_chunked_max_threads")
+    ints = _ints(kernel, mb, rb, (qb,), erf_name, exp_name)
     b, n, _, _ = ints[:4]
     count = kernel.library().sgrt_split_bwd_scratch_floats
     count.argtypes = [ctypes.c_int] * 4

@@ -39,17 +39,15 @@ def build_all() -> None:
 
 
 def kernel_resources(threads: int = 128, qb: int = 32) -> list[dict]:
-    """What each device function of the libraries that report it takes of an
-    SM (cudaFuncGetAttributes and the occupancy calculator, csrc/
-    gauss_common.cuh kernel_resources) at `threads` rays per block and qb
-    staged rows: registers and spill bytes per thread, shared memory, and
-    resident blocks and warps per SM. Builds the libraries."""
+    """What each device function of the libraries takes of an SM
+    (sgrt_kernel_resources: cudaFuncGetAttributes and the occupancy
+    calculator, csrc/gauss_common.cuh kernel_resources) at `threads` rays per
+    block and qb staged rows: registers and spill bytes per thread, shared
+    memory, and resident blocks and warps per SM. Builds the libraries."""
     out = []
     for source in sorted({k.source for k in KERNELS}):
         lib = ctypes.CDLL(str(nvcc.build([source])[0]))
-        fn = getattr(lib, "sgrt_kernel_resources", None)
-        if fn is None:
-            continue
+        fn = lib.sgrt_kernel_resources
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int

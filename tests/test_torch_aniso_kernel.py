@@ -283,21 +283,19 @@ def test_fused_aniso_forwards_are_chunked_entry_points(kernel, symbol, line):
 
 def test_fused_fwd_cu_keeps_only_the_isotropic_forwards():
     """csrc/fused_fwd.cu, which last held the isotropic fused forwards
-    (kernels 1-2), is gone: no source of the port is that file and no kernel
-    of ops.kernels.KERNELS names it; every kernel of the port but the two
-    split forwards is an entry point of csrc/chunked.cu."""
-    from sgrt_tpu_torch.ops import cuda_split as ts
+    (kernels 1-2), and csrc/split.cu, which last held the split forwards
+    (kernels 15 and 17), are gone: no source of the port is either file, and
+    all 20 kernels of ops.kernels.KERNELS are entry points of
+    csrc/chunked.cu, the port's one CUDA source."""
     from sgrt_tpu_torch.ops import kernels
     from sgrt_tpu_torch.utils import nvcc
 
-    assert not (nvcc.CSRC_DIR / "fused_fwd.cu").exists()
-    assert all(k.source.name != "fused_fwd.cu" for k in kernels.KERNELS)
-    split = (ts.SPLIT_FWD, ts.SPLIT_FWD_COLOR)
-    assert all(k in kernels.KERNELS and k.source.name == "split.cu" for k in split)
-    assert [k for k in kernels.KERNELS if k not in split] == [
-        k for k in kernels.KERNELS if k.source.name == "chunked.cu"]
-    assert len(kernels.KERNELS) == 20 and {k.source.name for k in kernels.KERNELS} == {
-        "chunked.cu", "split.cu"}
+    for gone in ("fused_fwd.cu", "split.cu"):
+        assert not (nvcc.CSRC_DIR / gone).exists()
+        assert all(k.source.name != gone for k in kernels.KERNELS)
+    assert len(kernels.KERNELS) == 20
+    assert all(k.source.name == "chunked.cu" for k in kernels.KERNELS)
+    assert sorted(p.name for p in nvcc.CSRC_DIR.glob("*.cu")) == ["chunked.cu"]
 
 
 def test_fused_bwd_cu_keeps_only_the_isotropic_kernels():
@@ -323,8 +321,8 @@ def test_split_backwards_are_chunked_entry_points(name, symbol, line):
     """The split backwards (kernels 16 and 18) are csrc/chunked.cu's
     recompute backward at one chunk over plane rows: each names its source,
     its symbol and the Pallas kernel it replaces, its body runs
-    launch_bwd<PlaneGeo, false> with ck = N, and csrc/split.cu holds no
-    backward kernel any more."""
+    launch_bwd<PlaneGeo, false> with ck = N, and csrc/split.cu, which held
+    them before, is gone."""
     import re
 
     from sgrt_tpu_torch.ops import cuda_split as ts
@@ -338,7 +336,34 @@ def test_split_backwards_are_chunked_entry_points(name, symbol, line):
     body = src[src.index(f"int {symbol}("):]
     body = body[:body.index("\n}\n")]
     assert "launch_bwd<PlaneGeo, false>" in body and "B, N, R, N, threads" in body
-    split = (kernel.source.parent / "split.cu").read_text()
-    names = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", split)
-    assert names and not [n for n in names if "fwd" not in n], names
-    assert f"int {symbol}(" not in split
+    assert not (kernel.source.parent / "split.cu").exists()
+
+
+@pytest.mark.parametrize("name,symbol,line",
+                         [("SPLIT_FWD", "sgrt_split_fwd", 181),
+                          ("SPLIT_FWD_COLOR", "sgrt_split_fwd_color", 213)])
+def test_split_forwards_are_chunked_entry_points(name, symbol, line):
+    """The split forwards (kernels 15 and 17) are csrc/chunked.cu's forward
+    at one chunk over plane rows: each names its source, its symbol and the
+    Pallas kernel it replaces, its body runs launch_fwd<PlaneGeo, ...> with
+    the planes' Args (the tw store for kernel 15, the colors alone for 17),
+    and fwd_kernel is the kernel that launch_fwd launches."""
+    import re
+
+    from sgrt_tpu_torch.ops import cuda_split as ts
+    from sgrt_tpu_torch.ops import kernels
+
+    kernel = getattr(ts, name)
+    assert kernel in kernels.KERNELS and not kernel.timed
+    assert kernel.source.name == "chunked.cu" and kernel.symbol == symbol
+    assert kernel.replaces == f"sgrt_tpu/ops/pallas_kernel.py:{line}"
+    src = kernel.source.read_text()
+    assert re.search(rf"^int {symbol}\(", src, re.M), symbol
+    body = src[src.index(f"int {symbol}("):]
+    body = body[:body.index("\n}\n")]
+    store = "kStoreTw" if name == "SPLIT_FWD" else "kStoreNone"
+    assert f"launch_fwd<PlaneGeo, {store}>" in body and "PlaneGeo::Args in{" in body
+    assert "stream, in)" in body
+    launch = src[src.index("int launch_fwd("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "pick_fwd<Geo, STORE>" in launch and "fwd_kernel<Geo, kErfAs5, kExpExact, STORE>" in src

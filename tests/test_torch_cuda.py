@@ -652,8 +652,9 @@ def test_chunked_aniso_route_on_card():
         tca.chunked_backward_aniso(*args, dcol, ck=256)
 
 
-# the split kernels (15 and 17 in csrc/split.cu, 16 and 18 csrc/chunked.cu's
-# recompute backward at one chunk over plane rows) on seeded planes: co
+# the split kernels (csrc/chunked.cu at one chunk over plane rows: 15 and 17
+# its forward, storing tw or the colors, 16 and 18 its recompute backward)
+# on seeded planes: co
 # non-zero on every row (base runs over all N), counts (N, 37, 0, 1000): a
 # full tile, one with a partial block, a dead tile and one clamped to N; N 96
 # (two 64-row backward blocks) and N 40 (one, partial); R = 200 is several
@@ -748,6 +749,31 @@ def test_split_backwards_agree(n):
     direct = 0.7978845608028654 * tw * A
     scale = float(g18[1].abs().max())
     assert float((g18[1] - g16[1] - direct).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("n", [96, 40])
+def test_split_forwards_agree(n):
+    """Kernels 15 and 17 are one forward: tw and the colors are equal bit
+    for bit at pb 8 and 16 (pb does not change the kernel); kernel 17's
+    colors are within 1e-6 of scale of a float64 sum over the rows of
+    albedo sqrt(2/pi) co tw from kernel 15's tw (the kernel sums the same
+    rounded tw, in float32 and in another order); tw is exactly 0 past the
+    count and on the dead tile."""
+    from sgrt_tpu_torch.ops import cuda_split as cs
+
+    dev = _card()
+    mb, co, sig, inv, alb, cnt = _planes(dev, n=n)
+    planes = (mb, co, sig, inv)
+    tw8, tw16 = (cs.split_forward(*planes, cnt, pb=pb) for pb in (8, 16))
+    c8, c16 = (cs.split_forward_color(*planes, alb, cnt, pb=pb) for pb in (8, 16))
+    torch.cuda.synchronize()
+    assert torch.equal(tw8, tw16) and torch.equal(c8, c16)
+    want = torch.einsum("bnc,bnr->bcr", alb.double(),
+                        0.7978845608028654 * co.double() * tw8.double())
+    assert float((c8.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    for b, c in enumerate(cnt.tolist()):
+        assert (tw8[b, min(c, n):] == 0).all()
+    assert (tw8[2] == 0).all() and float(tw8[0].abs().max()) > 0
 
 
 def test_split_ops_on_card():
