@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --torch-route   # only times the torch route's terms
-    python3 chip_smoke.py --only aniso_dense[,split,...]   # some phase groups
+    python3 chip_smoke.py --only aniso_dense[,split,approx,...]   # some phase groups
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds the port's CUDA kernels from csrc/, holds each against its plain
@@ -53,7 +53,17 @@ comes out, and times the kernels:
             (sgrt_tpu_torch.verify, full checks; its check 5 launches the
             split kernels), and the kernels' times with their device
             profiles and peak memory and the backwards' parts, kernels 1,
-            2 and 4 on the same tiles beside them.
+            2 and 4 on the same tiles beside them;
+  approx    every erf and exp name on the main paths: the reference's
+            img-error (img-error.cpp:18-60) at its own 256x256 per stack
+            against the oracle under tests/test_img_error.py's MSE bounds;
+            the serving CLI's orbit and kernels 1, 2 and 3 per stack
+            (TIMED_STACKS) with their bounds; the north-star train step
+            under spline_mirror/spline, saved-T and recompute.
+
+Every kernels-vs-plain phase holds one tile under as3/fast and under each
+stack of APPROX_STACKS (taylor/exact, spline/spline, spline_mirror/exact)
+beside its as5/exact cases, under the same gates.
 
 After the build, kernel_resources prints each device function's registers,
 spill bytes, shared memory and resident blocks per SM, and the instructions
@@ -106,6 +116,31 @@ SFU_PER_CLOCK_PER_SM = 16  # MUFU results per clock per SM, compute capability 9
 # per erf tap of csrc/chunked.cu's forward (its source note): FP32
 # instructions and SFU operations; an exp alone is ~4 FP32 and 1 SFU
 TAP_FP32, TAP_SFU, EXP_FP32, EXP_SFU = 17, 2, 4, 1
+# the same per tap of every erf of the forward and per exp
+# (csrc/gauss_common.cuh): as3 its 3-term polynomial with the IEEE
+# reciprocal and expf; taylor a clamp, x^2, a 10-term Horner and (2/sqrt(pi)
+# x) acc; the splines their saturation tests, a clamp, the segment's scale
+# and a 3-step Horner (the mirror also its sign), no SFU; the fast exp 4
+# FP32; the spline exp as the spline erf, and under it T's exponent is
+# summed term by term, one FP32 more a tap (chunked.cu, kTermwise)
+ERF_TAP_OPS = {"as5": (TAP_FP32, TAP_SFU), "as3": (14, 2), "taylor": (23, 0),
+               "spline": (12, 0), "spline_mirror": (14, 0)}
+EXP_OPS = {"exact": (EXP_FP32, EXP_SFU), "fast": (4, 0), "spline": (12, 0)}
+# the erfs without an (erf, gauss) pair and the spline exp, a stack each: a
+# one-tile case each beside one_tile_as3_fast in every kernels-vs-plain phase
+APPROX_STACKS = (("taylor", "exact"), ("spline", "spline"), ("spline_mirror", "exact"))
+# the reference's img-error test (img-error.cpp:18-60) at its own 256x256:
+# the stacks and MSE bounds of tests/test_img_error.py's kernel tests
+IMG_ERROR_SIZE = 256
+IMG_ERROR_STACKS = (("as5", "exact", 1e-10), ("as3", "exact", 1e-8),
+                    ("spline_mirror", "exact", 1e-8), ("taylor", "exact", 1e-2),
+                    ("as3", "fast", 1e-4), ("as5", "fast", 1e-4), ("as5", "spline", 1e-6))
+# the dense cells' APPROX_STACKS cases: the seeded tile nearest this many
+# rows (two chunks, the second partly live; the plain versions and their
+# float64 runs cost ~count^2 a tile, 21-29 s a stack on the densest tiles)
+APPROX_DENSE_COUNT = 2000
+# the stacks timed on the serving and training paths (approx_phases)
+TIMED_STACKS = (("as5", "exact"), ("as3", "fast"), *APPROX_STACKS, ("spline_mirror", "spline"))
 # the backward's work, whatever kernel does it: per live (p, q, ray) the
 # gradient pass's five erf-and-gauss taps, 4 FP32 each to fold the
 # cotangents, and 8 FP32 per pair (mb_p - mb_q, the S0 and S1 scaling, dmb,
@@ -345,22 +380,28 @@ def is_aniso(inp) -> bool:
     return inp[1].dim() == 3          # invd (B,N,3), not sigma (B,N)
 
 
-def fwd_ops(inp) -> tuple[float, float]:
+def fwd_ops(inp, erf_name: str = "as5", exp_name: str = "exact") -> tuple[float, float]:
     """(FP32 instructions, SFU operations) of the forward's live work: 5
     erf taps per live (p, q, ray), one base erf and 6 exps per live (q, ray),
-    and for anisotropic rows their per-(row, ray) prep."""
+    and for anisotropic rows their per-(row, ray) prep; each tap and exp as
+    the stack's erf and exp cost (ERF_TAP_OPS, EXP_OPS)."""
     c, r = live_counts(inp), inp[4].shape[2]
     taps = float(np.sum(5 * c * c + c) * r)
     exps = float(np.sum(6 * c) * r)
     preps = float(np.sum(c) * r) if is_aniso(inp) else 0.0
-    return (TAP_FP32 * taps + EXP_FP32 * exps + PREP_FP32 * preps,
-            TAP_SFU * taps + EXP_SFU * exps + PREP_SFU * preps)
+    (tap_f, tap_s), (exp_f, exp_s) = ERF_TAP_OPS[erf_name], EXP_OPS[exp_name]
+    tap_f += exp_name == "spline"     # T's exponent summed term by term
+    return (tap_f * taps + exp_f * exps + PREP_FP32 * preps,
+            tap_s * taps + exp_s * exps + PREP_SFU * preps)
 
 
-def bwd_ops(inp, recompute: bool) -> tuple[float, float]:
+def bwd_ops(inp, recompute: bool, erf_name: str = "as5",
+            exp_name: str = "exact") -> tuple[float, float]:
     """(FP32 instructions, SFU operations) of a backward's live work; the
-    recompute backward also redoes the forward's pass A. Anisotropic rows
-    add their prep and chain per live (row, ray)."""
+    recompute backward also redoes the forward's pass A (fwd_ops of the
+    stack). The pair pass's taps are as5's for every erf but as3 (the erf's
+    pair); the timed stacks' backwards are counted as as5's. Anisotropic
+    rows add their prep and chain per live (row, ray)."""
     c, r = live_counts(inp), inp[4].shape[2]
     pairs, rows = float(np.sum(c * c) * r), float(np.sum(c) * r)
     fp32 = BWD_PAIR_FP32 * pairs + BWD_ROW_FP32 * rows
@@ -369,7 +410,7 @@ def bwd_ops(inp, recompute: bool) -> tuple[float, float]:
         fp32 += (PREP_FP32 + CHAIN_FP32) * rows
         sfu += (PREP_SFU + CHAIN_SFU) * rows
     if recompute:
-        f, s = fwd_ops(inp)
+        f, s = fwd_ops(inp, erf_name, exp_name)
         if is_aniso(inp):         # the prep is counted once
             f, s = f - PREP_FP32 * rows, s - PREP_SFU * rows
         fp32, sfu = fp32 + f, sfu + s
@@ -462,8 +503,10 @@ def kernel_resources_phase() -> None:
             continue
         for mangled, v in sass_loops(run.stdout).items():
             # the erf-tap kernels' as5/exact instantiations (template
-            # arguments ERF 0, EXP 0), as the main paths run them
-            if "kernel" not in mangled or "Li0ELi0E" not in mangled or v["hot_loop"] is None:
+            # arguments ERF 0, EXP 0; the p side's EXP 0 alone), as the main
+            # paths run them
+            if ("kernel" not in mangled or not re.search(r"GeoELi0E(Li0E|E)", mangled)
+                    or v["hot_loop"] is None):
                 continue
             name = mangled
             if os.path.exists(filt):
@@ -762,6 +805,7 @@ def train_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
     tiles256 = [t[sel16].contiguous() for t in full16]
     cases = {"32_tiles": (sub, "as5", "exact"), "one_tile_as3_fast": ([t[:1] for t in sub],
                                                                      "as3", "fast"),
+             **{f"one_tile_{e}_{x}": ([t[:1] for t in sub], e, x) for e, x in APPROX_STACKS},
              "untiled_B1": (untiled, "as5", "exact"), "256_ray_tiles": (tiles256, "as5", "exact")}
     results = {}
     t0 = time.perf_counter()
@@ -1174,11 +1218,14 @@ def dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str) -> list:
         g = torch.Generator().manual_seed(seed)
         return torch.randn((inp[0].shape[0], 3, inp[4].shape[2]), generator=g).to(dev)
 
+    near = min(range(1, len(sel)), key=lambda i: abs(int(cnt[sel[i]]) - APPROX_DENSE_COUNT))
+    one_near = [t[near:near + 1] for t in sub]
     cases = {sub_case: (sub, c_k, "as5", "exact", 128),
              "B1_three_chunks_last_partial": (one3, ck3, "as5", "exact", 128),
              "dead_tile": (dead, c_k, "as5", "exact", 128),
              "two_ray_blocks": ([t[:4] for t in sub], c_k, "as5", "exact", 64),
-             "one_tile_as3_fast": (one, c_k, "as3", "fast", 128)}
+             "one_tile_as3_fast": (one, c_k, "as3", "fast", 128),
+             **{f"one_tile_{e}_{x}": (one_near, c_k, e, x, 128) for e, x in APPROX_STACKS}}
     results = {}
     t0 = time.perf_counter()
     for i, (name, (inp, kk, e, x, rb)) in enumerate(cases.items()):
@@ -1562,7 +1609,8 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
     cases = {"32_tiles": (sub, "as5", "exact", 128),
              "counts_below_capacity": (below, "as5", "exact", 128),
              "two_ray_blocks": ([t[:4] for t in sub], "as5", "exact", 64),
-             "one_tile_as3_fast": ([t[:1] for t in sub], "as3", "fast", 128)}
+             "one_tile_as3_fast": ([t[:1] for t in sub], "as3", "fast", 128),
+             **{f"one_tile_{e}_{x}": ([t[:1] for t in sub], e, x, 128) for e, x in APPROX_STACKS}}
     results = {}
     t0 = time.perf_counter()
     for i, (name, (inp, e, x, rb)) in enumerate(cases.items()):
@@ -1969,6 +2017,7 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str,
     c0 = int(cnt[sel[mid]])
     ck3 = -(-int(np.ceil(c0 / 2.5)) // 128) * 128
     one = [t[mid:mid + 1] for t in sub]
+    near = min(range(1, len(sel)), key=lambda i: abs(int(cnt[sel[i]]) - APPROX_DENSE_COUNT))
     if 3 * ck3 <= n_d:
         one3 = [t[:, :3 * ck3].contiguous() if i < 4 else t for i, t in enumerate(one)]
     else:
@@ -1982,7 +2031,9 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str,
              "B1_three_chunks_last_partial": (one3, ck3, "as5", "exact", 128),
              "dead_tile": (dead, c_k, "as5", "exact", 128),
              "two_ray_blocks": ([t[1:3] for t in sub], c_k, "as5", "exact", 64),
-             "one_tile_as3_fast": ([t[1:2] for t in sub], c_k, "as3", "fast", 128)}
+             "one_tile_as3_fast": ([t[1:2] for t in sub], c_k, "as3", "fast", 128),
+             **{f"one_tile_{e}_{x}": ([t[near:near + 1] for t in sub], c_k, e, x, 128)
+                for e, x in APPROX_STACKS}}
     results = {}
     t0 = time.perf_counter()
     for i, (name, (inp, kk, e, x, rb)) in enumerate(cases.items()):
@@ -2388,6 +2439,8 @@ def split_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> list:
              "coeff_past_count": (seeded, "as5", "exact", 128, pb, 32, True),
              "two_ray_blocks": ([t[:8] for t in sub], "as5", "exact", 64, pb, 32, True),
              "one_tile_as3_fast": ([t[:1] for t in sub], "as3", "fast", 128, pb, 32, True),
+             **{f"one_tile_{e}_{x}": ([t[:1] for t in sub], e, x, 128, pb, 32, True)
+                for e, x in APPROX_STACKS},
              "dense_tile": (dense_tile, "as5", "exact", 128, pb, 32, False),
              "verify_check5": (check5, "as5", "exact", 128, 16, 32, True)}
     results = {}
@@ -2639,9 +2692,10 @@ def serving_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
     pick = [dense] + sorted(rng.choice(live, size=min(31, len(live)), replace=False).tolist())
     sel = torch.tensor(pick, device=dev)
     sub = [t[sel].contiguous() for t in frame_in]
+    one = [t[:1] for t in sub]
     cases = {f"{erf_name}/{exp_name}": compare_fused_forwards(rows, erf_name, exp_name)
-             for erf_name, exp_name, rows in (("as5", "exact", sub),
-                                              ("as3", "fast", [t[:1] for t in sub]))}
+             for erf_name, exp_name, rows in (("as5", "exact", sub), ("as3", "fast", one),
+                                              *((e, x, one) for e, x in APPROX_STACKS))}
     errs = {name: c["abs"][FUSED_FWD.name] for name, c in cases.items()}
     emit("kernel_vs_plain", kernel=FUSED_FWD.name, capacity=capacity, padded_capacity=cap,
          tiles=len(pick), densest_tile=dense, densest_count=int(cnt[dense]),
@@ -2753,6 +2807,170 @@ def serving_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
             "bound_by": "operations" if bound_s > t_bytes else "bytes", "library_ms": None}
 
 
+def approx_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> None:
+    """Every erf and exp name on the kernels' main paths: the reference's
+    img-error at its own 256x256 per stack (MSE against the oracle under
+    tests/test_img_error.py's bounds, the forward kernel launched once a
+    stack); per timed stack the serving CLI's orbit and kernel 1 at its
+    frame 0, and kernels 2 and 3 at the training view, each beside its
+    bound; the north-star train step under spline_mirror/spline on the
+    saved-T schedule and at a saved-T budget of 0."""
+    import torch
+
+    from sgrt_tpu_torch import cli
+    from sgrt_tpu_torch.models.camera import Camera
+    from sgrt_tpu_torch.models.gaussians import grid_scene, scene_from_vertices
+    from sgrt_tpu_torch.ops import cuda_kernel as ck
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+    from sgrt_tpu_torch.ops.frame import orbit_camera, probe_buckets, probe_capacity
+    from sgrt_tpu_torch.ops.frame import render_orbit_frame
+    from sgrt_tpu_torch.ops.reference import render_rays_reference
+    from sgrt_tpu_torch.ops.render import _tile_rays
+    from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
+    from sgrt_tpu_torch.parallel.fit import adam, init_state, make_frame_train_step
+
+    # 1. img-error: the 16x16 grid (sigma 1/4, magnitude 3) seen from z = -4
+    grid = grid_scene(16, sigma=0.25, magnitude=3.0, device=dev)
+    cam = Camera.create(position=(0.0, 0.0, -4.0), width=IMG_ERROR_SIZE,
+                        height=IMG_ERROR_SIZE, device=dev)
+    o, dirs = cam.rays()
+    t0 = time.perf_counter()
+    ref = render_rays_reference(o, dirs, grid, chunk=256)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(ref).all()), "the img-error oracle is not finite")
+    stacks = {}
+    for e, x, limit in IMG_ERROR_STACKS:
+        kernels.reset_launch_counts()
+        img = ck.render_rays_fused_impl(o, dirs, grid, erf_name=e, exp_name=x)
+        torch.cuda.synchronize()
+        stacks[f"{e}/{x}"] = {"mse": float(torch.mean((img - ref) ** 2)), "bound": limit,
+                              "launches": {k.name: k.launches for k in kernels.KERNELS
+                                           if k.launches},
+                              "finite": bool(torch.isfinite(img).all()),
+                              "max": float(img.abs().max())}
+    emit("approx_img_error", size=IMG_ERROR_SIZE, scene="grid_scene(16, sigma=0.25, "
+         "magnitude=3.0)", oracle_seconds=oracle_s, stacks=stacks)
+    bad = [k for k, v in stacks.items() if not (v["finite"] and v["mse"] <= v["bound"]
+                                                and v["max"] > 0.01
+                                                and v["launches"] == {ck.FUSED_FWD.name: 1})]
+    check(not bad, f"an img-error stack is over its bound or missed the kernel: {bad}")
+
+    # 2. serving per stack: the CLI's orbit (the serving main path) and
+    # kernel 1 at frame 0
+    scene = scene_from_vertices(smoke_points(), device=dev)
+    _, cap, frame_in = serving_frame0(scene, dev)
+    pb, qb = ck._block_sizes(cap)
+    b_, n_ = frame_in[1].shape
+    f_bytes = 4 * (b_ * n_ * 8 + 2 * b_ * 3 * frame_in[4].shape[2] + b_)
+    # kernels 2 and 3 at the training view (the north-star step's tiles at
+    # its probed capacity, camera at 30 degrees)
+    S = TRAIN_SIZE
+    capacity = max(64, int(probe_capacity(scene, ANGLES, OFFSET, FOCAL, TRAIN_TILES) * 1.3))
+    cap_t, _ = tile_renderer_for(capacity)
+    tcam = orbit_camera(30.0, OFFSET, FOCAL, S, S, device=dev)
+    to, tdirs = tcam.rays()
+    idx, counts = tile_indices(scene, tcam.view_matrix, TRAIN_TILES, cap_t, focal_length=FOCAL)
+    train_in = launch_inputs(gather_tiles(scene, idx), to, _tile_rays(tdirs, S, S, TRAIN_TILES),
+                             counts)
+    tpb, tqb = ck._block_sizes(cap_t)
+    dcol = torch.randn((train_in[0].shape[0], 3, train_in[4].shape[2]),
+                       generator=torch.Generator().manual_seed(80)).to(dev)
+    t_bytes = ck.save_t_bytes(train_in[0].shape[0], train_in[0].shape[1], train_in[4].shape[2])
+    rays3 = 4 * 3 * train_in[0].shape[0] * train_in[4].shape[2]
+    rows8 = 4 * 8 * train_in[0].shape[0] * train_in[0].shape[1]
+    per_stack = {}
+    for e, x in TIMED_STACKS:
+        png = os.path.join(os.path.dirname(obj), f"orbit_{e}_{x}.png")
+        argv = ["-f", obj, "-w", str(SIZE), "--height", str(SIZE), "--tiles",
+                f"{TILES[0]}x{TILES[1]}", "--frames", str(FRAMES), "-q", "-o", png,
+                "--erf", e, "--exp", x]
+        stdout, stderr = io.StringIO(), io.StringIO()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+            rc = cli.main(argv)
+        launches = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+        check(rc == 0, f"cli --erf {e} --exp {x} exited {rc}: {stderr.getvalue()[-2000:]}")
+        check(set(launches) == {ck.FUSED_FWD.name},
+              f"cli --erf {e} --exp {x} did not run the forward kernel alone: {launches}")
+        check("overflow" not in stderr.getvalue(), stderr.getvalue()[-2000:])
+        avg = re.search(r"AVG\. TIME: ([\d.]+) ms", stdout.getvalue())
+        check(avg is not None, f"no AVG. TIME line: {stdout.getvalue()!r}")
+        imgs = [read_png_rgba(png.replace(".png", f"_{i}.png")) for i in range(1, FRAMES + 1)]
+        check(all(int(im[..., :3].max()) > 0 for im in imgs), f"a {e}/{x} frame is black")
+        kw = dict(erf_name=e, exp_name=x)
+        ms1 = time_cuda(lambda: ck.fused_forward(*frame_in, pb=pb, qb=qb, **kw), iters=10)
+        colors, t = ck.fused_forward_t(*train_in, pb=tpb, qb=tqb, **kw)
+        ms2 = time_cuda(lambda: ck.fused_forward_t(*train_in, pb=tpb, qb=tqb, **kw), iters=5)
+        ms3 = time_cuda(lambda: ck.fused_backward(*train_in, dcol, t, qb=tqb, **kw), iters=5)
+        grads = ck.fused_backward(*train_in, dcol, t, qb=tqb, **kw)
+        check(all(bool(torch.isfinite(g).all()) for g in (colors, t, *grads)),
+              f"a training kernel's output is not finite under {e}/{x}")
+        per_stack[f"{e}/{x}"] = {
+            "cli_avg_time_ms": float(avg.group(1)), "cli_launches": launches,
+            "mean_rgb": [round(float(im[..., :3].mean()), 3) for im in imgs],
+            ck.FUSED_FWD.name: {"ms": ms1, **bound(*fwd_ops(frame_in, e, x), f_bytes,
+                                                   clock_mhz, n_sm)},
+            ck.FUSED_FWD_T.name: {"ms": ms2, **bound(*fwd_ops(train_in, e, x),
+                                                     scene_bytes(train_in) + rays3 + t_bytes,
+                                                     clock_mhz, n_sm)},
+            ck.FUSED_BWD_T.name: {"ms": ms3, **bound(*bwd_ops(train_in, False, e, x),
+                                                     scene_bytes(train_in) + 2 * rays3 + rows8
+                                                     + t_bytes, clock_mhz, n_sm)}}
+    emit("approx_times", serving_shape={"B": b_, "N": n_, "R": frame_in[4].shape[2]},
+         train_shape={"B": train_in[0].shape[0], "N": train_in[0].shape[1],
+                      "R": train_in[4].shape[2]}, stacks=per_stack, power_limit=smi)
+
+    # 3. the north-star train step under spline_mirror/spline: saved-T,
+    # then at a saved-T budget of 0 (the recompute backward)
+    e, x = "spline_mirror", "spline"
+    bucket = probe_buckets(scene, ANGLES, OFFSET, FOCAL, TRAIN_TILES, margin=1.3)
+    target, ovf = render_orbit_frame(scene, 35.0, OFFSET, FOCAL, width=S, height=S,
+                                     tiles=TRAIN_TILES, capacity=capacity, backend="kernel",
+                                     bucket_cfg=bucket, erf_name=e, exp_name=x)
+    check(int(ovf) == 0, "the target frame overflowed")
+    runs = {}
+    budget = ck.SAVE_T_MAX_BYTES
+    for name, limit, steps in (("saved_t", budget, 5), ("recompute", 0, 3)):
+        ck.SAVE_T_MAX_BYTES = limit
+        try:
+            step = make_frame_train_step(width=S, height=S, tiles=TRAIN_TILES,
+                                         capacity=capacity, backend="kernel", erf_name=e,
+                                         exp_name=x, bucket_cfg=bucket)
+            state = init_state(scene, adam(1e-3))
+            kernels.reset_launch_counts()
+            losses = []
+            for i in range(steps):
+                if i == 1:   # the first step warms up
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                state, loss, ovf = step(state, tcam.view_matrix, to, tdirs, target)
+                check(int(ovf) == 0, "a train step overflowed")
+                losses.append(loss)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+            losses = [float(v) for v in losses]
+        finally:
+            ck.SAVE_T_MAX_BYTES = budget
+        params = [state.scene.mu, state.scene.sigma, state.scene.magnitude,
+                  state.scene.albedo]
+        runs[name] = {"losses": losses, "step_ms": step_ms,
+                      "launches": {k.name: k.launches for k in kernels.KERNELS if k.launches},
+                      "finite": all(np.isfinite(losses)) and all(bool(torch.isfinite(p).all())
+                                                                  for p in params)}
+    emit("approx_train_step", stack=f"{e}/{x}", runs=runs, power_limit=smi)
+    for name, r in runs.items():
+        check(r["finite"] and r["losses"][-1] < r["losses"][0],
+              f"the {e}/{x} train step ({name}) is not finite or its loss did not fall: {r}")
+    check(runs["saved_t"]["launches"].get(ck.FUSED_BWD_T.name, 0) > 0
+          and runs["recompute"]["launches"].get(ck.FUSED_BWD.name, 0) > 0
+          and ck.FUSED_BWD_T.name not in runs["recompute"]["launches"],
+          f"the {e}/{x} train steps missed a backward kernel: {runs}")
+    np.testing.assert_allclose(runs["recompute"]["losses"], runs["saved_t"]["losses"][:3],
+                               rtol=1e-4)
+
+
 def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
     """`--only a,b`: the named phase groups alone (for work on one path),
     then the kernel line of their kernels."""
@@ -2768,7 +2986,8 @@ def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
                                                 fused_vs_chunked=True),
                   "aniso_dense": lambda: aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp,
                                                             fused_vs_chunked=True),
-                  "split": lambda: split_phases(dev, smi, clock_mhz, n_sm)}
+                  "split": lambda: split_phases(dev, smi, clock_mhz, n_sm),
+                  "approx": lambda: approx_phases(dev, smi, clock_mhz, n_sm, obj) or []}
         for name in names:
             entries += groups[name]()
     print(json.dumps({"kernels": entries}), flush=True)
@@ -2814,8 +3033,9 @@ def main() -> int:
         return only_phases(sys.argv[2].split(","), dev, smi, clock_mhz, n_sm)
 
     # 3. the serving path; 4. the training path; 5. the dense cell; 6. the
-    # anisotropic cell; 7. the anisotropic dense cell; 8. the split kernels
-    # and the verification entry point
+    # anisotropic cell; 7. the anisotropic dense cell; 8. every erf and exp
+    # name on the main paths; 9. the split kernels and the verification
+    # entry point
     with tempfile.TemporaryDirectory() as tmp:
         entries = [serving_phases(dev, smi, clock_mhz, n_sm)]
         obj = os.path.join(tmp, "cube_cloud.obj")
@@ -2824,9 +3044,10 @@ def main() -> int:
         entries += dense_phases(dev, smi, clock_mhz, n_sm, tmp)
         entries += aniso_phases(dev, smi, clock_mhz, n_sm, obj)
         entries += aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp)
+        approx_phases(dev, smi, clock_mhz, n_sm, obj)
     entries += split_phases(dev, smi, clock_mhz, n_sm)
 
-    # 9. the kernel line
+    # 10. the kernel line
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -63,12 +63,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--erf", default="as5",
                    choices=("exact", "as5", "as3", "taylor", "spline", "spline_mirror"),
                    help="erf implementation (as3 = the reference's production A&S choice; "
-                        "the CUDA kernel implements exact/as5 and as3).")
+                        "the CUDA kernels implement every name, exact as as5).")
     p.add_argument("--exp", default="exact",
                    choices=("exact", "fast", "spline"),
                    help="exp implementation for the transmittance exponentials "
                         "(fast = the reference's Schraudolph fast_exp; the CUDA "
-                        "kernel implements exact and fast).")
+                        "kernels implement every name).")
     p.add_argument("--gif", default=None,
                    help="Write all frames as an animated GIF to <file>.")
     p.add_argument("--aniso", default=None, metavar="SX,SY,SZ",

@@ -140,7 +140,14 @@
 // built forward's loop issues ~43 instructions a tap with its operand
 // reads and sums (kernel_resources' SASS count). At 16 SFU results per
 // clock per SM (compute capability 9.0) the SFU pipe and the FP32 pipe
-// bound a tap at about the same rate, ~2e12 taps/s on an H100 SXM. Each
+// bound a tap at about the same rate, ~2e12 taps/s on an H100 SXM. The
+// other erfs of the forward's taps (gauss_common.cuh) use no SFU: taylor
+// ~23 FP32 (a clamp, x^2, a 10-term Horner), the two splines ~12-14 FP32
+// (saturation tests, a clamp, the segment's index floor(x / width), a
+// 3-step Horner) with 4 indexed constant-bank loads, which serialize when
+// a warp's lanes fall in different segments; the spline exp the same, the
+// fast exp 4 FP32. The backward's taps are the erf's pair (as5's for those
+// three), so they cost what as5's cost. Each
 // staged row also needs its per-ray terms
 // (isotropic: mb = oc . d and co, one exp; anisotropic: A, Bt, two IEEE
 // square roots, a division, an exp: ~40 FP32 and 3 MUFU) and, on the p
@@ -158,7 +165,8 @@
 // ray):
 //   * Warp-wide row groups. A block is 32 rays (one warp) by G groups of 4
 //     rows: the forward G = 8 (32 p rows a block, 256 threads, 4 blocks and
-//     32 warps an SM at <= 64 registers), the backward G = 16 (64 rows,
+//     32 warps an SM at <= 64 registers; under the piecewise cubics 3 or 2
+//     blocks, fwd_blocks), the backward G = 16 (64 rows,
 //     512 threads: the p side 16 warps an SM at <= 128 registers, the q
 //     side 32 at <= 64). Sums over a group's rays are warp butterflies: no
 //     barrier per row. Blocks of 64 rows spread a 5000-row tile over ~80
@@ -284,9 +292,21 @@ __device__ __forceinline__ void warp_row_sums(const float (&v)[S], float* out, b
   if (lane < S) out[lane] = accumulate ? out[lane] + mine : mine;
 }
 
+// T's exponent base - acc_k (the head note) is the difference of the two
+// sums, except under the spline exp, whose fit jumps by 3.5e-4 at 0 (its
+// value 0.99965 there against exp(0+) = 1): the rows in front of every
+// Gaussian of a ray have base - acc_k within rounding of 0, where two
+// summation orders land on either side of the jump. Under it the exponent
+// is summed term by term, sum_q co_q (erf(-mb_q inv_q) - erf(arg_qk)), as
+// the plain version sums it: every term has the sign of its erf
+// difference, so the sum has the exact sign (<= 0 in front of the camera).
+template <int EXP>
+constexpr bool kTermwise = EXP == kExpSpline;
+
 // Pass A's planes of the staged rows [q0, q0 + nq) for the block's rays:
-// mb, inv, co and the base term co erf(-mb inv), [plane][row][ray]. Group g
-// fills rows g, g + G, ... for its own ray.
+// mb, inv, co and the base term co erf(-mb inv) (termwise: erf(-mb inv)
+// alone), [plane][row][ray]. Group g fills rows g, g + G, ... for its own
+// ray.
 template <class Geo, int ERF, int EXP>
 __device__ __forceinline__ void fill_a(float* pl, int qb, const Geo& geo, int q0, int nq,
                                        float dx, float dy, float dz) {
@@ -294,10 +314,11 @@ __device__ __forceinline__ void fill_a(float* pl, int qb, const Geo& geo, int q0
   for (int j = threadIdx.y; j < nq; j += blockDim.y) {
     const RayTerms t = geo.template row<EXP>(q0 + j, dx, dy, dz);
     float* o = pl + j * kRays + threadIdx.x;
+    const float eb = erf_fn<ERF>(-t.mb * t.inv);
     o[0] = t.mb;
     o[plane] = t.inv;
     o[2 * plane] = t.co;
-    o[3 * plane] = t.co * erf_fn<ERF>(-t.mb * t.inv);
+    o[3 * plane] = kTermwise<EXP> ? eb : t.co * eb;
   }
 }
 
@@ -312,7 +333,9 @@ __device__ __forceinline__ void fill_a(float* pl, int qb, const Geo& geo, int q0
 // over all N (the split kernels' base, pallas_kernel.py:201): the rows past
 // the count are staged after the live ones, for base alone. Every thread of
 // the block calls it; a dead group (live false) fills planes and sums base
-// only.
+// only. Termwise (kTermwise), acc holds sum_q co_q (erf(-mb_q inv_q) -
+// erf(...)) = base - acc over the live rows, and base only the plane rows'
+// past the count: the exponent is base + acc then.
 template <class Geo, int ERF, int EXP>
 __device__ __forceinline__ void pass_a_planes(float* pl, float* acc2, int qb, const Geo& geo,
                                               int cnt, int N, float dx, float dy, float dz,
@@ -343,14 +366,17 @@ __device__ __forceinline__ void pass_a_planes(float* pl, float* acc2, int qb, co
       }
       for (int j = 0; j < nq; ++j) {
         const float* c = cur + j * kRays;
-        const float mbq = c[0], invq = c[plane], co = c[2 * plane];
-        base_part += c[3 * plane];
+        const float mbq = c[0], invq = c[plane], co = c[2 * plane], cb = c[3 * plane];
+        if constexpr (!kTermwise<EXP>) base_part += cb;
 #pragma unroll
         for (int i = 0; i < kFwdPB; ++i) {
           const float darg = (mbp[i] - mbq) * invq;
           const float ks = sgp[i] * invq;
 #pragma unroll
-          for (int k = 0; k < kTaps; ++k) part[i][k] += co * erf_fn<ERF>(darg + tap_k(k) * ks);
+          for (int k = 0; k < kTaps; ++k) {
+            const float e = erf_fn<ERF>(darg + tap_k(k) * ks);
+            part[i][k] += co * (kTermwise<EXP> ? cb - e : e);
+          }
         }
       }
 #pragma unroll
@@ -358,7 +384,7 @@ __device__ __forceinline__ void pass_a_planes(float* pl, float* acc2, int qb, co
 #pragma unroll
         for (int k = 0; k < kTaps; ++k) acc2[(i * kTaps + k) * nt + tid] += part[i][k];
       }
-    } else {
+    } else if constexpr (!kTermwise<EXP>) {
       for (int j = 0; j < nq; ++j) base_part += cur[j * kRays + 3 * plane];
     }
     base += base_part;
@@ -372,7 +398,10 @@ __device__ __forceinline__ void pass_a_planes(float* pl, float* acc2, int qb, co
       fill_a<Geo, ERF, EXP>(pl, qb, geo, q0, nb, dx, dy, dz);
       __syncthreads();
       float base_part = 0.0f;
-      for (int j = 0; j < nb; ++j) base_part += pl[j * kRays + 3 * plane + x];
+      for (int j = 0; j < nb; ++j) {
+        const float* c = pl + j * kRays + x;
+        base_part += kTermwise<EXP> ? __fmul_rn(c[2 * plane], c[3 * plane]) : c[3 * plane];
+      }
       base += base_part;
       __syncthreads();
     }
@@ -435,13 +464,23 @@ __device__ __forceinline__ float row_weight(const Geo& geo, const float* alb_b, 
 // forward: one block per (32 rays, 32 p rows of a tile, tile)
 // ---------------------------------------------------------------------------
 
+// Blocks an SM of the forward of erf ERF and exp EXP: 4 (64 registers a
+// thread) but for the piecewise cubics, whose segment lookups hold more
+// registers live across the taps: with a spline erf or the spline exp 3
+// (80 registers), with both 2 (128). At 64 registers they spilled 24-96
+// bytes a thread (at 80 the anisotropic spline_mirror/spline forward 8).
+constexpr int fwd_blocks(int erf, int exp) {
+  const int splines = (erf == kErfSpline || erf == kErfSplineMirror) + (exp == kExpSpline);
+  return 4 - splines;
+}
+
 // Blocks cover the p rows from p_row0 (gridDim.y blocks of 32). What STORE
 // names goes to t + ((b P + k) t_rows + p - t_row0) t_ld + r, its P planes k
 // (P = kTaps for T, 1 for tw), zero on rows at or past the count; the
 // split's colors to partial, unless partial is null (the recompute
 // backward's T of one chunk, and tw).
 template <class Geo, int ERF, int EXP, int STORE>
-__global__ void __launch_bounds__(kRays * kFwdG, 4)
+__global__ void __launch_bounds__(kRays * kFwdG, fwd_blocks(ERF, EXP))
 fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
            const float* __restrict__ mag, const float* __restrict__ alb,
            const float* __restrict__ dirs, const int* __restrict__ counts,
@@ -517,8 +556,9 @@ fwd_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
       for (int k = 0; k < kTaps; ++k) {
         // rounded alike whatever is stored: the colors of the forward and
         // the forward-with-T are equal bit for bit, and tw is their sum
-        const float tk = __fmul_rn(tap_weight(k),
-                                   exp_fn<EXP>(base - acc2[(i * kTaps + k) * nt + tid]));
+        const float a = acc2[(i * kTaps + k) * nt + tid];
+        const float tk =
+            __fmul_rn(tap_weight(k), exp_fn<EXP>(kTermwise<EXP> ? base + a : base - a));
         if (STORE == kStoreT && live_ray) t_b[(static_cast<size_t>(k) * t_rows + i) * t_ld] = tk;
         tw = __fadd_rn(tw, tk);
       }
@@ -583,8 +623,10 @@ __device__ __forceinline__ void fill_p(float* pl, int qb, const Geo& geo, int q0
 }
 
 // T comes from tsrc (t_rows rows from t_row0, leading dimension t_ld): the
-// forward-with-T's (B,5,N,R), or the recompute backward's T of chunk a.
-template <class Geo, int ERF, int EXP>
+// forward-with-T's (B,5,N,R), or the recompute backward's T of chunk a. The
+// p side takes no erf (only exp(-x^2) of each tap), so it is built per exp
+// alone.
+template <class Geo, int EXP>
 __global__ void __launch_bounds__(kRays * kBwdG, 1)
 bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
              const float* __restrict__ mag, const float* __restrict__ alb,
@@ -1018,31 +1060,44 @@ using QKernel = void (*)(const float*, const float*, const float*, const float*,
                          const int*, const float*, const float*, int, int, int, const float*,
                          float*, double*, int, int, int, int, int, int, typename Geo::Args);
 
-template <class Geo, int STORE>
+// The kernels of erf erf_id and exp exp_id (null for an id out of range):
+// the forward of every erf and exp, the p side of every exp, and the q side
+// of the erf's pair (pair_erf: its own, or as5's) and every exp, whose
+// erf_and_gauss is the only erf it evaluates.
+template <class Geo, int STORE, int ERF = 0, int EXP = 0>
 FwdKernel<Geo> pick_fwd(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return fwd_kernel<Geo, kErfAs5, kExpExact, STORE>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return fwd_kernel<Geo, kErfAs5, kExpFast, STORE>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return fwd_kernel<Geo, kErfAs3, kExpExact, STORE>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return fwd_kernel<Geo, kErfAs3, kExpFast, STORE>;
-  return nullptr;
+  if (erf_id == ERF && exp_id == EXP) return fwd_kernel<Geo, ERF, EXP, STORE>;
+  if constexpr (EXP + 1 < kExps) {
+    return pick_fwd<Geo, STORE, ERF, EXP + 1>(erf_id, exp_id);
+  } else if constexpr (ERF + 1 < kErfs) {
+    return pick_fwd<Geo, STORE, ERF + 1, 0>(erf_id, exp_id);
+  } else {
+    return nullptr;
+  }
 }
 
-template <class Geo>
-PKernel<Geo> pick_p(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_p_kernel<Geo, kErfAs5, kExpExact>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_p_kernel<Geo, kErfAs5, kExpFast>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_p_kernel<Geo, kErfAs3, kExpExact>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_p_kernel<Geo, kErfAs3, kExpFast>;
-  return nullptr;
+template <class Geo, int EXP = 0>
+PKernel<Geo> pick_p(int exp_id) {
+  if (exp_id == EXP) return bwd_p_kernel<Geo, EXP>;
+  if constexpr (EXP + 1 < kExps) {
+    return pick_p<Geo, EXP + 1>(exp_id);
+  } else {
+    return nullptr;
+  }
 }
 
-template <class Geo>
+template <class Geo, int EXP = 0>
 QKernel<Geo> pick_q(int erf_id, int exp_id) {
-  if (erf_id == kErfAs5 && exp_id == kExpExact) return bwd_q_kernel<Geo, kErfAs5, kExpExact>;
-  if (erf_id == kErfAs5 && exp_id == kExpFast) return bwd_q_kernel<Geo, kErfAs5, kExpFast>;
-  if (erf_id == kErfAs3 && exp_id == kExpExact) return bwd_q_kernel<Geo, kErfAs3, kExpExact>;
-  if (erf_id == kErfAs3 && exp_id == kExpFast) return bwd_q_kernel<Geo, kErfAs3, kExpFast>;
-  return nullptr;
+  if (erf_id < 0 || erf_id >= kErfs) return nullptr;
+  if (exp_id == EXP) {
+    if (pair_erf(erf_id) == kErfAs3) return bwd_q_kernel<Geo, kErfAs3, EXP>;
+    return bwd_q_kernel<Geo, kErfAs5, EXP>;
+  }
+  if constexpr (EXP + 1 < kExps) {
+    return pick_q<Geo, EXP + 1>(erf_id, exp_id);
+  } else {
+    return nullptr;
+  }
 }
 
 // A block's shared memory on sm_90 (227 KB); qb >= 8 leaves the forward's
@@ -1102,7 +1157,7 @@ int launch_bwd(const float* oc, const float* shape, const float* mag, const floa
                float* part_ms, int B, int N, int R, int ck, int threads, int qb, int erf_id,
                int exp_id, void* stream, const typename Geo::Args& in = {}) {
   FwdKernel<Geo> tfn = pick_fwd<Geo, kStoreT>(erf_id, exp_id);
-  PKernel<Geo> pfn = pick_p<Geo>(erf_id, exp_id);
+  PKernel<Geo> pfn = pick_p<Geo>(exp_id);
   QKernel<Geo> qfn = pick_q<Geo>(erf_id, exp_id);
   if (tfn == nullptr || pfn == nullptr || qfn == nullptr || B < 1 || B > 65535 || N < 1 ||
       R < 1 || ck < 1 || N % ck != 0 || (ck != N && ck % kRows != 0) ||
@@ -1424,10 +1479,24 @@ long long sgrt_split_bwd_scratch_floats(int B, int N, int R, int threads) {
       scratch_layout(B, N, R, N, threads, true, Side<PlaneGeo>::kN, false));
 }
 
-// Resources of kernel i of this library (as5, exact erf/exp) at the
-// launches' own block sizes and qb staged rows (threads is ignored: a block
-// is always 32 rays): kernel_resources's seven ints into out, its name into
-// name. Returns -1 past the last kernel.
+// Floats of the approximations' table (gauss_common.cuh, kApproxTab).
+int sgrt_approx_table_floats() { return kTabFloats; }
+
+// Fills the approximations' table of the current device from n host floats
+// (approx.kernel_tables(): the taylor erf's terms, then the erf, full-range
+// erf and exp cubics). The kernels of every erf and exp read it; the host
+// calls this once per device before its first launch there.
+int sgrt_set_approx_tables(const float* tab, int n) {
+  if (n != kTabFloats) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMemcpyToSymbol(kApproxTab, tab, sizeof(float) * kTabFloats));
+}
+
+// Resources of kernel i of this library at the launches' own block sizes
+// and qb staged rows (threads is ignored: a block is always 32 rays):
+// kernel_resources's seven ints into out, its name into name. Returns -1
+// past the last kernel. Kernels 0-12 are the as5/exact instantiations the
+// main paths run, 13-18 some of the other erfs' and exps' (the build log's
+// ptxas report lists every instantiation).
 int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
   const int fwd = kRays * kFwdG, bwd = kRays * kBwdG;
   switch (i) {
@@ -1441,7 +1510,7 @@ int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
                               fwd_smem(qb), out);
     case 2:
       *name = "chunked bwd_p_kernel<IsoGeo>";
-      return kernel_resources(bwd_p_kernel<IsoGeo, kErfAs5, kExpExact>, bwd, bwd_p_smem(qb), out);
+      return kernel_resources(bwd_p_kernel<IsoGeo, kExpExact>, bwd, bwd_p_smem(qb), out);
     case 3:
       *name = "chunked bwd_q_kernel<IsoGeo>";
       return kernel_resources(bwd_q_kernel<IsoGeo, kErfAs5, kExpExact>, bwd, bwd_q_smem(qb), out);
@@ -1455,7 +1524,7 @@ int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
                               fwd_smem(qb), out);
     case 6:
       *name = "chunked bwd_p_kernel<AnisoGeo>";
-      return kernel_resources(bwd_p_kernel<AnisoGeo, kErfAs5, kExpExact>, bwd, bwd_p_smem(qb),
+      return kernel_resources(bwd_p_kernel<AnisoGeo, kExpExact>, bwd, bwd_p_smem(qb),
                               out);
     case 7:
       *name = "chunked bwd_q_kernel<AnisoGeo>";
@@ -1467,7 +1536,7 @@ int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
                               out);
     case 9:
       *name = "chunked bwd_p_kernel<PlaneGeo>";
-      return kernel_resources(bwd_p_kernel<PlaneGeo, kErfAs5, kExpExact>, bwd, bwd_p_smem(qb),
+      return kernel_resources(bwd_p_kernel<PlaneGeo, kExpExact>, bwd, bwd_p_smem(qb),
                               out);
     case 10:
       *name = "chunked bwd_q_kernel<PlaneGeo>";
@@ -1480,6 +1549,29 @@ int sgrt_kernel_resources(int i, int, int qb, int* out, const char** name) {
     case 12:
       *name = "chunked fwd_kernel<PlaneGeo, STORE_TW>";
       return kernel_resources(fwd_kernel<PlaneGeo, kErfAs5, kExpExact, kStoreTw>, fwd,
+                              fwd_smem(qb), out);
+    case 13:
+      *name = "chunked fwd_kernel<IsoGeo, taylor, exact>";
+      return kernel_resources(fwd_kernel<IsoGeo, kErfTaylor, kExpExact, kStoreNone>, fwd,
+                              fwd_smem(qb), out);
+    case 14:
+      *name = "chunked fwd_kernel<IsoGeo, spline, spline, STORE_T>";
+      return kernel_resources(fwd_kernel<IsoGeo, kErfSpline, kExpSpline, kStoreT>, fwd,
+                              fwd_smem(qb), out);
+    case 15:
+      *name = "chunked fwd_kernel<AnisoGeo, spline_mirror, exact, STORE_T>";
+      return kernel_resources(fwd_kernel<AnisoGeo, kErfSplineMirror, kExpExact, kStoreT>, fwd,
+                              fwd_smem(qb), out);
+    case 16:
+      *name = "chunked bwd_p_kernel<IsoGeo, spline>";
+      return kernel_resources(bwd_p_kernel<IsoGeo, kExpSpline>, bwd, bwd_p_smem(qb), out);
+    case 17:
+      *name = "chunked bwd_q_kernel<AnisoGeo, as5, spline>";
+      return kernel_resources(bwd_q_kernel<AnisoGeo, kErfAs5, kExpSpline>, bwd, bwd_q_smem(qb),
+                              out);
+    case 18:
+      *name = "chunked fwd_kernel<PlaneGeo, spline_mirror, spline, STORE_TW>";
+      return kernel_resources(fwd_kernel<PlaneGeo, kErfSplineMirror, kExpSpline, kStoreTw>, fwd,
                               fwd_smem(qb), out);
     default:
       return -1;

@@ -23,8 +23,51 @@ constexpr float kSqrt2Pi = 0.7978845608028654f;     // sqrt(2/pi)
 constexpr float kDerf = 1.1283791670955126f;        // 2/sqrt(pi) = erf'(0)
 constexpr int kTaps = 5;
 
-enum { kErfAs5 = 0, kErfAs3 = 1 };
-enum { kExpExact = 0, kExpFast = 1 };
+// The erf and exp names the kernels are built for (template arguments; the
+// ids of ops/cuda_kernel.py's KERNEL_ERFS and KERNEL_EXPS): every name of
+// sgrt_tpu_torch/ops/approx.py's ERF_IMPLS and EXP_IMPLS, "exact" erf
+// being as5.
+enum { kErfAs5 = 0, kErfAs3 = 1, kErfTaylor = 2, kErfSpline = 3, kErfSplineMirror = 4 };
+enum { kExpExact = 0, kExpFast = 1, kExpSpline = 2 };
+constexpr int kErfs = 5, kExps = 3;
+
+// The erf whose (erf, gauss) pair the backward takes for erf ERF: its own
+// where it has one (as5, as3), else as5's (approx.py's
+// ERF_AND_GAUSS_IMPLS.get(name, as5), as the JAX package's backwards).
+constexpr int pair_erf(int erf) { return erf == kErfAs3 ? kErfAs3 : kErfAs5; }
+
+// The coefficients of the taylor erf and of the three piecewise cubics
+// (approx.py's _TAYLOR_COEF, _ERF_COEF, _ERF_FULL_COEF, _EXP_COEF, fitted
+// there at import), rounded to float32 as the plain versions round them:
+// the host fills this table once per device after the library loads
+// (sgrt_set_approx_tables, from approx.kernel_tables()). A cubic's four
+// coefficients run from the highest power down, a segment after another.
+constexpr int kTaylorTerms = 10, kErfSegs = 8, kErfFullSegs = 16, kExpSegs = 16;
+constexpr int kTabTaylor = 0;
+constexpr int kTabErf = kTabTaylor + kTaylorTerms;
+constexpr int kTabErfFull = kTabErf + 4 * kErfSegs;
+constexpr int kTabExp = kTabErfFull + 4 * kErfFullSegs;
+constexpr int kTabFloats = kTabExp + 4 * kExpSegs;
+__constant__ float kApproxTab[kTabFloats];
+
+// approx.py's _eval_segments: the cubic of the segment that holds x
+// clamped to [lo, lo + NSEG width], evaluated in its order with every
+// product and sum rounded to nearest. The plain version picks the segment
+// by a where-chain over the float32 edges lo + i width, the later segment
+// winning on a shared edge; the fitted pieces are not continuous there, so
+// the index must be that chain's, not one ulp off. The widths are powers of
+// two (0.5, 1) and lo a multiple of them, so x / width is exact and its
+// floor is the chain's index.
+template <int NSEG>
+__device__ __forceinline__ float eval_segments(float x, int tab, float lo, float width) {
+  const float xc = fminf(fmaxf(x, lo), lo + NSEG * width);
+  const float inv_w = 1.0f / width;  // a literal after inlining: 2 or 1
+  const int i = min(__float2int_rd(xc * inv_w) - static_cast<int>(lo * inv_w), NSEG - 1);
+  const int c = tab + 4 * i;
+  float v = __fadd_rn(__fmul_rn(kApproxTab[c], xc), kApproxTab[c + 1]);
+  v = __fadd_rn(__fmul_rn(v, xc), kApproxTab[c + 2]);
+  return __fadd_rn(__fmul_rn(v, xc), kApproxTab[c + 3]);
+}
 
 template <int EXP>
 __device__ __forceinline__ float exp_fn(float x);
@@ -44,6 +87,15 @@ __device__ __forceinline__ float exp_fn<kExpFast>(float x) {
   return __int_as_float(__float2int_rz(y));
 }
 
+// The piecewise-cubic exp on [-16, 0] (approx.py::exp_spline): 0 below,
+// the accurate expf above 0 (outside the renderer's domain).
+template <>
+__device__ __forceinline__ float exp_fn<kExpSpline>(float x) {
+  if (x < -16.0f) return 0.0f;
+  if (x > 0.0f) return expf(x);
+  return eval_segments<kExpSegs>(x, kTabExp, -16.0f, 1.0f);
+}
+
 __device__ __forceinline__ float sign_of(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
@@ -51,7 +103,10 @@ __device__ __forceinline__ float sign_of(float x) {
 // erf(x) and exp(-x^2) sharing the one expf (Abramowitz & Stegun 7.1.26
 // for as5, 7.1.25 for as3); the backward needs both, since
 // erf'(x) = 2/sqrt(pi) exp(-x^2). The polynomial's own exp is always the
-// accurate expf, whatever EXP the kernel is built with.
+// accurate expf, whatever EXP the kernel is built with. An erf without a
+// pair of its own (taylor, spline, spline_mirror) takes as5's: the forward
+// evaluates the named erf (erf_fn), the backward's erf values and erf'
+// come from the pair.
 template <int ERF>
 __device__ __forceinline__ void erf_and_gauss(float x, float& e, float& g);
 
@@ -76,11 +131,50 @@ __device__ __forceinline__ void erf_and_gauss<kErfAs3>(float x, float& e, float&
   e = sign_of(x) * (1.0f - poly * g);
 }
 
+// The named erf of the forward: as5 and as3 are their pairs' erf.
 template <int ERF>
 __device__ __forceinline__ float erf_fn(float x) {
   float e, g;
   erf_and_gauss<ERF>(x, e, g);
   return e;
+}
+
+// The 10-term Maclaurin series on x clamped to [-2, 2] (approx.py::
+// erf_taylor): Horner in x^2 from the highest term, then (2/sqrt(pi) x) acc.
+template <>
+__device__ __forceinline__ float erf_fn<kErfTaylor>(float x) {
+  x = fminf(fmaxf(x, -2.0f), 2.0f);
+  const float x2 = __fmul_rn(x, x);
+  float acc = kApproxTab[kTabTaylor + kTaylorTerms - 1];
+#pragma unroll
+  for (int n = kTaylorTerms - 2; n >= 0; --n)
+    acc = __fadd_rn(__fmul_rn(acc, x2), kApproxTab[kTabTaylor + n]);
+  return __fmul_rn(__fmul_rn(kDerf, x), acc);
+}
+
+// The piecewise cubic over [-4, 4], saturating to -1 and 1 outside
+// (approx.py::erf_spline).
+template <>
+__device__ __forceinline__ float erf_fn<kErfSpline>(float x) {
+  if (x <= -4.0f) return -1.0f;
+  if (x >= 4.0f) return 1.0f;
+  return eval_segments<kErfFullSegs>(x, kTabErfFull, -4.0f, 0.5f);
+}
+
+// The piecewise cubic over [0, 4] mirrored by odd symmetry, 1 beyond 4
+// (approx.py::erf_spline_mirror).
+template <>
+__device__ __forceinline__ float erf_fn<kErfSplineMirror>(float x) {
+  const float a = fabsf(x);
+  const float v = a >= 4.0f ? 1.0f : eval_segments<kErfSegs>(a, kTabErf, 0.0f, 0.5f);
+  return sign_of(x) * v;
+}
+
+// erf_and_gauss of an erf without a pair: as5's.
+template <int ERF>
+__device__ __forceinline__ void erf_and_gauss(float x, float& e, float& g) {
+  static_assert(pair_erf(ERF) != ERF, "as5 and as3 have their own pairs");
+  erf_and_gauss<pair_erf(ERF)>(x, e, g);
 }
 
 // The Gaussian's exponent -(|oc|^2 - mb^2) / (2 sigma^2) subtracts two

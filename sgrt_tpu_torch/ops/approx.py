@@ -6,8 +6,9 @@ spline_erf (approx.cpp:9-41), spline_erf_mirror (:45-69), taylor_erf
 (:71-88), abramowitz_stegun_erf (:90-110, the production choice), fast_exp
 (Schraudolph bit trick, :112-138), spline_exp (:140-189). Here they are
 plain tensor functions: float32, elementwise, shape-preserving. The CUDA
-kernels carry their own device copies of as5, as3 and the exact and fast
-exp (csrc/gauss_common.cuh).
+kernels carry device copies of every one (csrc/gauss_common.cuh), in the
+same float32 order; the taylor terms and the spline fits reach them from
+this module through kernel_tables(), so there is one fit.
 """
 
 from __future__ import annotations
@@ -63,16 +64,18 @@ def erf_as3(x: torch.Tensor) -> torch.Tensor:
     return erf_as3_and_gauss(x)[0]
 
 
+# erf's Maclaurin terms (-1)^n / (n! (2n + 1)), n = 0..9
+_TAYLOR_COEF = tuple(((-1.0) ** n) / (float(math.factorial(n)) * (2 * n + 1))
+                     for n in range(10))
+
+
 def erf_taylor(x: torch.Tensor) -> torch.Tensor:
     """10-term Maclaurin series, input clamped to [-2, 2] (the reference's
     taylor_erf, approx.cpp:71-88). Accurate near 0, ~0.5% off at the clamp."""
     x = torch.clamp(x, -2.0, 2.0)
     x2 = x * x
     acc = torch.zeros_like(x)
-    coeffs = [
-        ((-1.0) ** n) / (float(math.factorial(n)) * (2 * n + 1)) for n in range(10)
-    ]
-    for c in reversed(coeffs):
+    for c in reversed(_TAYLOR_COEF):
         acc = acc * x2 + c
     return _TWO_OVER_SQRT_PI * x * acc
 
@@ -161,6 +164,17 @@ def exp_spline(x: torch.Tensor) -> torch.Tensor:
                        torch.where(x > 0.0, torch.exp(x), val))
 
 
+def kernel_tables() -> np.ndarray:
+    """What the CUDA kernels read of this module (csrc/gauss_common.cuh,
+    kApproxTab): the taylor terms from n = 0, then the rows of _ERF_COEF,
+    _ERF_FULL_COEF and _EXP_COEF (highest power first), each rounded to
+    float32 as the plain versions' float32 arithmetic rounds a Python float.
+    float32 (170,)."""
+    parts = [np.asarray(_TAYLOR_COEF), _ERF_COEF.ravel(), _ERF_FULL_COEF.ravel(),
+             _EXP_COEF.ravel()]
+    return np.ascontiguousarray(np.concatenate(parts).astype(np.float32))
+
+
 # ---------------------------------------------------------------------------
 # registries (the reference's f32_func_t template parameters, rt.h:22-23)
 # ---------------------------------------------------------------------------
@@ -180,7 +194,8 @@ EXP_IMPLS = {
     "spline": exp_spline,
 }
 
-# (erf, exp(-x^2)) fused pairs for gradient kernels.
+# (erf, exp(-x^2)) fused pairs for gradient kernels; an erf without a pair
+# (taylor, spline, spline_mirror) takes as5's in every backward.
 ERF_AND_GAUSS_IMPLS = {
     "as5": erf_as5_and_gauss,
     "as3": erf_as3_and_gauss,

@@ -48,7 +48,7 @@ import math
 import torch
 
 from sgrt_tpu_torch.models.gaussians import GaussianScene, pad_scene
-from sgrt_tpu_torch.ops.approx import ERF_AND_GAUSS_IMPLS, ERF_IMPLS, EXP_IMPLS
+from sgrt_tpu_torch.ops.approx import ERF_AND_GAUSS_IMPLS, ERF_IMPLS, EXP_IMPLS, kernel_tables
 from sgrt_tpu_torch.ops.reference import INV_SQRT_2_PI
 from sgrt_tpu_torch.ops.render import _unit_pad
 from sgrt_tpu_torch.utils import nvcc
@@ -59,9 +59,11 @@ _SQRT_2_PI = 0.7978845608028654   # sigma*cbar = coeff * sqrt(2/pi)
 _INV_SQRT_2 = 0.7071067811865476
 _DERF = 1.1283791670955126        # 2/sqrt(pi)
 
-# erf/exp names the CUDA kernels are compiled for (template arguments).
-KERNEL_ERFS = {"as5": 0, "as3": 1}
-KERNEL_EXPS = {"exact": 0, "fast": 1}
+# erf/exp names the CUDA kernels are compiled for (template arguments,
+# csrc/gauss_common.cuh): every name of ERF_IMPLS ("exact" runs as5 there,
+# _kernel_erf_name) and of EXP_IMPLS.
+KERNEL_ERFS = {"as5": 0, "as3": 1, "taylor": 2, "spline": 3, "spline_mirror": 4}
+KERNEL_EXPS = {"exact": 0, "fast": 1, "spline": 2}
 KERNEL_PBS = (8, 16)
 
 # Byte budget of the saved-T residual, 20*B*N*R logical bytes (five
@@ -83,6 +85,13 @@ def _kernel_erf_name(name: str) -> str:
     """"exact" → "as5" inside kernels: the A&S 5-term polynomial is the
     float32-exact erf, so callers use one erf_name on every route."""
     return "as5" if name == "exact" else name
+
+
+def kernel_ids(erf_name: str, exp_name: str, pb: int | None = None) -> list[int]:
+    """The kernels' template ids of an erf and an exp name (checked, with
+    pb if given)."""
+    _check_names(erf_name, exp_name, pb)
+    return [KERNEL_ERFS[_kernel_erf_name(erf_name)], KERNEL_EXPS[exp_name]]
 
 
 def _block_sizes(n: int) -> tuple[int, int]:
@@ -117,6 +126,7 @@ class CudaKernel:
         self.timed = timed  # takes a host buffer for its launches' device ms
         self._argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         self._lib = None
+        self._tables_on = set()   # devices whose approximation table it filled
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
@@ -135,6 +145,22 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         return fn()
 
+    def _fill_tables(self, dev: torch.device) -> None:
+        """Fill the library's approximation table on the current device
+        (sgrt_set_approx_tables: the taylor terms and spline fits of
+        ops.approx) before this kernel's first launch there."""
+        if dev.index in self._tables_on:
+            return
+        lib, tab = self.library(), kernel_tables()
+        fn = lib.sgrt_set_approx_tables
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        err = fn(tab.ctypes.data, tab.size)
+        if err != 0:
+            raise RuntimeError("filling the kernels' approximation table failed: "
+                               f"{lib.sgrt_cuda_error_string(err).decode()}")
+        self._tables_on.add(dev.index)
+
     def launch(self, tensors, ints, *, what: str) -> None:
         """Call the entry point with the tensors' pointers (None: a null
         pointer), the ints and the current stream; raise with the CUDA error
@@ -143,6 +169,7 @@ class CudaKernel:
         dev = tensors[0].device
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
+            self._fill_tables(dev)
             err = getattr(lib, self.symbol)(*(0 if t is None else t.data_ptr() for t in tensors),
                                             *ints, stream)
         if err != 0:
@@ -160,10 +187,10 @@ FUSED_BWD = CudaKernel("fused_bwd", _SRC, "sgrt_fused_bwd", f"{_TPU}:1073", 14, 
 
 
 def _check_names(erf_name: str, exp_name: str, pb: int | None = None) -> None:
-    if erf_name not in KERNEL_ERFS or exp_name not in KERNEL_EXPS:
+    if erf_name not in ERF_IMPLS or exp_name not in EXP_IMPLS:
         raise ValueError(
-            f"the CUDA kernels implement erf {sorted(KERNEL_ERFS)} and exp "
-            f"{sorted(KERNEL_EXPS)}; got erf={erf_name!r}, exp={exp_name!r}")
+            f"the CUDA kernels implement erf {sorted(ERF_IMPLS)} and exp "
+            f"{sorted(EXP_IMPLS)}; got erf={erf_name!r}, exp={exp_name!r}")
     if pb is not None and pb not in KERNEL_PBS:
         raise ValueError(f"the CUDA kernel takes pb in {KERNEL_PBS}, got {pb}")
 
@@ -272,22 +299,37 @@ def _q_block(lt: _LiveTiles, max_block_elems: int) -> int:
     return max(1, min(lt.nl, max_block_elems // (lt.live.numel() * lt.nl * lt.mb.shape[2])))
 
 
-def _transmittance(lt: _LiveTiles, erf_fn, exp_fn, max_block_elems: int) -> list:
-    """The five T_k (L, nl, R) of pass A, zero on dead rows."""
+def termwise(exp_name: str) -> bool:
+    """Whether T's exponent base - acc_k is summed term by term, as
+    sum_q co_q (erf(-mb_q inv_q) - erf(arg_qk)), rather than as the
+    difference of the two sums: under the spline exp, whose fit jumps by
+    3.5e-4 at 0 where the exponent of the rows in front of a ray's
+    Gaussians lies; each term has its erf difference's sign, so the sum has
+    the exact one and the kernels (csrc/chunked.cu, kTermwise) and the
+    plain versions land on the same side of the jump."""
+    return exp_name == "spline"
+
+
+def _transmittance(lt: _LiveTiles, erf_fn, exp_fn, max_block_elems: int,
+                   by_term: bool = False) -> list:
+    """The five T_k (L, nl, R) of pass A, zero on dead rows; by_term sums
+    the exponent term by term (termwise)."""
     mb, co, inv, sg = lt.mb, lt.co, lt.inv, lt.sg
-    base = torch.sum(co * erf_fn(-mb * inv), dim=1)         # (L, R)
+    eb = erf_fn(-mb * inv)                                  # (L, nl, R)
+    base = 0.0 if by_term else torch.sum(co * eb, dim=1)[:, None, :]   # (L, 1, R)
     qb = _q_block(lt, max_block_elems)
     accs = [torch.zeros_like(mb) for _ in K_TAPS]
     for q0 in range(0, lt.nl, qb):
         mb_q = mb[:, None, q0:q0 + qb, :]                   # (L, 1, Qb, R)
         co_q = co[:, None, q0:q0 + qb, :]
         inv_q = inv[:, None, q0:q0 + qb, :]                 # (L, 1, Qb, 1 or R)
+        eb_q = eb[:, None, q0:q0 + qb, :]
         darg = (mb[:, :, None, :] - mb_q) * inv_q           # (L, nl, Qb, R)
         ks = sg[:, :, None, :] * inv_q                      # (L, nl, Qb, 1 or R)
-        accs = [acc + torch.sum(co_q * erf_fn(darg + k * ks), dim=2)
-                for acc, k in zip(accs, K_TAPS)]
+        accs = [acc + torch.sum(co_q * (eb_q - e if by_term else e), dim=2)
+                for acc, e in zip(accs, (erf_fn(darg + k * ks) for k in K_TAPS))]
     rl = lt.row_live[..., None]
-    return [torch.where(rl, w * exp_fn(base[:, None, :] - acc), torch.zeros_like(acc))
+    return [torch.where(rl, w * exp_fn(acc if by_term else base - acc), torch.zeros_like(acc))
             for w, acc in zip(K_WEIGHTS, accs)]
 
 
@@ -307,7 +349,7 @@ def _forward_plain(oc, shape, mag, albedo, dirs_t, counts, erf_name, exp_name,
     lt = _live_tiles(oc, shape, mag, albedo, dirs_t, counts, exp_fn, terms)
     if lt is None:
         return colors, t
-    T = _transmittance(lt, erf_fn, exp_fn, max_block_elems)
+    T = _transmittance(lt, erf_fn, exp_fn, max_block_elems, termwise(exp_name))
     colors = colors.index_copy(0, lt.live, _colors(lt, T))
     if want_t:
         t_live = dirs_t.new_zeros((lt.live.numel(), len(K_TAPS), n, r))
@@ -381,7 +423,7 @@ def _backward_plain(oc, shape, mag, albedo, dirs_t, counts, dcol, t_saved, erf_n
     mb, co, inv, sg, nl = lt.mb, lt.co, lt.inv, lt.sg, lt.nl
     rl = lt.row_live[..., None]
     if t_saved is None:
-        T = _transmittance(lt, erf_fn, exp_fn, max_block_elems)
+        T = _transmittance(lt, erf_fn, exp_fn, max_block_elems, termwise(exp_name))
     else:
         T = [torch.where(rl, t, torch.zeros_like(t))
              for t in t_saved[lt.live, :, :nl].unbind(1)]
@@ -468,7 +510,7 @@ def _chunked_forward_launch(kernel, args, t, *, rb, pb, qb, erf_name, exp_name):
     inputs: colors (B,3,R), and T into t. A block is 32 rays (rb is capped
     at it); pb must be one the fused kernels take, though the kernel keeps
     4 rows a thread whatever it is."""
-    _check_names(erf_name, exp_name, pb)
+    ids = kernel_ids(erf_name, exp_name, pb)
     oc, dirs_t = args[0], args[4]
     b, n, _ = oc.shape
     r = dirs_t.shape[2]
@@ -478,7 +520,7 @@ def _chunked_forward_launch(kernel, args, t, *, rb, pb, qb, erf_name, exp_name):
     partial = torch.empty((b, n_split, 3, r), dtype=torch.float32, device=oc.device)
     outs = [partial, colors] + ([t] if t is not None else [])
     kernel.launch(list(args) + outs,
-                  [b, n, r, threads, pb, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  [b, n, r, threads, pb, qb, *ids],
                   what=f"B={b}, N={n}, R={r}, threads={threads}, pb={pb}, qb={qb}")
     return colors
 
@@ -551,7 +593,7 @@ def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_nam
     note lists them; the call then waits for the card), or None."""
     if part_ms is not None and not kernel.timed:
         raise ValueError(f"{kernel.name} does not time its parts")
-    _check_names(erf_name, exp_name)
+    ids = kernel_ids(erf_name, exp_name)
     oc, shape, dirs_t = args[0], args[1], args[4]
     b, n, _ = oc.shape
     r = dirs_t.shape[-1]
@@ -565,7 +607,7 @@ def _chunked_backward_launch(kernel, args, dcol, t_saved, *, ck, rb, qb, erf_nam
     ins = list(args) + [dcol] + ([] if t_saved is None else [t_saved])
     outs = [scratch, doc, dshape, dmag, dalb, ddirs] + ([part_ms] if kernel.timed else [])
     kernel.launch(ins + outs,
-                  [b, n, r, ck, threads, qb, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]],
+                  [b, n, r, ck, threads, qb, *ids],
                   what=f"B={b}, N={n}, R={r}, ck={ck}, threads={threads}, qb={qb}")
     return doc, dshape, dmag, dalb, ddirs
 

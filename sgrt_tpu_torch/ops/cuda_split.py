@@ -49,7 +49,12 @@ The plain backwards take autograd of the plain forward's pair and base
 terms, q block by q block, with erf's derivative 2/sqrt(pi) exp(-x^2) and
 T's derivative T itself (the kernels' convention: exp_fast and the A&S
 polynomials are not differentiated as written). So they check the kernels'
-S0/S1 folding of the five taps by an independent derivation.
+S0/S1 folding of the five taps by an independent derivation. The VJP is
+the one of every route: T (pass A, base included) from the named erf and
+exp, and every erf value and erf' of the cotangents (the pair terms' and
+the base path's dco, and the derivatives) from the erf's (erf, gauss)
+pair, as5's for an erf without one (taylor, spline, spline_mirror), as
+the JAX package's saved-T backward takes them.
 """
 
 from __future__ import annotations
@@ -66,14 +71,14 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     _SQRT_2_PI,
     K_TAPS,
     K_WEIGHTS,
-    KERNEL_ERFS,
-    KERNEL_EXPS,
     CudaKernel,
     _block_sizes,
     _check_inputs,
     _check_names,
     _kernel_erf_name,
     _threads,
+    kernel_ids,
+    termwise,
 )
 from sgrt_tpu_torch.ops.reference import INV_SQRT_2_PI, SQRT_2
 
@@ -90,34 +95,45 @@ SPLIT_BWD_COLOR = CudaKernel("split_bwd_color", _SRC, "sgrt_split_bwd_color",
 # plain versions (tensor ops; on the CPU and beside the kernels in checks)
 # ---------------------------------------------------------------------------
 
+def _pair(erf_name: str):
+    """erf_name's (erf, gauss) pair, or as5's for an erf without one."""
+    return ERF_AND_GAUSS_IMPLS.get(erf_name, ERF_AND_GAUSS_IMPLS["as5"])
+
+
 class _Erf(torch.autograd.Function):
-    """erf_name's erf whose derivative is 2/sqrt(pi) exp(-x^2), taken from
-    its (erf, gauss) pair or as5's, as the kernels take it."""
+    """The erf of the VJP's terms: the value of erf_name's (erf, gauss)
+    pair, so that autograd gives the co cotangents the pair's erf, and the
+    derivative 2/sqrt(pi) exp(-x^2) from the same pair, as the kernels
+    take both (the module note's VJP)."""
 
     @staticmethod
     def forward(ctx, x, erf_name):
         ctx.erf_name = erf_name
         ctx.save_for_backward(x)
-        return ERF_IMPLS[erf_name](x)
+        return _pair(erf_name)(x)[0]
 
     @staticmethod
     def backward(ctx, grad):
         (x,) = ctx.saved_tensors
-        eag = ERF_AND_GAUSS_IMPLS.get(ctx.erf_name, ERF_AND_GAUSS_IMPLS["as5"])
-        return grad * _DERF * eag(x)[1], None
+        return grad * _DERF * _pair(ctx.erf_name)(x)[1], None
 
 
-def _acc_terms(mb_p, sg_p, mb_q, co_q, inv_q, live_q, erf_fn):
+def _acc_terms(mb_p, sg_p, mb_q, co_q, inv_q, live_q, erf_fn, eb_q=None):
     """acc_k's terms of the p rows mb_p (B,P,R), sg_p (B,P) against the q
     rows mb_q, co_q (B,Q,R), inv_q (B,Q), those with live_q (B,Q) false
-    masked out: five (B,P,R) sums over the q rows."""
+    masked out: five (B,P,R) sums over the q rows. Given the q rows' base
+    erfs eb_q (B,Q,R), the sums of co_q (eb_q - erf(...)) instead, base -
+    acc_k term by term (termwise)."""
     zero = torch.zeros((), dtype=mb_q.dtype, device=mb_q.device)
     mb_q = torch.where(live_q[..., None], mb_q, zero)[:, None]          # (B, 1, Q, R)
     co_q = torch.where(live_q[..., None], co_q, zero)[:, None]
     inv_q = torch.where(live_q, inv_q, zero + 1)[:, None, :, None]      # (B, 1, Q, 1)
     darg = (mb_p[:, :, None, :] - mb_q) * inv_q                         # (B, P, Q, R)
     ks = sg_p[:, :, None, None] * inv_q                                 # (B, P, Q, 1)
-    return [torch.sum(co_q * erf_fn(darg + k * ks), dim=2) for k in K_TAPS]
+    if eb_q is None:
+        return [torch.sum(co_q * erf_fn(darg + k * ks), dim=2) for k in K_TAPS]
+    eb_q = eb_q[:, None]
+    return [torch.sum(co_q * (eb_q - erf_fn(darg + k * ks)), dim=2) for k in K_TAPS]
 
 
 def _q_block(b: int, nl: int, r: int, max_block_elems: int) -> int:
@@ -129,23 +145,33 @@ def _q_block(b: int, nl: int, r: int, max_block_elems: int) -> int:
 @torch.no_grad()
 def _pass_a(mb, co, sigma, inv, counts, erf_name, exp_name, max_block_elems):
     """Pass A without autograd: (T, five (B,nl,R) factors w_k exp(base -
-    acc_k), zero past the count; live (B,nl)), nl the largest count. Reads
-    the counts on the host."""
+    acc_k), zero past the count; live (B,nl)), nl the largest count; the
+    exponent summed term by term under the spline exp (termwise). Reads the
+    counts on the host."""
     erf_fn, exp_fn = ERF_IMPLS[erf_name], EXP_IMPLS[exp_name]
     b, n, r = mb.shape
     cnt = torch.clamp(counts.to(torch.int64), 0, n)
     nl = int(cnt.max()) if b else 0
     live = torch.arange(nl, device=mb.device)[None, :] < cnt[:, None]
-    base = torch.sum(co * erf_fn(-mb * inv[..., None]), dim=1)          # (B, R), every row
+    by_term = termwise(exp_name)
+    eb = erf_fn(-mb * inv[..., None])                                   # (B, N, R)
+    # base over every row; termwise over the rows past the count alone (the
+    # live rows' base terms enter acc_k's)
+    past = torch.arange(n, device=mb.device)[None, :] >= cnt[:, None]
+    base_terms = co * eb
+    if by_term:
+        base_terms = torch.where(past[..., None], base_terms, torch.zeros_like(eb))
+    base = torch.sum(base_terms, dim=1)                                 # (B, R)
     accs = [mb.new_zeros((b, nl, r)) for _ in K_TAPS]
     qb = _q_block(b, nl, r, max_block_elems)
     for q0 in range(0, nl, qb):
         q = slice(q0, min(q0 + qb, nl))
         blk = _acc_terms(mb[:, :nl], sigma[:, :nl], mb[:, q], co[:, q], inv[:, q], live[:, q],
-                         erf_fn)
+                         erf_fn, eb[:, q] if by_term else None)
         accs = [a + x for a, x in zip(accs, blk)]
     rl = live[..., None]
-    T = [torch.where(rl, w * exp_fn(base[:, None, :] - acc), torch.zeros_like(acc))
+    T = [torch.where(rl, w * exp_fn(base[:, None, :] + acc if by_term
+                                    else base[:, None, :] - acc), torch.zeros_like(acc))
          for w, acc in zip(K_WEIGHTS, accs)]
     return T, live
 
@@ -253,7 +279,7 @@ def _ints(kernel, mb, rb, blocks, erf_name, exp_name):
     it), the block sizes, erf and exp."""
     b, n, r = mb.shape
     threads = _threads(kernel.query("sgrt_chunked_max_threads"), rb, r)
-    return [b, n, r, threads, *blocks, KERNEL_ERFS[erf_name], KERNEL_EXPS[exp_name]]
+    return [b, n, r, threads, *blocks, *kernel_ids(erf_name, exp_name)]
 
 
 def split_forward(mb, co, sigma, inv, counts, *, rb: int = 128, pb: int = 16, qb: int = 32,
@@ -299,7 +325,6 @@ def _backward_launch(kernel, ins, albedo, *, rb, qb, erf_name, exp_name, part_ms
     that receives the device ms of the launch's kernels (the forward-with-T,
     p side, db sum, q side, rows kernel; the call then waits for the card),
     or None."""
-    _check_names(erf_name, exp_name)
     mb = ins[0]
     ints = _ints(kernel, mb, rb, (qb,), erf_name, exp_name)
     b, n, _, _ = ints[:4]

@@ -9,6 +9,8 @@ straight away. Nothing is built at import time.
 Flags: sm_90a (Hopper), -O3, and no --use_fast_math (it would turn expf and
 the A&S division into approximations). -Xptxas -v writes each kernel's
 registers, shared memory and spills to the build log beside the library.
+--split-compile=0 spreads one source's optimisation and ptxas over every
+CPU core, since chunked.cu instantiates its kernels for every erf and exp.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgrt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 
 
 def nvcc_path() -> str:

@@ -366,4 +366,6 @@ def test_split_forwards_are_chunked_entry_points(name, symbol, line):
     assert "stream, in)" in body
     launch = src[src.index("int launch_fwd("):]
     launch = launch[:launch.index("\n}\n")]
-    assert "pick_fwd<Geo, STORE>" in launch and "fwd_kernel<Geo, kErfAs5, kExpExact, STORE>" in src
+    pick = src[src.index("FwdKernel<Geo> pick_fwd("):]
+    pick = pick[:pick.index("\n}\n")]
+    assert "pick_fwd<Geo, STORE>" in launch and "fwd_kernel<Geo, ERF, EXP, STORE>" in pick

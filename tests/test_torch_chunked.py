@@ -100,6 +100,28 @@ def test_chunked_gradients_match_jax(setup, jax_grads, save_t):
         np.testing.assert_allclose(got / scale, want / scale, atol=5e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("erf_name", ["taylor", "spline_mirror"])
+def test_chunked_vjp_without_pair_matches_jax(setup, erf_name):
+    """Under an erf without an (erf, gauss) pair, both schedules of the
+    chunked op against the JAX chunked op's gradients (its backward takes
+    T, base included, from the named erf and the cotangents' erf values
+    and erf' from as5's pair: the one VJP of every route)."""
+    n, *arrs, _ = setup
+
+    def loss(*a):
+        return jnp.sum(_jax_render(*a, [n], save_t=False, erf_name=erf_name) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, arrs))
+    for save_t in (True, False):
+        leaves = [_t(a).requires_grad_(True) for a in arrs]
+        torch.sum(_port_render(*leaves, [n], save_t=save_t, erf_name=erf_name) ** 2).backward()
+        for name, leaf, w in zip(GRAD_NAMES, leaves, want):
+            w = np.asarray(w)
+            scale = max(np.abs(w).max(), 1e-8)
+            np.testing.assert_allclose(leaf.grad.numpy() / scale, w / scale, atol=5e-5,
+                                       err_msg=f"{name}, save_t={save_t}")
+
+
 def test_chunked_batch_counts_and_dead_chunks(setup):
     """Counts (256, 20, 0): a tile with two live chunks, one whose only live
     chunk is partly live, and a dead tile. Colors match the JAX package's;

@@ -23,6 +23,10 @@ from sgrt_tpu_torch.ops.frame import render_orbit_frame
 
 pytestmark = pytest.mark.gpu
 
+# the erfs without an (erf, gauss) pair and the spline exp, one stack each:
+# the forwards evaluate the named erf and exp, the backwards as5's pair
+NEW_STACKS = [("taylor", "exact"), ("spline", "spline"), ("spline_mirror", "exact")]
+
 
 def _card():
     if not torch.cuda.is_available():
@@ -71,6 +75,7 @@ def _check_forwards(args, n, counts, **kw):
     ("as5", "exact", 16, 16, 96, (96, 17, 0, 40, 1000)),
     ("as3", "fast", 8, 32, 96, (96, 17, 0, 40, 1000)),
     ("as5", "exact", 8, 8, 40, (40, 17, 0, 33, 1000)),
+    *[(e, x, 8, 32, 96, (96, 17, 0, 40, 1000)) for e, x in NEW_STACKS],
 ])
 def test_kernel_matches_plain(erf_name, exp_name, pb, qb, n, counts):
     args = _inputs(_card(), n=n, counts=counts)
@@ -108,7 +113,9 @@ def _assert_grads_f64_gate(got, plain, ref, rel=5e-5):
 
 def test_kernel_refuses_grad_and_unported_names():
     """On the card, gradients of render_fused come from the backward
-    kernels and equal the plain backward's; unported erf names raise."""
+    kernels and equal the plain backward's; the spline erf runs in both
+    kernels as in their plain versions; an erf name that no package has
+    raises."""
     dev = _card()
     args = _inputs(dev, r=256)
     dcol = torch.randn((5, 3, 256), generator=torch.Generator().manual_seed(3)).to(dev)
@@ -120,16 +127,26 @@ def test_kernel_refuses_grad_and_unported_names():
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
         _assert_grads_close([t.grad for t in leaves], want)
+    before = (tk.FUSED_FWD.launches, tk.FUSED_BWD.launches)
+    out = tk.fused_forward(*args, erf_name="spline")
+    got = tk.fused_backward(*args, dcol, erf_name="spline")
+    torch.cuda.synchronize()
+    assert (tk.FUSED_FWD.launches, tk.FUSED_BWD.launches) == (before[0] + 1, before[1] + 1)
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               tk.fused_forward_plain(*args, erf_name="spline").cpu().numpy(),
+                               atol=2e-5)
+    _assert_grads_close(got, tk.fused_backward_plain(*args, dcol, erf_name="spline"))
     with pytest.raises(ValueError, match="erf"):
-        tk.fused_forward(*args, erf_name="spline")
+        tk.fused_forward(*args, erf_name="erfc")
     with pytest.raises(ValueError, match="erf"):
-        tk.fused_backward(*args, dcol, erf_name="spline")
+        tk.fused_backward(*args, dcol, erf_name="erfc")
 
 
 @pytest.mark.parametrize("erf_name,exp_name,qb,n,counts", [
     ("as5", "exact", 32, 96, (96, 17, 0, 40, 1000)),
     ("as3", "fast", 32, 96, (96, 17, 0, 40, 1000)),
     ("as5", "exact", 8, 40, (40, 17, 0, 33, 1000)),
+    *[(e, x, 32, 96, (96, 17, 0, 40, 1000)) for e, x in NEW_STACKS],
 ])
 def test_forward_t_kernel_matches_plain(erf_name, exp_name, qb, n, counts):
     """The forward-with-T at the wrappers' default pb."""
@@ -138,7 +155,7 @@ def test_forward_t_kernel_matches_plain(erf_name, exp_name, qb, n, counts):
 
 
 @pytest.mark.parametrize("saved_t", [True, False])
-@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast"), *NEW_STACKS])
 def test_backward_kernels_match_plain(saved_t, erf_name, exp_name):
     """Both backwards at R = 200 (two ray blocks, the second partial), N =
     96 (one chunk of a 64-row block and a partial one) and counts (96, 17,
@@ -247,7 +264,7 @@ def test_frame_train_step_on_card(bucketed):
 CHUNK_COUNTS = (384, 17, 0, 200, 1000)
 
 
-@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast"), *NEW_STACKS])
 def test_chunked_forward_kernels_match_plain(erf_name, exp_name):
     from sgrt_tpu_torch.ops import cuda_chunked as tc
 
@@ -275,7 +292,7 @@ def test_chunked_forward_kernels_match_plain(erf_name, exp_name):
 
 
 @pytest.mark.parametrize("saved_t", [True, False])
-@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast"), *NEW_STACKS])
 def test_chunked_backward_kernels_match_plain(saved_t, erf_name, exp_name):
     """Both chunked backwards at R = 200 (two ray blocks, the second
     partial): q-side sums carried over three p chunks, held against a
@@ -330,7 +347,8 @@ def test_chunked_kernels_refuse_bad_qb():
 def test_chunked_route_on_card():
     """render_fused_chunked's gradients on the card come from the chunked
     backward kernels (both schedules) and equal the plain backward's; the
-    chunked and fused forwards agree on the same inputs."""
+    chunked and fused forwards agree on the same inputs, under the spline
+    erf too; an erf name that no package has raises."""
     from sgrt_tpu_torch.ops import cuda_chunked as tc
 
     dev = _card()
@@ -347,8 +365,11 @@ def test_chunked_route_on_card():
     fused = tk.fused_forward(*args)
     np.testing.assert_allclose(tc.chunked_forward(*args, ck=128).cpu().numpy(),
                                fused.cpu().numpy(), atol=2e-5)
+    np.testing.assert_allclose(tc.chunked_forward(*args, ck=128, erf_name="spline").cpu().numpy(),
+                               tk.fused_forward(*args, erf_name="spline").cpu().numpy(),
+                               atol=2e-5)
     with pytest.raises(ValueError, match="erf"):
-        tc.chunked_forward(*args, ck=128, erf_name="spline")
+        tc.chunked_forward(*args, ck=128, erf_name="erfc")
 
 
 # the anisotropic kernels (the forwards and the backwards csrc/chunked.cu's
@@ -365,6 +386,7 @@ def _aniso_inputs(dev, **kw):
     ("as5", "exact", 16, 16, 96, (96, 17, 0, 40, 1000)),
     ("as3", "fast", 8, 32, 96, (96, 17, 0, 40, 1000)),
     ("as5", "exact", 8, 8, 40, (40, 17, 0, 33, 1000)),
+    *[(e, x, 8, 32, 96, (96, 17, 0, 40, 1000)) for e, x in NEW_STACKS],
 ])
 def test_aniso_forward_kernels_match_plain(erf_name, exp_name, pb, qb, n, counts):
     """The anisotropic forwards within 2e-5 of their plain versions, T zero
@@ -390,7 +412,7 @@ def test_aniso_forward_kernels_match_plain(erf_name, exp_name, pb, qb, n, counts
     assert torch.equal(out, colors)
 
 
-@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast"), *NEW_STACKS])
 def test_aniso_backward_kernels_match_plain(erf_name, exp_name):
     """Both anisotropic backwards at R = 200 (two ray blocks, the second
     partial) and N = 96 (one chunk of a 64-row block and a partial one):
@@ -557,7 +579,7 @@ def test_fused_aniso_backward_sums_at_thousands_of_rows():
 # chunk is partly live (200) and one clamped to N; R = 200 is two ray
 # blocks, the second partial. Gradients are held to the float64 gate
 # (_assert_grads_f64_gate).
-@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast"), *NEW_STACKS])
 def test_chunked_aniso_kernels_match_plain(erf_name, exp_name):
     from sgrt_tpu_torch.ops import cuda_aniso as ta
     from sgrt_tpu_torch.ops import cuda_chunked_aniso as tca
@@ -584,7 +606,7 @@ def test_chunked_aniso_kernels_match_plain(erf_name, exp_name):
     assert (got[4][2] == 0).all()
 
 
-@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast")])
+@pytest.mark.parametrize("erf_name,exp_name", [("as5", "exact"), ("as3", "fast"), *NEW_STACKS])
 def test_chunked_aniso_saved_t_kernels_match_plain(erf_name, exp_name):
     """The saved-T schedule's kernels (the forward-with-T and the saved-T
     backward) against their plain versions and float64; T is 0 on dead rows
@@ -688,7 +710,8 @@ def _gate(names, got, plain, ref, rel):
 @pytest.mark.parametrize("erf_name,exp_name,pb,n", [("as5", "exact", 16, 96),
                                                     ("as5", "exact", 8, 96),
                                                     ("as3", "fast", 16, 96),
-                                                    ("as5", "exact", 8, 40)])
+                                                    ("as5", "exact", 8, 40),
+                                                    *[(e, x, 16, 96) for e, x in NEW_STACKS]])
 def test_split_kernels_match_plain(erf_name, exp_name, pb, n):
     from sgrt_tpu_torch.ops import cuda_split as cs
 
@@ -778,8 +801,9 @@ def test_split_forwards_agree(n):
 
 def test_split_ops_on_card():
     """tw_split and colors_split on the card: gradients from kernels 16 and
-    18 equal the wrappers' (autograd adds nothing), and names the kernels
-    do not implement raise."""
+    18 equal the wrappers' (autograd adds nothing), also under the taylor
+    erf; an erf name that no package has and a pb the kernels do not take
+    raise."""
     from sgrt_tpu_torch.ops import cuda_split as cs
 
     dev = _card()
@@ -793,7 +817,33 @@ def test_split_ops_on_card():
     want = cs.split_backward_color(mb, co, sig, inv, alb, torch.clamp(cnt, max=96), dcol)
     for t, w in zip(leaves, want):
         assert torch.equal(t.grad, w)
+    leaves = [t.clone().requires_grad_(True) for t in (mb, co, sig, inv, alb)]
+    before = cs.SPLIT_BWD_COLOR.launches
+    cs.colors_split(*leaves, cnt, pb=16, qb=32, erf_name="taylor").backward(dcol)
+    torch.cuda.synchronize()
+    assert cs.SPLIT_BWD_COLOR.launches == before + 1
+    want = cs.split_backward_color(mb, co, sig, inv, alb, torch.clamp(cnt, max=96), dcol,
+                                   erf_name="taylor")
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
     with pytest.raises(ValueError, match="CUDA kernels implement"):
-        cs.tw_split(mb, co, sig, inv, cnt, erf_name="taylor")
+        cs.tw_split(mb, co, sig, inv, cnt, erf_name="erfc")
     with pytest.raises(ValueError, match="pb in"):
         cs.tw_split(mb, co, sig, inv, cnt, pb=32)
+
+
+@pytest.mark.parametrize("erf_name", ["as5", "as3", "taylor", "spline", "spline_mirror"])
+@pytest.mark.parametrize("exp_name", ["exact", "fast", "spline"])
+def test_backwards_equal_for_every_name(erf_name, exp_name):
+    """For every erf and exp the kernels are built for, the recompute
+    backward's T is the forward-with-T's: the saved-T and recompute fused
+    backwards give equal gradients bit for bit, and the forward's colors
+    equal the forward-with-T's."""
+    dev = _card()
+    args = _inputs(dev, n=40, counts=(40, 17, 0, 33, 1000))
+    dcol = torch.randn((5, 3, 200), generator=torch.Generator().manual_seed(9)).to(dev)
+    kw = dict(qb=8, erf_name=erf_name, exp_name=exp_name)
+    colors, t = tk.fused_forward_t(*args, pb=8, **kw)
+    assert torch.equal(colors, tk.fused_forward(*args, pb=8, **kw))
+    for a, b in zip(tk.fused_backward(*args, dcol, t, **kw), tk.fused_backward(*args, dcol, **kw)):
+        assert torch.isfinite(a).all() and torch.equal(a, b)

@@ -237,6 +237,36 @@ def test_split_route_matches_render_fused(count=37):
         np.testing.assert_allclose(t.grad.numpy(), w, atol=5e-5 * np.abs(w).max(), err_msg=name)
 
 
+@pytest.mark.parametrize("erf_name", ["taylor", "spline_mirror"])
+def test_split_route_vjp_without_pair_matches_saved_t(erf_name, count=37):
+    """Under an erf without an (erf, gauss) pair, the split route's scene
+    gradients are the one VJP of every route (ops/cuda_split.py's note: T
+    from the named erf, every erf value and erf' of the cotangents from
+    as5's pair): the JAX package's render_fused on its saved-T schedule,
+    at 5e-5 of scale, as test_split_route_matches_render_fused. (A plain
+    VJP that gives dco the named erf's value fails it under taylor.)"""
+    mu, sig, mag, alb, d = _tile_scene(5, N, count)
+    dcol = np.random.default_rng(6).normal(size=(1, 3, R)).astype(np.float32)
+    fields = (mu, sig, mag, alb)
+
+    def jf(mu_, sig_, mag_, alb_, dirs_t):
+        return jpk.render_fused(mu_[None], sig_[None], mag_[None], alb_[None], dirs_t,
+                                jnp.asarray([count], jnp.int32), pb=8, qb=16, rb=RB,
+                                save_t=True, erf_name=erf_name, interpret=True)
+
+    _, vjp = jax.vjp(jf, *(jnp.asarray(a) for a in fields), jnp.asarray(d.T[None]))
+    want_g = vjp(jnp.asarray(dcol))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (*fields, d.T[None].copy())]
+    scene = GaussianScene(*(t[None] for t in leaves[:4]))
+    colors = cs.render_tiles_split(scene, torch.zeros(3), leaves[4].transpose(1, 2),
+                                   torch.tensor([count], dtype=torch.int32), rb=RB, pb=8, qb=16,
+                                   erf_name=erf_name)
+    colors.transpose(1, 2).backward(torch.from_numpy(dcol))
+    for name, t, w in zip(("oc", "sigma", "mag", "albedo", "dirs"), leaves, want_g):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, atol=5e-5 * np.abs(w).max(), err_msg=name)
+
+
 def test_tw_split_counts_prefix_semantics():
     """tests/test_pallas.py:69 on the port: counts < N equal the count-free
     result on the live prefix when rows past it carry zero coeff."""
