@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --torch-route   # only times the torch route's terms
-    python3 chip_smoke.py --only aniso_dense[,split,approx,...]   # some phase groups
+    python3 chip_smoke.py --only aniso_dense[,split,approx,frontends,...]   # some phase groups
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds the port's CUDA kernels from csrc/, holds each against its plain
@@ -59,7 +59,17 @@ comes out, and times the kernels:
             against the oracle under tests/test_img_error.py's MSE bounds;
             the serving CLI's orbit and kernels 1, 2 and 3 per stack
             (TIMED_STACKS) with their bounds; the north-star train step
-            under spline_mirror/spline, saved-T and recompute.
+            under spline_mirror/spline, saved-T and recompute;
+  frontends the entry points beside the CLI: the batched orbit at the
+            serving cell (8 frames' tiles in one launch of kernel 1, each
+            frame equal to the per-frame render, the per-frame loop and the
+            batched call timed in turns with their device profiles), the
+            bucketed batched orbit at the training cell's size (5 frames in
+            batches of 3), render_tiled (the plain renderer, tiled) on the
+            serving frame 0 within 2/255 of the kernel route, the viewer over
+            HTTP (isotropic tiled and untiled, anisotropic tiled at sx=3,
+            an image after an edit: each equal to the direct render, no
+            overflow), and the native PNG writer against the Python encoder.
 
 Every kernels-vs-plain phase holds one tile under as3/fast and under each
 stack of APPROX_STACKS (taylor/exact, spline/spline, spline_mirror/exact)
@@ -216,6 +226,8 @@ CHAIN_FP32, CHAIN_SFU = 40, 2
 # summed in another order, over at most 480 rows; nothing cancels as doc
 # does); the dense tile is held to gate_vs_f64 alone, as the dense cell.
 SPLIT_SUB_TILES, SPLIT_DENSE_CAP, SPLIT_REL = 32, 4352, TRAIN_REL
+# the viewer phase: the cube cloud at 128x128 in 16x16 tiles
+VIEWER_SIZE, VIEWER_TILES = 128, 16
 
 
 def emit(phase: str, **fields) -> None:
@@ -250,7 +262,11 @@ def write_obj(path: str, pts: np.ndarray) -> None:
 
 def read_png_rgba(path: str) -> np.ndarray:
     """Decode the 8-bit RGBA, filter-0 PNGs that sgrt_tpu_torch writes."""
-    data = open(path, "rb").read()
+    return decode_png_rgba(open(path, "rb").read(), path)
+
+
+def decode_png_rgba(data: bytes, path: str) -> np.ndarray:
+    """read_png_rgba of a PNG's bytes; `path` names it in a failure."""
     check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
     pos, idat, w, h = 8, b"", 0, 0
     while pos < len(data):
@@ -2971,6 +2987,231 @@ def approx_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> None:
                                rtol=1e-4)
 
 
+def two_bucket_config(scene, tiles, margin: float):
+    """A two-bucket BucketConfig over the sample ANGLES (the densest eighth
+    of the tiles at the worst count, the rest at the worst count outside
+    it, both x margin), for when probe_buckets' cost model keeps one."""
+    import torch
+
+    from sgrt_tpu_torch.ops.frame import orbit_camera
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+    from sgrt_tpu_torch.ops.tiling import as_grid, tile_membership
+
+    t2 = as_grid(tiles)[0] * as_grid(tiles)[1]
+    worst = None
+    for a in ANGLES:
+        view = orbit_camera(a, OFFSET, FOCAL, 8, 8, device=scene.device).view_matrix
+        c = torch.sort(torch.sum(tile_membership(scene, view, tiles, focal_length=FOCAL),
+                                 dim=-1), descending=True).values
+        worst = c if worst is None else torch.maximum(worst, c)
+    worst = worst.cpu().numpy()
+    n_dense = t2 // 8
+    return BucketConfig(n_dense, max(32, int(worst[0] * margin)),
+                        max(32, int(worst[n_dense] * margin)))
+
+
+def frontends_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
+    """The front ends a user of one card reaches beside the CLI: the batched
+    orbit at the serving cell (8 frames in one launch of kernel 1, each
+    frame equal to the per-frame render; the per-frame loop and the batched
+    call timed in turns, with their device profiles), the bucketed batched
+    orbit at the training cell's size with a partial batch, render_tiled
+    against the kernel route on frame 0, the viewer over HTTP (isotropic
+    tiled and untiled, anisotropic tiled at sx=3, after an edit), and the
+    native PNG writer against the Python encoder. Returns the batched
+    launch of kernel 1, for its entry of the kernel line."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from sgrt_tpu_torch import viewer
+    from sgrt_tpu_torch.models.gaussians import scene_from_vertices
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.ops.cuda_aniso import FUSED_FWD_ANISO
+    from sgrt_tpu_torch.ops.cuda_chunked_aniso import CHUNKED_FWD_ANISO
+    from sgrt_tpu_torch.ops.cuda_kernel import FUSED_FWD, _block_sizes, fused_forward
+    from sgrt_tpu_torch.ops.frame import (orbit_camera, probe_buckets, render_orbit_frame,
+                                          render_orbit_frames_batched)
+    from sgrt_tpu_torch.ops.render import _tile_rays, render_tiled
+    from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
+    from sgrt_tpu_torch.utils import native
+    from sgrt_tpu_torch.utils.image import encode_png, to_rgba_u8
+
+    scene = scene_from_vertices(smoke_points(), device=dev)
+    capacity, cap, _ = serving_frame0(scene, dev)
+    angles = [i * 360.0 / FRAMES for i in range(FRAMES)]
+    kw = dict(width=SIZE, height=SIZE, tiles=TILES, capacity=capacity)
+
+    def loop():
+        return [render_orbit_frame(scene, a, OFFSET, FOCAL, backend="kernel", **kw)
+                for a in angles]
+
+    def batched():
+        return render_orbit_frames_batched(scene, angles, OFFSET, FOCAL, batch_frames=FRAMES,
+                                           **kw)
+
+    # 1. the batched orbit at the serving cell: one launch, frames equal
+    per_frame = loop()
+    kernels.reset_launch_counts()
+    imgs, ovf = batched()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    check(launches == {FUSED_FWD.name: 1},
+          f"the batched orbit did not run kernel 1 once: {launches}")
+    check(int(ovf) == 0 and all(int(o) == 0 for _, o in per_frame), "the orbit overflowed")
+    equal = [bool(torch.equal(imgs[i], im)) for i, (im, _) in enumerate(per_frame)]
+    check(all(equal), f"batched frames differ from the per-frame renders: {equal}")
+    check(all(float(im.max()) > 0.05 for im, _ in per_frame), "an orbit frame is black")
+
+    # kernel 1's batched launch beside the per-frame one (frame 0), by CUDA
+    # events, against the per-frame launches' colors
+    inputs = []
+    for a in angles:
+        cam = orbit_camera(a, OFFSET, FOCAL, SIZE, SIZE, device=dev)
+        o, dirs = cam.rays()
+        idx, counts = tile_indices(scene, cam.view_matrix, TILES, cap, focal_length=FOCAL)
+        inputs.append(launch_inputs(gather_tiles(scene, idx), o,
+                                    _tile_rays(dirs, SIZE, SIZE, TILES), counts))
+    big = [torch.cat(ts).contiguous() for ts in zip(*inputs)]
+    pb, qb = _block_sizes(cap)
+    colors = fused_forward(*big, pb=pb, qb=qb)
+    one = torch.cat([fused_forward(*inp, pb=pb, qb=qb) for inp in inputs])
+    check(bool(torch.equal(colors, one)), "kernel 1's batched launch differs from its "
+          "per-frame launches")
+    b_big, n_big = big[1].shape
+    r_big = big[4].shape[2]
+    ms_big = time_cuda(lambda: fused_forward(*big, pb=pb, qb=qb), iters=5)
+    ms_one = time_cuda(lambda: fused_forward(*inputs[0], pb=pb, qb=qb), iters=20)
+    bytes_big = scene_bytes(big) + 4 * 3 * b_big * r_big
+    batched_launch = {"shape": {"B": b_big, "N": n_big, "R": r_big}, "frames": FRAMES,
+                      "ms": ms_big, "ms_per_frame": ms_big / FRAMES, "per_frame_launch_ms": ms_one,
+                      "gathered_mb": sum(t.numel() * t.element_size() for t in big) / 1e6,
+                      **bound(*fwd_ops(big), bytes_big, clock_mhz, n_sm)}
+
+    # the per-frame loop and the batched call in turns, 8 frames a round
+    batched(), loop()                       # warm up both
+    rounds = {"loop": [], "batched": []}
+    for r in range(6):
+        for name in (("loop", "batched") if r % 2 == 0 else ("batched", "loop")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (loop if name == "loop" else batched)()
+            torch.cuda.synchronize()
+            rounds[name].append((time.perf_counter() - t0) * 1e3 / FRAMES)
+    turns = {name: {"ms_per_frame": v, "median_ms_per_frame": float(np.median(v)),
+                    "spread": (max(v) - min(v)) / float(np.median(v))}
+             for name, v in rounds.items()}
+    turns["loop"]["profile"] = profile_device(
+        lambda a: render_orbit_frame(scene, a, OFFSET, FOCAL, backend="kernel", **kw), angles)
+    turns["batched"]["profile"] = profile_device(lambda _: batched(), [0])
+    emit("frontends_orbit", size=SIZE, tiles=list(TILES), capacity=capacity,
+         padded_capacity=cap, frames=FRAMES, batch_frames=FRAMES, launches=launches,
+         frames_equal=equal, batched_launch=batched_launch, turns=turns, power_limit=smi)
+
+    # 2. the bucketed batched orbit at the training cell's size: 5 frames in
+    # batches of 3 (the last partial), each frame equal to the per-frame
+    # bucketed render
+    S, tangles = TRAIN_SIZE, [0.0, 25.0, 50.0, 75.0, 100.0]
+    probed = probe_buckets(scene, ANGLES, OFFSET, FOCAL, TRAIN_TILES, margin=1.2)
+    cfgs = {"probed": probed}
+    if not probed.n_dense:
+        cfgs["two_buckets"] = two_bucket_config(scene, TRAIN_TILES, 1.2)
+    bucketed = {}
+    for name, cfg in cfgs.items():
+        bkw = dict(width=S, height=S, tiles=TRAIN_TILES, capacity=cfg.cap_dense, bucket_cfg=cfg)
+        ref = [render_orbit_frame(scene, a, OFFSET, FOCAL, backend="kernel", **bkw)
+               for a in tangles]
+        kernels.reset_launch_counts()
+        b_imgs, b_ovf = render_orbit_frames_batched(scene, tangles, OFFSET, FOCAL,
+                                                    batch_frames=3, **bkw)
+        torch.cuda.synchronize()
+        b_launches = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+        b_equal = [bool(torch.equal(b_imgs[i], im)) for i, (im, _) in enumerate(ref)]
+        bucketed[name] = {"config": list(cfg), "launches": b_launches, "frames_equal": b_equal,
+                          "overflow": int(b_ovf), "per_frame_overflow": [int(o) for _, o in ref]}
+        check(all(b_equal), f"bucketed batched frames ({name}) differ: {b_equal}")
+        check(int(b_ovf) == sum(int(o) for _, o in ref), f"bucketed overflow: {bucketed}")
+        want = 2 * (2 if cfg.n_dense else 1)      # two batches of one or two launches
+        check(sum(b_launches.values()) == want, f"bucketed batched launches ({name}): "
+              f"{b_launches}, want {want}")
+    emit("frontends_bucketed_orbit", size=S, tiles=list(TRAIN_TILES), frames=len(tangles),
+         batch_frames=3, runs=bucketed)
+
+    # 3. render_tiled (the plain renderer, tiled and culled) on frame 0
+    cam0 = orbit_camera(0.0, OFFSET, FOCAL, SIZE, SIZE, device=dev)
+    t0 = time.perf_counter()
+    tiled_img = render_tiled(scene, cam0, tiles=TILES, tile_batch=8)
+    torch.cuda.synchronize()
+    tiled_s = time.perf_counter() - t0
+    tiled_err = float((tiled_img - per_frame[0][0]).abs().max())
+    emit("frontends_render_tiled", size=SIZE, tiles=list(TILES), seconds=tiled_s,
+         max_abs_err_vs_kernel_route=tiled_err, bound=2.0 / 255.0)
+    check(tiled_err <= 2.0 / 255.0, f"render_tiled differs from the kernel route by {tiled_err}")
+
+    # 4. the viewer over HTTP on the card
+    srv = viewer.make_server(scene, width=VIEWER_SIZE, height=VIEWER_SIZE, tiles=VIEWER_TILES,
+                             port=0)
+    stage = srv.RequestHandlerClass.scene_stage
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    views = {}
+    try:
+        kernels.reset_launch_counts()
+        for name, query, edit in (("iso_tiled", "angle=30&tiled=1", None),
+                                  ("iso_untiled", "angle=30&tiled=0", None),
+                                  ("aniso_tiled_sx3", "angle=30&tiled=1&sx=3", None),
+                                  ("after_edit", "angle=30&tiled=1", "index=0&magnitude=4")):
+            if edit:
+                with urllib.request.urlopen(f"{base}/edit?{edit}", timeout=300) as r:
+                    check(json.loads(r.read())["ok"], f"viewer edit {edit} failed")
+            with urllib.request.urlopen(f"{base}/render?{query}", timeout=300) as r:
+                headers, body = dict(r.headers), r.read()
+            png = decode_png_rgba(body, name)
+            q = dict(kv.split("=") for kv in query.split("&"))
+            direct, _ = viewer.render_query(stage.snapshot(), q, VIEWER_SIZE, VIEWER_SIZE,
+                                            VIEWER_TILES, srv.RequestHandlerClass.tile_capacity)
+            views[name] = {"render_ms": float(headers["X-Render-Ms"]),
+                           "overflow": int(headers["X-Overflow"]),
+                           "max_rgb": int(png[..., :3].max()),
+                           "equals_direct": bool(np.array_equal(
+                               png, to_rgba_u8(direct.cpu().numpy())))}
+        v_launches = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    emit("frontends_viewer", size=VIEWER_SIZE, tiles=VIEWER_TILES, capacity=srv.RequestHandlerClass.tile_capacity,
+         views=views, launches=v_launches)
+    bad = [n for n, v in views.items()
+           if not (v["overflow"] == 0 and v["max_rgb"] > 0 and v["equals_direct"])]
+    check(not bad, f"viewer images overflowed, are black or differ from direct renders: {bad}")
+    check(v_launches.get(FUSED_FWD.name, 0) > 0 and v_launches.get(FUSED_FWD_ANISO.name, 0)
+          + v_launches.get(CHUNKED_FWD_ANISO.name, 0) > 0,
+          f"the viewer missed kernel 1 or the anisotropic forward: {v_launches}")
+
+    # 5. native PNG output of the orbit's 8 frames against the Python encoder
+    frames = np.stack([to_rgba_u8(im.cpu().numpy()) for im in imgs])
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"n{i}.png") for i in range(FRAMES)]
+        t0 = time.perf_counter()
+        wrote = native.write_pngs_native(paths, frames)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = [encode_png(f) for f in frames]
+        python_s = time.perf_counter() - t0
+        same = wrote and all(np.array_equal(read_png_rgba(p), f) for p, f in zip(paths, frames))
+        py_ok = all(np.array_equal(decode_png_rgba(b, "python"), f)
+                    for b, f in zip(py, frames))
+    emit("frontends_native", library_loaded=native.available(), error=native.load_error(),
+         library=str(native.library_path()), native_wrote=wrote,
+         native_pixels_equal=bool(same), python_pixels_equal=bool(py_ok),
+         native_seconds=native_s if wrote else None, python_seconds=python_s)
+    check(py_ok and (same or not wrote), "a PNG writer's pixels differ from the frames")
+    return batched_launch
+
+
 def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
     """`--only a,b`: the named phase groups alone (for work on one path),
     then the kernel line of their kernels."""
@@ -2987,7 +3228,9 @@ def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
                   "aniso_dense": lambda: aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp,
                                                             fused_vs_chunked=True),
                   "split": lambda: split_phases(dev, smi, clock_mhz, n_sm),
-                  "approx": lambda: approx_phases(dev, smi, clock_mhz, n_sm, obj) or []}
+                  "approx": lambda: approx_phases(dev, smi, clock_mhz, n_sm, obj) or [],
+                  # its batched launch of kernel 1 is in its frontends_orbit line
+                  "frontends": lambda: frontends_phases(dev, smi, clock_mhz, n_sm) and []}
         for name in names:
             entries += groups[name]()
     print(json.dumps({"kernels": entries}), flush=True)
@@ -3029,6 +3272,13 @@ def main() -> int:
         emit("build", kernel=k.name, source=str(k.source.relative_to(nvcc.CSRC_DIR.parents[1])),
              seconds=round(build_s, 2), ptxas=ptxas)
     kernel_resources_phase()
+    # the native host library (PNG, GIF and obj I/O) with g++; without it
+    # the Python paths serve
+    from sgrt_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    emit("build_native", loaded=native.available(), seconds=time.perf_counter() - t0,
+         error=native.load_error(), library=str(native.library_path()))
     if sys.argv[1:2] == ["--only"]:
         return only_phases(sys.argv[2].split(","), dev, smi, clock_mhz, n_sm)
 
@@ -3046,8 +3296,11 @@ def main() -> int:
         entries += aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp)
         approx_phases(dev, smi, clock_mhz, n_sm, obj)
     entries += split_phases(dev, smi, clock_mhz, n_sm)
+    # 10. the entry points beside the CLI: the batched orbit (its launch of
+    # kernel 1 goes into kernel 1's entry), render_tiled, the viewer, native
+    entries[0]["batched_launch"] = frontends_phases(dev, smi, clock_mhz, n_sm)
 
-    # 10. the kernel line
+    # 11. the kernel line
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

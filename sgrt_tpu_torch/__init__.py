@@ -14,9 +14,12 @@ Layout (mirrors sgrt_tpu):
                the CUDA kernels' wrappers, the differentiable fused op and
                its routing, the bucketed tile scheduler, the frame pipeline
     parallel/  the train steps (one device)
-    utils/     obj parsing, PNG/GIF writers, checkpoints, nvcc build,
+    utils/     obj parsing, PNG/GIF writers, the native host library
+               (native/sgrt_native.cpp by g++), checkpoints, nvcc build,
                device selection
     csrc/      CUDA sources, built with nvcc on first use
+    cli.py, render.py (its alias), fit_cli.py, viewer.py, verify.py:
+               the entry points
 """
 
 import torch as _torch

@@ -235,10 +235,17 @@ def _scene_shapes(oc, sigma, mag, albedo, dirs_t, counts) -> dict:
 # plain versions (tensor ops; on the CPU and beside the kernels in checks)
 # ---------------------------------------------------------------------------
 
+# the plain forward's sums over rows: blocks of _ROWS rows, summed
+# pairwise, _SUPER rows (a power-of-two number of blocks) at a time. Both
+# fixed, so that a tile's sums do not depend on the other tiles of a call.
+_ROWS, _SUPER = 16, 128
+
+
 @dataclasses.dataclass
 class _LiveTiles:
-    """The tiles with a live row, cut to the rows up to the largest count,
-    rows past each count replaced by inert dummies, and the per-(row, ray)
+    """The tiles with a live row, cut to the rows up to the largest count
+    rounded up to a multiple of _ROWS (at most N), rows past each count
+    replaced by inert dummies, and the per-(row, ray)
     terms of the row geometry (the kernels' prep). inv and sb are (L, nl, 1)
     for isotropic rows and (L, nl, R) for anisotropic ones."""
 
@@ -280,7 +287,7 @@ def _live_tiles(oc, shape, mag, albedo, dirs_t, counts, exp_fn, terms) -> _LiveT
     live = torch.nonzero(cnt > 0).reshape(-1)
     if live.numel() == 0:
         return None
-    nl = int(cnt.max())
+    nl = min(-(-int(cnt.max()) // _ROWS) * _ROWS, n)
     row_live = torch.arange(nl, device=oc.device)[None, :] < cnt[live][:, None]
     rl = row_live[..., None]
     shp = shape[live, :nl]
@@ -310,33 +317,92 @@ def termwise(exp_name: str) -> bool:
     return exp_name == "spline"
 
 
-def _transmittance(lt: _LiveTiles, erf_fn, exp_fn, max_block_elems: int,
-                   by_term: bool = False) -> list:
-    """The five T_k (L, nl, R) of pass A, zero on dead rows; by_term sums
-    the exponent term by term (termwise)."""
-    mb, co, inv, sg = lt.mb, lt.co, lt.inv, lt.sg
+def _tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over axis `dim` (>= 0) in blocks of _ROWS rows (zero-padded to
+    a multiple), then the blocks pairwise, adjacent pairs level by level. A
+    further block of zeros leaves the bits of the result as they are."""
+    def zeros(t, n):
+        return t.new_zeros(t.shape[:dim] + (n,) + t.shape[dim + 1:])
+
+    if x.shape[dim] % _ROWS:
+        x = torch.cat([x, zeros(x, -x.shape[dim] % _ROWS)], dim)
+    x = x.unflatten(dim, (-1, _ROWS)).sum(dim + 1)
+    while x.shape[dim] > 1:
+        if x.shape[dim] % 2:
+            x = torch.cat([x, zeros(x, 1)], dim)
+        pairs = x.unflatten(dim, (-1, 2))
+        x = pairs.select(dim + 1, 0) + pairs.select(dim + 1, 1)
+    return x.squeeze(dim)
+
+
+def _pairwise_push(stack: list, level_sums) -> None:
+    """Add one superblock's sums to a pairwise (binary-counter) sum: equal
+    levels merge, the older partial on the left."""
+    level = 0
+    while stack and stack[-1][0] == level:
+        level_sums = [a + b for a, b in zip(stack.pop()[1], level_sums)]
+        level += 1
+    stack.append((level, level_sums))
+
+
+def _pairwise_total(stack: list) -> list:
+    """The sums of a pairwise sum: its partials folded older + (newer). A
+    further superblock of zeros leaves the bits as they are."""
+    total = stack.pop()[1]
+    while stack:
+        total = [a + b for a, b in zip(stack.pop()[1], total)]
+    return total
+
+
+def _transmittance_chunk(mb, co, inv, sg, row_live, erf_fn, exp_fn, by_term: bool) -> list:
+    """_transmittance over one chunk of tiles."""
     eb = erf_fn(-mb * inv)                                  # (L, nl, R)
-    base = 0.0 if by_term else torch.sum(co * eb, dim=1)[:, None, :]   # (L, 1, R)
-    qb = _q_block(lt, max_block_elems)
-    accs = [torch.zeros_like(mb) for _ in K_TAPS]
-    for q0 in range(0, lt.nl, qb):
-        mb_q = mb[:, None, q0:q0 + qb, :]                   # (L, 1, Qb, R)
-        co_q = co[:, None, q0:q0 + qb, :]
-        inv_q = inv[:, None, q0:q0 + qb, :]                 # (L, 1, Qb, 1 or R)
-        eb_q = eb[:, None, q0:q0 + qb, :]
-        darg = (mb[:, :, None, :] - mb_q) * inv_q           # (L, nl, Qb, R)
-        ks = sg[:, :, None, :] * inv_q                      # (L, nl, Qb, 1 or R)
-        accs = [acc + torch.sum(co_q * (eb_q - e if by_term else e), dim=2)
-                for acc, e in zip(accs, (erf_fn(darg + k * ks) for k in K_TAPS))]
-    rl = lt.row_live[..., None]
+    stack = []
+    for q0 in range(0, mb.shape[1], _SUPER):
+        mb_q = mb[:, None, q0:q0 + _SUPER, :]               # (L, 1, Qs, R)
+        co_q = co[:, None, q0:q0 + _SUPER, :]
+        inv_q = inv[:, None, q0:q0 + _SUPER, :]             # (L, 1, Qs, 1 or R)
+        eb_q = eb[:, None, q0:q0 + _SUPER, :]
+        darg = (mb[:, :, None, :] - mb_q) * inv_q           # (L, nl, Qs, R)
+        ks = sg[:, :, None, :] * inv_q                      # (L, nl, Qs, 1 or R)
+        sums = [_tree_sum(co_q * (eb_q - e if by_term else e), 2)
+                for e in (erf_fn(darg + k * ks) for k in K_TAPS)]
+        if not by_term:
+            sums.append(_tree_sum(co_q * eb_q, 2))          # base: (L, 1, R)
+        _pairwise_push(stack, sums)
+    accs = _pairwise_total(stack)
+    base = 0.0 if by_term else accs.pop()
+    rl = row_live[..., None]
     return [torch.where(rl, w * exp_fn(acc if by_term else base - acc), torch.zeros_like(acc))
             for w, acc in zip(K_WEIGHTS, accs)]
 
 
+def _transmittance(lt: _LiveTiles, erf_fn, exp_fn, max_block_elems: int,
+                   by_term: bool = False) -> list:
+    """The five T_k (L, nl, R) of pass A, zero on dead rows; by_term sums
+    the exponent term by term (termwise). The q rows enter base and acc_k
+    in blocks of _ROWS, summed pairwise, _SUPER rows at a time, and the
+    tiles go in chunks so that the (chunk, nl, _SUPER, R) temporaries hold
+    at most max_block_elems. A tile's T so depends on its own rows alone,
+    not on the other tiles of the call nor on the largest count among them
+    (dead rows add blocks of exact zeros): a tile renders bit for bit alike
+    alone and batched with other frames' tiles."""
+    lc = max(1, max_block_elems // (lt.nl * min(lt.nl, _SUPER) * lt.mb.shape[2]))
+    parts = [_transmittance_chunk(*(t[l0:l0 + lc] for t in (lt.mb, lt.co, lt.inv, lt.sg,
+                                                              lt.row_live)),
+                                  erf_fn, exp_fn, by_term)
+             for l0 in range(0, lt.live.numel(), lc)]
+    return [torch.cat(ts) for ts in zip(*parts)]
+
+
 def _colors(lt: _LiveTiles, T) -> torch.Tensor:
-    tw = sum(T)
-    w_p = _SQRT_2_PI * lt.co * tw                           # (L, nl, R)
-    return lt.alb.transpose(1, 2) @ w_p                     # (L, 3, R)
+    """(L, 3, R) colors, summed over rows as _transmittance sums them."""
+    w_p = _SQRT_2_PI * lt.co * sum(T)                       # (L, nl, R)
+    stack = []
+    for q0 in range(0, lt.nl, _SUPER):
+        q = slice(q0, q0 + _SUPER)
+        _pairwise_push(stack, [_tree_sum(lt.alb[:, q, :, None] * w_p[:, q, None, :], 1)])
+    return _pairwise_total(stack)[0]
 
 
 def _forward_plain(oc, shape, mag, albedo, dirs_t, counts, erf_name, exp_name,
@@ -366,10 +432,12 @@ def fused_forward_plain(oc, sigma, mag, albedo, dirs_t, counts, *,
 
     Rows at or past min(count, N) are replaced by inert dummies, so they
     never act as live whatever they hold. Only tiles with a live row and
-    the rows up to the largest count are computed (this reads the counts on
-    the host), and the q axis is blocked so that no (B, N, N, R) array
-    is made: the pairwise temporaries hold at most `max_block_elems`.
-    Differentiable by autograd.
+    the rows up to the largest count (rounded up to a multiple of _ROWS) are
+    computed (this reads the counts on the host). Rows are summed in blocks
+    of _ROWS and tiles go in chunks, so that no (B, N, N, R) array is made
+    (the pairwise temporaries hold at most `max_block_elems`) and a tile's
+    colors do not depend on the other tiles of the call. Differentiable by
+    autograd.
     """
     return _forward_plain(oc, sigma, mag, albedo, dirs_t, counts, erf_name, exp_name,
                           max_block_elems, False)[0]

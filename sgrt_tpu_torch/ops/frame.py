@@ -12,7 +12,7 @@ import torch
 from sgrt_tpu_torch.models.camera import Camera, orbit_position
 from sgrt_tpu_torch.models.gaussians import GaussianScene
 from sgrt_tpu_torch.ops.render import (
-    _radiance_block,
+    _render_tiles_plain,
     _tile_rays,
     _untile_image,
     render_rays_impl,
@@ -124,17 +124,8 @@ def render_orbit_frame(
         capacity = -(-capacity // qb) * qb
         idx, counts = tile_indices(scene, cam.view_matrix, tiles, capacity,
                                    focal_length=focal_length)
-        tiled = gather_tiles(scene, idx)
-        tx, ty = as_grid(tiles)
-        t2 = tx * ty
-        colors = torch.cat([
-            _radiance_block(o, d[t:t + tile_batch],
-                            GaussianScene(tiled.mu[t:t + tile_batch],
-                                          tiled.sigma[t:t + tile_batch],
-                                          tiled.magnitude[t:t + tile_batch],
-                                          tiled.albedo[t:t + tile_batch]),
-                            qb, erf_name, exp_name)
-            for t in range(0, t2, tile_batch)])
+        colors = _render_tiles_plain(o, gather_tiles(scene, idx), d, qb, tile_batch,
+                                     erf_name, exp_name)
     overflow = torch.sum(counts > capacity, dtype=torch.int32)
     return _untile_image(colors, height, width, tiles), overflow
 
@@ -151,6 +142,96 @@ def render_orbit_frames(scene: GaussianScene, angles, offset=-4.0,
         imgs.append(im)
         ovfs.append(ov)
     return torch.stack(imgs), torch.sum(torch.stack(ovfs), dtype=torch.int32)
+
+
+def _render_orbit_batch(scene: GaussianScene, angles, offset, focal_length, *, width: int,
+                        height: int, tiles, capacity: int, erf_name: str = "as5",
+                        exp_name: str = "exact", bucket_cfg=None):
+    """F orbit frames in one launch of the per-tile kernel (two when
+    bucketed): the tile axis is batched across frames (B = F * T2, each
+    tile with its frame's camera origin). Every frame is still re-tiled
+    (the reference re-tiles every frame, main.cpp:263); only the launches
+    fuse. → (imgs (F, H, W, 3), overflow (F,) int32, per frame)."""
+    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+
+    dev = scene.device
+    tx, ty = as_grid(tiles)
+    t2 = tx * ty
+    if bucket_cfg is not None and not bucket_cfg.n_dense:
+        capacity = max(capacity, bucket_cfg.cap_dense)
+        bucket_cfg = None
+    cams = [orbit_camera(a, offset, focal_length, width, height, device=dev) for a in angles]
+    rays = [cam.rays() for cam in cams]
+    dirs = [_tile_rays(d, height, width, tiles) for _, d in rays]
+
+    if bucket_cfg is None:
+        cap, render_tiles = tile_renderer_for(capacity, erf_name=erf_name, exp_name=exp_name)
+        tiled = [tile_indices(scene, cam.view_matrix, tiles, cap, focal_length=focal_length)
+                 for cam in cams]
+        counts = torch.cat([c for _, c in tiled])
+        colors = render_tiles(gather_tiles(scene, torch.cat([i for i, _ in tiled])),
+                              torch.cat([o.expand(t2, 3) for o, _ in rays]),
+                              torch.cat(dirs), counts)
+        imgs = [_untile_image(c, height, width, tiles) for c in colors.split(t2)]
+        return torch.stack(imgs), torch.sum(counts.reshape(-1, t2) > cap, dim=1,
+                                            dtype=torch.int32)
+
+    # bucketed: one dense and one sparse launch across all frames
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig, bucketed_tile_indices
+
+    cap_d, render_dense = tile_renderer_for(bucket_cfg.cap_dense, erf_name=erf_name,
+                                            exp_name=exp_name)
+    cap_s, render_sparse = tile_renderer_for(bucket_cfg.cap_sparse, erf_name=erf_name,
+                                             exp_name=exp_name)
+    cfg = BucketConfig(bucket_cfg.n_dense, cap_d, cap_s)
+    dense_ids, idx_d, sparse_ids, idx_s, counts = zip(*(
+        bucketed_tile_indices(scene, cam.view_matrix, tiles, cfg, focal_length=focal_length)
+        for cam in cams))
+    overflow = torch.stack([torch.sum(c[s] > cap_s) + torch.sum(c[d] > cap_d)
+                            for c, d, s in zip(counts, dense_ids, sparse_ids)]).to(torch.int32)
+
+    def launch(render, ids, idx):
+        """One launch over one bucket's tiles of every frame: ids[f] the
+        tiles of frame f, idx[f] their compacted Gaussian indices."""
+        return render(gather_tiles(scene, torch.cat(idx)),
+                      torch.cat([o.expand(i.numel(), 3) for (o, _), i in zip(rays, ids)]),
+                      torch.cat([d[i] for d, i in zip(dirs, ids)]),
+                      torch.cat([c[i] for c, i in zip(counts, ids)]))
+
+    colors_d = launch(render_dense, dense_ids, idx_d).split(cfg.n_dense)
+    colors_s = launch(render_sparse, sparse_ids, idx_s).split(t2 - cfg.n_dense)
+    imgs = []
+    for d_ids, s_ids, c_d, c_s in zip(dense_ids, sparse_ids, colors_d, colors_s):
+        colors = c_s.new_zeros((t2,) + tuple(c_s.shape[1:]))
+        colors = colors.index_copy(0, s_ids, c_s).index_copy(0, d_ids, c_d)
+        imgs.append(_untile_image(colors, height, width, tiles))
+    return torch.stack(imgs), overflow
+
+
+def render_orbit_frames_batched(scene: GaussianScene, angles, offset=-4.0,
+                                focal_length=1.0, *, batch_frames: int = 8, **cfg):
+    """Orbit sequence with the tiles of `batch_frames` frames in one launch
+    of the per-tile kernel (two when bucketed; see _render_orbit_batch) on
+    the scene's device. cfg: width, height, tiles, capacity and optionally
+    erf_name, exp_name, bucket_cfg (a BucketConfig with n_dense 0 folds
+    into one bucket at max(capacity, cap_dense)). The trailing partial
+    batch is padded with its last angle and the extra frames dropped (their
+    overflow too, which the JAX package counts), so every launch has the
+    same shape. Each frame equals render_orbit_frame's (backend="kernel")
+    bit for bit.
+
+    Returns (imgs (F, H, W, 3), overflow summed over frames)."""
+    angles = [float(a) for a in angles]
+    bf = max(1, min(batch_frames, len(angles)))
+    imgs, overflow = [], torch.zeros((), dtype=torch.int32, device=scene.device)
+    for s in range(0, len(angles), bf):
+        batch = angles[s:s + bf]
+        pad = bf - len(batch)
+        im, ovf = _render_orbit_batch(scene, batch + batch[-1:] * pad, offset, focal_length,
+                                      **cfg)
+        imgs.append(im[:bf - pad])
+        overflow = overflow + torch.sum(ovf[:bf - pad], dtype=torch.int32)
+    return torch.cat(imgs), overflow
 
 
 def probe_capacity(scene: GaussianScene, angles, offset, focal_length, tiles) -> int:

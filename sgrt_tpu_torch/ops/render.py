@@ -121,6 +121,11 @@ def render_rays_impl(o, dirs, scene: GaussianScene, q_block: int = 128,
     return colors[:r]
 
 
+# the JAX package's name of the ray-batch render (there a compiled
+# render_rays_impl)
+render_rays = render_rays_impl
+
+
 def render(scene: GaussianScene, camera: Camera, origin=None,
            q_block: int = 128, ray_block: int = 2048,
            erf_name: str = "exact", exp_name: str = "exact") -> torch.Tensor:
@@ -148,3 +153,53 @@ def _untile_image(colors: torch.Tensor, h: int, w: int, tiles) -> torch.Tensor:
     th, tw = h // ty, w // tx
     c = colors.reshape(ty, tx, th, tw, 3)
     return c.permute(0, 2, 1, 3, 4).reshape(h, w, 3)
+
+
+def _render_tiles_plain(o, tiled: GaussianScene, tile_dirs, q_block: int, tile_batch: int,
+                        erf_name: str = "exact", exp_name: str = "exact") -> torch.Tensor:
+    """Gathered tiles (fields (T2, K, ...), K a multiple of q_block),
+    tile_dirs (T2, P, 3) → per-tile colors (T2, P, 3) by the plain
+    renderer, `tile_batch` tiles at a time (bounds the pairwise
+    intermediate)."""
+    fields = (tiled.mu, tiled.sigma, tiled.magnitude, tiled.albedo)
+    return torch.cat([
+        _radiance_block(o, tile_dirs[t:t + tile_batch],
+                        GaussianScene(*(f[t:t + tile_batch] for f in fields)),
+                        q_block, erf_name, exp_name)
+        for t in range(0, tile_dirs.shape[0], tile_batch)])
+
+
+def render_tiled(scene: GaussianScene, camera: Camera, origin=None, tiles=16,
+                 capacity: int | None = None, q_block: int = 128, tile_batch: int = 16,
+                 check_overflow: bool = True, erf_name: str = "exact",
+                 exp_name: str = "exact") -> torch.Tensor:
+    """Tiled and culled full-frame render by the plain renderer (the analog
+    of the reference's modes 5-8) on the scene's device → (H, W, 3).
+
+    Tiles are assigned every frame, as the reference re-tiles on the host
+    every frame (main.cpp:263), and culled with the camera's focal length.
+    `tiles` is a count per axis or (tx, ty). `capacity` is the per-tile
+    Gaussian budget; None takes this frame's largest tile count (waits for
+    the device). It is rounded up to a multiple of q_block (q_block clamped
+    to it). With check_overflow a tile whose count exceeds the capacity
+    raises ValueError (its Gaussians past the capacity were dropped)."""
+    from sgrt_tpu_torch.ops.tiling import gather_tiles, max_tile_count, tile_indices
+
+    h, w = camera.height, camera.width
+    tx, ty = as_grid(tiles)
+    if h % ty or w % tx:
+        raise ValueError(f"image {w}x{h} not divisible into {tx}x{ty} tiles")
+    o, dirs = camera.rays(origin)
+    view, focal = camera.view_matrix, camera.focal_length
+    if capacity is None:
+        capacity = max_tile_count(scene, view, tiles, focal_length=focal)
+    # round up so that the q blocks divide the capacity (dummies are inert)
+    q_block = min(q_block, max(capacity, 1))
+    capacity = max(q_block, -(-capacity // q_block) * q_block)
+    idx, counts = tile_indices(scene, view, tiles, capacity, focal_length=focal)
+    colors = _render_tiles_plain(o, gather_tiles(scene, idx), _tile_rays(dirs, h, w, tiles),
+                                 q_block, tile_batch, erf_name, exp_name)
+    if check_overflow and int(counts.max()) > capacity:
+        raise ValueError(f"tile capacity {capacity} overflowed (max count "
+                         f"{int(counts.max())}); raise `capacity`")
+    return _untile_image(colors, h, w, tiles)

@@ -1,9 +1,10 @@
-"""PNG and GIF output in pure Python (zlib and struct from the stdlib).
+"""PNG and GIF output.
 
 The reference renderer dumps PNGs through stb_image_write
 (src/volumetric-ray-tracer/main.cpp:306) and pipes frames through ffmpeg for
-GIFs (gen-gif.sh); here both encoders are written out so that the package
-needs nothing beyond numpy.
+GIFs (gen-gif.sh). The native C++ encoders (utils.native) are the fast path;
+both encoders are also written out here in pure Python (zlib and struct from
+the stdlib), the path when the native library does not build or load.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from sgrt_tpu_torch.utils.native import write_gif_native, write_png_native
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -62,6 +65,8 @@ def write_png(path: str, image: np.ndarray) -> None:
     """Write float (H,W,3|4) or uint8 (H,W,4) image to a PNG file."""
     if image.dtype != np.uint8:
         image = to_rgba_u8(image)
+    if write_png_native(path, image):
+        return
     with open(path, "wb") as f:
         f.write(encode_png(image))
 
@@ -96,11 +101,15 @@ def _gif_lzw(index: np.ndarray) -> bytes:
 def write_gif(path: str, frames, delay_cs: int = 4) -> None:
     """Write an animated, looping GIF from float (F,H,W,3) or uint8
     (F,H,W,3|4) frames — the orbit-animation output. `delay_cs` is the
-    frame delay in hundredths of a second."""
+    frame delay in hundredths of a second. The native encoder (a 6x6x6
+    color cube and a gray ramp, as the JAX package writes) is the fast
+    path; the pure-Python one takes a fixed 3-3-2 palette."""
     frames = np.asarray(frames)
     if frames.dtype != np.uint8:
         frames = np.stack([to_rgba_u8(f)[..., :3] for f in frames])
     frames = frames[..., :3]
+    if write_gif_native(path, frames, delay_cs):
+        return
     _, h, w, _ = frames.shape
     out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), _gif_palette(),
            b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]

@@ -95,3 +95,18 @@ def test_cli_defaults_to_the_card():
         pytest.skip("a CUDA device is present; the card path is tested on it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_main(["-g", "2", "-w", "16", "-h", "16", "-q"])
+
+
+def test_render_alias_runs_the_cli(tmp_path, capsys, monkeypatch):
+    """`python -m sgrt_tpu_torch.render` is the CLI's main, as
+    `python -m sgrt_tpu.render` is the JAX CLI's."""
+    import runpy
+
+    out = tmp_path / "alias.png"
+    monkeypatch.setattr("sys.argv", ["sgrt_tpu_torch.render", "-g", "2", "-w", "16", "-h", "16",
+                                     "--tiles", "2", "-q", "--device", "cpu", "-o", str(out)])
+    with pytest.raises(SystemExit) as exc:
+        runpy.run_module("sgrt_tpu_torch.render", run_name="__main__")
+    assert exc.value.code == 0
+    assert re.search(r"^TIME: [\d.]+ ms$", capsys.readouterr().out, re.M)
+    assert _png(out)[..., :3].max() > 10

@@ -146,3 +146,94 @@ def test_auto_tile_grid_matches_jax(start, size, min_rays):
     want = jf.auto_tile_grid(js, [30.0], -4.0, 1.0, **kw)
     got = tf.auto_tile_grid(ts, [30.0], -4.0, 1.0, **kw)
     assert got == (tuple(want[0]), int(want[1]))
+
+
+# --- the batched orbit (cross-frame tile batching): a mirror of
+# tests/test_frame_fit.py:193-230 against the port's per-frame loop, and one
+# case against the JAX package's render_orbit_frames_batched
+
+ORBIT = [0.0, 25.0, 50.0, 75.0, 100.0]     # 5 frames, batch 3: a partial batch
+ORBIT_KW = dict(width=32, height=32, tiles=4, capacity=16)
+
+
+@pytest.fixture(scope="module")
+def orbit_scenes():
+    js = j_grid(4, sigma=0.3, magnitude=2.0)
+    ts = scene_from_numpy(*(np.asarray(getattr(js, f)) for f in FIELDS), device="cpu")
+    return js, ts
+
+
+def _count_launches(monkeypatch):
+    """Count the calls of every per-tile renderer that tile_renderer_for
+    hands out (a launch each on the card)."""
+    from sgrt_tpu_torch.ops import cuda_chunked
+
+    calls, route = [], cuda_chunked.tile_renderer_for
+
+    def counted(capacity, **kw):
+        cap, render = route(capacity, **kw)
+
+        def render_counted(tiled, o, d, counts):
+            calls.append(tuple(d.shape))
+            return render(tiled, o, d, counts)
+
+        return cap, render_counted
+
+    monkeypatch.setattr(cuda_chunked, "tile_renderer_for", counted)
+    return calls
+
+
+@pytest.mark.parametrize("buckets", [None, (4, 16, 8)])
+def test_batched_orbit_matches_per_frame(orbit_scenes, buckets, monkeypatch):
+    """Pixel-identical to the per-frame loop, plain and bucketed, with a
+    trailing partial batch; each batch of 3 frames is one launch (two
+    bucketed) of 3 x 16 tiles, the partial one padded to 3 frames."""
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+
+    bc = None if buckets is None else BucketConfig(*buckets)
+    ts = orbit_scenes[1]
+    ref = [tf.render_orbit_frame(ts, a, -4.0, 1.0, backend="kernel", bucket_cfg=bc,
+                                 **ORBIT_KW)[0].numpy() for a in ORBIT]
+    calls = _count_launches(monkeypatch)
+    imgs, ovf = tf.render_orbit_frames_batched(ts, ORBIT, -4.0, 1.0, batch_frames=3,
+                                               bucket_cfg=bc, **ORBIT_KW)
+    assert imgs.shape == (5, 32, 32, 3) and int(ovf) == 0
+    for i in range(len(ORBIT)):
+        np.testing.assert_array_equal(imgs[i].numpy(), ref[i])
+    want = [(48, 64, 3)] if bc is None else [(12, 64, 3), (36, 64, 3)]
+    assert sorted(calls) == sorted(want * 2)
+
+
+def test_batched_orbit_matches_jax(orbit_scenes):
+    j, jo = jf.render_orbit_frames_batched(orbit_scenes[0], ORBIT[:3], -4.0, 1.0,
+                                           batch_frames=3, **ORBIT_KW)
+    t, to = tf.render_orbit_frames_batched(orbit_scenes[1], ORBIT[:3], -4.0, 1.0,
+                                           batch_frames=3, **ORBIT_KW)
+    assert int(to) == int(jo) == 0
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL)
+
+
+def test_batched_orbit_overflow_and_single_bucket(scenes, orbit_scenes):
+    """The overflow is summed over the frames returned (not over the
+    partial batch's padding frames), and a BucketConfig with n_dense 0 folds into one
+    bucket at max(capacity, cap_dense)."""
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+
+    kw = dict(width=32, height=32, tiles=2, capacity=8)    # grid_scene(8) overflows
+    per = [int(tf.render_orbit_frame(scenes[1], a, -4.0, 1.0, backend="kernel", **kw)[1])
+           for a in ORBIT]
+    _, ovf = tf.render_orbit_frames_batched(scenes[1], ORBIT, -4.0, 1.0, batch_frames=3,
+                                            **kw)
+    assert int(ovf) == sum(per) > 0
+    # the JAX package also counts the partial batch's padding frame (angle
+    # 100 again), a defect the port does not copy
+    _, jovf = jf.render_orbit_frames_batched(scenes[0], ORBIT, -4.0, 1.0, batch_frames=3,
+                                             **kw)
+    assert int(jovf) == sum(per) + per[-1]
+    ts = orbit_scenes[1]
+    folded, ovf0 = tf.render_orbit_frames_batched(ts, ORBIT, -4.0, 1.0, batch_frames=2,
+                                                  bucket_cfg=BucketConfig(0, 16, 16),
+                                                  **dict(ORBIT_KW, capacity=4))
+    assert int(ovf0) == 0
+    one = tf.render_orbit_frame(ts, ORBIT[3], -4.0, 1.0, backend="kernel", **ORBIT_KW)[0]
+    np.testing.assert_array_equal(folded[3].numpy(), one.numpy())

@@ -90,6 +90,21 @@ def test_plain_q_blocking_does_not_change_result():
     np.testing.assert_allclose(blocked.numpy(), whole.numpy(), atol=1e-6)
 
 
+def test_plain_forward_tile_is_independent_of_its_call():
+    """A tile's colors are the same bits alone, in any batch and under any
+    block budget: the batched orbit's per-frame equality rests on it.
+    Counts 64, 17, 0 and 5, 40, 33 give calls of 64, 48 and 16 rows."""
+    a, b = _torch(_fused_inputs()), _torch(_fused_inputs(counts=(5, 40, 33), seed=1))
+    colors = [tk.fused_forward_plain(*x) for x in (a, b)]
+    for i in range(3):
+        alone = tk.fused_forward_plain(*(t[i:i + 1] for t in b))
+        np.testing.assert_array_equal(alone[0].numpy(), colors[1][i].numpy())
+    stacked = tk.fused_forward_plain(*(torch.cat([u, v.flip(0)]) for u, v in zip(a, b)),
+                                     max_block_elems=64 * 16 * 128 * 2)
+    np.testing.assert_array_equal(stacked[:3].numpy(), colors[0].numpy())
+    np.testing.assert_array_equal(stacked[3:].flip(0).numpy(), colors[1].numpy())
+
+
 def test_wrapper_on_cpu_runs_plain_without_counting():
     before = tk.FUSED_FWD.launches
     args = _torch(_fused_inputs())

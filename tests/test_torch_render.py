@@ -124,3 +124,97 @@ def test_tile_untile_match(tiles, h, w):
         np.asarray(jr._untile_image(jnp.asarray(jt), h, w, tiles)))
     np.testing.assert_array_equal(tr._untile_image(tt, h, w, tiles).numpy(),
                                   d.reshape(h, w, 3))
+
+
+# --- render_tiled (the tiled, culled plain render) and the plain renderer's
+# gradients, mirrors of tests/test_tiling.py:110-128 and
+# tests/test_render.py:61-90; 8e-5 is the port's frame-parity bound
+# (tests/test_torch_frame.py)
+
+def _random_scene_np(seed=7, n=40):
+    """tests/test_tiling.py's random_scene."""
+    rng = np.random.default_rng(seed)
+    return dict(mu=rng.uniform(-2, 2, (n, 3)) + np.array([0, 0, 2.5]),
+                sigma=rng.uniform(0.05, 0.4, n), magnitude=rng.uniform(0.2, 2.0, n),
+                albedo=rng.uniform(0, 1, (n, 3)))
+
+
+def test_tiled_render_matches_untiled():
+    from sgrt_tpu_torch.models.gaussians import grid_scene
+
+    scene = grid_scene(4, device="cpu")
+    cam = TCamera.create(position=(0.0, 0.0, -4.0), width=32, height=32, device="cpu")
+    full = tr.render(scene, cam, q_block=16, ray_block=256)
+    tiled = tr.render_tiled(scene, cam, tiles=4, q_block=16, tile_batch=4)
+    assert tiled.shape == (32, 32, 3)
+    # culling may drop contributions under 1/255 (the 3.3 sigma bound)
+    assert float((full - tiled).abs().max()) < 2.0 / 255.0
+    assert float(tiled.max()) > 0.05
+
+
+def test_capacity_overflow_raises():
+    from sgrt_tpu_torch.ops.tiling import max_tile_count
+
+    scene = scene_from_numpy(**_random_scene_np(), device="cpu")
+    cam = TCamera.create(position=(0.0, 0.0, -4.0), width=32, height=32, device="cpu")
+    assert max_tile_count(scene, cam.view_matrix, 2) > 2
+    with pytest.raises(ValueError, match="overflow"):
+        tr.render_tiled(scene, cam, tiles=2, capacity=2, q_block=2, tile_batch=4)
+    img = tr.render_tiled(scene, cam, tiles=2, capacity=2, q_block=2, check_overflow=False)
+    assert img.shape == (32, 32, 3)
+    with pytest.raises(ValueError, match="not divisible"):
+        tr.render_tiled(scene, TCamera.create(width=30, height=32, device="cpu"), tiles=4)
+
+
+@pytest.mark.parametrize("tiles,capacity", [((4, 2), None), (4, 20)])
+def test_render_tiled_matches_jax(tiles, capacity):
+    s = _random_scene_np()
+    js = make_scene(**s)
+    ts = scene_from_numpy(**s, device="cpu")
+    jc = JCamera.create(position=(0.2, 0.1, -4.0), width=32, height=16)
+    tc = TCamera.create(position=(0.2, 0.1, -4.0), width=32, height=16, device="cpu")
+    j = np.asarray(jr.render_tiled(js, jc, tiles=tiles, capacity=capacity, q_block=16,
+                                   tile_batch=4))
+    t = tr.render_tiled(ts, tc, tiles=tiles, capacity=capacity, q_block=16, tile_batch=4)
+    np.testing.assert_allclose(t.numpy(), j, atol=8e-5)
+    assert float(t.max()) > 0.05
+
+
+def test_render_rays_gradients_match_oracle():
+    """The plain renderer's gradients against autograd of the oracle
+    (ops.reference), every scene field, at tests/test_render.py's bounds."""
+    rng = np.random.default_rng(0)           # tests/test_render.py's random_scene
+    s = dict(mu=rng.uniform(-1, 1, (24, 3)) + np.array([0, 0, 2.0]),
+             sigma=rng.uniform(0.1, 0.5, 24), magnitude=rng.uniform(0.2, 2.0, 24),
+             albedo=rng.uniform(0, 1, (24, 3)))
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(8, 3)) * 0.15 + np.array([0, 0, 1.0])
+    dirs = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32))
+    o = torch.zeros(3)
+
+    def grads(loss_of):
+        scene = scene_from_numpy(**s, device="cpu")
+        leaves = [getattr(scene, f).requires_grad_(True)
+                  for f in ("mu", "sigma", "magnitude", "albedo")]
+        loss_of(scene).backward()
+        return [x.grad.numpy() for x in leaves]
+
+    fast = grads(lambda sc: torch.sum(tr.render_rays_impl(o, dirs, sc, q_block=8,
+                                                          ray_block=8) ** 2))
+    oracle = grads(lambda sc: torch.sum(tref.render_rays_reference(o, dirs, sc, chunk=8) ** 2))
+    for a, b in zip(fast, oracle):
+        np.testing.assert_allclose(a, b, rtol=5e-3, atol=1e-4)
+    assert max(float(np.abs(g).max()) for g in fast) > 1e-3
+
+
+def test_origin_gradient_finite_with_ray_padding():
+    """render_rays_impl pads 256 live rays to a 2048-ray block; the dead
+    rays (unit direction) must not poison the shared origin's gradient."""
+    from sgrt_tpu_torch.models.gaussians import grid_scene
+
+    scene = grid_scene(3, device="cpu")
+    cam = TCamera.create(position=(0.0, 0.0, -4.0), width=16, height=16, device="cpu")
+    o, dirs = cam.rays()
+    o = o.clone().requires_grad_(True)
+    torch.sum(tr.render_rays_impl(o, dirs, scene, q_block=16, ray_block=2048)).backward()
+    assert torch.isfinite(o.grad).all() and float(o.grad.abs().max()) > 0
