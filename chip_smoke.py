@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --torch-route   # only times the torch route's terms
-    python3 chip_smoke.py --only aniso_dense[,split,approx,frontends,...]   # some phase groups
+    python3 chip_smoke.py --only aniso_dense[,split,approx,frontends,distributed,...]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds the port's CUDA kernels from csrc/, holds each against its plain
@@ -69,7 +69,21 @@ comes out, and times the kernels:
             serving frame 0 within 2/255 of the kernel route, the viewer over
             HTTP (isotropic tiled and untiled, anisotropic tiled at sx=3,
             an image after an edit: each equal to the direct render, no
-            overflow), and the native PNG writer against the Python encoder.
+            overflow), and the native PNG writer against the Python encoder;
+  distributed the mesh paths (sgrt_tpu_torch.parallel: mesh, render and the
+            mesh branches of fit): every case first on one device, then the
+            north-star step over a one-rank NCCL group in this process, then
+            two ranks on the card, processes of this script over gloo (NCCL
+            refuses two ranks on one card): the serving cell's sharded
+            forward, single-capacity and two-bucket, equal bit for bit to the
+            one-device frame; the north-star step single-capacity and
+            two-bucket, the chunked step at MAX_MONOLITHIC_CAPACITY + 1, the
+            aniso cell's step, the dense cell's slab step and the ray-sharded
+            untiled step on the kernels, each within the CPU tests'
+            tolerances of the one-device step (losses, the raw gradients
+            the SGD update was given), ranks equal bit for bit, overflow 0;
+            step and all-reduce times printed. A rank that fails or runs
+            past DIST_TIMEOUT_S fails the smoke.
 
 Every kernels-vs-plain phase holds one tile under as3/fast and under each
 stack of APPROX_STACKS (taylor/exact, spline/spline, spline_mirror/exact)
@@ -372,9 +386,16 @@ def launch_inputs(tiled, o, tile_dirs, counts) -> list:
 def bucket_launches(scene, view, o, tile_dirs, cfg, tiles=TRAIN_TILES) -> list:
     """The inputs of each launch of render_tiles_bucketed (dense bucket
     first, if any), at the capacities the scene's router rounds to."""
-    from sgrt_tpu_torch.ops.scheduler import BucketConfig, _scene_ops, bucketed_tile_indices
+    from sgrt_tpu_torch.ops import cuda_chunked
+    from sgrt_tpu_torch.ops.anisotropic import AnisoScene, gather_tiles_aniso, iso_proxy
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig, bucketed_tile_indices
+    from sgrt_tpu_torch.ops.tiling import gather_tiles
 
-    renderer_for, gather, culled = _scene_ops(scene)
+    if isinstance(scene, AnisoScene):
+        renderer_for, gather, culled = (cuda_chunked.tile_renderer_aniso_for,
+                                        gather_tiles_aniso, iso_proxy(scene))
+    else:
+        renderer_for, gather, culled = cuda_chunked.tile_renderer_for, gather_tiles, scene
     cfg = BucketConfig(cfg.n_dense, renderer_for(cfg.cap_dense)[0],
                        renderer_for(cfg.cap_sparse)[0])
     dense_ids, idx_d, sparse_ids, idx_s, counts = bucketed_tile_indices(
@@ -3212,6 +3233,423 @@ def frontends_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
     return batched_launch
 
 
+# ---------------------------------------------------------------------------
+# the distributed group: the mesh paths (sgrt_tpu_torch.parallel.mesh,
+# .render and the mesh branches of .fit) on the one card
+# ---------------------------------------------------------------------------
+
+# each sharded step case and its SGD(lr=1) steps, and the forward cases; a
+# case's gradient of a step is the .grad its update was given
+DIST_STEPS = {"north_star": 3, "north_star_bucketed": 3, "chunked": 1, "aniso": 3,
+              "dense_slab": 1, "ray_kernel": 1}
+DIST_FORWARDS = ("serving", "serving_bucketed")
+# the ray-sharded untiled step: the cube cloud as one tile of 3644 rows over
+# the rays of a 64x64 frame (~1-2 s a step on the card)
+DIST_RAY_SIZE = 64
+# gradients against the one-device step: tests/test_torch_fit.py's
+# FRAME_GRAD_REL (2e-3 of each field's max |value|); losses rtol 1e-4
+# (tests/test_parallel.py:53)
+DIST_GRAD_REL, DIST_LOSS_RTOL = 2e-3, 1e-4
+DIST_TIMEOUT_S = 300
+DIST_SCENES = {"cube": ("mu", "sigma", "magnitude", "albedo"),
+               "aniso": ("mu", "scale", "magnitude", "albedo"),
+               "sphere": ("mu", "sigma", "magnitude", "albedo")}
+
+
+def dist_inputs(dev, world: int) -> tuple[dict, dict]:
+    """(tensors, config) of every distributed case, made once by the
+    calling process and handed to the ranks: the scenes, the cameras' rays,
+    the targets, and the capacities and bucket configs (probe_buckets
+    measures its cost model on the card, so the ranks must not probe
+    again; its buckets are sized for `world` ranks)."""
+    from sgrt_tpu_torch.models.gaussians import scene_from_vertices
+    from sgrt_tpu_torch.ops import anisotropic as an
+    from sgrt_tpu_torch.ops.frame import (auto_tile_grid, orbit_camera, probe_buckets,
+                                          probe_capacity, render_orbit_frame)
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+
+    x, cfg = {}, {}
+    cube = scene_from_vertices(smoke_points(), device=dev)
+    aniso = aniso_cloud(dev)
+    sphere = scene_from_vertices(sphere_points(DENSE_N), device=dev)
+    for name, sc in (("cube", cube), ("aniso", aniso), ("sphere", sphere)):
+        x.update({f"{name}_{f}": getattr(sc, f) for f in DIST_SCENES[name]})
+
+    def cam_in(prefix, angle, size):
+        cam = orbit_camera(angle, OFFSET, FOCAL, size, size, device=dev)
+        x[f"{prefix}_view"], (x[f"{prefix}_o"], x[f"{prefix}_dirs"]) = cam.view_matrix, cam.rays()
+        return cam
+
+    # the serving cell: frame 0 at the CLI's probed capacity, and a pinned
+    # two-bucket config (probe_buckets keeps one bucket there)
+    cfg["serving_capacity"] = serving_frame0(cube, dev)[0]
+    cfg["serving_bucket"] = list(two_bucket_config(cube, TILES, 1.25))
+    cam_in("serving", 0.0, SIZE)
+    # the training cell (bench.py's north-star step): probe_buckets sized
+    # for the ranks, and a pinned two-bucket config
+    S = TRAIN_SIZE
+    cfg["train_capacity"] = max(64, int(probe_capacity(cube, ANGLES, OFFSET, FOCAL,
+                                                       TRAIN_TILES) * 1.3))
+    bucket = probe_buckets(cube, ANGLES, OFFSET, FOCAL, TRAIN_TILES, margin=1.3,
+                           multiple_of=world)
+    cfg["train_bucket"] = list(bucket)
+    cfg["train_two_buckets"] = list(two_bucket_config(cube, TRAIN_TILES, 1.3))
+    cam_in("train", 30.0, S)
+    x["train_target"], ovf = render_orbit_frame(
+        cube, 35.0, OFFSET, FOCAL, width=S, height=S, tiles=TRAIN_TILES,
+        capacity=cfg["train_capacity"], backend="kernel", bucket_cfg=bucket)
+    check(int(ovf) == 0, "the distributed training target overflowed")
+    # the anisotropic cell
+    proxy = an.iso_proxy(aniso)
+    cfg["aniso_capacity"] = max(32, int(probe_capacity(proxy, ANGLES, OFFSET, FOCAL,
+                                                       ANISO_TILES) * 1.3))
+    abucket = probe_buckets(proxy, ANGLES, OFFSET, FOCAL, ANISO_TILES, margin=1.3,
+                            multiple_of=world)
+    cfg["aniso_bucket"] = list(abucket)
+    cam_in("aniso", 30.0, ANISO_SIZE)
+    cam35 = orbit_camera(35.0, OFFSET, FOCAL, ANISO_SIZE, ANISO_SIZE, device=dev)
+    x["aniso_target"], ovf = an.render_tiled_aniso(aniso, cam35, tiles=ANISO_TILES,
+                                                   capacity=cfg["aniso_capacity"],
+                                                   backend="kernel", bucket_cfg=abucket)
+    check(int(ovf) == 0, "the distributed anisotropic target overflowed")
+    # the dense cell
+    tiles, capacity = auto_tile_grid(sphere, [DENSE_ANGLE], OFFSET, FOCAL, margin=DENSE_MARGIN,
+                                     width=DENSE_SIZE, height=DENSE_SIZE)
+    cfg["dense_tiles"], cfg["dense_capacity"] = list(tiles), capacity
+    cam_in("dense", DENSE_ANGLE, DENSE_SIZE)
+    x["dense_target"], ovf = render_orbit_frame(
+        sphere, DENSE_TARGET_ANGLE, OFFSET, FOCAL, width=DENSE_SIZE, height=DENSE_SIZE,
+        tiles=tiles, backend="kernel",
+        bucket_cfg=BucketConfig(DENSE_N_DENSE, capacity, DENSE_CAP_SPARSE))
+    check(int(ovf) == 0, "the distributed dense target overflowed")
+    # the ray-sharded untiled step
+    R = DIST_RAY_SIZE
+    cam_in("ray", 30.0, R)
+    x["ray_target"] = render_orbit_frame(cube, 35.0, OFFSET, FOCAL, width=R, height=R,
+                                         use_tiling=False, backend="kernel")[0].reshape(-1, 3)
+    return {k: v.detach().contiguous() for k, v in x.items()}, cfg
+
+
+def dist_scene(x: dict, name: str):
+    from sgrt_tpu_torch.models.gaussians import GaussianScene
+    from sgrt_tpu_torch.ops.anisotropic import AnisoScene
+
+    cls = AnisoScene if name == "aniso" else GaussianScene
+    return cls(**{f: x[f"{name}_{f}"].clone() for f in DIST_SCENES[name]})
+
+
+def dist_step_case(name: str, mesh, x: dict, cfg: dict):
+    """(step, scene, inputs) of a sharded step case on `mesh` (None: the
+    one-device step)."""
+    from sgrt_tpu_torch.ops.cuda_chunked import MAX_MONOLITHIC_CAPACITY
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+    from sgrt_tpu_torch.parallel.fit import (make_aniso_frame_train_step,
+                                             make_frame_train_step,
+                                             make_slab_frame_train_step, make_train_step)
+
+    def frame_in(p):
+        return (x[f"{p}_view"], x[f"{p}_o"], x[f"{p}_dirs"], x[f"{p}_target"])
+
+    train = dict(width=TRAIN_SIZE, height=TRAIN_SIZE, tiles=TRAIN_TILES, mesh=mesh)
+    if name == "north_star":
+        return (make_frame_train_step(capacity=cfg["train_capacity"],
+                                      bucket_cfg=BucketConfig(*cfg["train_bucket"]), **train),
+                dist_scene(x, "cube"), frame_in("train"))
+    if name == "north_star_bucketed":
+        return (make_frame_train_step(capacity=cfg["train_capacity"],
+                                      bucket_cfg=BucketConfig(*cfg["train_two_buckets"]), **train),
+                dist_scene(x, "cube"), frame_in("train"))
+    if name == "chunked":
+        return (make_frame_train_step(capacity=MAX_MONOLITHIC_CAPACITY + 1, **train),
+                dist_scene(x, "cube"), frame_in("train"))
+    if name == "aniso":
+        return (make_aniso_frame_train_step(width=ANISO_SIZE, height=ANISO_SIZE,
+                                            tiles=ANISO_TILES, capacity=cfg["aniso_capacity"],
+                                            bucket_cfg=BucketConfig(*cfg["aniso_bucket"]),
+                                            mesh=mesh),
+                dist_scene(x, "aniso"), frame_in("aniso"))
+    if name == "dense_slab":
+        return (make_slab_frame_train_step(width=DENSE_SIZE, height=DENSE_SIZE,
+                                           tiles=tuple(cfg["dense_tiles"]),
+                                           capacity=cfg["dense_capacity"],
+                                           slab_tiles=DENSE_SLAB_TILES, mesh=mesh),
+                dist_scene(x, "sphere"), frame_in("dense"))
+    from sgrt_tpu_torch.parallel.mesh import shard_rays
+
+    dirs, target = x["ray_dirs"], x["ray_target"]
+    if mesh is not None:
+        dirs, target = shard_rays(mesh, dirs, target)
+    return (make_train_step(mesh=mesh, backend="kernel"), dist_scene(x, "cube"),
+            (x["ray_o"], dirs, target))
+
+
+def dist_run_steps(name: str, mesh, x: dict, cfg: dict) -> dict:
+    """SGD(lr=1) steps of a case: per step the loss, the raw gradient the
+    update was given (each field's .grad after the step: over a mesh the
+    all-reduced mean, or sum for the slab step; on the CPU), overflow and
+    ms (host clock, ending in a synchronize); the launches of the steps;
+    the scene after them. The gradient is read as it is, not as old - new,
+    which cannot resolve less than a float32 ulp of the parameters."""
+    import functools
+
+    import torch
+
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.parallel.fit import init_state, scene_fields
+
+    step, scene, inputs = dist_step_case(name, mesh, x, cfg)
+    state = init_state(scene, functools.partial(torch.optim.SGD, lr=1.0), mesh)
+    fields = scene_fields(state.scene)
+    out = {"loss": [], "grads": [], "overflow": [], "ms": []}
+    kernels.reset_launch_counts()
+    for _ in range(DIST_STEPS[name]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(state, *inputs)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(res[1]))
+        out["overflow"].append(int(res[2]) if len(res) == 3 else 0)
+        out["grads"].append({f: getattr(state.scene, f).grad.cpu() for f in fields})
+    out["scene"] = {f: getattr(state.scene, f).cpu() for f in fields}
+    out["launches"] = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    return out
+
+
+def dist_run_forward(name: str, mesh, x: dict, cfg: dict) -> dict:
+    """The serving frame through make_sharded_frame_renderer (mesh None: the
+    one-device render_orbit_frame), its overflow, ms and launches."""
+    import torch
+
+    from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.ops.frame import render_orbit_frame
+    from sgrt_tpu_torch.ops.scheduler import BucketConfig
+    from sgrt_tpu_torch.parallel.render import make_sharded_frame_renderer
+
+    kw = dict(width=SIZE, height=SIZE, tiles=TILES, capacity=cfg["serving_capacity"])
+    if name == "serving_bucketed":
+        kw["bucket_cfg"] = BucketConfig(*cfg["serving_bucket"])
+    scene = dist_scene(x, "cube")
+    if mesh is None:
+        def run():
+            return render_orbit_frame(scene, 0.0, OFFSET, FOCAL, backend="kernel", **kw)
+    else:
+        render = make_sharded_frame_renderer(mesh, focal_length=FOCAL, **kw)
+
+        def run():
+            return render(scene, x["serving_view"], x["serving_o"], x["serving_dirs"])
+    run()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, ovf = run()
+    torch.cuda.synchronize()
+    return {"image": img.cpu(), "overflow": int(ovf), "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {k.name: k.launches for k in kernels.KERNELS if k.launches}}
+
+
+def dist_all_reduce_ms(mesh, n_gaussians: int, iters: int = 20) -> dict:
+    """ms of one mean all-reduce of a scene's gradient buffer (N x 8 floats
+    and the loss), by the host clock over `iters` calls ending in a
+    synchronize, and its payload bytes."""
+    import torch
+
+    buf = torch.ones(n_gaussians * 8 + 1, device=mesh.device)
+    mesh.all_reduce([buf], mean=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        mesh.all_reduce([buf], mean=True)
+    torch.cuda.synchronize()
+    return {"ms": (time.perf_counter() - t0) * 1e3 / iters, "bytes": buf.numel() * 4}
+
+
+def dist_worker(argv) -> int:
+    """`--dist-rank RANK WORLD HOST:PORT DIR BACKEND`: one rank of
+    dist_ranks. Joins the group on card RANK modulo the card count, runs
+    every case over the mesh, and saves the results to DIR/rank<RANK>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --dist-rank: no CUDA device", file=sys.stderr)
+        return 2
+    from sgrt_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    rank, world, coord, tmp, backend = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    t0 = time.perf_counter()
+    initialize_distributed(coord, world, rank, device="cuda", backend=backend)
+    mesh = make_mesh()
+    card = rank % torch.cuda.device_count()
+    check((mesh.rank, mesh.size, mesh.device.index) == (rank, world, card), f"mesh {mesh}")
+    x = {k: v.to(mesh.device) for k, v in
+         torch.load(os.path.join(tmp, "inputs.pt"), weights_only=True).items()}
+    with open(os.path.join(tmp, "config.json")) as fh:
+        cfg = json.load(fh)
+    out = {"init_s": time.perf_counter() - t0}
+    for name in DIST_STEPS:
+        out[name] = dist_run_steps(name, mesh, x, cfg)
+    for name in DIST_FORWARDS:
+        out[name] = dist_run_forward(name, mesh, x, cfg)
+    out["all_reduce"] = {"cube": dist_all_reduce_ms(mesh, N_POINTS),
+                         "sphere": dist_all_reduce_ms(mesh, DENSE_N)}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_compare(got: dict, want: dict) -> dict:
+    """A sharded step case against the one-device one: per step the loss's
+    relative difference and each field's gradient difference over its
+    max |value|; the largest difference of the scenes after the steps."""
+    import torch
+
+    loss_rel = [abs(g - w) / abs(w) for g, w in zip(got["loss"], want["loss"])]
+    grad_rel = [{f: float((gg[f] - wg[f]).abs().max() / wg[f].abs().max().clamp_min(1e-30))
+                 for f in wg} for gg, wg in zip(got["grads"], want["grads"])]
+    scene_abs = {f: float((got["scene"][f] - want["scene"][f]).abs().max()) for f in want["scene"]}
+    over = [f"step {i} loss {r:.3g}" for i, r in enumerate(loss_rel) if r > DIST_LOSS_RTOL]
+    over += [f"step {i} {f} {r:.3g}" for i, g in enumerate(grad_rel) for f, r in g.items()
+             if r > DIST_GRAD_REL]
+    over += [f"overflow {o}" for o in got["overflow"] if o]
+    nonzero = all(float(torch.stack([g.abs().max() for g in s.values()]).max()) > 0
+                  for s in want["grads"])
+    if not nonzero:
+        over.append("a one-device step's gradient is zero")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel, "scene_max_abs_diff": scene_abs,
+            "over_tolerance": over}
+
+
+def dist_nccl_one_rank(smi: str, x: dict, cfg: dict, ref: dict) -> None:
+    """A one-rank NCCL group in this process: the north-star step over
+    make_mesh() against mesh=None, and the NCCL all-reduce's time."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sgrt_tpu_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        init_s = time.perf_counter() - t0
+        mesh = make_mesh()
+        check(mesh.size == 1 and mesh.group is not None, f"one-rank NCCL mesh: {mesh}")
+        got = dist_run_steps("north_star", mesh, x, cfg)
+        reduce_ms = {"cube": dist_all_reduce_ms(mesh, N_POINTS),
+                     "sphere": dist_all_reduce_ms(mesh, DENSE_N)}
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    cmp = dist_compare(got, ref["north_star"])
+    emit("dist_nccl_one_rank", backend=backend, init_seconds=init_s, steps=DIST_STEPS["north_star"],
+         losses=got["loss"], single_losses=ref["north_star"]["loss"], step_ms=got["ms"],
+         single_step_ms=ref["north_star"]["ms"], launches=got["launches"],
+         all_reduce=reduce_ms, tolerance={"loss_rtol": DIST_LOSS_RTOL,
+                                          "grad_rel": DIST_GRAD_REL}, **cmp, power_limit=smi)
+    check(not cmp["over_tolerance"],
+          f"the one-rank NCCL step differs from the one-device step: {cmp['over_tolerance']}")
+
+
+def dist_ranks(phase: str, smi: str, tmp: str, ref: dict, world: int, backend: str) -> None:
+    """`world` ranks spawned as processes of this script, over `backend`
+    (gloo, with every rank on cuda:0: NCCL refuses two ranks on one card).
+    Every case against the one-device reference, ranks bit-equal, overflow
+    0; a rank that fails or outlives DIST_TIMEOUT_S fails the smoke."""
+    import socket
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank",
+                               str(r), str(world), coord, tmp, backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs, late = [], False
+    try:
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                late = True
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    ranks_s = time.perf_counter() - t0
+    check(not late, f"a rank ran past {DIST_TIMEOUT_S} s")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    rs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+          for r in range(world)]
+    cases, over = {}, []
+    for name in DIST_STEPS:
+        cmp = dist_compare(rs[0][name], ref[name])
+        same = all(r[name]["loss"] == rs[0][name]["loss"]
+                   and all(torch.equal(r[name]["scene"][f], rs[0][name]["scene"][f])
+                           for f in r[name]["scene"]) for r in rs[1:])
+        cases[name] = {"losses": rs[0][name]["loss"], "single_losses": ref[name]["loss"],
+                       "step_ms": {"ranks": [r[name]["ms"] for r in rs],
+                                   "single": ref[name]["ms"]},
+                       "launches": {"rank0": rs[0][name]["launches"],
+                                    "single": ref[name]["launches"]},
+                       "ranks_equal": same, **cmp}
+        over += [f"{name}: {o}" for o in cmp["over_tolerance"]]
+        if not same:
+            over.append(f"{name}: the ranks' losses or scenes differ")
+    for name in DIST_FORWARDS:
+        equal = [bool(torch.equal(r[name]["image"], ref[name]["image"])) for r in rs]
+        cases[name] = {"frames_equal_single": equal,
+                       "overflow": [r[name]["overflow"] for r in rs],
+                       "ms": {"ranks": [r[name]["ms"] for r in rs], "single": ref[name]["ms"]},
+                       "launches": {"rank0": rs[0][name]["launches"],
+                                    "single": ref[name]["launches"]}}
+        if not all(equal) or any(cases[name]["overflow"]):
+            over.append(f"{name}: frames equal {equal}, overflow {cases[name]['overflow']}")
+        if float(ref[name]["image"].max()) <= 0.05:
+            over.append(f"{name}: the frame is black")
+    emit(phase, backend=backend, ranks=world, cards=torch.cuda.device_count(),
+         seconds_ranks=ranks_s, rank_init_seconds=[r["init_s"] for r in rs],
+         all_reduce=[r["all_reduce"] for r in rs],
+         tolerance={"loss_rtol": DIST_LOSS_RTOL, "grad_rel": DIST_GRAD_REL},
+         ray_size=DIST_RAY_SIZE, cases=cases, power_limit=smi)
+    check(not over, f"the {world}-rank {backend} mesh paths failed: {over}")
+
+
+def distributed_phases(dev, smi: str) -> None:
+    """The distributed group: the cases' inputs, the one-device reference
+    of every case, a one-rank NCCL group in this process, then two gloo
+    ranks on the card as processes. Returns no kernel entries: the mesh
+    paths launch the kernels of the other groups."""
+    import torch
+
+    world = 2
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    x, cfg = dist_inputs(dev, world)
+    ref = {name: dist_run_steps(name, None, x, cfg) for name in DIST_STEPS}
+    ref.update({name: dist_run_forward(name, None, x, cfg) for name in DIST_FORWARDS})
+    ref_s = time.perf_counter() - t0
+    dist_nccl_one_rank(smi, x, cfg, ref)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({k: v.cpu() for k, v in x.items()}, os.path.join(tmp, "inputs.pt"))
+        with open(os.path.join(tmp, "config.json"), "w") as fh:
+            json.dump(cfg, fh)
+        dist_ranks("dist_two_ranks", smi, tmp, ref, world, "gloo")
+    emit("dist_group", seconds=time.perf_counter() - t0, reference_seconds=ref_s,
+         config=cfg, power_limit=smi)
+
+
 def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
     """`--only a,b`: the named phase groups alone (for work on one path),
     then the kernel line of their kernels."""
@@ -3230,7 +3668,8 @@ def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
                   "split": lambda: split_phases(dev, smi, clock_mhz, n_sm),
                   "approx": lambda: approx_phases(dev, smi, clock_mhz, n_sm, obj) or [],
                   # its batched launch of kernel 1 is in its frontends_orbit line
-                  "frontends": lambda: frontends_phases(dev, smi, clock_mhz, n_sm) and []}
+                  "frontends": lambda: frontends_phases(dev, smi, clock_mhz, n_sm) and [],
+                  "distributed": lambda: distributed_phases(dev, smi) or []}
         for name in names:
             entries += groups[name]()
     print(json.dumps({"kernels": entries}), flush=True)
@@ -3240,6 +3679,8 @@ def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return dist_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -3299,8 +3740,10 @@ def main() -> int:
     # 10. the entry points beside the CLI: the batched orbit (its launch of
     # kernel 1 goes into kernel 1's entry), render_tiled, the viewer, native
     entries[0]["batched_launch"] = frontends_phases(dev, smi, clock_mhz, n_sm)
+    # 11. the mesh paths: a one-rank NCCL group, two gloo ranks on the card
+    distributed_phases(dev, smi)
 
-    # 11. the kernel line
+    # 12. the kernel line
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

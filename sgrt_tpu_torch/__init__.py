@@ -13,7 +13,8 @@ Layout (mirrors sgrt_tpu):
     ops/       oracle math, plain fused renderer, tiling, approximations,
                the CUDA kernels' wrappers, the differentiable fused op and
                its routing, the bucketed tile scheduler, the frame pipeline
-    parallel/  the train steps (one device)
+    parallel/  the train steps, and the mesh (torch.distributed, one
+               process a rank) with the sharded renders and steps
     utils/     obj parsing, PNG/GIF writers, the native host library
                (native/sgrt_native.cpp by g++), checkpoints, nvcc build,
                device selection

@@ -215,17 +215,60 @@ def bucketed_tile_indices(scene: GaussianScene, view: torch.Tensor, tiles,
     return dense_ids, idx_dense, sparse_ids, idx_sparse, counts
 
 
-def _scene_ops(scene):
-    """(renderer_for, gather, culling scene) of a scene's class: isotropic
-    scenes route through tile_renderer_for; anisotropic ones
-    (ops.anisotropic.AnisoScene) through tile_renderer_aniso_for, culled on
-    their max-scale proxy."""
-    from sgrt_tpu_torch.ops import cuda_chunked
-    from sgrt_tpu_torch.ops.anisotropic import AnisoScene, gather_tiles_aniso, iso_proxy
+def make_bucketed_renderer(cfg: BucketConfig, *, tiles, aniso: bool = False, mesh=None,
+                           erf_name: str = "as5", exp_name: str = "exact", rb: int = 128,
+                           pb: int | None = None, qb: int | None = None, focal_length=1.0):
+    """Two-bucket tiled render of this rank's tiles: render(scene, view, o,
+    tile_dirs (T2, P, 3)) → (colors (M, P, 3) of the tiles `ids` (M,), ids,
+    counts (T2,), overflow (0-d int32: the frame's tiles whose true count
+    exceeds their bucket's capacity; 0 means nothing was dropped)).
 
-    if isinstance(scene, AnisoScene):
-        return cuda_chunked.tile_renderer_aniso_for, gather_tiles_aniso, iso_proxy(scene)
-    return cuda_chunked.tile_renderer_for, gather_tiles, scene
+    mesh (parallel.mesh.Mesh) None is one rank holding every tile; over a
+    mesh of D ranks each bucket is permuted by bucketed_tile_indices'
+    interleave and this rank takes its contiguous 1/D of each, so M =
+    T2 / D and every rank carries a balanced mix of counts; bucket sizes
+    the mesh does not divide raise ValueError (size them with
+    probe_buckets(..., multiple_of=D)). The capacities are rounded and
+    routed, once per bucket, by tile_renderer_for, or for an AnisoScene
+    (aniso=True, culled on its max-scale proxy) tile_renderer_aniso_for.
+    Differentiable with respect to the scene: the bucket gathers transpose
+    to scatter-adds."""
+    from sgrt_tpu_torch.ops import cuda_chunked
+    from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
+
+    if aniso:
+        renderer_for, gather, proxy = (cuda_chunked.tile_renderer_aniso_for,
+                                       gather_tiles_aniso, iso_proxy)
+    else:
+        renderer_for, gather, proxy = cuda_chunked.tile_renderer_for, gather_tiles, None
+    tx, ty = as_grid(tiles)
+    n_d, n_s = cfg.n_dense, tx * ty - cfg.n_dense
+    n_dev = 1 if mesh is None else mesh.size
+    if n_d % n_dev or n_s % n_dev:
+        raise ValueError(f"bucket sizes ({n_d}, {n_s}) must divide the mesh ({n_dev} "
+                         f"ranks); size with probe_buckets(..., multiple_of={n_dev})")
+    cap_d, render_dense = renderer_for(cfg.cap_dense, pb=pb, qb=qb, rb=rb,
+                                       erf_name=erf_name, exp_name=exp_name)
+    cap_s, render_sparse = renderer_for(cfg.cap_sparse, pb=pb, qb=qb, rb=rb,
+                                        erf_name=erf_name, exp_name=exp_name)
+    cfg = BucketConfig(n_d, cap_d, cap_s)
+    sd, ss = (slice(None),) * 2 if mesh is None else (mesh.shard(n_d), mesh.shard(n_s))
+
+    def render(scene, view, o, tile_dirs):
+        dense_ids, idx_d, sparse_ids, idx_s, counts = bucketed_tile_indices(
+            scene if proxy is None else proxy(scene), view, tiles, cfg,
+            focal_length=focal_length, interleave=n_dev)
+        overflow = (torch.sum(counts[sparse_ids] > cfg.cap_sparse)
+                    + torch.sum(counts[dense_ids] > cfg.cap_dense)).to(torch.int32)
+        ids_s = sparse_ids[ss]
+        colors = render_sparse(gather(scene, idx_s[ss]), o, tile_dirs[ids_s], counts[ids_s])
+        if n_d == 0:
+            return colors, ids_s, counts, overflow
+        ids_d = dense_ids[sd]
+        colors_d = render_dense(gather(scene, idx_d[sd]), o, tile_dirs[ids_d], counts[ids_d])
+        return torch.cat([colors_d, colors]), torch.cat([ids_d, ids_s]), counts, overflow
+
+    return render
 
 
 def render_tiles_bucketed(scene, view, o, tile_dirs, cfg: BucketConfig,
@@ -235,31 +278,17 @@ def render_tiles_bucketed(scene, view, o, tile_dirs, cfg: BucketConfig,
     """Two-bucket tiled render of a GaussianScene or an AnisoScene:
     tile_dirs (T2, P, 3) → (colors (T2, P, 3), counts (T2,), overflow (0-d
     int32: tiles whose true count exceeds their bucket's capacity; 0 means
-    nothing was dropped)). Differentiable with respect to the scene: the
-    bucket gathers transpose to scatter-adds and the scatter back into tile
-    order to a gather. Capacities are rounded and routed by the scene's
-    renderer_for (tile_renderer_for or tile_renderer_aniso_for), once per
-    bucket."""
-    renderer_for, gather, culled = _scene_ops(scene)
+    nothing was dropped)). make_bucketed_renderer's render on one rank,
+    its colors scattered back into tile order (differentiable: the scatter
+    transposes to a gather)."""
+    from sgrt_tpu_torch.ops.anisotropic import AnisoScene
+
     t2 = tile_dirs.shape[0]
     if tiles is None:
         tiles = int(round(t2 ** 0.5))  # square-grid default
-    cap_d, render_dense = renderer_for(cfg.cap_dense, pb=pb, qb=qb, rb=rb,
-                                       erf_name=erf_name, exp_name=exp_name)
-    cap_s, render_sparse = renderer_for(cfg.cap_sparse, pb=pb, qb=qb, rb=rb,
-                                        erf_name=erf_name, exp_name=exp_name)
-    cfg = BucketConfig(cfg.n_dense, cap_d, cap_s)
-    dense_ids, idx_d, sparse_ids, idx_s, counts = bucketed_tile_indices(
-        culled, view, tiles, cfg, focal_length=focal_length)
-    overflow = (torch.sum(counts[sparse_ids] > cfg.cap_sparse)
-                + torch.sum(counts[dense_ids] > cfg.cap_dense)).to(torch.int32)
-
-    colors_s = render_sparse(gather(scene, idx_s), o, tile_dirs[sparse_ids],
-                             counts[sparse_ids])
-    colors = colors_s.new_zeros((t2,) + tuple(colors_s.shape[1:]))
-    colors = colors.index_copy(0, sparse_ids, colors_s)
-    if cfg.n_dense > 0:
-        colors_d = render_dense(gather(scene, idx_d), o, tile_dirs[dense_ids],
-                                counts[dense_ids])
-        colors = colors.index_copy(0, dense_ids, colors_d)
+    render = make_bucketed_renderer(cfg, tiles=tiles, aniso=isinstance(scene, AnisoScene),
+                                    erf_name=erf_name, exp_name=exp_name, rb=rb, pb=pb,
+                                    qb=qb, focal_length=focal_length)
+    colors, ids, counts, overflow = render(scene, view, o, tile_dirs)
+    colors = colors.new_zeros((t2,) + tuple(colors.shape[1:])).index_copy(0, ids, colors)
     return colors, counts, overflow

@@ -1,5 +1,4 @@
-"""Differentiable scene fitting on one device (PyTorch port of
-sgrt_tpu.parallel.fit).
+"""Differentiable scene fitting (PyTorch port of sgrt_tpu.parallel.fit).
 
 Optimize Gaussian means / sigmas / magnitudes / albedos against target
 pixels by gradient descent. The tiled frame step is the north-star
@@ -25,8 +24,19 @@ make_aniso_frame_train_step fits anisotropic scenes
 (ops.anisotropic.AnisoScene: per-axis scales) through the fused
 anisotropic kernels, or the chunked ones above MAX_BWD_CAPACITY_ANISO.
 init_state and the steps take either scene class and work over its
-dataclass fields. Distribution over a mesh is not ported: every step
-factory raises for mesh is not None.
+dataclass fields.
+
+Over a mesh (parallel.mesh: one process a rank in a torch.distributed
+group) the scene is replicated: init_state broadcasts it from rank 0, and
+every rank applies the same update to the same gradients. The untiled step
+takes each rank's shard of the rays; the frame steps compute the same
+tiling on every rank and render and differentiate each rank's contiguous
+1/D of the tiles (of each bucket, in the scheduler's interleave). The
+step's one collective is an all-reduce of one flat buffer, the loss and
+the scene's N x 8 gradient floats: a mean of the ranks' means (every rank
+holds as many tiles or rays), or for the slab step a sum of the ranks'
+sums. Gloo and NCCL both give every rank the same sum bit for bit, so the
+ranks' scenes stay equal bit for bit.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from sgrt_tpu_torch.ops.anisotropic import FIELDS as ANISO_FIELDS
 from sgrt_tpu_torch.ops.frame import BACKENDS
 from sgrt_tpu_torch.ops.render import _radiance_block, _tile_rays, render_rays_impl
 from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
+from sgrt_tpu_torch.parallel.mesh import replicate, shard_rays
 
 FIELDS = ("mu", "sigma", "magnitude", "albedo")
 
@@ -65,12 +76,6 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     builds torch.optim.Adam over the given parameters (the same update,
     lr * m_hat / (sqrt(v_hat) + eps))."""
     return functools.partial(torch.optim.Adam, lr=lr, betas=(b1, b2), eps=eps)
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("distribution over a mesh (sgrt_tpu/parallel/mesh.py) "
-                                  "is not ported yet; pass mesh=None")
 
 
 def _check_backend(backend: str) -> None:
@@ -102,8 +107,10 @@ def _check_bwd_capacity(capacity, bucket_cfg, backend) -> None:
 def init_state(scene, optimizer, mesh=None) -> FitState:
     """A fit state over copies of the scene's fields (the caller's scene is
     never updated), with the optimizer built over them. scene is a
-    GaussianScene or an AnisoScene."""
-    _refuse_mesh(mesh)
+    GaussianScene or an AnisoScene. With a mesh, every rank starts from
+    rank 0's scene (one broadcast)."""
+    if mesh is not None:
+        scene = replicate(mesh, scene)
     fields = scene_fields(scene)
     scene = type(scene)(**{f: getattr(scene, f).detach().clone() for f in fields})
     return FitState(scene, optimizer([getattr(scene, f) for f in fields]), 0)
@@ -135,6 +142,16 @@ def _value_and_grad(loss_of, scene, trainable):
     return (loss.detach(), aux), grads
 
 
+def _reduce_over_mesh(mesh, loss, grads, *, mean: bool = True):
+    """The loss and gradients summed over the mesh (mean=True: averaged)
+    by one all-reduce of one flat buffer; unchanged without a mesh."""
+    if mesh is None:
+        return loss, grads
+    fields = scene_fields(grads)
+    out = mesh.all_reduce([loss, *(getattr(grads, f) for f in fields)], mean=mean)
+    return out[0], type(grads)(**dict(zip(fields, out[1:])))
+
+
 def make_train_step(mesh=None, loss_fn: Callable = l2_loss,
                     q_block: int = 128, ray_block: int = 2048,
                     trainable: tuple[str, ...] = FIELDS, backend: str = "torch"):
@@ -143,8 +160,9 @@ def make_train_step(mesh=None, loss_fn: Callable = l2_loss,
     backend="kernel" renders through the fused kernel and its analytic
     backward (ops.cuda_kernel.render_rays_fused_impl; the JAX package's
     "pallas"); "torch" differentiates the plain renderer by autograd
-    (ops.render; the JAX package's "xla")."""
-    _refuse_mesh(mesh)
+    (ops.render; the JAX package's "xla"). With a mesh, dirs and target are
+    this rank's shards (parallel.mesh.shard_rays), and the loss and the
+    gradients are their means over the mesh."""
     _check_backend(backend)
 
     def step(state: FitState, o, dirs, target):
@@ -158,6 +176,7 @@ def make_train_step(mesh=None, loss_fn: Callable = l2_loss,
             return loss_fn(colors, target), None
 
         (loss, _), grads = _value_and_grad(loss_of, state.scene, trainable)
+        loss, grads = _reduce_over_mesh(mesh, loss, grads)
         _apply_updates(state, grads, trainable)
         return state, loss
 
@@ -191,67 +210,106 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
                               capacity: int = 128, backend: str = "kernel",
                               erf_name: str = "as5", exp_name: str = "exact",
                               trainable: tuple[str, ...] = FIELDS, bucket_cfg=None,
-                              focal_length=1.0, q_block: int = 128, tile_batch: int = 16):
-    """Single-device frame loss and gradient: vg(scene, view, o, dirs,
-    target) → ((loss, overflow), grads), grads a GaussianScene (zeros for
-    frozen fields). The gradient core of make_frame_train_step, exposed so
-    callers can compare raw gradients across backends without an optimizer.
+                              focal_length=1.0, q_block: int = 128, tile_batch: int = 16,
+                              mesh=None, aniso: bool = False):
+    """Frame loss and gradient: vg(scene, view, o, dirs, target) → ((loss,
+    overflow), grads), grads a scene of the same class (zeros for frozen
+    fields). The gradient core of the frame steps, exposed so callers can
+    compare raw gradients across backends or meshes without an optimizer.
 
     backend="kernel" routes tiles through tile_renderer_for (the fused
-    kernels); bucket_cfg then renders a dense and a sparse bucket
-    (ops.scheduler.render_tiles_bucketed). backend="torch" differentiates
-    the plain per-tile renderer and, as the JAX package's "xla" route,
+    kernels, or the chunked ones above MAX_MONOLITHIC_CAPACITY); aniso=True
+    takes an AnisoScene, culled on its iso_proxy, through
+    tile_renderer_aniso_for. bucket_cfg with n_dense > 0 renders a dense
+    and a sparse bucket (ops.scheduler.make_bucketed_renderer); a config
+    with n_dense = 0 renders one launch at max(capacity, cap_dense), the
+    probed capacity. backend="torch" differentiates the plain per-tile
+    renderer (q_block, tile_batch) and, as the JAX package's "xla" route,
     ignores bucket_cfg and erf_name/exp_name. Tile indices carry no
-    gradient; overflow counts tiles over capacity."""
-    from sgrt_tpu_torch.ops.cuda_kernel import _block_sizes
+    gradient; overflow counts the frame's tiles over capacity.
+
+    With a mesh, dirs and target are the whole frame's on every rank: every
+    rank computes the whole frame's tiling and the loss and gradients of
+    its contiguous 1/D of the tiles (of each bucket, in the scheduler's
+    interleave), then their means over the mesh by one all-reduce; every
+    rank holds as many tiles, so the mean of the ranks' means is the
+    frame's. A tile count, or bucket sizes, the mesh does not divide raise
+    ValueError. mesh None is one rank holding every tile."""
+    from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
+    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for, tile_renderer_for
+    from sgrt_tpu_torch.ops.tiling import as_grid
 
     _check_backend(backend)
+    if backend != "kernel":
+        bucket_cfg = None
+    elif bucket_cfg is not None and not bucket_cfg.n_dense:
+        capacity, bucket_cfg = max(capacity, bucket_cfg.cap_dense), None
     _check_bwd_capacity(capacity, bucket_cfg, backend)
-    if backend == "kernel":
-        from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+    tx, ty = as_grid(tiles)
+    mine = slice(None) if mesh is None else mesh.shard(tx * ty)
 
-        capacity, render = tile_renderer_for(capacity, erf_name=erf_name, exp_name=exp_name)
-    else:
-        _, qb = _block_sizes(capacity)
-        capacity = -(-capacity // qb) * qb
+    def mean_over_mesh(loss_of, scene):
+        (loss, overflow), grads = _value_and_grad(loss_of, scene, trainable)
+        loss, grads = _reduce_over_mesh(mesh, loss, grads)
+        return (loss, overflow), grads
 
-    def tile_render(scene, idx, counts, o, d):
-        tiled = gather_tiles(scene, idx)
-        if backend == "kernel":
-            return render(tiled, o, d, counts)
-        return _torch_tile_render(tiled, o, d, min(q_block, capacity), tile_batch)
+    if bucket_cfg is not None:
+        from sgrt_tpu_torch.ops.scheduler import make_bucketed_renderer
 
-    if bucket_cfg is not None and backend == "kernel":
-        from sgrt_tpu_torch.ops.scheduler import render_tiles_bucketed
+        render_mine = make_bucketed_renderer(bucket_cfg, tiles=tiles, aniso=aniso, mesh=mesh,
+                                             erf_name=erf_name, exp_name=exp_name,
+                                             focal_length=focal_length)
 
         def vg(scene, view, o, dirs, target):
             d = _tile_rays(dirs, height, width, tiles)
-            target_t = _tile_rays(target.reshape(-1, 3), height, width, tiles)
-
+            tgt = _tile_rays(target.reshape(-1, 3), height, width, tiles)
             def loss_of(s):
-                colors, _, overflow = render_tiles_bucketed(
-                    s, view, o, d, bucket_cfg, erf_name=erf_name, exp_name=exp_name,
-                    tiles=tiles, focal_length=focal_length)
-                return torch.mean((colors - target_t) ** 2), overflow
+                colors, ids, _, ovf = render_mine(s, view, o, d)
+                return torch.mean((colors - tgt[ids]) ** 2), ovf
 
-            return _value_and_grad(loss_of, scene, trainable)
+            return mean_over_mesh(loss_of, scene)
 
         return vg
 
+    if backend == "kernel":
+        capacity, render = (tile_renderer_aniso_for if aniso else tile_renderer_for)(
+            capacity, erf_name=erf_name, exp_name=exp_name)
+    else:
+        from sgrt_tpu_torch.ops.cuda_kernel import _block_sizes
+
+        _, qb = _block_sizes(capacity)
+        capacity = -(-capacity // qb) * qb
+
+        def render(tiled, o, d, counts):
+            return _torch_tile_render(tiled, o, d, min(q_block, capacity), tile_batch)
+    gather, proxy = (gather_tiles_aniso, iso_proxy) if aniso else (gather_tiles, lambda s: s)
+
     def vg(scene, view, o, dirs, target):
         with torch.no_grad():
-            idx, counts = tile_indices(scene, view, tiles, capacity, focal_length=focal_length)
+            idx, counts = tile_indices(proxy(scene), view, tiles, capacity,
+                                       focal_length=focal_length)
             overflow = torch.sum(counts > capacity, dtype=torch.int32)
-        d = _tile_rays(dirs, height, width, tiles)
-        target_t = _tile_rays(target.reshape(-1, 3), height, width, tiles)
+        d = _tile_rays(dirs, height, width, tiles)[mine]
+        tgt = _tile_rays(target.reshape(-1, 3), height, width, tiles)[mine]
 
         def loss_of(s):
-            colors = tile_render(s, idx, counts, o, d)
-            return torch.mean((colors - target_t) ** 2), overflow
+            colors = render(gather(s, idx[mine]), o, d, counts[mine])
+            return torch.mean((colors - tgt) ** 2), overflow
 
-        return _value_and_grad(loss_of, scene, trainable)
+        return mean_over_mesh(loss_of, scene)
 
     return vg
+
+
+def _step_of(vg, trainable):
+    """The frame step around vg: step(state, view, o, dirs, target) →
+    (state, loss, overflow), the update applied in place."""
+    def step(state: FitState, view, o, dirs, target):
+        (loss, overflow), grads = vg(state.scene, view, o, dirs, target)
+        _apply_updates(state, grads, trainable)
+        return state, loss, overflow
+
+    return step
 
 
 def make_frame_train_step(*, width: int = 256, height: int = 256,
@@ -268,19 +326,13 @@ def make_frame_train_step(*, width: int = 256, height: int = 256,
     member count exceeded their capacity this step: nonzero means
     Gaussians were dropped from the loss and its gradients, and callers
     must check it (fit_cli warns). bucket_cfg: dense/sparse capacity
-    bucketing of tiles (ops.scheduler)."""
-    _refuse_mesh(mesh)
-    vg = make_frame_value_and_grad(
+    bucketing of tiles (ops.scheduler). With a mesh, dirs and target are
+    the whole frame's on every rank, and the tiles are split over the
+    ranks (make_frame_value_and_grad)."""
+    return _step_of(make_frame_value_and_grad(
         width=width, height=height, tiles=tiles, capacity=capacity, backend=backend,
         erf_name=erf_name, exp_name=exp_name, trainable=trainable, bucket_cfg=bucket_cfg,
-        focal_length=focal_length)
-
-    def step(state: FitState, view, o, dirs, target):
-        (loss, overflow), grads = vg(state.scene, view, o, dirs, target)
-        _apply_updates(state, grads, trainable)
-        return state, loss, overflow
-
-    return step
+        focal_length=focal_length, mesh=mesh), trainable)
 
 
 def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64, 32),
@@ -294,20 +346,26 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
     The tiles, sorted by count (densest first, a stable sort so that tiles
     of equal count keep their order, as jnp.argsort does), are cut into
     slabs of `slab_tiles` (the largest divisor of the tile count not above
-    it). Each slab runs one forward and backward through tile_renderer_for
-    (the chunked kernels above MAX_MONOLITHIC_CAPACITY) on its
-    sum-of-squares loss; the slabs' losses and gradients add exactly, since
-    the frame loss is a sum over pixels, and Adam applies once to their
-    sum over H*W*3. A slab's saved-T residual and scratch are freed before
-    the next slab, so slab_tiles bounds the step's memory.
+    it that the mesh size divides). Each slab runs one forward and backward
+    through tile_renderer_for (the chunked kernels above
+    MAX_MONOLITHIC_CAPACITY) on its sum-of-squares loss; the slabs' losses
+    and gradients add exactly, since the frame loss is a sum over pixels,
+    and Adam applies once to their sum over H*W*3. A slab's saved-T
+    residual and scratch are freed before the next slab, so slab_tiles
+    bounds the step's memory.
+
+    With a mesh each rank takes its contiguous 1/D of every slab (the slab
+    is a count-sorted range, so the ranks' shares carry near-equal counts),
+    sums its slabs' losses and gradients, and one SUM all-reduce adds the
+    ranks' sums before the update. A tile count the mesh does not divide
+    raises ValueError.
 
     aniso=True fits an ops.anisotropic.AnisoScene the same way: tiles from
     the max-scale proxy (iso_proxy), the anisotropic gather, and
     tile_renderer_aniso_for (the chunked anisotropic kernels above
-    MAX_BWD_CAPACITY_ANISO). The mesh variant is not ported."""
+    MAX_BWD_CAPACITY_ANISO)."""
     from sgrt_tpu_torch.ops.tiling import as_grid
 
-    _refuse_mesh(mesh)
     _check_bwd_capacity(capacity, None, "kernel")
     if aniso:
         from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
@@ -324,9 +382,13 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
     trainable = fields if trainable is None else trainable
     tx, ty = as_grid(tiles)
     t2 = tx * ty
-    slab_tiles = max(1, min(slab_tiles, t2))
-    while t2 % slab_tiles:
-        slab_tiles -= 1
+    n_dev, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    if t2 % n_dev:
+        raise ValueError(f"tile count {t2} not divisible by the mesh ({n_dev} ranks)")
+    slab_tiles = max(n_dev, min(slab_tiles, t2))
+    while t2 % slab_tiles or slab_tiles % n_dev:
+        slab_tiles -= 1      # the largest divisor of t2 that the mesh divides
+    per_rank = slab_tiles // n_dev
     norm = float(height * width * 3)
 
     def step(state: FitState, view, o, dirs, target):
@@ -339,8 +401,8 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
         d = _tile_rays(dirs, height, width, tiles)[order]
         tgt = _tile_rays(target.reshape(-1, 3), height, width, tiles)[order]
         total, grads = None, None
-        for s0 in range(0, t2, slab_tiles):
-            sl = slice(s0, s0 + slab_tiles)
+        for s0 in range(rank * per_rank, t2, slab_tiles):
+            sl = slice(s0, s0 + per_rank)
 
             def loss_of(sc):
                 colors = render(gather(sc, idx[sl]), o, d[sl], counts[sl])
@@ -352,6 +414,7 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
             else:
                 total = total + loss
                 grads = type(g)(**{f: getattr(grads, f) + getattr(g, f) for f in fields})
+        total, grads = _reduce_over_mesh(mesh, total, grads, mean=False)
         grads = type(grads)(**{f: getattr(grads, f) / norm for f in fields})
         _apply_updates(state, grads, trainable)
         return state, total / norm, overflow
@@ -379,54 +442,12 @@ def make_aniso_frame_train_step(*, width: int = 256, height: int = 256, tiles=16
     renders one launch at max(capacity, cap_dense). Capacities route through
     tile_renderer_aniso_for: above MAX_BWD_CAPACITY_ANISO to the chunked
     anisotropic kernels (recompute backward), and above
-    MAX_CHUNKED_CAPACITY the step refuses to build."""
-    from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
-    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
-
-    _refuse_mesh(mesh)
-    if bucket_cfg is not None and not bucket_cfg.n_dense:
-        capacity = max(capacity, bucket_cfg.cap_dense)
-        bucket_cfg = None
-    _check_bwd_capacity(capacity, bucket_cfg, "kernel")
-
-    if bucket_cfg is not None:
-        from sgrt_tpu_torch.ops.scheduler import render_tiles_bucketed
-
-        for cap in (bucket_cfg.cap_dense, bucket_cfg.cap_sparse):
-            tile_renderer_aniso_for(cap)     # fail when built, not in the first launch
-
-        def loss_of_for(view, o, d, target_t):
-            def loss_of(s):
-                colors, _, overflow = render_tiles_bucketed(
-                    s, view, o, d, bucket_cfg, erf_name=erf_name, exp_name=exp_name,
-                    tiles=tiles, focal_length=focal_length)
-                return torch.mean((colors - target_t) ** 2), overflow
-
-            return loss_of
-    else:
-        capacity, render = tile_renderer_aniso_for(capacity, erf_name=erf_name,
-                                                   exp_name=exp_name)
-
-        def loss_of_for(view, o, d, target_t):
-            def loss_of(s):
-                with torch.no_grad():
-                    idx, counts = tile_indices(iso_proxy(s), view, tiles, capacity,
-                                               focal_length=focal_length)
-                    overflow = torch.sum(counts > capacity, dtype=torch.int32)
-                colors = render(gather_tiles_aniso(s, idx), o, d, counts)
-                return torch.mean((colors - target_t) ** 2), overflow
-
-            return loss_of
-
-    def step(state: FitState, view, o, dirs, target):
-        d = _tile_rays(dirs, height, width, tiles)
-        target_t = _tile_rays(target.reshape(-1, 3), height, width, tiles)
-        (loss, overflow), grads = _value_and_grad(loss_of_for(view, o, d, target_t),
-                                                  state.scene, trainable)
-        _apply_updates(state, grads, trainable)
-        return state, loss, overflow
-
-    return step
+    MAX_CHUNKED_CAPACITY the step refuses to build. With a mesh the tiles
+    (each bucket) are split over the ranks as in make_frame_train_step."""
+    return _step_of(make_frame_value_and_grad(
+        width=width, height=height, tiles=tiles, capacity=capacity, erf_name=erf_name,
+        exp_name=exp_name, trainable=trainable, bucket_cfg=bucket_cfg,
+        focal_length=focal_length, mesh=mesh, aniso=True), trainable)
 
 
 def fit(scene: GaussianScene, o, dirs, target, steps: int = 200,
@@ -436,22 +457,35 @@ def fit(scene: GaussianScene, o, dirs, target, steps: int = 200,
         **step_kwargs) -> tuple[GaussianScene, list]:
     """Fit a scene to target ray colors with the untiled step → (fitted
     scene, loss history). checkpoint_dir saves every `checkpoint_every`
-    steps and at the end (resumable with utils.checkpoint.restore_fit)."""
+    steps and at the end (resumable with utils.checkpoint.restore_fit).
+
+    With a mesh, dirs and target are the whole batch on every rank (each
+    rank fits its shard_rays share); rank 0 alone writes the checkpoints,
+    and every rank waits for each write at a barrier."""
     step_fn = make_train_step(mesh=mesh, **step_kwargs)
     state = init_state(scene, optimizer or adam(learning_rate), mesh)
+    if mesh is not None:
+        dirs, target = shard_rays(mesh, dirs, target)
     mgr = None
-    if checkpoint_dir is not None:
-        from sgrt_tpu_torch.utils.checkpoint import make_manager, save_fit
+    if checkpoint_dir is not None and (mesh is None or mesh.rank == 0):
+        from sgrt_tpu_torch.utils.checkpoint import make_manager
 
         mgr = make_manager(checkpoint_dir)
+
+    def save(state):
+        if mgr is not None:
+            mgr.save(state.step, state)
+        if mesh is not None:
+            mesh.barrier()
+
     losses = []
     for i in range(steps):
         state, loss = step_fn(state, o, dirs, target)
         losses.append(loss)      # read once at the end: no wait per step
         if callback is not None:
             callback(i, float(loss))
-        if mgr is not None and (i + 1) % checkpoint_every == 0:
-            save_fit(mgr, state.step, state)
-    if mgr is not None:
-        save_fit(mgr, state.step, state)
+        if checkpoint_dir is not None and (i + 1) % checkpoint_every == 0:
+            save(state)
+    if checkpoint_dir is not None:
+        save(state)
     return state.scene, [float(v) for v in losses]

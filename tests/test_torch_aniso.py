@@ -16,6 +16,7 @@ tolerance (tests/test_torch_fit.py). Updated scenes after one SGD step:
 the gradient differences times the step, atol 1e-6.
 """
 
+import dataclasses
 import importlib
 
 import jax
@@ -207,20 +208,33 @@ def test_aniso_train_step_matches_jax(step_setup, bucketed):
 
 
 def test_aniso_step_masks_and_refuses():
-    """Frozen fields stay bit-identical; a mesh and capacities above
+    """Frozen fields stay bit-identical; a mesh of one rank without a group
+    gives the scene and loss of mesh=None; a mesh size that does not divide
+    the tile count or the bucket sizes and capacities above
     MAX_CHUNKED_CAPACITY raise when the step is built, and a capacity above
     MAX_BWD_CAPACITY_ANISO builds (the chunked anisotropic route)."""
+    from sgrt_tpu_torch.parallel.mesh import make_mesh
+
     start = _grid_np()
     ts = an.aniso_scene_from_numpy(*start, device="cpu")
     cam = orbit_camera(20.0, -4.0, 1.0, 32, 32, device="cpu")
     o, dirs = cam.rays()
-    step = tfit.make_aniso_frame_train_step(width=32, height=32, tiles=4, capacity=16,
-                                            trainable=("scale",))
-    state = tfit.init_state(ts, tfit.adam(3e-3))
-    state, _, _ = step(state, cam.view_matrix, o, dirs, torch.zeros(32, 32, 3))
+    one = make_mesh(device="cpu")
+    runs = []
+    for mesh in (None, one):
+        step = tfit.make_aniso_frame_train_step(width=32, height=32, tiles=4, capacity=16,
+                                                trainable=("scale",), mesh=mesh)
+        state = tfit.init_state(ts, tfit.adam(3e-3), mesh=mesh)
+        runs.append(step(state, cam.view_matrix, o, dirs, torch.zeros(32, 32, 3)))
+    state = runs[0][0]
     assert torch.equal(state.scene.mu, ts.mu) and not torch.equal(state.scene.scale, ts.scale)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tfit.make_aniso_frame_train_step(mesh=object())
+    assert float(runs[1][1]) == float(runs[0][1])
+    assert torch.equal(runs[1][0].scene.scale, state.scene.scale)
+    with pytest.raises(ValueError, match="divisible by the mesh"):
+        tfit.make_aniso_frame_train_step(mesh=dataclasses.replace(one, size=3))
+    with pytest.raises(ValueError, match="bucket sizes"):
+        tfit.make_aniso_frame_train_step(capacity=64, bucket_cfg=BucketConfig(3, 128, 64),
+                                         mesh=dataclasses.replace(one, size=2))
     tfit.make_aniso_frame_train_step(capacity=6145)
     with pytest.raises(ValueError, match="chunked"):
         tfit.make_aniso_frame_train_step(capacity=65537)

@@ -19,6 +19,7 @@ and agree to 3e-6. The fused op's own gradients are held at 5e-5 of scale
 in tests/test_torch_backward.py.
 """
 
+import dataclasses
 import importlib
 import re
 
@@ -209,10 +210,33 @@ def test_fit_matches_jax():
 
 
 def test_mesh_is_not_ported(setup):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tfit.make_frame_train_step(mesh=object(), **KW)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tfit.init_state(setup[1], tfit.adam(1e-3), mesh=object())
+    """(The name is historical: the mesh is ported, and this asserts how it
+    behaves.) A mesh of one rank without a process group (make_mesh when no group
+    runs) gives init_state and the frame step, single-capacity and
+    bucketed, the same scene and loss as mesh=None; a mesh size that does
+    not divide the tile count or the bucket sizes raises when the step is
+    built. Two ranks run in tests/test_torch_parallel.py."""
+    from sgrt_tpu_torch.parallel.mesh import make_mesh
+
+    _, ts, _, t_in = setup
+    one = make_mesh(device="cpu")
+    assert (one.group, one.rank, one.size) == (None, 0, 1)
+    assert torch.equal(tfit.init_state(ts, _sgd(1e-2), mesh=one).scene.mu, ts.mu)
+    for cfg in (None, BucketConfig(*BUCKETS)):
+        runs = [_losses(tfit.make_frame_train_step(mesh=m, bucket_cfg=cfg, **KW),
+                        tfit.init_state(ts, _sgd(1e-2), mesh=m), t_in, 1)
+                for m in (None, one)]
+        # the bucketed mesh step sums each bucket apart, as the JAX mesh step
+        np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-6)
+        for f in FIELDS:
+            np.testing.assert_allclose(getattr(runs[1][1].scene, f).numpy(),
+                                       getattr(runs[0][1].scene, f).numpy(),
+                                       rtol=1e-6, atol=1e-9, err_msg=f)
+    with pytest.raises(ValueError, match="divisible by the mesh"):
+        tfit.make_frame_train_step(mesh=dataclasses.replace(one, size=3), **KW)
+    with pytest.raises(ValueError, match="bucket sizes"):
+        tfit.make_frame_train_step(mesh=dataclasses.replace(one, size=2),
+                                   bucket_cfg=BucketConfig(3, 16, 8), **KW)
     with pytest.raises(ValueError, match="backend"):
         tfit.make_frame_value_and_grad(backend="pallas", **KW)
 
@@ -361,12 +385,32 @@ def test_slab_step_matches_jax_and_frame_step(capacity, slab_tiles):
 
 
 def test_slab_step_refuses_mesh_and_aniso():
-    """The slab step's mesh variant is not ported; its anisotropic variant
-    builds on both routes (tests/test_torch_chunked_aniso.py runs it), and
-    like the isotropic one refuses a capacity above MAX_CHUNKED_CAPACITY
-    when it is built."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tfit.make_slab_frame_train_step(mesh=object())
+    """(The name is historical: the slab step now takes a mesh and aniso.)
+    Over a mesh of one rank without a group the slab step gives the
+    scene and loss of mesh=None, and a mesh size that does not divide the
+    tile count raises when it is built (two ranks: tests/test_torch_parallel
+    .py); its anisotropic variant builds on both routes
+    (tests/test_torch_chunked_aniso.py runs it), and like the isotropic one
+    refuses a capacity above MAX_CHUNKED_CAPACITY when it is built."""
+    from sgrt_tpu_torch.models.gaussians import grid_scene
+    from sgrt_tpu_torch.ops.frame import orbit_camera
+    from sgrt_tpu_torch.parallel.mesh import make_mesh
+
+    one = make_mesh(device="cpu")
+    cam = orbit_camera(10.0, -4.0, 1.0, 16, 16, device="cpu")
+    o, dirs = cam.rays()
+    scene = grid_scene(2, device="cpu")
+    inputs = (cam.view_matrix, o, dirs, torch.full((16, 16, 3), 0.1))
+    runs = []
+    for mesh in (None, one):
+        step = tfit.make_slab_frame_train_step(width=16, height=16, tiles=2, capacity=16,
+                                               slab_tiles=2, mesh=mesh)
+        runs.append(step(tfit.init_state(scene, _sgd(1e-2), mesh=mesh), *inputs))
+    assert float(runs[0][1]) == float(runs[1][1]) and int(runs[1][2]) == 0
+    for f in FIELDS:
+        assert torch.equal(getattr(runs[0][0].scene, f), getattr(runs[1][0].scene, f)), f
+    with pytest.raises(ValueError, match="divisible by the mesh"):
+        tfit.make_slab_frame_train_step(mesh=dataclasses.replace(one, size=3))
     for capacity in (16, 6145):
         tfit.make_slab_frame_train_step(aniso=True, capacity=capacity)
     for aniso in (False, True):
