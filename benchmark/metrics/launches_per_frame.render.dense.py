@@ -1,0 +1,8 @@
+"""The program's kernel launches (ops/kernels.py counters) over the window,
+per completed frame."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.launches_per_op(run)

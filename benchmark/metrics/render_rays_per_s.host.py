@@ -1,0 +1,8 @@
+"""Rays of the orbit's completed frames over the window's wall time, in a
+cell whose frames the host paces, rays/s."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.rays_per_s(run)

@@ -1,0 +1,6 @@
+"""Set-up: from the start of the process to the window's start, host clock,
+s."""
+
+
+def read(run):
+    return run.setup_s
