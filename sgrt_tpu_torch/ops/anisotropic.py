@@ -44,6 +44,7 @@ from sgrt_tpu_torch.ops.render import (
 )
 from sgrt_tpu_torch.ops.tiling import as_grid, tile_indices
 from sgrt_tpu_torch.utils.device import resolve_device
+from sgrt_tpu_torch.utils.trace import count_rows, span
 
 FIELDS = ("mu", "scale", "magnitude", "albedo")
 
@@ -228,13 +229,15 @@ def gather_tiles_aniso(scene: AnisoScene, idx: torch.Tensor) -> AnisoScene:
     """Per-tile gather: idx (T2, K) → scene with leading (T2, K) axes. The
     four fields are packed into one (N+1, 10) matrix, so the gather is one
     index_select; index N selects the inert dummy (scale 1, magnitude 0)."""
-    packed = torch.cat([scene.mu, scene.scale, scene.magnitude[:, None], scene.albedo],
-                       dim=1)                                 # (N, 10)
-    dummy = packed.new_zeros((1, 10))
-    dummy[0, 3:6] = 1.0
-    packed = torch.cat([packed, dummy])                       # (N+1, 10)
-    t2, k = idx.shape
-    out = packed.index_select(0, idx.reshape(-1)).reshape(t2, k, 10)
+    with span("gather"):
+        count_rows(idx, scene.n)
+        packed = torch.cat([scene.mu, scene.scale, scene.magnitude[:, None], scene.albedo],
+                           dim=1)                             # (N, 10)
+        dummy = packed.new_zeros((1, 10))
+        dummy[0, 3:6] = 1.0
+        packed = torch.cat([packed, dummy])                   # (N+1, 10)
+        t2, k = idx.shape
+        out = packed.index_select(0, idx.reshape(-1)).reshape(t2, k, 10)
     return AnisoScene(mu=out[..., 0:3], scale=out[..., 3:6], magnitude=out[..., 6],
                       albedo=out[..., 7:10])
 

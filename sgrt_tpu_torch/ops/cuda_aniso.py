@@ -57,6 +57,7 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
 )
 from sgrt_tpu_torch.ops.reference import INV_SQRT_2_PI
 from sgrt_tpu_torch.ops.render import _unit_pad
+from sgrt_tpu_torch.utils.trace import span
 
 # Per-tile capacity above which the JAX package routes anisotropic tiles to
 # its chunked kernels (MAX_BWD_CAPACITY_ANISO, a v5e VMEM ceiling of the
@@ -257,14 +258,16 @@ def render_tiles_fused_aniso(tiled: AnisoScene, o, tile_dirs, counts=None, *,
     dpb, dqb = _block_sizes(k)
     pb = dpb if pb is None else pb
     qb = dqb if qb is None else qb
-    o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
-    oc = (tiled.mu - o_b).contiguous()
-    invd = (1.0 / (tiled.scale * tiled.scale)).contiguous()
-    dirs_t = tile_dirs.transpose(1, 2).contiguous()
-    colors_t = render_fused_aniso(oc, invd, tiled.magnitude.contiguous(),
-                                  tiled.albedo.contiguous(), dirs_t, counts, rb=rb, pb=pb,
-                                  qb=qb, rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name)
-    return colors_t.transpose(1, 2)
+    with span("launch"):
+        o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
+        oc = (tiled.mu - o_b).contiguous()
+        invd = (1.0 / (tiled.scale * tiled.scale)).contiguous()
+        dirs_t = tile_dirs.transpose(1, 2).contiguous()
+        colors_t = render_fused_aniso(oc, invd, tiled.magnitude.contiguous(),
+                                      tiled.albedo.contiguous(), dirs_t, counts, rb=rb, pb=pb,
+                                      qb=qb, rb_bwd=rb_bwd, erf_name=erf_name,
+                                      exp_name=exp_name)
+        return colors_t.transpose(1, 2)
 
 
 def render_rays_fused_aniso_impl(o, dirs, scene: AnisoScene, *, rb: int = 128,

@@ -69,6 +69,7 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     render_tiles_fused,
     save_t_bytes,
 )
+from sgrt_tpu_torch.utils.trace import span
 
 # Per-tile capacity above which the JAX package routes to its chunked
 # kernels (its MAX_BWD_CAPACITY, a v5e VMEM ceiling). The port's fused
@@ -248,11 +249,12 @@ class ChunkedRender(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dcol):
-        oc, sigma, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
-        o = ctx.opts
-        grads = chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol.contiguous(),
-                                 t[0] if t else None, ck=o.ck, rb=o.rb_bwd, qb=o.qb,
-                                 erf_name=o.erf_name, exp_name=o.exp_name)
+        with span("launch"):
+            oc, sigma, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
+            o = ctx.opts
+            grads = chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol.contiguous(),
+                                     t[0] if t else None, ck=o.ck, rb=o.rb_bwd, qb=o.qb,
+                                     erf_name=o.erf_name, exp_name=o.exp_name)
         return (*grads, None, None)
 
 
@@ -322,14 +324,15 @@ def render_tiles_chunked(tiled_scene: GaussianScene, o, tile_dirs, counts=None, 
         dpb, dqb = _block_sizes(min(k, ck))
         pb = dpb if pb is None else pb
         qb = dqb if qb is None else qb
-    o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
-    oc = (tiled_scene.mu - o_b).contiguous()
-    dirs_t = tile_dirs.transpose(1, 2).contiguous()
-    colors_t = render_fused_chunked(
-        oc, tiled_scene.sigma.contiguous(), tiled_scene.magnitude.contiguous(),
-        tiled_scene.albedo.contiguous(), dirs_t, counts, ck=ck, rb=rb, pb=pb, qb=qb,
-        rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name, save_t=save_t)
-    return colors_t.transpose(1, 2)
+    with span("launch"):
+        o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
+        oc = (tiled_scene.mu - o_b).contiguous()
+        dirs_t = tile_dirs.transpose(1, 2).contiguous()
+        colors_t = render_fused_chunked(
+            oc, tiled_scene.sigma.contiguous(), tiled_scene.magnitude.contiguous(),
+            tiled_scene.albedo.contiguous(), dirs_t, counts, ck=ck, rb=rb, pb=pb, qb=qb,
+            rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name, save_t=save_t)
+        return colors_t.transpose(1, 2)
 
 
 def _fused_route(render_tiles, capacity, pb, qb, rb, erf_name, exp_name):

@@ -60,6 +60,7 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     _kernel_erf_name,
     save_t_bytes,
 )
+from sgrt_tpu_torch.utils.trace import span
 
 _SRC, _TPU = "chunked.cu", "sgrt_tpu/ops/pallas_chunked_aniso.py"
 CHUNKED_FWD_ANISO = CudaKernel("chunked_fwd_aniso", _SRC, "sgrt_chunked_fwd_aniso",
@@ -192,11 +193,13 @@ class ChunkedRenderAniso(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dcol):
-        oc, invd, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
-        o = ctx.opts
-        grads = chunked_backward_aniso(oc, invd, mag, albedo, dirs_t, counts, dcol.contiguous(),
-                                       t[0] if t else None, ck=o.ck, rb=o.rb_bwd, qb=o.qb,
-                                       erf_name=o.erf_name, exp_name=o.exp_name)
+        with span("launch"):
+            oc, invd, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
+            o = ctx.opts
+            grads = chunked_backward_aniso(oc, invd, mag, albedo, dirs_t, counts,
+                                           dcol.contiguous(), t[0] if t else None, ck=o.ck,
+                                           rb=o.rb_bwd, qb=o.qb, erf_name=o.erf_name,
+                                           exp_name=o.exp_name)
         return (*grads, None, None)
 
 
@@ -245,12 +248,13 @@ def render_tiles_chunked_aniso(tiled: AnisoScene, o, tile_dirs, counts=None, *,
         dpb, dqb = _block_sizes(min(k, ck))
         pb = dpb if pb is None else pb
         qb = dqb if qb is None else qb
-    o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
-    oc = (tiled.mu - o_b).contiguous()
-    invd = (1.0 / (tiled.scale * tiled.scale)).contiguous()
-    dirs_t = tile_dirs.transpose(1, 2).contiguous()
-    colors_t = render_fused_chunked_aniso(
-        oc, invd, tiled.magnitude.contiguous(), tiled.albedo.contiguous(), dirs_t, counts,
-        ck=ck, rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name,
-        save_t=save_t)
-    return colors_t.transpose(1, 2)
+    with span("launch"):
+        o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
+        oc = (tiled.mu - o_b).contiguous()
+        invd = (1.0 / (tiled.scale * tiled.scale)).contiguous()
+        dirs_t = tile_dirs.transpose(1, 2).contiguous()
+        colors_t = render_fused_chunked_aniso(
+            oc, invd, tiled.magnitude.contiguous(), tiled.albedo.contiguous(), dirs_t, counts,
+            ck=ck, rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name,
+            save_t=save_t)
+        return colors_t.transpose(1, 2)

@@ -52,6 +52,7 @@ from sgrt_tpu_torch.ops.approx import ERF_AND_GAUSS_IMPLS, ERF_IMPLS, EXP_IMPLS,
 from sgrt_tpu_torch.ops.reference import INV_SQRT_2_PI
 from sgrt_tpu_torch.ops.render import _unit_pad
 from sgrt_tpu_torch.utils import nvcc
+from sgrt_tpu_torch.utils.trace import span
 
 K_TAPS = (-4.0, -3.0, -2.0, -1.0, 0.0)
 K_WEIGHTS = tuple(math.exp(-k * k / 2.0) for k in K_TAPS)
@@ -743,11 +744,12 @@ class FusedRender(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dcol):
-        oc, shape, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
-        o = ctx.opts
-        grads = o.ops[2](oc, shape, mag, albedo, dirs_t, counts, dcol.contiguous(),
-                         t[0] if t else None, rb=o.rb_bwd, qb=o.qb,
-                         erf_name=o.erf_name, exp_name=o.exp_name)
+        with span("launch"):
+            oc, shape, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
+            o = ctx.opts
+            grads = o.ops[2](oc, shape, mag, albedo, dirs_t, counts, dcol.contiguous(),
+                             t[0] if t else None, rb=o.rb_bwd, qb=o.qb,
+                             erf_name=o.erf_name, exp_name=o.exp_name)
         return (*grads, None, None)
 
 
@@ -808,14 +810,15 @@ def render_tiles_fused(tiled_scene: GaussianScene, o, tile_dirs, counts=None,
     dpb, dqb = _block_sizes(k)
     pb = dpb if pb is None else pb
     qb = dqb if qb is None else qb
-    o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
-    oc = (tiled_scene.mu - o_b).contiguous()                 # (T2, K, 3)
-    dirs_t = tile_dirs.transpose(1, 2).contiguous()           # (T2, 3, P)
-    colors_t = render_fused(
-        oc, tiled_scene.sigma.contiguous(), tiled_scene.magnitude.contiguous(),
-        tiled_scene.albedo.contiguous(), dirs_t, counts, rb=rb, pb=pb, qb=qb,
-        rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name)  # (T2, 3, P)
-    return colors_t.transpose(1, 2)
+    with span("launch"):
+        o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
+        oc = (tiled_scene.mu - o_b).contiguous()             # (T2, K, 3)
+        dirs_t = tile_dirs.transpose(1, 2).contiguous()       # (T2, 3, P)
+        colors_t = render_fused(
+            oc, tiled_scene.sigma.contiguous(), tiled_scene.magnitude.contiguous(),
+            tiled_scene.albedo.contiguous(), dirs_t, counts, rb=rb, pb=pb, qb=qb,
+            rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name)  # (T2, 3, P)
+        return colors_t.transpose(1, 2)
 
 
 def render_rays_fused_impl(o, dirs, scene: GaussianScene, *, rb: int = 128,

@@ -24,6 +24,7 @@ from sgrt_tpu_torch.ops.tiling import (
     tile_membership,
 )
 from sgrt_tpu_torch.utils.device import resolve_device
+from sgrt_tpu_torch.utils.trace import span
 
 BACKENDS = ("kernel", "torch")
 
@@ -87,10 +88,11 @@ def render_orbit_frame(
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     dev = scene.device
-    cam = orbit_camera(angle_deg, offset, focal_length, width, height, device=dev)
-    o, dirs = cam.rays()
-    no_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    with span("camera"):
+        cam = orbit_camera(angle_deg, offset, focal_length, width, height, device=dev)
+        o, dirs = cam.rays()
     if not use_tiling:
+        no_overflow = torch.zeros((), dtype=torch.int32, device=dev)
         if backend == "kernel":
             from sgrt_tpu_torch.ops.cuda_kernel import render_rays_fused_impl
 
@@ -101,14 +103,16 @@ def render_orbit_frame(
                                       erf_name=erf_name, exp_name=exp_name)
         return colors.reshape(height, width, 3), no_overflow
 
-    d = _tile_rays(dirs, height, width, tiles)
+    with span("tiling"):
+        d = _tile_rays(dirs, height, width, tiles)
     if backend == "kernel" and bucket_cfg is not None:
         from sgrt_tpu_torch.ops.scheduler import render_tiles_bucketed
 
         colors, _, overflow = render_tiles_bucketed(
             scene, cam.view_matrix, o, d, bucket_cfg, erf_name=erf_name,
             exp_name=exp_name, tiles=tiles, focal_length=focal_length)
-        return _untile_image(colors, height, width, tiles), overflow
+        with span("untile"):
+            return _untile_image(colors, height, width, tiles), overflow
     if backend == "kernel":
         from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
 
@@ -127,7 +131,8 @@ def render_orbit_frame(
         colors = _render_tiles_plain(o, gather_tiles(scene, idx), d, qb, tile_batch,
                                      erf_name, exp_name)
     overflow = torch.sum(counts > capacity, dtype=torch.int32)
-    return _untile_image(colors, height, width, tiles), overflow
+    with span("untile"):
+        return _untile_image(colors, height, width, tiles), overflow
 
 
 def render_orbit_frames(scene: GaussianScene, angles, offset=-4.0,
@@ -160,9 +165,12 @@ def _render_orbit_batch(scene: GaussianScene, angles, offset, focal_length, *, w
     if bucket_cfg is not None and not bucket_cfg.n_dense:
         capacity = max(capacity, bucket_cfg.cap_dense)
         bucket_cfg = None
-    cams = [orbit_camera(a, offset, focal_length, width, height, device=dev) for a in angles]
-    rays = [cam.rays() for cam in cams]
-    dirs = [_tile_rays(d, height, width, tiles) for _, d in rays]
+    with span("camera"):
+        cams = [orbit_camera(a, offset, focal_length, width, height, device=dev)
+                for a in angles]
+        rays = [cam.rays() for cam in cams]
+    with span("tiling"):
+        dirs = [_tile_rays(d, height, width, tiles) for _, d in rays]
 
     if bucket_cfg is None:
         cap, render_tiles = tile_renderer_for(capacity, erf_name=erf_name, exp_name=exp_name)
@@ -172,9 +180,10 @@ def _render_orbit_batch(scene: GaussianScene, angles, offset, focal_length, *, w
         colors = render_tiles(gather_tiles(scene, torch.cat([i for i, _ in tiled])),
                               torch.cat([o.expand(t2, 3) for o, _ in rays]),
                               torch.cat(dirs), counts)
-        imgs = [_untile_image(c, height, width, tiles) for c in colors.split(t2)]
-        return torch.stack(imgs), torch.sum(counts.reshape(-1, t2) > cap, dim=1,
-                                            dtype=torch.int32)
+        with span("untile"):
+            imgs = torch.stack([_untile_image(c, height, width, tiles)
+                                for c in colors.split(t2)])
+        return imgs, torch.sum(counts.reshape(-1, t2) > cap, dim=1, dtype=torch.int32)
 
     # bucketed: one dense and one sparse launch across all frames
     from sgrt_tpu_torch.ops.scheduler import BucketConfig, bucketed_tile_indices
@@ -201,11 +210,12 @@ def _render_orbit_batch(scene: GaussianScene, angles, offset, focal_length, *, w
     colors_d = launch(render_dense, dense_ids, idx_d).split(cfg.n_dense)
     colors_s = launch(render_sparse, sparse_ids, idx_s).split(t2 - cfg.n_dense)
     imgs = []
-    for d_ids, s_ids, c_d, c_s in zip(dense_ids, sparse_ids, colors_d, colors_s):
-        colors = c_s.new_zeros((t2,) + tuple(c_s.shape[1:]))
-        colors = colors.index_copy(0, s_ids, c_s).index_copy(0, d_ids, c_d)
-        imgs.append(_untile_image(colors, height, width, tiles))
-    return torch.stack(imgs), overflow
+    with span("untile"):
+        for d_ids, s_ids, c_d, c_s in zip(dense_ids, sparse_ids, colors_d, colors_s):
+            colors = c_s.new_zeros((t2,) + tuple(c_s.shape[1:]))
+            colors = colors.index_copy(0, s_ids, c_s).index_copy(0, d_ids, c_d)
+            imgs.append(_untile_image(colors, height, width, tiles))
+        return torch.stack(imgs), overflow
 
 
 def render_orbit_frames_batched(scene: GaussianScene, angles, offset=-4.0,

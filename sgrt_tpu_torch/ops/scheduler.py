@@ -24,6 +24,7 @@ import torch
 
 from sgrt_tpu_torch.models.gaussians import GaussianScene
 from sgrt_tpu_torch.ops.tiling import as_grid, compact_rows, gather_tiles, tile_membership
+from sgrt_tpu_torch.utils.trace import span
 
 
 class BucketConfig(NamedTuple):
@@ -201,7 +202,7 @@ def bucketed_tile_indices(scene: GaussianScene, view: torch.Tensor, tiles,
     ties keep tile order). interleave=D permutes each bucket so a
     contiguous 1/D slice holds every D-th tile of that order. No gradient
     flows through the indices."""
-    with torch.no_grad():
+    with torch.no_grad(), span("tiling"):
         member = tile_membership(scene, view, tiles, focal_length=focal_length)
         counts = torch.sum(member, dim=-1, dtype=torch.int32)
         order = torch.argsort(-counts, stable=True)
@@ -290,5 +291,6 @@ def render_tiles_bucketed(scene, view, o, tile_dirs, cfg: BucketConfig,
                                     erf_name=erf_name, exp_name=exp_name, rb=rb, pb=pb,
                                     qb=qb, focal_length=focal_length)
     colors, ids, counts, overflow = render(scene, view, o, tile_dirs)
-    colors = colors.new_zeros((t2,) + tuple(colors.shape[1:])).index_copy(0, ids, colors)
+    with span("untile"):
+        colors = colors.new_zeros((t2,) + tuple(colors.shape[1:])).index_copy(0, ids, colors)
     return colors, counts, overflow

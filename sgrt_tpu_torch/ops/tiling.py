@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from sgrt_tpu_torch.models.gaussians import GaussianScene
+from sgrt_tpu_torch.utils.trace import count_rows, span
 
 
 def as_grid(tiles) -> tuple[int, int]:
@@ -131,9 +132,10 @@ def tile_indices(scene: GaussianScene, view: torch.Tensor, tiles,
     (the dummy slot); counts (T2,) int32 — true member counts, so callers
     can detect capacity overflow).
     """
-    member = tile_membership(scene, view, tiles, focal_length=focal_length)
-    counts = torch.sum(member, dim=-1, dtype=torch.int32)
-    return compact_rows(member, capacity, scene.n), counts
+    with span("tiling"):
+        member = tile_membership(scene, view, tiles, focal_length=focal_length)
+        counts = torch.sum(member, dim=-1, dtype=torch.int32)
+        return compact_rows(member, capacity, scene.n), counts
 
 
 def gather_tiles(scene: GaussianScene, idx: torch.Tensor) -> GaussianScene:
@@ -141,13 +143,15 @@ def gather_tiles(scene: GaussianScene, idx: torch.Tensor) -> GaussianScene:
     (T2, K) axes. Index N selects the inert dummy row (sigma=1,
     magnitude=0). The four fields are packed into one (N+1, 8) matrix so
     the gather is one index_select."""
-    packed = torch.cat([scene.mu, scene.sigma[:, None], scene.magnitude[:, None],
-                        scene.albedo], dim=1)                   # (N, 8)
-    dummy = packed.new_zeros((1, 8))
-    dummy[0, 3] = 1.0
-    packed = torch.cat([packed, dummy])                         # (N+1, 8)
-    t2, k = idx.shape
-    out = packed.index_select(0, idx.reshape(-1)).reshape(t2, k, 8)
+    with span("gather"):
+        count_rows(idx, scene.n)
+        packed = torch.cat([scene.mu, scene.sigma[:, None], scene.magnitude[:, None],
+                            scene.albedo], dim=1)               # (N, 8)
+        dummy = packed.new_zeros((1, 8))
+        dummy[0, 3] = 1.0
+        packed = torch.cat([packed, dummy])                     # (N+1, 8)
+        t2, k = idx.shape
+        out = packed.index_select(0, idx.reshape(-1)).reshape(t2, k, 8)
     return GaussianScene(mu=out[..., 0:3], sigma=out[..., 3],
                          magnitude=out[..., 4], albedo=out[..., 5:8])
 

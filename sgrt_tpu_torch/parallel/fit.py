@@ -54,6 +54,7 @@ from sgrt_tpu_torch.ops.frame import BACKENDS
 from sgrt_tpu_torch.ops.render import _radiance_block, _tile_rays, render_rays_impl
 from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
 from sgrt_tpu_torch.parallel.mesh import replicate, shard_rays
+from sgrt_tpu_torch.utils.trace import span
 
 FIELDS = ("mu", "sigma", "magnitude", "albedo")
 
@@ -123,9 +124,10 @@ def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 def _apply_updates(state: FitState, grads, trainable) -> None:
     """One optimizer step: the trainable fields get their gradients, the
     others none (the optimizer skips them)."""
-    for f in scene_fields(state.scene):
-        getattr(state.scene, f).grad = getattr(grads, f) if f in trainable else None
-    state.opt_state.step()
+    with span("optimizer"):
+        for f in scene_fields(state.scene):
+            getattr(state.scene, f).grad = getattr(grads, f) if f in trainable else None
+        state.opt_state.step()
     state.step += 1
 
 
@@ -137,7 +139,10 @@ def _value_and_grad(loss_of, scene, trainable):
     leaves = {f: getattr(scene, f).detach().requires_grad_(f in trainable) for f in fields}
     loss, aux = loss_of(type(scene)(**leaves))
     wrt = [f for f in fields if f in trainable]
-    got = dict(zip(wrt, torch.autograd.grad(loss, [leaves[f] for f in wrt]))) if wrt else {}
+    got = {}
+    if wrt:
+        with span("backward"):
+            got = dict(zip(wrt, torch.autograd.grad(loss, [leaves[f] for f in wrt])))
     grads = type(scene)(**{f: got.get(f, torch.zeros_like(leaves[f])) for f in fields})
     return (loss.detach(), aux), grads
 
@@ -261,8 +266,10 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
                                              focal_length=focal_length)
 
         def vg(scene, view, o, dirs, target):
-            d = _tile_rays(dirs, height, width, tiles)
-            tgt = _tile_rays(target.reshape(-1, 3), height, width, tiles)
+            with span("tiling"):
+                d = _tile_rays(dirs, height, width, tiles)
+                tgt = _tile_rays(target.reshape(-1, 3), height, width, tiles)
+
             def loss_of(s):
                 colors, ids, _, ovf = render_mine(s, view, o, d)
                 return torch.mean((colors - tgt[ids]) ** 2), ovf
@@ -288,9 +295,10 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
         with torch.no_grad():
             idx, counts = tile_indices(proxy(scene), view, tiles, capacity,
                                        focal_length=focal_length)
+        with span("tiling"):
             overflow = torch.sum(counts > capacity, dtype=torch.int32)
-        d = _tile_rays(dirs, height, width, tiles)[mine]
-        tgt = _tile_rays(target.reshape(-1, 3), height, width, tiles)[mine]
+            d = _tile_rays(dirs, height, width, tiles)[mine]
+            tgt = _tile_rays(target.reshape(-1, 3), height, width, tiles)[mine]
 
         def loss_of(s):
             colors = render(gather(s, idx[mine]), o, d, counts[mine])
