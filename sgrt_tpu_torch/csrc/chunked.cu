@@ -133,14 +133,22 @@
 // What bounds them on this card: operations. Per live (p, q, ray) the
 // forward evaluates five A&S erf taps, the backward's p side five
 // exp(-x^2) and its q side five erf-and-gauss taps; the recompute backward
-// adds the forward's pass A. Each A&S 5-term erf tap is about 17 FP32
-// instructions (FMA, MUL, the Newton steps of the IEEE reciprocal and the
-// range reduction of expf) and 2 SFU operations (MUFU.RCP, MUFU.EX2), the
-// counts that the bound is taken from (chip_smoke.py's TAP_FP32); the
-// built forward's loop issues ~43 instructions a tap with its operand
-// reads and sums (kernel_resources' SASS count). At 16 SFU results per
-// clock per SM (compute capability 9.0) the SFU pipe and the FP32 pipe
-// bound a tap at about the same rate, ~2e12 taps/s on an H100 SXM. The
+// adds the forward's pass A. Each A&S 5-term erf tap (gauss_common.cuh,
+// erf_and_gauss<kErfAs5>) is 19 instructions of the FP32 and integer pipes
+// (the argument, 1 + p|x|, the Horner chain, the accurate expf of -x^2 with
+// x^2's rounding carried by an FMA, 1 - poly g, the sign by LOP3) and 2
+// SFU operations (MUFU.RCP, the SFU's reciprocal, and expf's MUFU.EX2);
+// the bound counts 17 FP32 and 2 SFU a tap (chip_smoke.py's TAP_FP32). The
+// p side's exp(-x^2) alone is gauss. The built forward's pass-A loop issues
+// ~23.9 instructions a tap with its operand reads and sums (kernel_resources'
+// SASS count; with the IEEE division and sign(x) by compares it issued
+// ~42.9). At 16 SFU results per clock per SM (compute capability 9.0) 2
+// MUFU a tap allow 8 taps a clock, and the 4 schedulers' 128
+// lane-instructions a clock 128 / 23.9 = 5.4: the forward is bound by
+// issue. The tap's accuracy (gauss_common.cuh, test_as5_tap_accuracy): e
+// within twice the IEEE form's error against the formula in float64, g
+// within 2^-21 of itself where it is above 2^-100, e(0) = 0 and e = +-1 for
+// |x| >= 4, exactly. The
 // other erfs of the forward's taps (gauss_common.cuh) use no SFU: taylor
 // ~23 FP32 (a clamp, x^2, a 10-term Horner), the two splines ~12-14 FP32
 // (saturation tests, a clamp, the segment's index floor(x / width), a
@@ -726,7 +734,7 @@ bwd_p_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
 #pragma unroll
           for (int k = 0; k < kTaps; ++k) {
             const float xk = (dd + tap_k(k) * sgp[i]) * invq;
-            const float gg = G[i][k] * expf(-xk * xk);  // erf_and_gauss's gauss
+            const float gg = G[i][k] * gauss(xk);  // as5 tap's gauss, for every erf
             t0 += gg;
             t1 += tap_k(k) * gg;
           }
@@ -1010,6 +1018,30 @@ bwd_q_kernel(const float* __restrict__ oc, const float* __restrict__ shape,
 
 size_t bwd_q_smem(int qb) {
   return sizeof(float) * (2 * kQPlanes * qb * kRays + 6 * kBwdPB * kRays * kBwdG + 3 * kRays);
+}
+
+// ---------------------------------------------------------------------------
+// the as5 tap alone, for its accuracy check (sgrt_as5_tap_probe; no path of
+// the renderer launches it)
+// ---------------------------------------------------------------------------
+
+// as5's tap in its IEEE form (an IEEE division, the accurate expf, sign(x)
+// by compares), the yardstick of erf_and_gauss<kErfAs5>'s accuracy.
+__device__ __forceinline__ void as5_tap_ieee(float x, float& e, float& g) {
+  const float t = 1.0f / (1.0f + 0.3275911f * fabsf(x));
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  g = expf(-x * x);
+  e = sign_of(x) * (1.0f - poly * g);
+}
+
+// out (4, n): the tap's e and g at x, then the IEEE form's.
+__global__ void as5_tap_probe(const float* __restrict__ x, float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  erf_and_gauss<kErfAs5>(x[i], out[i], out[n + i]);
+  as5_tap_ieee(x[i], out[2 * n + i], out[3 * n + i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1477,6 +1509,15 @@ int sgrt_split_bwd_color(const float* mb, const float* co, const float* sig, con
 long long sgrt_split_bwd_scratch_floats(int B, int N, int R, int threads) {
   return static_cast<long long>(
       scratch_layout(B, N, R, N, threads, true, Side<PlaneGeo>::kN, false));
+}
+
+// The as5 tap of every kernel (erf_and_gauss<kErfAs5>) at n float32 points
+// x, and its IEEE form beside it: out (4, n) = e, g, e_ieee, g_ieee.
+int sgrt_as5_tap_probe(const float* x, float* out, int n, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  as5_tap_probe<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                  static_cast<cudaStream_t>(stream)>>>(x, out, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Floats of the approximations' table (gauss_common.cuh, kApproxTab).

@@ -6,10 +6,14 @@
 // the ordered sum of per-block partials, and on the host a kernel's
 // resources per SM.
 //
-// No fast-math anywhere: the A&S reciprocal is an IEEE division and expf is
-// the accurate one, so "as5" is the float32-exact erf and the kernels agree
-// with their plain PyTorch versions (sgrt_tpu_torch/ops/cuda_kernel.py,
-// cuda_aniso.py) to summation order.
+// No fast-math flag: every exp and division is the accurate one but the A&S
+// reciprocal of the as5 tap (erf_and_gauss<kErfAs5>), which every pair loop
+// of every kernel runs: there it is the SFU's rcp.approx, exp(-x^2) is the
+// accurate expf with x^2's rounding carried by an FMA, and the sign is put
+// back with a bit operation (the note above erf_and_gauss<kErfAs5> gives
+// the sequence and its accuracy). The kernels agree with their plain
+// PyTorch versions (sgrt_tpu_torch/ops/cuda_kernel.py, cuda_aniso.py) to
+// summation order and the taps' rounding.
 
 #pragma once
 
@@ -100,26 +104,62 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
-// erf(x) and exp(-x^2) sharing the one expf (Abramowitz & Stegun 7.1.26
+// The SFU's reciprocal, one MUFU.RCP (ftz: a denormal input or result is
+// 0), for 1 + p|x| >= 1 within ~1 ulp of the IEEE division.
+__device__ __forceinline__ float rcp_approx(float y) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+  return r;
+}
+
+// exp(-x^2) of as5's tap and of the backward's p side (which needs only
+// this half, whatever the erf): x^2 = h + l exactly (FMA) and exp(-x^2) =
+// expf(-h) (1 - l) to float32 accuracy (|l| <= 2^-24 h): the accurate expf
+// (about 7 instructions beside its MUFU.EX2) and 3 FP32 more. Through
+// expf(-x x) alone, x x's rounding costs g up to 2^-18.9 of itself at
+// |x| ~ 7. MUFU.EX2 of a float32 -log2(e) x^2 is cheaper but reads 2^-17.3
+// there, and with that exponent's rounding carried by FMAs (2^-22.3) it
+// still leaves g ~4e-8 low on average over [0, 4]: the dense cell's float64
+// gate of ddirs, whose sums cancel, failed with it (PERF.md).
+__device__ __forceinline__ float gauss(float x) {
+  const float h = x * x;
+  const float l = fmaf(x, x, -h);
+  const float g = expf(-h);
+  return fmaf(g, -l, g);
+}
+
+// erf(x) and exp(-x^2) sharing the one exp (Abramowitz & Stegun 7.1.26
 // for as5, 7.1.25 for as3); the backward needs both, since
-// erf'(x) = 2/sqrt(pi) exp(-x^2). The polynomial's own exp is always the
-// accurate expf, whatever EXP the kernel is built with. An erf without a
-// pair of its own (taylor, spline, spline_mirror) takes as5's: the forward
-// evaluates the named erf (erf_fn), the backward's erf values and erf'
-// come from the pair.
+// erf'(x) = 2/sqrt(pi) exp(-x^2). The polynomial's own exp is always
+// gauss (as5) or the accurate expf (as3), whatever EXP the kernel is built
+// with. An erf without a pair of its own (taylor, spline, spline_mirror)
+// takes as5's: the forward evaluates the named erf (erf_fn), the
+// backward's erf values and erf' come from the pair.
 template <int ERF>
 __device__ __forceinline__ void erf_and_gauss(float x, float& e, float& g);
 
+// as5's tap, the kernels' erf: 1 + p|x| (FFMA, |x| an operand modifier),
+// t = 1/(1 + p|x|) (MUFU.RCP), the Horner chain in A&S's order (4 FFMA, 1
+// FMUL), g = gauss(x), 1 - poly g (FFMA) and x's sign (LOP3): 18 FP32 and
+// integer instructions and 2 MUFU (19 with the caller's argument), the
+// same coefficients and sums as the IEEE form (1/(1 + p|x|), expf(-x x),
+// sign(x) (1 - poly g)). Against the formula in float64, over 2^20 + 1
+// points of [-8, 8] on an H100, e is off by at most 4.54e-7 (the IEEE
+// form: 3.95e-7) and g by 2^-22.4 of itself (2^-18.9) where exp(-x^2) >=
+// 2^-100 (test_as5_tap_accuracy holds them to twice the IEEE form's e error
+// and to 2^-21); e(0) = 0 exactly (rcp(1) = 1, exp(0) = 1 and the float32
+// Horner chain at t = 1 is 1), and e = +-1 exactly for |x| >= 4 (poly g <
+// 2^-25 there).
 template <>
 __device__ __forceinline__ void erf_and_gauss<kErfAs5>(float x, float& e, float& g) {
-  const float a = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * a);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  g = expf(-x * x);
-  e = sign_of(x) * (1.0f - poly * g);
+  const float t = rcp_approx(fmaf(fabsf(x), 0.3275911f, 1.0f));
+  float poly = fmaf(t, 1.061405429f, -1.453152027f);
+  poly = fmaf(t, poly, 1.421413741f);
+  poly = fmaf(t, poly, -0.284496736f);
+  poly = fmaf(t, poly, 0.254829592f);
+  poly = t * poly;
+  g = gauss(x);
+  e = copysignf(fmaf(-poly, g, 1.0f), x);
 }
 
 template <>

@@ -187,6 +187,28 @@ FUSED_BWD_T = CudaKernel("fused_bwd_t", _SRC, "sgrt_fused_bwd_t", f"{_TPU}:948",
 FUSED_BWD = CudaKernel("fused_bwd", _SRC, "sgrt_fused_bwd", f"{_TPU}:1073", 14, 8, timed=True)
 
 
+def as5_tap_probe(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The as5 tap of every kernel (csrc/gauss_common.cuh,
+    erf_and_gauss<kErfAs5>) at the float32 points x, a 1-D tensor on the
+    card: (e, g), then (e, g) of the tap's IEEE form (an IEEE division and
+    the accurate expf) beside them, for the tap's accuracy check
+    (sgrt_as5_tap_probe in csrc/chunked.cu; no renderer path calls it)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 1 or x.numel() < 1:
+        raise ValueError("as5_tap_probe takes a non-empty 1-D float32 tensor on the card")
+    x = x.contiguous()
+    out = torch.empty((4, x.numel()), dtype=torch.float32, device=x.device)
+    lib = FUSED_FWD.library()
+    fn = lib.sgrt_as5_tap_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"as5_tap_probe failed: {lib.sgrt_cuda_error_string(err).decode()}")
+    return tuple(out)
+
+
 def _check_names(erf_name: str, exp_name: str, pb: int | None = None) -> None:
     if erf_name not in ERF_IMPLS or exp_name not in EXP_IMPLS:
         raise ValueError(

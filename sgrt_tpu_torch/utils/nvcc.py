@@ -6,8 +6,9 @@ the checkout (git-ignored). The library's name carries a hash of the source
 and the flags, so an edited source rebuilds and an unchanged one loads
 straight away. Nothing is built at import time.
 
-Flags: sm_90a (Hopper), -O3, and no --use_fast_math (it would turn expf and
-the A&S division into approximations). -Xptxas -v writes each kernel's
+Flags: sm_90a (Hopper), -O3, and no --use_fast_math (it would turn every
+expf and division into an approximation; the as5 erf tap takes the SFU's
+reciprocal by name, csrc/gauss_common.cuh). -Xptxas -v writes each kernel's
 registers, shared memory and spills to the build log beside the library.
 --split-compile=0 spreads one source's optimisation and ptxas over every
 CPU core, since chunked.cu instantiates its kernels for every erf and exp.

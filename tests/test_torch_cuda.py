@@ -10,7 +10,9 @@ imports JAX, which the port's machine need not have):
 Tolerances are the JAX package's (tests/test_pallas.py): 2e-5 for colors
 and T, 5e-5 of each field's max |value| for gradients. The kernels round
 the Gaussian exponent's inputs exactly as the plain versions do
-(csrc/gauss_common.cuh), so the two differ only by summation order.
+(csrc/gauss_common.cuh), so the two differ only by summation order and by
+the erf taps' own rounding (as5's tap takes the SFU's reciprocal;
+test_as5_tap_accuracy holds it to its float64 formula).
 """
 
 import numpy as np
@@ -847,3 +849,38 @@ def test_backwards_equal_for_every_name(erf_name, exp_name):
     assert torch.equal(colors, tk.fused_forward(*args, pb=8, **kw))
     for a, b in zip(tk.fused_backward(*args, dcol, t, **kw), tk.fused_backward(*args, dcol, **kw)):
         assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+def _as5_f64(x):
+    """as5's formula (A&S 7.1.26, the kernels' float32 coefficients) in
+    float64 at the float32 points x: (erf, exp(-x^2))."""
+    c = [float(np.float32(v)) for v in (0.3275911, 0.254829592, -0.284496736, 1.421413741,
+                                        -1.453152027, 1.061405429)]
+    xd = x.double()
+    t = 1.0 / (1.0 + c[0] * xd.abs())
+    poly = t * (c[1] + t * (c[2] + t * (c[3] + t * (c[4] + t * c[5]))))
+    g = torch.exp(-xd * xd)
+    return torch.sign(xd) * (1.0 - poly * g), g
+
+
+def test_as5_tap_accuracy():
+    """The as5 tap of every kernel (csrc/gauss_common.cuh, through the
+    sgrt_as5_tap_probe entry point) against its formula in float64, over
+    2^20 + 1 float32 points of [-8, 8] and the edges: |e - e64| at most
+    twice the worst of the tap's IEEE form (an IEEE division and expf, the
+    same probe), g within 2^-21 relative wherever exp(-x^2) >= 2^-100,
+    e(0) = 0 exactly and e = +-1 exactly (x's sign) for |x| >= 4."""
+    dev = _card()
+    edges = [0.0, -0.0, 4.0, -4.0, 3.92, -3.92, 1e-30, -1e-30, 20.0, -20.0]
+    x = torch.cat([torch.linspace(-8, 8, (1 << 20) + 1), torch.tensor(edges)]).to(dev)
+    e, g, e_ieee, _ = tk.as5_tap_probe(x)
+    torch.cuda.synchronize()
+    e64, g64 = _as5_f64(x)
+    err, err_ieee = (e.double() - e64).abs().max(), (e_ieee.double() - e64).abs().max()
+    assert err <= 2 * err_ieee, (float(err), float(err_ieee))
+    big = g64 >= 2.0 ** -100
+    rel = ((g.double() - g64).abs() / g64)[big].max()
+    assert rel <= 2.0 ** -21, float(rel)
+    assert (e[x == 0] == 0).all()
+    far = x.abs() >= 4
+    assert torch.equal(e[far], torch.sign(x[far]))
