@@ -1,0 +1,9 @@
+"""Host self time of the program's `backward` span (torch.autograd.grad, less
+the `launch` spans inside it) in the dense fit's traced window, ms per
+completed step."""
+
+from benchmark import spans
+
+
+def read(run):
+    return spans.host_ms_per_op(run, "backward")

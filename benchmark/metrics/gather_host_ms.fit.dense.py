@@ -1,0 +1,8 @@
+"""Host self time of the program's `gather` spans (both buckets' gathers) in
+the dense fit's traced window, ms per completed step."""
+
+from benchmark import spans
+
+
+def read(run):
+    return spans.host_ms_per_op(run, "gather")

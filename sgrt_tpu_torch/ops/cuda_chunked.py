@@ -69,7 +69,7 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     render_tiles_fused,
     save_t_bytes,
 )
-from sgrt_tpu_torch.utils.trace import span
+from sgrt_tpu_torch.utils.trace import count_saved_t, span
 
 # Per-tile capacity above which the JAX package routes to its chunked
 # kernels (its MAX_BWD_CAPACITY, a v5e VMEM ceiling). The port's fused
@@ -306,6 +306,7 @@ def render_fused_chunked(scene_oc, sigma, mag, albedo, dirs_t, counts=None, *,
                                erf_name=erf_name, exp_name=exp_name)
     if save_t is None:
         save_t = save_t_bytes(b, n, r) <= SAVE_T_CHUNKED_MAX_BYTES
+    count_saved_t(save_t_bytes(b, n, r), bool(save_t))
     opts = _ChunkedOpts(ck, rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
     return ChunkedRender.apply(*inputs, counts, opts)
 

@@ -60,7 +60,7 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     _kernel_erf_name,
     save_t_bytes,
 )
-from sgrt_tpu_torch.utils.trace import span
+from sgrt_tpu_torch.utils.trace import count_saved_t, span
 
 _SRC, _TPU = "chunked.cu", "sgrt_tpu/ops/pallas_chunked_aniso.py"
 CHUNKED_FWD_ANISO = CudaKernel("chunked_fwd_aniso", _SRC, "sgrt_chunked_fwd_aniso",
@@ -229,6 +229,7 @@ def render_fused_chunked_aniso(scene_oc, invd, mag, albedo, dirs_t, counts=None,
                                      erf_name=erf_name, exp_name=exp_name)
     if save_t is None:
         save_t = save_t_bytes(b, n, r) <= cuda_chunked.SAVE_T_CHUNKED_MAX_BYTES
+    count_saved_t(save_t_bytes(b, n, r), bool(save_t))
     opts = _ChunkedOpts(ck, rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
     return ChunkedRenderAniso.apply(*inputs, counts, opts)
 

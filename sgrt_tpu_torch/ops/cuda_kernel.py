@@ -52,7 +52,7 @@ from sgrt_tpu_torch.ops.approx import ERF_AND_GAUSS_IMPLS, ERF_IMPLS, EXP_IMPLS,
 from sgrt_tpu_torch.ops.reference import INV_SQRT_2_PI
 from sgrt_tpu_torch.ops.render import _unit_pad
 from sgrt_tpu_torch.utils import nvcc
-from sgrt_tpu_torch.utils.trace import span
+from sgrt_tpu_torch.utils.trace import count_saved_t, span
 
 K_TAPS = (-4.0, -3.0, -2.0, -1.0, 0.0)
 K_WEIGHTS = tuple(math.exp(-k * k / 2.0) for k in K_TAPS)
@@ -796,6 +796,7 @@ def _render_fused(ops, scene_oc, shape, mag, albedo, dirs_t, counts, *, rb, pb, 
                       exp_name=exp_name)
     if save_t is None:
         save_t = save_t_bytes(b, n, r) <= SAVE_T_MAX_BYTES
+    count_saved_t(save_t_bytes(b, n, r), bool(save_t))
     opts = _FusedOpts(ops, rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
     return FusedRender.apply(*inputs, counts, opts)
 

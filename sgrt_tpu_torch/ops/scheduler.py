@@ -40,6 +40,18 @@ class BucketConfig(NamedTuple):
         )
 
 
+class BucketedRender(NamedTuple):
+    """One frame of make_bucketed_renderer's render."""
+    colors: torch.Tensor      # (M, P, 3) of the tiles `ids`
+    ids: torch.Tensor         # (M,)
+    counts: torch.Tensor      # (T2,) true live counts
+    overflow: torch.Tensor    # 0-d int32: tiles whose true count exceeds their bucket's
+                              # capacity; 0 means nothing was dropped
+    rows: list                # per bucket, in the order of the colors: (tile ids (M_b,),
+                              # indices (M_b, cap_b), the gathered scene with leading
+                              # (M_b, cap_b) axes), to differentiate at the rows rendered
+
+
 # Decision constants for devices where nothing is measured (the CPU): the
 # JAX package's own static cost model, kept so that bucket decisions made
 # on the CPU equal the JAX package's. They describe no speed of the port.
@@ -220,9 +232,7 @@ def make_bucketed_renderer(cfg: BucketConfig, *, tiles, aniso: bool = False, mes
                            erf_name: str = "as5", exp_name: str = "exact", rb: int = 128,
                            pb: int | None = None, qb: int | None = None, focal_length=1.0):
     """Two-bucket tiled render of this rank's tiles: render(scene, view, o,
-    tile_dirs (T2, P, 3)) → (colors (M, P, 3) of the tiles `ids` (M,), ids,
-    counts (T2,), overflow (0-d int32: the frame's tiles whose true count
-    exceeds their bucket's capacity; 0 means nothing was dropped)).
+    tile_dirs (T2, P, 3)) → BucketedRender of this rank's M tiles.
 
     mesh (parallel.mesh.Mesh) None is one rank holding every tile; over a
     mesh of D ranks each bucket is permuted by bucketed_tile_indices'
@@ -261,13 +271,17 @@ def make_bucketed_renderer(cfg: BucketConfig, *, tiles, aniso: bool = False, mes
             focal_length=focal_length, interleave=n_dev)
         overflow = (torch.sum(counts[sparse_ids] > cfg.cap_sparse)
                     + torch.sum(counts[dense_ids] > cfg.cap_dense)).to(torch.int32)
-        ids_s = sparse_ids[ss]
-        colors = render_sparse(gather(scene, idx_s[ss]), o, tile_dirs[ids_s], counts[ids_s])
+        ids_s, idx_s = sparse_ids[ss], idx_s[ss]
+        rows_s = gather(scene, idx_s)
+        colors = render_sparse(rows_s, o, tile_dirs[ids_s], counts[ids_s])
+        rows = [(ids_s, idx_s, rows_s)]
         if n_d == 0:
-            return colors, ids_s, counts, overflow
-        ids_d = dense_ids[sd]
-        colors_d = render_dense(gather(scene, idx_d[sd]), o, tile_dirs[ids_d], counts[ids_d])
-        return torch.cat([colors_d, colors]), torch.cat([ids_d, ids_s]), counts, overflow
+            return BucketedRender(colors, ids_s, counts, overflow, rows)
+        ids_d, idx_d = dense_ids[sd], idx_d[sd]
+        rows_d = gather(scene, idx_d)
+        colors_d = render_dense(rows_d, o, tile_dirs[ids_d], counts[ids_d])
+        return BucketedRender(torch.cat([colors_d, colors]), torch.cat([ids_d, ids_s]), counts,
+                              overflow, [(ids_d, idx_d, rows_d)] + rows)
 
     return render
 
@@ -290,7 +304,8 @@ def render_tiles_bucketed(scene, view, o, tile_dirs, cfg: BucketConfig,
     render = make_bucketed_renderer(cfg, tiles=tiles, aniso=isinstance(scene, AnisoScene),
                                     erf_name=erf_name, exp_name=exp_name, rb=rb, pb=pb,
                                     qb=qb, focal_length=focal_length)
-    colors, ids, counts, overflow = render(scene, view, o, tile_dirs)
+    out = render(scene, view, o, tile_dirs)
     with span("untile"):
-        colors = colors.new_zeros((t2,) + tuple(colors.shape[1:])).index_copy(0, ids, colors)
-    return colors, counts, overflow
+        colors = out.colors.new_zeros((t2,) + tuple(out.colors.shape[1:])).index_copy(
+            0, out.ids, out.colors)
+    return colors, out.counts, out.overflow

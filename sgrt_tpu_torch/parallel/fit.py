@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -131,20 +131,55 @@ def _apply_updates(state: FitState, grads, trainable) -> None:
     state.step += 1
 
 
-def _value_and_grad(loss_of, scene, trainable):
-    """loss_of(masked scene) → (loss, aux); returns ((loss, aux), grads), a
-    scene of the same class: gradients of the trainable fields, zeros for
-    the frozen ones (the JAX package's stop_gradient mask)."""
+class TileOutput(NamedTuple):
+    """One tile of a frame step, handed over on request (vg's per_tile)."""
+    colors: torch.Tensor     # (P, 3), the tile's rays in tile order
+    members: torch.Tensor    # (k,) int64: the scene indices of its live rows, ascending
+    grads: dict              # trainable field → (k, ...): the gradient of the tile's
+                             # share of the frame loss at its members
+
+
+def _value_and_grad(loss_of, scene, trainable, at=None):
+    """loss_of(masked scene) → (loss, aux); returns ((loss, aux), grads,
+    at_grads): grads a scene of the same class, gradients of the trainable
+    fields, zeros for the frozen ones (the JAX package's stop_gradient
+    mask); at_grads the gradients at the tensors that at() returns once
+    loss_of has run (tensors of its graph), from the same autograd call,
+    [] when at is None."""
     fields = scene_fields(scene)
     leaves = {f: getattr(scene, f).detach().requires_grad_(f in trainable) for f in fields}
     loss, aux = loss_of(type(scene)(**leaves))
     wrt = [f for f in fields if f in trainable]
-    got = {}
+    extra = list(at()) if at is not None and wrt else []
+    got, at_grads = {}, []
     if wrt:
         with span("backward"):
-            got = dict(zip(wrt, torch.autograd.grad(loss, [leaves[f] for f in wrt])))
+            g = torch.autograd.grad(loss, [leaves[f] for f in wrt] + extra)
+        got, at_grads = dict(zip(wrt, g)), list(g[len(wrt):])
     grads = type(scene)(**{f: got.get(f, torch.zeros_like(leaves[f])) for f in fields})
-    return (loss.detach(), aux), grads
+    return (loss.detach(), aux), grads, at_grads
+
+
+def _tile_outputs(want, colors, rows, at_grads, wrt, n):
+    """{tile id: TileOutput} of the tiles `want`. colors (M, P, 3) in
+    the order of rows, per bucket (tile ids, indices, gathered scene);
+    at_grads the gradients at each bucket's gathered fields `wrt`, bucket
+    after bucket. Waits for the device."""
+    want, out, pos, k = {int(t) for t in want}, {}, 0, 0
+    for ids, idx, _ in rows:
+        live = idx != n
+        sizes = live.sum(1).tolist()
+        members = idx[live].long().split(sizes)
+        grads = {f: g[live].split(sizes) for f, g in zip(wrt, at_grads[k:k + len(wrt)])}
+        k += len(wrt)
+        for p, t in enumerate(ids.tolist()):
+            if t in want:
+                out[t] = TileOutput(colors[pos + p].detach(), members[p],
+                                    {f: g[p] for f, g in grads.items()})
+        pos += ids.numel()
+    if len(out) != len(want):
+        raise ValueError(f"no such tiles in the frame: {sorted(want - set(out))}")
+    return out
 
 
 def _reduce_over_mesh(mesh, loss, grads, *, mean: bool = True):
@@ -180,7 +215,7 @@ def make_train_step(mesh=None, loss_fn: Callable = l2_loss,
                 colors = render_rays_impl(o, dirs, scene, q_block, ray_block)
             return loss_fn(colors, target), None
 
-        (loss, _), grads = _value_and_grad(loss_of, state.scene, trainable)
+        (loss, _), grads, _ = _value_and_grad(loss_of, state.scene, trainable)
         loss, grads = _reduce_over_mesh(mesh, loss, grads)
         _apply_updates(state, grads, trainable)
         return state, loss
@@ -239,7 +274,15 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
     interleave), then their means over the mesh by one all-reduce; every
     rank holds as many tiles, so the mean of the ranks' means is the
     frame's. A tile count, or bucket sizes, the mesh does not divide raise
-    ValueError. mesh None is one rank holding every tile."""
+    ValueError. mesh None is one rank holding every tile.
+
+    vg(..., per_tile=d), d a dict keyed by tile ids, also sets d[tile] to
+    that tile's TileOutput: its colors, its members and the gradient of its
+    share of the frame loss (its sum of squares over H*W*3) at its members,
+    taken at the gathered rows in the same autograd call: what the gather's
+    transpose scatters into the scene. Without the request vg runs the same
+    launches and returns the same tensors; with a mesh the request raises
+    ValueError."""
     from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
     from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for, tile_renderer_for
     from sgrt_tpu_torch.ops.tiling import as_grid
@@ -253,8 +296,19 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
     tx, ty = as_grid(tiles)
     mine = slice(None) if mesh is None else mesh.shard(tx * ty)
 
-    def mean_over_mesh(loss_of, scene):
-        (loss, overflow), grads = _value_and_grad(loss_of, scene, trainable)
+    def mean_over_mesh(loss_of, scene, per_tile, held):
+        """The loss and gradients, means over the mesh; on request per_tile
+        filled from held, the (colors, rows) that loss_of keeps."""
+        at = wrt = None
+        if per_tile is not None:
+            if mesh is not None:
+                raise ValueError("per-tile outputs are not given over a mesh")
+            wrt = [f for f in scene_fields(scene) if f in trainable]
+            at = lambda: [getattr(r, f) for _, _, r in held[0][1] for f in wrt]  # noqa: E731
+        (loss, overflow), grads, at_grads = _value_and_grad(loss_of, scene, trainable, at)
+        if per_tile is not None:
+            per_tile.update(_tile_outputs(per_tile, *held[0], at_grads, wrt,
+                                          scene.mu.shape[0]))
         loss, grads = _reduce_over_mesh(mesh, loss, grads)
         return (loss, overflow), grads
 
@@ -265,16 +319,19 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
                                              erf_name=erf_name, exp_name=exp_name,
                                              focal_length=focal_length)
 
-        def vg(scene, view, o, dirs, target):
+        def vg(scene, view, o, dirs, target, per_tile=None):
             with span("tiling"):
                 d = _tile_rays(dirs, height, width, tiles)
                 tgt = _tile_rays(target.reshape(-1, 3), height, width, tiles)
+            held = []
 
             def loss_of(s):
-                colors, ids, _, ovf = render_mine(s, view, o, d)
-                return torch.mean((colors - tgt[ids]) ** 2), ovf
+                out = render_mine(s, view, o, d)
+                if per_tile is not None:
+                    held.append((out.colors, out.rows))
+                return torch.mean((out.colors - tgt[out.ids]) ** 2), out.overflow
 
-            return mean_over_mesh(loss_of, scene)
+            return mean_over_mesh(loss_of, scene, per_tile, held)
 
         return vg
 
@@ -291,7 +348,7 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
             return _torch_tile_render(tiled, o, d, min(q_block, capacity), tile_batch)
     gather, proxy = (gather_tiles_aniso, iso_proxy) if aniso else (gather_tiles, lambda s: s)
 
-    def vg(scene, view, o, dirs, target):
+    def vg(scene, view, o, dirs, target, per_tile=None):
         with torch.no_grad():
             idx, counts = tile_indices(proxy(scene), view, tiles, capacity,
                                        focal_length=focal_length)
@@ -299,21 +356,27 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
             overflow = torch.sum(counts > capacity, dtype=torch.int32)
             d = _tile_rays(dirs, height, width, tiles)[mine]
             tgt = _tile_rays(target.reshape(-1, 3), height, width, tiles)[mine]
+        held = []
 
         def loss_of(s):
-            colors = render(gather(s, idx[mine]), o, d, counts[mine])
+            rows = gather(s, idx[mine])
+            colors = render(rows, o, d, counts[mine])
+            if per_tile is not None:
+                ids = torch.arange(tx * ty, device=idx.device)[mine]
+                held.append((colors, [(ids, idx[mine], rows)]))
             return torch.mean((colors - tgt) ** 2), overflow
 
-        return mean_over_mesh(loss_of, scene)
+        return mean_over_mesh(loss_of, scene, per_tile, held)
 
     return vg
 
 
 def _step_of(vg, trainable):
-    """The frame step around vg: step(state, view, o, dirs, target) →
-    (state, loss, overflow), the update applied in place."""
-    def step(state: FitState, view, o, dirs, target):
-        (loss, overflow), grads = vg(state.scene, view, o, dirs, target)
+    """The frame step around vg: step(state, view, o, dirs, target,
+    per_tile=None) → (state, loss, overflow), the update applied in place;
+    per_tile as vg's."""
+    def step(state: FitState, view, o, dirs, target, per_tile=None):
+        (loss, overflow), grads = vg(state.scene, view, o, dirs, target, per_tile=per_tile)
         _apply_updates(state, grads, trainable)
         return state, loss, overflow
 
@@ -416,7 +479,7 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
                 colors = render(gather(sc, idx[sl]), o, d[sl], counts[sl])
                 return torch.sum((colors - tgt[sl]) ** 2), None
 
-            (loss, _), g = _value_and_grad(loss_of, state.scene, trainable)
+            (loss, _), g, _ = _value_and_grad(loss_of, state.scene, trainable)
             if total is None:
                 total, grads = loss, g
             else:

@@ -66,10 +66,9 @@ def make_sharded_frame_renderer(mesh: Mesh, *, width: int = 256, height: int = 2
                                              focal_length=focal_length)
 
         def render(scene, view, o, dirs):
-            colors, ids, _, overflow = render_mine(scene, view, o,
-                                                   _tile_rays(dirs, height, width, tiles))
-            colors = mesh.gather_rows(colors, ids, t2)
-            return _untile_image(colors, height, width, tiles), overflow
+            out = render_mine(scene, view, o, _tile_rays(dirs, height, width, tiles))
+            colors = mesh.gather_rows(out.colors, out.ids, t2)
+            return _untile_image(colors, height, width, tiles), out.overflow
 
         return render
 

@@ -28,6 +28,12 @@ The row counter, at the gather: rows gathered (every index, the padding
 included) and live rows (indices other than the dummy row N). Both count
 only while a profiler is recording. Live rows add up on the device with no
 sync; rows() reads both, reset_rows() zeroes them.
+
+The saved-T counter, where a differentiable kernel launch picks its
+backward (the fused and chunked routes, isotropic and anisotropic): the
+bytes of the T residual saved for the backward, the launches that saved T
+and those that recompute it. It counts only while a profiler is recording;
+saved_t() reads it, and reset_rows() zeroes it with the row counter.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ SPANS = ("camera", "tiling", "gather", "launch", "backward", "optimizer", "until
 _OFF = contextlib.nullcontext()
 _gathered = 0
 _live: dict = {}          # device → 0-d int64 tensor of live rows
+_saved_t = [0, 0, 0]      # bytes of T saved, launches saving T, launches recomputing
 
 
 def span(name: str):
@@ -68,7 +75,27 @@ def rows() -> tuple[int, int]:
     return _gathered, sum(int(v) for v in _live.values())
 
 
+def count_saved_t(nbytes: int, saved: bool) -> None:
+    """Count a differentiable launch's backward route: T of nbytes saved
+    for it (saved) or recomputed by it."""
+    if not _profiler._is_profiler_enabled:
+        return
+    if saved:
+        _saved_t[0] += nbytes
+        _saved_t[1] += 1
+    else:
+        _saved_t[2] += 1
+
+
+def saved_t() -> tuple[int, int, int]:
+    """(bytes of T saved, launches that saved T, launches that recompute
+    it) since the last reset."""
+    return tuple(_saved_t)
+
+
 def reset_rows() -> None:
+    """Zero the row counter and the saved-T counter."""
     global _gathered
     _gathered = 0
     _live.clear()
+    _saved_t[:] = [0, 0, 0]

@@ -117,3 +117,47 @@ def test_every_span_reaches_the_exported_chrome_trace(setup, call, tmp_path):
         e["name"] for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"]
         if e.get("cat") == "user_annotation" and e.get("name") in trace.SPANS)
     assert exported == recorded and len(recorded) >= 5
+
+
+def _render_route(route, save_t):
+    """One differentiable launch of B 2, N 256, R 8 rows through `route`."""
+    from sgrt_tpu_torch.ops.cuda_chunked import render_fused_chunked
+    from sgrt_tpu_torch.ops.cuda_kernel import render_fused
+
+    g = torch.Generator().manual_seed(3)
+    oc = torch.randn((2, 256, 3), generator=g).add_(torch.tensor([0.0, 0.0, 4.0]))
+    sigma, mag = torch.full((2, 256), 0.3), torch.ones((2, 256))
+    alb = torch.rand((2, 256, 3), generator=g)
+    d = torch.randn((2, 3, 8), generator=g)
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    args = [t.requires_grad_() for t in (oc, sigma, mag, alb)] + [d]
+    counts = torch.full((2,), 40, dtype=torch.int32)
+    if route == "chunked":
+        return render_fused_chunked(*args, counts, ck=128, save_t=save_t)
+    return render_fused(*args, counts, save_t=save_t)
+
+
+@pytest.mark.parametrize("route", ["fused", "chunked"])
+def test_saved_t_counts_the_residual_under_a_profiler(route):
+    """A launch that saves T counts its 20 B N R bytes, one that recomputes
+    counts a launch, only while a profiler records; reset_rows zeroes the
+    saved-T counter with the row counter."""
+    trace.reset_rows()
+    _render_route(route, None)
+    assert trace.saved_t() == (0, 0, 0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _render_route(route, None)       # 20 B N R bytes fit the budget: saved
+        _render_route(route, False)
+        with torch.no_grad():
+            _render_route(route, None)   # no backward to come: not counted
+    assert trace.saved_t() == (20 * 2 * 256 * 8, 1, 1)
+    trace.reset_rows()
+    assert trace.saved_t() == (0, 0, 0) and trace.rows() == (0, 0)
+
+
+def test_saved_t_of_a_step_is_its_launch(setup):
+    """The frame step's one launch, 16 tiles of 64 rays at capacity 32,
+    saves its T."""
+    trace.reset_rows()
+    _recorded(CALLS["step"], setup)
+    assert trace.saved_t() == (20 * 16 * 32 * 64, 1, 0)
