@@ -70,6 +70,10 @@ comes out, and times the kernels:
             HTTP (isotropic tiled and untiled, anisotropic tiled at sx=3,
             an image after an edit: each equal to the direct render, no
             overflow), and the native PNG writer against the Python encoder;
+  tiling    the tiling kernel (csrc/tiling.cu) against the plain chain it
+            replaces, bit for bit, at the cube fit's and the dense orbit's
+            shapes over 8 orbit views, both timed; one cube-fit train step
+            under torch's sync debug mode, its synchronising calls listed;
   distributed the mesh paths (sgrt_tpu_torch.parallel: mesh, render and the
             mesh branches of fit): every case first on one device, then the
             north-star step over a one-rank NCCL group in this process, then
@@ -242,6 +246,18 @@ CHAIN_FP32, CHAIN_SFU = 40, 2
 SPLIT_SUB_TILES, SPLIT_DENSE_CAP, SPLIT_REL = 32, 4352, TRAIN_REL
 # the viewer phase: the cube cloud at 128x128 in 16x16 tiles
 VIEWER_SIZE, VIEWER_TILES = 128, 16
+# the tiling kernel (csrc/tiling.cu) at the benchmark's shapes: the cube
+# fit's (3644 Gaussians, 32x16 tiles, its pinned capacity 471), the cube
+# orbit's (64x32 tiles, capacity 379) and the 50k sphere's at the dense
+# orbit's grid and capacity (64x32, 5308: the non-bucketed frame at large N,
+# e.g. render_orbit_frame and parallel/render.py; the dense cells themselves
+# tile by the chain in bucketed_tile_indices); per (tile, Gaussian)
+# pair the test's 2 subtractions and 2 compares, per Gaussian the
+# projection's ~18 FP32, the focal length's 4 and 3 IEEE divisions (~8 FP32
+# and a MUFU.RCP each)
+TILING_CASES = {"cube_fit": ("cube", (32, 16), 471), "cube_orbit": ("cube", (64, 32), 379),
+                "dense_orbit": ("sphere", (64, 32), 5308)}
+TILE_PAIR_FP32, TILE_ROW_FP32 = 4, 46
 
 
 def emit(phase: str, **fields) -> None:
@@ -2860,6 +2876,7 @@ def approx_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> None:
     from sgrt_tpu_torch.ops import cuda_kernel as ck
     from sgrt_tpu_torch.ops import kernels
     from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+    from sgrt_tpu_torch.ops.cuda_tiling import TILE_COMPACT
     from sgrt_tpu_torch.ops.frame import orbit_camera, probe_buckets, probe_capacity
     from sgrt_tpu_torch.ops.frame import render_orbit_frame
     from sgrt_tpu_torch.ops.reference import render_rays_reference
@@ -2929,8 +2946,10 @@ def approx_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> None:
             rc = cli.main(argv)
         launches = {k.name: k.launches for k in kernels.KERNELS if k.launches}
         check(rc == 0, f"cli --erf {e} --exp {x} exited {rc}: {stderr.getvalue()[-2000:]}")
-        check(set(launches) == {ck.FUSED_FWD.name},
-              f"cli --erf {e} --exp {x} did not run the forward kernel alone: {launches}")
+        check(set(launches) == {ck.FUSED_FWD.name, TILE_COMPACT.name}
+              and launches[TILE_COMPACT.name] == FRAMES,
+              f"cli --erf {e} --exp {x} did not run the forward kernel and the tiling "
+              f"kernel (once a frame) alone: {launches}")
         check("overflow" not in stderr.getvalue(), stderr.getvalue()[-2000:])
         avg = re.search(r"AVG\. TIME: ([\d.]+) ms", stdout.getvalue())
         check(avg is not None, f"no AVG. TIME line: {stdout.getvalue()!r}")
@@ -3052,6 +3071,7 @@ def frontends_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
     from sgrt_tpu_torch.ops.cuda_aniso import FUSED_FWD_ANISO
     from sgrt_tpu_torch.ops.cuda_chunked_aniso import CHUNKED_FWD_ANISO
     from sgrt_tpu_torch.ops.cuda_kernel import FUSED_FWD, _block_sizes, fused_forward
+    from sgrt_tpu_torch.ops.cuda_tiling import TILE_COMPACT
     from sgrt_tpu_torch.ops.frame import (orbit_camera, probe_buckets, render_orbit_frame,
                                           render_orbit_frames_batched)
     from sgrt_tpu_torch.ops.render import _tile_rays, render_tiled
@@ -3078,8 +3098,9 @@ def frontends_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
     imgs, ovf = batched()
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS if k.launches}
-    check(launches == {FUSED_FWD.name: 1},
-          f"the batched orbit did not run kernel 1 once: {launches}")
+    check(launches == {FUSED_FWD.name: 1, TILE_COMPACT.name: FRAMES},
+          f"the batched orbit did not run kernel 1 once and the tiling kernel once a "
+          f"frame: {launches}")
     check(int(ovf) == 0 and all(int(o) == 0 for _, o in per_frame), "the orbit overflowed")
     equal = [bool(torch.equal(imgs[i], im)) for i, (im, _) in enumerate(per_frame)]
     check(all(equal), f"batched frames differ from the per-frame renders: {equal}")
@@ -3135,9 +3156,14 @@ def frontends_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
     # bucketed render
     S, tangles = TRAIN_SIZE, [0.0, 25.0, 50.0, 75.0, 100.0]
     probed = probe_buckets(scene, ANGLES, OFFSET, FOCAL, TRAIN_TILES, margin=1.2)
+    # the probe's timed cost model keeps one bucket or two from run to run:
+    # both kinds run every time (one bucket tiles by the kernel, two by the
+    # chain)
     cfgs = {"probed": probed}
     if not probed.n_dense:
         cfgs["two_buckets"] = two_bucket_config(scene, TRAIN_TILES, 1.2)
+    else:
+        cfgs["one_bucket"] = probed._replace(n_dense=0, cap_sparse=probed.cap_dense)
     bucketed = {}
     for name, cfg in cfgs.items():
         bkw = dict(width=S, height=S, tiles=TRAIN_TILES, capacity=cfg.cap_dense, bucket_cfg=cfg)
@@ -3154,8 +3180,14 @@ def frontends_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> dict:
         check(all(b_equal), f"bucketed batched frames ({name}) differ: {b_equal}")
         check(int(b_ovf) == sum(int(o) for _, o in ref), f"bucketed overflow: {bucketed}")
         want = 2 * (2 if cfg.n_dense else 1)      # two batches of one or two launches
-        check(sum(b_launches.values()) == want, f"bucketed batched launches ({name}): "
-              f"{b_launches}, want {want}")
+        # no dense bucket folds into tile_indices: the tiling kernel once a
+        # frame, the last batch's padding frame too; with one,
+        # bucketed_tile_indices tiles by the plain chain
+        tilings = 0 if cfg.n_dense else -(-len(tangles) // 3) * 3
+        renders = sum(v for k, v in b_launches.items() if k != TILE_COMPACT.name)
+        check(renders == want and b_launches.get(TILE_COMPACT.name, 0) == tilings,
+              f"bucketed batched launches ({name}): {b_launches}, want {want} renders "
+              f"and {tilings} tilings")
     emit("frontends_bucketed_orbit", size=S, tiles=list(TRAIN_TILES), frames=len(tangles),
          batch_frames=3, runs=bucketed)
 
@@ -3650,6 +3682,138 @@ def distributed_phases(dev, smi: str) -> None:
          config=cfg, power_limit=smi)
 
 
+def tiling_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> list:
+    """The tiling kernel (csrc/tiling.cu through ops.tiling.tile_indices)
+    against the plain chain it replaces, bit for bit, at TILING_CASES' 8
+    orbit views each; its device time a launch (CUDA events around 50
+    launches queued behind a spin of the card, so the host's dispatch
+    between them does not count; torch.profiler dropped most of them late in
+    a full run) and the wall time a call of it and of the chain (CUDA events
+    over many calls);
+    and one cube-fit train step under torch's sync debug mode "warn": the
+    synchronising calls the step still makes (none may come from the tiling:
+    ops/cuda_tiling.py, ops/cuda_kernel.py or tile_indices' lines), and its
+    launches of the tiling kernel (one). Returns the kernel line's entry."""
+    import inspect
+    import warnings
+
+    import torch
+
+    from sgrt_tpu_torch.models.gaussians import scene_from_vertices
+    from sgrt_tpu_torch.ops import cuda_kernel, cuda_tiling, kernels, tiling
+    from sgrt_tpu_torch.ops.cuda_tiling import TILE_COMPACT
+    from sgrt_tpu_torch.ops.frame import orbit_camera, render_orbit_frame
+    from sgrt_tpu_torch.parallel.fit import FIELDS, adam, init_state, make_frame_train_step
+    from sgrt_tpu_torch.utils import nvcc
+
+    def chain(scene, view, tiles, cap):
+        member = tiling.tile_membership(scene, view, tiles, focal_length=FOCAL)
+        return (tiling.compact_rows(member, cap, scene.n),
+                torch.sum(member, dim=-1, dtype=torch.int32))
+
+    def kernel(scene, view, tiles, cap):
+        return tiling.tile_indices(scene, view, tiles, cap, focal_length=FOCAL)
+
+    def queued_us(fn, iters=50, spin_cycles=40_000_000):
+        """(us a launch on the device, ms the host took to queue them):
+        the launches wait behind ~20 ms of spin, so they run back to back
+        while the host queues them are under it."""
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) * 1e3 / iters, host_ms
+
+    cases, entry_us = {}, {}
+    for name, (kind, tiles, cap) in TILING_CASES.items():
+        pts = smoke_points() if kind == "cube" else sphere_points(DENSE_N)
+        scene = scene_from_vertices(pts, device=dev)
+        views = [orbit_camera(a, OFFSET, FOCAL, 8, 8, device=dev).view_matrix
+                 for a in np.arange(8) * 45.0]
+        before = TILE_COMPACT.launches
+        unequal, max_count = [], 0
+        for i, view in enumerate(views):
+            got, want = kernel(scene, view, tiles, cap), chain(scene, view, tiles, cap)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                unequal.append(i)
+            max_count = max(max_count, int(want[1].max()))
+        launches = TILE_COMPACT.launches - before
+        dev_us, queue_ms = queued_us(lambda: kernel(scene, views[0], tiles, cap))
+        spin_ms = time_cuda(lambda: torch.cuda._sleep(40_000_000), 3)
+        tx, ty = tiles
+        n, t2 = scene.n, tx * ty
+        nbytes = 16 * n + 8 * t2 + 4 * t2 * (cap + 1)
+        cases[name] = {
+            "N": n, "tiles": list(tiles), "capacity": cap, "max_count": max_count,
+            "views": len(views), "launches": launches, "unequal_views": unequal,
+            "kernel_device_us": dev_us, "queue_host_ms": queue_ms, "spin_ms": spin_ms,
+            "kernel_call_us": time_cuda(lambda: kernel(scene, views[0], tiles, cap), 200) * 1e3,
+            "chain_call_us": time_cuda(lambda: chain(scene, views[0], tiles, cap), 20) * 1e3,
+            **bound(TILE_PAIR_FP32 * t2 * n + TILE_ROW_FP32 * n, 3 * n, nbytes, clock_mhz,
+                    n_sm)}
+        check(not unequal and launches == len(views),
+              f"the tiling kernel differs from the chain ({name}): {cases[name]}")
+        check(queue_ms < spin_ms, f"the spin ran out before the launches were queued ({name}): "
+                                  f"{cases[name]}")
+        entry_us[name] = cases[name]["kernel_device_us"]
+    emit("tiling_kernel_vs_chain", cases=cases, power_limit=smi)
+
+    # one cube-fit step (benchmark cell cube3644.fit256's shapes) under "warn"
+    tiles, cap = TILING_CASES["cube_fit"][1:]
+    truth = scene_from_vertices(smoke_points(), device=dev)
+    target, _ = render_orbit_frame(truth, 0.0, OFFSET, FOCAL, width=TRAIN_SIZE,
+                                   height=TRAIN_SIZE, tiles=tiles, capacity=cap,
+                                   backend="kernel")
+    cam = orbit_camera(0.0, OFFSET, FOCAL, TRAIN_SIZE, TRAIN_SIZE, device=dev)
+    o, dirs = cam.rays()
+    step = make_frame_train_step(width=TRAIN_SIZE, height=TRAIN_SIZE, tiles=tiles, capacity=cap,
+                                 trainable=FIELDS, focal_length=FOCAL)
+    state = init_state(truth.replace(mu=truth.mu + 0.02), adam(2e-3))
+    state, _, _ = step(state, cam.view_matrix, o, dirs, target)    # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, loss, ovf = step(state, cam.view_matrix, o, dirs, target)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    step_launches = TILE_COMPACT.launches
+    syncs = [{"file": os.path.relpath(w.filename), "line": w.lineno,
+              "message": str(w.message)[:160]} for w in caught
+             if "synchroniz" in str(w.message)]
+    src, first = inspect.getsourcelines(tiling.tile_indices)
+    tiling_lines = (os.path.realpath(tiling.__file__), range(first, first + len(src)))
+
+    def from_tiling(w):
+        path = os.path.realpath(w["file"])
+        return (path in (os.path.realpath(cuda_tiling.__file__),
+                         os.path.realpath(cuda_kernel.__file__))
+                or (path == tiling_lines[0] and w["line"] in tiling_lines[1]))
+
+    emit("tiling_step_syncs", syncs=syncs, tiling_launches=step_launches, loss=float(loss),
+         overflow=int(ovf))
+    check(int(ovf) == 0, "the cube-fit step overflowed")
+    check(step_launches == 1, f"the cube-fit step launched the tiling kernel {step_launches} "
+                              "times, expected once")
+    check(not [w for w in syncs if from_tiling(w)], f"the tiling still synchronises: {syncs}")
+    return [{"name": TILE_COMPACT.name, "route": TILE_COMPACT.route,
+             "source": str(TILE_COMPACT.source.relative_to(nvcc.CSRC_DIR.parents[1])),
+             "replaces": TILE_COMPACT.replaces, "launches": step_launches,
+             "max_abs_err": 0, "us": entry_us,
+             "chain_us": {k: c["chain_call_us"] for k, c in cases.items()},
+             "bound_us": {k: c["bound_ms"] * 1e3 for k, c in cases.items()},
+             "library_ms": None}]
+
+
 def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
     """`--only a,b`: the named phase groups alone (for work on one path),
     then the kernel line of their kernels."""
@@ -3666,6 +3830,7 @@ def only_phases(names, dev, smi: str, clock_mhz: float, n_sm: int) -> int:
                   "aniso_dense": lambda: aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp,
                                                             fused_vs_chunked=True),
                   "split": lambda: split_phases(dev, smi, clock_mhz, n_sm),
+                  "tiling": lambda: tiling_phases(dev, smi, clock_mhz, n_sm),
                   "approx": lambda: approx_phases(dev, smi, clock_mhz, n_sm, obj) or [],
                   # its batched launch of kernel 1 is in its frontends_orbit line
                   "frontends": lambda: frontends_phases(dev, smi, clock_mhz, n_sm) and [],
@@ -3737,6 +3902,7 @@ def main() -> int:
         entries += aniso_dense_phases(dev, smi, clock_mhz, n_sm, tmp)
         approx_phases(dev, smi, clock_mhz, n_sm, obj)
     entries += split_phases(dev, smi, clock_mhz, n_sm)
+    entries += tiling_phases(dev, smi, clock_mhz, n_sm)
     # 10. the entry points beside the CLI: the batched orbit (its launch of
     # kernel 1 goes into kernel 1's entry), render_tiled, the viewer, native
     entries[0]["batched_launch"] = frontends_phases(dev, smi, clock_mhz, n_sm)

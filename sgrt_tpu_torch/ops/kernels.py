@@ -21,16 +21,18 @@ from sgrt_tpu_torch.ops.cuda_chunked_aniso import (
 )
 from sgrt_tpu_torch.ops.cuda_kernel import FUSED_BWD, FUSED_BWD_T, FUSED_FWD, FUSED_FWD_T
 from sgrt_tpu_torch.ops.cuda_split import SPLIT_BWD, SPLIT_BWD_COLOR, SPLIT_FWD, SPLIT_FWD_COLOR
+from sgrt_tpu_torch.ops.cuda_tiling import TILE_COMPACT
 from sgrt_tpu_torch.utils import nvcc
 
 # in the order of the kernel table (PERF.md): rows 1-20 (19-20: the saved-T
-# schedule of rows 13-14)
+# schedule of rows 13-14), then row 21, the tiling kernel (no Pallas
+# counterpart: it replaces the JAX package's XLA chain)
 KERNELS = (FUSED_FWD, FUSED_FWD_T, FUSED_BWD_T, FUSED_BWD,
            CHUNKED_FWD, CHUNKED_FWD_T, CHUNKED_BWD, CHUNKED_BWD_T,
            FUSED_FWD_ANISO, FUSED_FWD_T_ANISO, FUSED_BWD_T_ANISO, FUSED_BWD_ANISO,
            CHUNKED_FWD_ANISO, CHUNKED_BWD_ANISO,
            SPLIT_FWD, SPLIT_BWD, SPLIT_FWD_COLOR, SPLIT_BWD_COLOR,
-           CHUNKED_FWD_T_ANISO, CHUNKED_BWD_T_ANISO)
+           CHUNKED_FWD_T_ANISO, CHUNKED_BWD_T_ANISO, TILE_COMPACT)
 
 
 def build_all() -> None:

@@ -131,8 +131,15 @@ def tile_indices(scene: GaussianScene, view: torch.Tensor, tiles,
     Returns (idx (T2, K) int32 — first K member indices, padded with N
     (the dummy slot); counts (T2,) int32 — true member counts, so callers
     can detect capacity overflow).
+
+    A scene on the card takes the tiling kernel (ops.cuda_tiling: one
+    launch, no synchronise, the same bits); on the CPU, the chain below.
     """
     with span("tiling"):
+        if scene.mu.device.type == "cuda":
+            from sgrt_tpu_torch.ops.cuda_tiling import tile_indices_cuda
+
+            return tile_indices_cuda(scene, view, tiles, capacity, focal_length)
         member = tile_membership(scene, view, tiles, focal_length=focal_length)
         counts = torch.sum(member, dim=-1, dtype=torch.int32)
         return compact_rows(member, capacity, scene.n), counts

@@ -285,17 +285,20 @@ def test_fused_fwd_cu_keeps_only_the_isotropic_forwards():
     """csrc/fused_fwd.cu, which last held the isotropic fused forwards
     (kernels 1-2), and csrc/split.cu, which last held the split forwards
     (kernels 15 and 17), are gone: no source of the port is either file, and
-    all 20 kernels of ops.kernels.KERNELS are entry points of
-    csrc/chunked.cu, the port's one CUDA source."""
+    all 20 renderer kernels of ops.kernels.KERNELS are entry points of
+    csrc/chunked.cu, the port's one renderer source; the 21st, the tiling
+    kernel, is csrc/tiling.cu's."""
     from sgrt_tpu_torch.ops import kernels
+    from sgrt_tpu_torch.ops.cuda_tiling import TILE_COMPACT
     from sgrt_tpu_torch.utils import nvcc
 
     for gone in ("fused_fwd.cu", "split.cu"):
         assert not (nvcc.CSRC_DIR / gone).exists()
         assert all(k.source.name != gone for k in kernels.KERNELS)
-    assert len(kernels.KERNELS) == 20
-    assert all(k.source.name == "chunked.cu" for k in kernels.KERNELS)
-    assert sorted(p.name for p in nvcc.CSRC_DIR.glob("*.cu")) == ["chunked.cu"]
+    assert len(kernels.KERNELS) == 21 and kernels.KERNELS[-1] is TILE_COMPACT
+    assert all(k.source.name == "chunked.cu" for k in kernels.KERNELS[:20])
+    assert TILE_COMPACT.source.name == "tiling.cu"
+    assert sorted(p.name for p in nvcc.CSRC_DIR.glob("*.cu")) == ["chunked.cu", "tiling.cu"]
 
 
 def test_fused_bwd_cu_keeps_only_the_isotropic_kernels():
