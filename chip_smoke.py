@@ -386,13 +386,15 @@ def rel_err(got, want) -> float:
 
 
 def launch_inputs(tiled, o, tile_dirs, counts) -> list:
-    """The fused op's inputs (oc, sigma, mag, albedo, dirs_t, counts) as
-    render_tiles_fused builds them from gathered tiles; for an anisotropic
-    tile scene (oc, invd, ...) as render_tiles_fused_aniso does."""
+    """The render op's inputs (oc, shape, mag, albedo, dirs_t, counts) as
+    ops.cuda_render.render_tiles builds them from gathered tiles of either
+    geometry: shape is sigma, or invd for an anisotropic tile scene."""
     import torch
 
+    from sgrt_tpu_torch.ops.cuda_render import geometry_of
+
     n = tiled.mu.shape[1]
-    shape = tiled.sigma if hasattr(tiled, "sigma") else 1.0 / (tiled.scale * tiled.scale)
+    shape = geometry_of(tiled).operand(tiled)
     return [(tiled.mu - o).contiguous(), shape.contiguous(),
             tiled.magnitude.contiguous(), tiled.albedo.contiguous(),
             tile_dirs.transpose(1, 2).contiguous(),
@@ -403,24 +405,20 @@ def bucket_launches(scene, view, o, tile_dirs, cfg, tiles=TRAIN_TILES) -> list:
     """The inputs of each launch of render_tiles_bucketed (dense bucket
     first, if any), at the capacities the scene's router rounds to."""
     from sgrt_tpu_torch.ops import cuda_chunked
-    from sgrt_tpu_torch.ops.anisotropic import AnisoScene, gather_tiles_aniso, iso_proxy
+    from sgrt_tpu_torch.ops.cuda_render import geometry_of
     from sgrt_tpu_torch.ops.scheduler import BucketConfig, bucketed_tile_indices
-    from sgrt_tpu_torch.ops.tiling import gather_tiles
 
-    if isinstance(scene, AnisoScene):
-        renderer_for, gather, culled = (cuda_chunked.tile_renderer_aniso_for,
-                                        gather_tiles_aniso, iso_proxy(scene))
-    else:
-        renderer_for, gather, culled = cuda_chunked.tile_renderer_for, gather_tiles, scene
-    cfg = BucketConfig(cfg.n_dense, renderer_for(cfg.cap_dense)[0],
-                       renderer_for(cfg.cap_sparse)[0])
+    geo = geometry_of(scene)
+    cfg = BucketConfig(cfg.n_dense,
+                       cuda_chunked.tile_renderer_for(cfg.cap_dense, geometry=geo)[0],
+                       cuda_chunked.tile_renderer_for(cfg.cap_sparse, geometry=geo)[0])
     dense_ids, idx_d, sparse_ids, idx_s, counts = bucketed_tile_indices(
-        culled, view, tiles, cfg, focal_length=FOCAL)
+        geo.proxy(scene), view, tiles, cfg, focal_length=FOCAL)
     out = []
     if cfg.n_dense:
-        out.append(launch_inputs(gather(scene, idx_d), o, tile_dirs[dense_ids],
+        out.append(launch_inputs(geo.gather(scene, idx_d), o, tile_dirs[dense_ids],
                                  counts[dense_ids]))
-    out.append(launch_inputs(gather(scene, idx_s), o, tile_dirs[sparse_ids],
+    out.append(launch_inputs(geo.gather(scene, idx_s), o, tile_dirs[sparse_ids],
                              counts[sparse_ids]))
     return out
 
@@ -1604,8 +1602,9 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
     from sgrt_tpu_torch.ops import cuda_aniso as ca
     from sgrt_tpu_torch.ops import cuda_chunked_aniso as cca
     from sgrt_tpu_torch.ops import cuda_kernel as ck
+    from sgrt_tpu_torch.ops import cuda_render as cr
     from sgrt_tpu_torch.ops import kernels
-    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
+    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
     from sgrt_tpu_torch.ops.frame import orbit_camera, probe_buckets, probe_capacity
     from sgrt_tpu_torch.ops.render import _tile_rays
     from sgrt_tpu_torch.parallel.fit import adam, init_state, make_aniso_frame_train_step
@@ -1614,7 +1613,7 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
 
     S, TL = ANISO_SIZE, ANISO_TILES
     scene = aniso_cloud(dev)
-    proxy = an.iso_proxy(scene)
+    proxy = cr.ANISO.proxy(scene)
 
     # 1. shapes: fit_cli's probes (x1.3, margin 1.3) and the CLI's (x1.25,
     # margin 1.25), both on the max-scale proxy
@@ -1635,7 +1634,8 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
               for i in per_bucket]
     emit("aniso_shapes", scene=f"cube cloud ({N_POINTS}) x {list(ANISO_MULT)}", size=S,
          tiles=list(TL), probe_max_count=int(probe), capacity=capacity,
-         padded_capacity=tile_renderer_aniso_for(capacity)[0], bucket_cfg=bucket._asdict(),
+         padded_capacity=tile_renderer_for(capacity, geometry=cr.ANISO)[0],
+         bucket_cfg=bucket._asdict(),
          cli_capacity=max(32, int(probe * 1.25)), cli_bucket_cfg=cli_bucket._asdict(),
          route="fused aniso", max_bwd_capacity_aniso=ca.MAX_BWD_CAPACITY_ANISO,
          launches_at_30_degrees=shapes, densest_tile=int(cnt.max()),
@@ -1679,7 +1679,8 @@ def aniso_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str,
         try:
             leaves = [x.clone().requires_grad_(True) for x in four[:5]]
             kernels.reset_launch_counts()
-            ca.render_fused_aniso(*leaves, four[5], pb=pb, qb=qb).backward(dcol4)
+            cr.render_batched(*leaves, four[5], geometry=cr.ANISO, pb=pb,
+                              qb=qb).backward(dcol4)
             torch.cuda.synchronize()
         finally:
             ck.SAVE_T_MAX_BYTES = budget
@@ -1999,6 +2000,7 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str,
     from sgrt_tpu_torch.ops import cuda_chunked as cc
     from sgrt_tpu_torch.ops import cuda_chunked_aniso as cca
     from sgrt_tpu_torch.ops import cuda_kernel as ck
+    from sgrt_tpu_torch.ops import cuda_render as cr
     from sgrt_tpu_torch.ops import kernels
     from sgrt_tpu_torch.ops.frame import auto_tile_grid, orbit_camera, probe_buckets
     from sgrt_tpu_torch.ops.render import _tile_rays
@@ -2011,7 +2013,7 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str,
     pts = sphere_points(DENSE_N)
     scene = an.from_isotropic(scene_from_vertices(pts, device=dev))
     scene = scene.replace(scale=scene.scale * torch.tensor([ADENSE_MULT], device=dev))
-    proxy = an.iso_proxy(scene)
+    proxy = cr.ANISO.proxy(scene)
 
     # 1. shapes: the tile grid, the buckets, and each bucket's route
     t0 = time.perf_counter()
@@ -2026,10 +2028,10 @@ def aniso_dense_phases(dev, smi: str, clock_mhz: float, n_sm: int, tmp: str,
     bucket = BucketConfig(-(-over_sparse // 64) * 64, capacity, ADENSE_CAP_SPARSE)
     routes = {}
     for name, cap in (("dense", bucket.cap_dense), ("sparse", bucket.cap_sparse)):
-        chunked = cap > ca.MAX_BWD_CAPACITY_ANISO
+        chunked = cap > cr.ANISO.ceiling()
         padded, c_k = cc.chunk_plan(cap)
         routes[name] = {"capacity": cap, "route": "chunked aniso" if chunked else "fused aniso",
-                        "padded_capacity": cc.tile_renderer_aniso_for(cap)[0],
+                        "padded_capacity": cc.tile_renderer_for(cap, geometry=cr.ANISO)[0],
                         **({"chunk_plan": {"C": padded // c_k, "ck": c_k, "padded": padded}}
                            if chunked else {})}
     emit("aniso_dense_shapes", scene=f"sphere({DENSE_N}) x {list(ADENSE_MULT)}", size=S,
@@ -2431,7 +2433,8 @@ def split_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> list:
     from sgrt_tpu_torch.ops import cuda_split as cs
     from sgrt_tpu_torch.ops import kernels
     from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
-    from sgrt_tpu_torch.ops.cuda_kernel import _block_sizes, render_tiles_fused
+    from sgrt_tpu_torch.ops.cuda_kernel import _block_sizes
+    from sgrt_tpu_torch.ops.cuda_render import render_tiles
     from sgrt_tpu_torch.ops.frame import orbit_camera, probe_capacity
     from sgrt_tpu_torch.ops.render import _tile_rays
     from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
@@ -2519,7 +2522,7 @@ def split_phases(dev, smi: str, clock_mhz: float, n_sm: int) -> list:
         torch.cuda.synchronize()
         return colors.detach(), {f: leaves[f].grad for f in fields}
 
-    c_fused, g_fused = route(render_tiles_fused)
+    c_fused, g_fused = route(render_tiles)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     c_split, g_split = route(cs.render_tiles_split)
@@ -2874,6 +2877,7 @@ def approx_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> None:
     from sgrt_tpu_torch.models.camera import Camera
     from sgrt_tpu_torch.models.gaussians import grid_scene, scene_from_vertices
     from sgrt_tpu_torch.ops import cuda_kernel as ck
+    from sgrt_tpu_torch.ops import cuda_render as cr
     from sgrt_tpu_torch.ops import kernels
     from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
     from sgrt_tpu_torch.ops.cuda_tiling import TILE_COMPACT
@@ -2897,7 +2901,7 @@ def approx_phases(dev, smi: str, clock_mhz: float, n_sm: int, obj: str) -> None:
     stacks = {}
     for e, x, limit in IMG_ERROR_STACKS:
         kernels.reset_launch_counts()
-        img = ck.render_rays_fused_impl(o, dirs, grid, erf_name=e, exp_name=x)
+        img = cr.render_rays(o, dirs, grid, erf_name=e, exp_name=x)
         torch.cuda.synchronize()
         stacks[f"{e}/{x}"] = {"mse": float(torch.mean((img - ref) ** 2)), "bound": limit,
                               "launches": {k.name: k.launches for k in kernels.KERNELS

@@ -96,11 +96,11 @@ def _render_aniso_frame(aniso_scene, angle, args, width, height, use_tiling, cap
                                      erf_name=args.erf, exp_name=args.exp,
                                      bucket_cfg=bucket_cfg)
     if args.backend == "kernel":
-        from sgrt_tpu_torch.ops.cuda_aniso import render_rays_fused_aniso_impl
+        from sgrt_tpu_torch.ops.cuda_render import render_rays
 
         o, dirs = cam.rays()
-        img = render_rays_fused_aniso_impl(o, dirs, aniso_scene, erf_name=args.erf,
-                                           exp_name=args.exp).reshape(height, width, 3)
+        img = render_rays(o, dirs, aniso_scene, erf_name=args.erf,
+                          exp_name=args.exp).reshape(height, width, 3)
     else:
         img = an.render_aniso(aniso_scene, cam, erf_name=args.erf, exp_name=args.exp)
     return img, torch.zeros((), dtype=torch.int32, device=img.device)

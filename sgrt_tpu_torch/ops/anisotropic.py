@@ -22,7 +22,8 @@ blocked renderer here by autograd (the JAX package's "xla"); "kernel"
 renders through the fused anisotropic CUDA kernels and their analytic
 backward (ops.cuda_aniso; the JAX package's "pallas"), or for dense tiles
 the chunked ones (ops.cuda_chunked_aniso), routed by
-ops.cuda_chunked.tile_renderer_aniso_for.
+ops.cuda_chunked.tile_renderer_for on the row geometry
+ops.cuda_render.ANISO.
 """
 
 from __future__ import annotations
@@ -250,8 +251,8 @@ def render_tiled_aniso(scene: AnisoScene, camera: Camera, origin=None, tiles=16,
     int32)). Culling uses the conservative max-scale footprint (iso_proxy)
     and the camera's focal length. backend="kernel" renders through the
     fused anisotropic kernels (ops.cuda_aniso) or, above
-    MAX_BWD_CAPACITY_ANISO, the chunked ones, routed by
-    tile_renderer_aniso_for; bucket_cfg (ops.scheduler.BucketConfig, kernel
+    MAX_BWD_CAPACITY_ANISO, the chunked ones, routed by tile_renderer_for
+    (ops.cuda_render.ANISO); bucket_cfg (ops.scheduler.BucketConfig, kernel
     only) renders a dense and a sparse bucket, each at its own capacity.
     backend="torch" is the plain renderer, tile_batch tiles at a time.
     erf_name/exp_name select the approximation on both."""
@@ -268,7 +269,8 @@ def render_tiled_aniso(scene: AnisoScene, camera: Camera, origin=None, tiles=16,
     d = _tile_rays(dirs, h, w, tiles)
 
     if backend == "kernel":
-        from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
+        from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
+        from sgrt_tpu_torch.ops.cuda_render import ANISO
 
         if bucket_cfg is not None and bucket_cfg.n_dense:
             from sgrt_tpu_torch.ops.scheduler import render_tiles_bucketed
@@ -278,8 +280,8 @@ def render_tiled_aniso(scene: AnisoScene, camera: Camera, origin=None, tiles=16,
                 tiles=tiles, focal_length=focal)
             return _untile_image(colors, h, w, tiles), overflow
         # one routing point for the per-tile kernel, which pads the capacity
-        capacity, render_tiles = tile_renderer_aniso_for(capacity, erf_name=erf_name,
-                                                         exp_name=exp_name)
+        capacity, render_tiles = tile_renderer_for(capacity, geometry=ANISO,
+                                                   erf_name=erf_name, exp_name=exp_name)
         with torch.no_grad():
             idx, counts = tile_indices(iso_proxy(scene), view, tiles, capacity,
                                        focal_length=focal)

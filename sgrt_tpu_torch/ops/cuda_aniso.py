@@ -28,8 +28,8 @@ one chunk, ck = N: a fused kernel is the chunked one with C = 1. The
 forward splits a tile's p rows over blocks of 32 rows and 32 rays, the
 backward its pair work into a p side and a q side over blocks of 64 rows
 and 32 rays, so that a dense tile spreads over many blocks; the
-recompute backward's T is the forward-with-T's own. FusedRenderAniso is
-ops.cuda_kernel.FusedRender over these wrappers.
+recompute backward's T is the forward-with-T's own. ops.cuda_render's one
+op renders through them (ops.cuda_render.ANISO's wrappers at one chunk).
 
 Rounding: C - Bt mb cancels two numbers of size |oc|^2/scale^2, so the
 plain versions compute A, Bt and C as elementwise sums in the kernels'
@@ -41,23 +41,17 @@ from __future__ import annotations
 
 import torch
 
-from sgrt_tpu_torch.ops.anisotropic import AnisoScene, pad_scene_aniso
 from sgrt_tpu_torch.ops.cuda_kernel import (
     K_TAPS,
     CudaKernel,
-    FusedRender,
     _backward_on_card,
     _backward_plain,
-    _block_sizes,
     _check_inputs,
     _chunked_backward_launch,
     _chunked_forward_launch,
     _forward_plain,
-    _render_fused,
 )
 from sgrt_tpu_torch.ops.reference import INV_SQRT_2_PI
-from sgrt_tpu_torch.ops.render import _unit_pad
-from sgrt_tpu_torch.utils.trace import span
 
 # Per-tile capacity above which the JAX package routes anisotropic tiles to
 # its chunked kernels (MAX_BWD_CAPACITY_ANISO, a v5e VMEM ceiling of the
@@ -217,80 +211,3 @@ def fused_backward_aniso(oc, invd, mag, albedo, dirs_t, counts, dcol, t_saved=No
     kernel = FUSED_BWD_ANISO if t_saved is None else FUSED_BWD_T_ANISO
     return _chunked_backward_launch(kernel, args, dcol, t_saved, ck=oc.shape[1], rb=rb, qb=qb,
                                     erf_name=erf_name, exp_name=exp_name, part_ms=part_ms)
-
-
-# ---------------------------------------------------------------------------
-# the differentiable op and the render entry points
-# ---------------------------------------------------------------------------
-
-# colors = fused anisotropic forward(oc, invd, mag, albedo, dirs_t, counts)
-# with the analytic backward: the fused op over the anisotropic wrappers
-# (render_fused_aniso passes them in its options), gradients to oc, invd,
-# mag, albedo and the ray directions.
-FusedRenderAniso = FusedRender
-_ANISO_OPS = (fused_forward_aniso, fused_forward_t_aniso, fused_backward_aniso)
-
-
-def render_fused_aniso(scene_oc, invd, mag, albedo, dirs_t, counts=None, *,
-                       rb: int = 128, pb: int = 8, qb: int = 32,
-                       rb_bwd: int | None = None, erf_name: str = "as5",
-                       exp_name: str = "exact", save_t: bool | None = None):
-    """Batched fused anisotropic render: oc (B,N,3), invd (B,N,3) =
-    scale^-2, mag (B,N), albedo (B,N,3), dirs_t (B,3,R) → colors (B,3,R),
-    with render_fused's block rules and counts. Differentiable through
-    FusedRenderAniso (d invd and d dirs included); save_t=None saves T when
-    its 20*B*N*R bytes fit ops.cuda_kernel.SAVE_T_MAX_BYTES, as
-    render_fused does."""
-    return _render_fused(_ANISO_OPS, scene_oc, invd, mag, albedo, dirs_t, counts, rb=rb,
-                         pb=pb, qb=qb, rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name,
-                         save_t=save_t)
-
-
-def render_tiles_fused_aniso(tiled: AnisoScene, o, tile_dirs, counts=None, *,
-                             rb: int = 128, pb: int | None = None, qb: int | None = None,
-                             rb_bwd: int | None = None, erf_name: str = "as5",
-                             exp_name: str = "exact") -> torch.Tensor:
-    """Per-tile anisotropic render: tiled scene fields (T2, K, ...),
-    tile_dirs (T2, P, 3), counts (T2,) → colors (T2, P, 3). o is one (3,)
-    origin or a per-tile (T2, 3) batch. Differentiable with respect to mu,
-    scale (through invd = scale^-2), magnitude, albedo and the rays."""
-    k = tiled.mu.shape[1]
-    dpb, dqb = _block_sizes(k)
-    pb = dpb if pb is None else pb
-    qb = dqb if qb is None else qb
-    with span("launch"):
-        o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
-        oc = (tiled.mu - o_b).contiguous()
-        invd = (1.0 / (tiled.scale * tiled.scale)).contiguous()
-        dirs_t = tile_dirs.transpose(1, 2).contiguous()
-        colors_t = render_fused_aniso(oc, invd, tiled.magnitude.contiguous(),
-                                      tiled.albedo.contiguous(), dirs_t, counts, rb=rb, pb=pb,
-                                      qb=qb, rb_bwd=rb_bwd, erf_name=erf_name,
-                                      exp_name=exp_name)
-        return colors_t.transpose(1, 2)
-
-
-def render_rays_fused_aniso_impl(o, dirs, scene: AnisoScene, *, rb: int = 128,
-                                 pb: int | None = None, qb: int | None = None,
-                                 rb_bwd: int | None = None, erf_name: str = "as5",
-                                 exp_name: str = "exact") -> torch.Tensor:
-    """Render a flat ray batch through the anisotropic kernels as one tile:
-    dirs (R,3) → colors (R,3). Rays are padded to a multiple of rb with the
-    unit direction +z. Differentiable with respect to mu, scale, magnitude,
-    albedo and the ray directions."""
-    n_live = scene.n
-    dpb, dqb = _block_sizes(n_live)
-    pb = dpb if pb is None else pb
-    qb = dqb if qb is None else qb
-    scene = pad_scene_aniso(scene, max(pb, qb))
-    r = dirs.shape[0]
-    rb = min(rb, r)
-    dirs_p = _unit_pad(dirs, (-r) % rb)
-    counts = torch.full((1,), n_live, dtype=torch.int32, device=dirs.device)
-    oc = (scene.mu - o[None, :]).contiguous()
-    invd = (1.0 / (scene.scale * scene.scale)).contiguous()
-    colors_t = render_fused_aniso(oc[None], invd[None], scene.magnitude[None].contiguous(),
-                                  scene.albedo[None].contiguous(), dirs_p.T[None].contiguous(),
-                                  counts, rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd,
-                                  erf_name=erf_name, exp_name=exp_name)[0]   # (3, R)
-    return colors_t.T[:r]

@@ -1,14 +1,16 @@
 """Routing of the per-tile renderer by capacity, and the Gaussian-axis
-chunked renderer for dense tiles (PyTorch port of
+chunked kernels' wrappers for dense tiles (PyTorch port of
 sgrt_tpu.ops.pallas_chunked).
 
-`tile_renderer_for` is THE single place that decides which kernel renders
-a tile batch of a given capacity: up to MAX_MONOLITHIC_CAPACITY rows the
-fused kernels (ops.cuda_kernel), above it, up to MAX_CHUNKED_CAPACITY, the
-chunked kernels of this module. `tile_renderer_aniso_for` is its twin for
-anisotropic scenes: the fused anisotropic kernels (ops.cuda_aniso) up to
-MAX_BWD_CAPACITY_ANISO, the chunked anisotropic ones (ops.cuda_chunked_aniso)
-above it.
+`tile_renderer_for` is THE single place that decides at which chunking a
+tile batch of a given capacity renders, for either row geometry
+(ops.cuda_render's records): up to the geometry's ceiling of one chunk
+(MAX_MONOLITHIC_CAPACITY rows for isotropic rows,
+ops.cuda_aniso.MAX_BWD_CAPACITY_ANISO for anisotropic ones) at one chunk,
+the fused kernels; above it, up to MAX_CHUNKED_CAPACITY, at
+chunk_plan(capacity)'s chunks, the chunked kernels of this module or of
+ops.cuda_chunked_aniso. ops.cuda_render holds the one differentiable op
+and its front doors.
 
 The chunked kernels compute the fused kernels' function (ops.cuda_kernel's
 definitions) with the Gaussian axis cut into C = N / ck chunks of ck rows.
@@ -47,12 +49,10 @@ so the kernels take the fused kernels' unpacked operands.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import torch
 
-from sgrt_tpu_torch.models.gaussians import GaussianScene
 from sgrt_tpu_torch.ops.cuda_kernel import (
     K_TAPS,
     CudaKernel,
@@ -61,15 +61,11 @@ from sgrt_tpu_torch.ops.cuda_kernel import (
     _check_inputs,
     _chunked_backward_launch,
     _chunked_forward_launch,
-    _kernel_erf_name,
     _scene_shapes,
     fused_backward_plain,
     fused_forward_plain,
     fused_forward_t_plain,
-    render_tiles_fused,
-    save_t_bytes,
 )
-from sgrt_tpu_torch.utils.trace import count_saved_t, span
 
 # Per-tile capacity above which the JAX package routes to its chunked
 # kernels (its MAX_BWD_CAPACITY, a v5e VMEM ceiling). The port's fused
@@ -211,190 +207,35 @@ def chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None,
 
 
 # ---------------------------------------------------------------------------
-# the differentiable op
+# routing
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class _ChunkedOpts:
-    ck: int
-    rb: int
-    rb_bwd: int
-    pb: int
-    qb: int
-    erf_name: str
-    exp_name: str
-    save_t: bool
-
-
-class ChunkedRender(torch.autograd.Function):
-    """colors = chunked forward(oc, sigma, mag, albedo, dirs_t, counts) with
-    the analytic backward (the counterpart of the JAX package's
-    _make_chunked_op). save_t: the forward also writes T and the backward
-    reads it instead of recomputing pass A. Gradients flow to oc, sigma,
-    mag, albedo and the ray directions; counts gets None."""
-
-    @staticmethod
-    def forward(ctx, oc, sigma, mag, albedo, dirs_t, counts, opts: _ChunkedOpts):
-        kw = dict(ck=opts.ck, pb=opts.pb, qb=opts.qb, erf_name=opts.erf_name,
-                  exp_name=opts.exp_name)
-        if opts.save_t:
-            colors, t = chunked_forward_t(oc, sigma, mag, albedo, dirs_t, counts,
-                                          rb=opts.rb_bwd, **kw)
-            ctx.save_for_backward(oc, sigma, mag, albedo, dirs_t, counts, t)
-        else:
-            colors = chunked_forward(oc, sigma, mag, albedo, dirs_t, counts, rb=opts.rb, **kw)
-            ctx.save_for_backward(oc, sigma, mag, albedo, dirs_t, counts)
-        ctx.opts = opts
-        return colors
-
-    @staticmethod
-    def backward(ctx, dcol):
-        with span("launch"):
-            oc, sigma, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
-            o = ctx.opts
-            grads = chunked_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol.contiguous(),
-                                     t[0] if t else None, ck=o.ck, rb=o.rb_bwd, qb=o.qb,
-                                     erf_name=o.erf_name, exp_name=o.exp_name)
-        return (*grads, None, None)
-
-
-def _chunked_blocks(n: int, r: int, ck: int, rb: int, rb_bwd, pb: int, qb: int):
-    """The JAX package's block rules of the chunked renderers: ck rounded up
-    to a multiple of 128 and capped at N, pb and qb capped at ck; ck | N,
-    pb | ck, qb | ck (multiples of 8), rb | R, rb_bwd | R, and N at most
-    MAX_CHUNKED_CAPACITY. Returns (ck, rb, rb_bwd, pb, qb)."""
-    rb = min(rb, r)
-    rb_bwd = rb if rb_bwd is None else min(rb_bwd, r)
-    ck = min(-(-ck // 128) * 128, n)
-    pb, qb = min(pb, ck), min(qb, ck)
-    if (n % ck or ck % pb or ck % qb or r % rb or r % rb_bwd
-            or pb % 8 or qb % 8 or ck % 128):
-        raise ValueError(f"shape (R={r}, N={n}) not divisible by chunk/blocks "
-                         f"(ck={ck}, rb={rb}, rb_bwd={rb_bwd}, pb={pb}, qb={qb}; "
-                         "ck must be a multiple of 128)")
-    if n > MAX_CHUNKED_CAPACITY:
-        raise ValueError(f"padded capacity {n} exceeds MAX_CHUNKED_CAPACITY "
-                         f"({MAX_CHUNKED_CAPACITY}); use a finer tile grid")
-    return ck, rb, rb_bwd, pb, qb
-
-
-def render_fused_chunked(scene_oc, sigma, mag, albedo, dirs_t, counts=None, *,
-                         ck: int = DEFAULT_CHUNK, rb: int = 128, pb: int = 8, qb: int = 32,
-                         rb_bwd: int | None = None, erf_name: str = "as5",
-                         exp_name: str = "exact", save_t: bool | None = None):
-    """Chunked fused render, the render_fused of big per-tile capacities:
-    oc (B,N,3), sigma/mag (B,N), albedo (B,N,3), dirs_t (B,3,R) → colors
-    (B,3,R), the Gaussian axis cut into C = N/ck chunks. Block rules as the
-    JAX package's (ck a multiple of 128 dividing N, pb and qb dividing ck
-    and multiples of 8, rb | R); N at most MAX_CHUNKED_CAPACITY; counts
-    default to N and are clamped to N.
-
-    Differentiable: when grad is enabled and an input requires it, the
-    render goes through ChunkedRender; otherwise it launches the plain
-    forward kernel. save_t=None saves T when its 20*B*N*R bytes fit
-    SAVE_T_CHUNKED_MAX_BYTES."""
-    erf_name = _kernel_erf_name(erf_name)
-    b, n, _ = scene_oc.shape
-    r = dirs_t.shape[2]
-    ck, rb, rb_bwd, pb, qb = _chunked_blocks(n, r, ck, rb, rb_bwd, pb, qb)
-    if counts is None:
-        counts = torch.full((b,), n, dtype=torch.int32, device=scene_oc.device)
-    counts = torch.clamp(counts.to(torch.int32), max=n)
-    inputs = (scene_oc, sigma, mag, albedo, dirs_t)
-    if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
-        return chunked_forward(*inputs, counts, ck=ck, rb=rb, pb=pb, qb=qb,
-                               erf_name=erf_name, exp_name=exp_name)
-    if save_t is None:
-        save_t = save_t_bytes(b, n, r) <= SAVE_T_CHUNKED_MAX_BYTES
-    count_saved_t(save_t_bytes(b, n, r), bool(save_t))
-    opts = _ChunkedOpts(ck, rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
-    return ChunkedRender.apply(*inputs, counts, opts)
-
-
-def render_tiles_chunked(tiled_scene: GaussianScene, o, tile_dirs, counts=None, *,
-                         ck: int = DEFAULT_CHUNK, rb: int = 128, pb: int | None = None,
-                         qb: int | None = None, rb_bwd: int | None = None,
-                         erf_name: str = "as5", exp_name: str = "exact",
-                         save_t: bool | None = None) -> torch.Tensor:
-    """Chunked sibling of render_tiles_fused: tiled_scene fields (T2, K, ...)
-    with K up to MAX_CHUNKED_CAPACITY, tile_dirs (T2, P, 3), counts (T2,)
-    → per-tile colors (T2, P, 3). o is one (3,) origin or a per-tile (T2, 3)
-    batch. Differentiable through render_fused_chunked."""
-    k = tiled_scene.mu.shape[1]
-    if pb is None or qb is None:
-        dpb, dqb = _block_sizes(min(k, ck))
-        pb = dpb if pb is None else pb
-        qb = dqb if qb is None else qb
-    with span("launch"):
-        o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
-        oc = (tiled_scene.mu - o_b).contiguous()
-        dirs_t = tile_dirs.transpose(1, 2).contiguous()
-        colors_t = render_fused_chunked(
-            oc, tiled_scene.sigma.contiguous(), tiled_scene.magnitude.contiguous(),
-            tiled_scene.albedo.contiguous(), dirs_t, counts, ck=ck, rb=rb, pb=pb, qb=qb,
-            rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name, save_t=save_t)
-        return colors_t.transpose(1, 2)
-
-
-def _fused_route(render_tiles, capacity, pb, qb, rb, erf_name, exp_name):
-    """(padded capacity, render_fn) of a fused per-tile renderer: the
-    capacity padded to a multiple of lcm(pb, qb), the JAX package's block
-    sizes unless pb/qb override them (and reach the kernel)."""
-    dpb, dqb = _block_sizes(capacity)
-    pb = dpb if pb is None else pb
-    qb = dqb if qb is None else qb
-    align = math.lcm(pb, qb)
-    cap = max(align, -(-capacity // align) * align)
-
-    def render_fn(tiled, o, d, counts):
-        return render_tiles(tiled, o, d, counts, rb=rb, pb=pb, qb=qb,
-                            erf_name=erf_name, exp_name=exp_name)
-
-    return cap, render_fn
-
-
-def tile_renderer_for(capacity: int, *, erf_name: str = "as5",
+def tile_renderer_for(capacity: int, *, geometry=None, erf_name: str = "as5",
                       exp_name: str = "exact", pb: int | None = None,
                       qb: int | None = None, rb: int = 128):
-    """Route a per-tile renderer by capacity. Returns (padded_capacity,
-    render_fn(tiled_scene, o, tile_dirs, counts)); callers gather and
-    compact at the padded capacity. Up to MAX_MONOLITHIC_CAPACITY the fused
-    kernels render at a multiple of lcm(pb, qb); above it the chunked
-    kernels at chunk_plan(capacity)'s padded capacity, the JAX package's.
-    pb/qb override the block sizes and reach the kernel on both routes."""
-    if capacity > MAX_MONOLITHIC_CAPACITY:
-        cap, ck = chunk_plan(capacity)
+    """Route a per-tile renderer by capacity → (padded_capacity,
+    render_fn(tiled_scene, o, tile_dirs, counts)), render_fn
+    ops.cuda_render.render_tiles; callers gather and compact at the padded
+    capacity. geometry: ops.cuda_render.ISO (None) or ANISO. Up to its
+    ceiling of one chunk, read at each call, the kernels render at one
+    chunk, at a multiple of lcm(pb, qb); above it at chunk_plan(capacity),
+    the JAX package's. pb/qb override the block sizes on both routes (the
+    JAX package drops them on its chunked anisotropic route)."""
+    from sgrt_tpu_torch.ops import cuda_render
 
-        def render_chunked(tiled, o, d, counts):
-            return render_tiles_chunked(tiled, o, d, counts, ck=ck, rb=rb, pb=pb, qb=qb,
+    geometry = cuda_render.ISO if geometry is None else geometry
+    ck = None
+    if capacity > geometry.ceiling():
+        cap, ck = chunk_plan(capacity)
+    else:
+        dpb, dqb = _block_sizes(capacity)
+        pb = dpb if pb is None else pb
+        qb = dqb if qb is None else qb
+        align = math.lcm(pb, qb)
+        cap = max(align, -(-capacity // align) * align)
+
+    def render_fn(tiled, o, d, counts):
+        return cuda_render.render_tiles(tiled, o, d, counts, ck=ck, rb=rb, pb=pb, qb=qb,
                                         erf_name=erf_name, exp_name=exp_name)
 
-        return cap, render_chunked
-    return _fused_route(render_tiles_fused, capacity, pb, qb, rb, erf_name, exp_name)
-
-
-def tile_renderer_aniso_for(capacity: int, *, erf_name: str = "as5",
-                            exp_name: str = "exact", pb: int | None = None,
-                            qb: int | None = None, rb: int = 128):
-    """The anisotropic twin of tile_renderer_for (the JAX package's
-    pallas_chunked_aniso.tile_renderer_aniso_for): up to
-    MAX_BWD_CAPACITY_ANISO rows the fused anisotropic kernels
-    (ops.cuda_aniso) render at a multiple of lcm(pb, qb); above it the
-    chunked anisotropic kernels (ops.cuda_chunked_aniso) at
-    chunk_plan(capacity)'s padded capacity. pb/qb override the block sizes
-    and reach the kernel on both routes (the JAX package drops them on its
-    chunked route)."""
-    from sgrt_tpu_torch.ops.cuda_aniso import MAX_BWD_CAPACITY_ANISO, render_tiles_fused_aniso
-
-    if capacity > MAX_BWD_CAPACITY_ANISO:
-        from sgrt_tpu_torch.ops import cuda_chunked_aniso
-
-        cap, ck = chunk_plan(capacity)
-
-        def render_chunked(tiled, o, d, counts):
-            return cuda_chunked_aniso.render_tiles_chunked_aniso(
-                tiled, o, d, counts, ck=ck, rb=rb, pb=pb, qb=qb, erf_name=erf_name,
-                exp_name=exp_name)
-
-        return cap, render_chunked
-    return _fused_route(render_tiles_fused_aniso, capacity, pb, qb, rb, erf_name, exp_name)
+    return cap, render_fn

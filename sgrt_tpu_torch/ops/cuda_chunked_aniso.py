@@ -1,5 +1,5 @@
-"""The chunked anisotropic renderer and its analytic backward on
-hand-written CUDA kernels (PyTorch port of sgrt_tpu.ops.pallas_chunked_aniso).
+"""The chunked anisotropic kernels' wrappers and plain versions (PyTorch
+port of the kernels of sgrt_tpu.ops.pallas_chunked_aniso).
 
 The fused anisotropic op's function (ops.cuda_aniso) with the Gaussian axis
 cut into C = N / ck chunks of ck rows, for per-tile capacities above
@@ -18,12 +18,12 @@ raises) and runs its plain version for tensors on the CPU:
 The JAX package recomputes T at chunked scale only because a TPU holds no
 multi-GB residual (pallas_chunked_aniso.py:19-22); the card does, so the
 route saves T when its 20*B*N*R bytes fit SAVE_T_CHUNKED_MAX_BYTES, by the
-isotropic chunked route's rule (ops.cuda_chunked.render_fused_chunked),
-and recomputes it above. csrc/chunked.cu's note gives the kernels'
-design: warp-wide groups of 4 rows sharing each stage's per-ray terms
-through shared-memory planes, the backward's p-side/q-side split, and the
-recompute backward as the forward-with-T per chunk ahead of the saved-T
-backward's kernels.
+chunked rule of ops.cuda_render.render_batched (the one op, over
+ops.cuda_render.ANISO's chunked wrappers), and recomputes it above.
+csrc/chunked.cu's note gives the kernels' design: warp-wide groups of 4
+rows sharing each stage's per-ray terms through shared-memory planes, the
+backward's p-side/q-side split, and the recompute backward as the
+forward-with-T per chunk ahead of the saved-T backward's kernels.
 
 The plain versions are the fused anisotropic ones behind the chunk-count
 contract. The JAX package's packed (B, 16, N) operand is TPU lane padding;
@@ -35,32 +35,21 @@ from __future__ import annotations
 
 import torch
 
-from sgrt_tpu_torch.ops import cuda_chunked
-from sgrt_tpu_torch.ops.anisotropic import AnisoScene
 from sgrt_tpu_torch.ops.cuda_aniso import (
     _aniso_shapes,
     fused_backward_aniso_plain,
     fused_forward_aniso_plain,
     fused_forward_t_aniso_plain,
 )
-from sgrt_tpu_torch.ops.cuda_chunked import (
-    DEFAULT_CHUNK,
-    _check_chunks,
-    _chunked_blocks,
-    _ChunkedOpts,
-)
+from sgrt_tpu_torch.ops.cuda_chunked import _check_chunks
 from sgrt_tpu_torch.ops.cuda_kernel import (
     K_TAPS,
     CudaKernel,
     _backward_on_card,
-    _block_sizes,
     _check_inputs,
     _chunked_backward_launch,
     _chunked_forward_launch,
-    _kernel_erf_name,
-    save_t_bytes,
 )
-from sgrt_tpu_torch.utils.trace import count_saved_t, span
 
 _SRC, _TPU = "chunked.cu", "sgrt_tpu/ops/pallas_chunked_aniso.py"
 CHUNKED_FWD_ANISO = CudaKernel("chunked_fwd_aniso", _SRC, "sgrt_chunked_fwd_aniso",
@@ -163,99 +152,3 @@ def chunked_backward_aniso(oc, invd, mag, albedo, dirs_t, counts, dcol, t_saved=
     kernel = CHUNKED_BWD_ANISO if t_saved is None else CHUNKED_BWD_T_ANISO
     return _chunked_backward_launch(kernel, args, dcol, t_saved, ck=ck, rb=rb, qb=qb,
                                     erf_name=erf_name, exp_name=exp_name, part_ms=part_ms)
-
-
-# ---------------------------------------------------------------------------
-# the differentiable op and the render entry points
-# ---------------------------------------------------------------------------
-
-class ChunkedRenderAniso(torch.autograd.Function):
-    """colors = chunked anisotropic forward(oc, invd, mag, albedo, dirs_t,
-    counts) with the analytic backward (the counterpart of the JAX package's
-    _make_chunked_aniso_op). save_t: the forward also writes T and the
-    backward reads it instead of recomputing pass A. Gradients flow to oc,
-    invd, mag, albedo and the ray directions; counts gets None."""
-
-    @staticmethod
-    def forward(ctx, oc, invd, mag, albedo, dirs_t, counts, opts: _ChunkedOpts):
-        kw = dict(ck=opts.ck, pb=opts.pb, qb=opts.qb, erf_name=opts.erf_name,
-                  exp_name=opts.exp_name)
-        if opts.save_t:
-            colors, t = chunked_forward_t_aniso(oc, invd, mag, albedo, dirs_t, counts,
-                                                rb=opts.rb_bwd, **kw)
-            ctx.save_for_backward(oc, invd, mag, albedo, dirs_t, counts, t)
-        else:
-            colors = chunked_forward_aniso(oc, invd, mag, albedo, dirs_t, counts, rb=opts.rb,
-                                           **kw)
-            ctx.save_for_backward(oc, invd, mag, albedo, dirs_t, counts)
-        ctx.opts = opts
-        return colors
-
-    @staticmethod
-    def backward(ctx, dcol):
-        with span("launch"):
-            oc, invd, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
-            o = ctx.opts
-            grads = chunked_backward_aniso(oc, invd, mag, albedo, dirs_t, counts,
-                                           dcol.contiguous(), t[0] if t else None, ck=o.ck,
-                                           rb=o.rb_bwd, qb=o.qb, erf_name=o.erf_name,
-                                           exp_name=o.exp_name)
-        return (*grads, None, None)
-
-
-def render_fused_chunked_aniso(scene_oc, invd, mag, albedo, dirs_t, counts=None, *,
-                               ck: int = DEFAULT_CHUNK, rb: int = 128, pb: int = 8,
-                               qb: int = 32, rb_bwd: int | None = None,
-                               erf_name: str = "as5", exp_name: str = "exact",
-                               save_t: bool | None = None):
-    """Chunked anisotropic render: oc (B,N,3), invd (B,N,3) = scale^-2, mag
-    (B,N), albedo (B,N,3), dirs_t (B,3,R) → colors (B,3,R), the Gaussian
-    axis cut into C = N/ck chunks, with the JAX package's block rules
-    (ops.cuda_chunked._chunked_blocks); counts default to N and are clamped
-    to N. Differentiable through ChunkedRenderAniso (d invd and d dirs
-    included) when grad is enabled and an input requires it; otherwise it
-    launches the forward kernel alone. save_t=None saves T when its
-    20*B*N*R bytes fit ops.cuda_chunked.SAVE_T_CHUNKED_MAX_BYTES."""
-    erf_name = _kernel_erf_name(erf_name)
-    b, n, _ = scene_oc.shape
-    r = dirs_t.shape[2]
-    ck, rb, rb_bwd, pb, qb = _chunked_blocks(n, r, ck, rb, rb_bwd, pb, qb)
-    if counts is None:
-        counts = torch.full((b,), n, dtype=torch.int32, device=scene_oc.device)
-    counts = torch.clamp(counts.to(torch.int32), max=n)
-    inputs = (scene_oc, invd, mag, albedo, dirs_t)
-    if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
-        return chunked_forward_aniso(*inputs, counts, ck=ck, rb=rb, pb=pb, qb=qb,
-                                     erf_name=erf_name, exp_name=exp_name)
-    if save_t is None:
-        save_t = save_t_bytes(b, n, r) <= cuda_chunked.SAVE_T_CHUNKED_MAX_BYTES
-    count_saved_t(save_t_bytes(b, n, r), bool(save_t))
-    opts = _ChunkedOpts(ck, rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
-    return ChunkedRenderAniso.apply(*inputs, counts, opts)
-
-
-def render_tiles_chunked_aniso(tiled: AnisoScene, o, tile_dirs, counts=None, *,
-                               ck: int = DEFAULT_CHUNK, rb: int = 128, pb: int | None = None,
-                               qb: int | None = None, rb_bwd: int | None = None,
-                               erf_name: str = "as5", exp_name: str = "exact",
-                               save_t: bool | None = None) -> torch.Tensor:
-    """Chunked sibling of render_tiles_fused_aniso: tiled AnisoScene fields
-    (T2, K, ...) with K up to MAX_CHUNKED_CAPACITY, tile_dirs (T2, P, 3),
-    counts (T2,) → per-tile colors (T2, P, 3). o is one (3,) origin or a
-    per-tile (T2, 3) batch. Differentiable with respect to mu, scale
-    (through invd = scale^-2), magnitude, albedo and the rays."""
-    k = tiled.mu.shape[1]
-    if pb is None or qb is None:
-        dpb, dqb = _block_sizes(min(k, ck))
-        pb = dpb if pb is None else pb
-        qb = dqb if qb is None else qb
-    with span("launch"):
-        o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
-        oc = (tiled.mu - o_b).contiguous()
-        invd = (1.0 / (tiled.scale * tiled.scale)).contiguous()
-        dirs_t = tile_dirs.transpose(1, 2).contiguous()
-        colors_t = render_fused_chunked_aniso(
-            oc, invd, tiled.magnitude.contiguous(), tiled.albedo.contiguous(), dirs_t, counts,
-            ck=ck, rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name,
-            save_t=save_t)
-        return colors_t.transpose(1, 2)

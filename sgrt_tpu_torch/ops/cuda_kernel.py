@@ -30,13 +30,13 @@ forward-with-T's own. _chunked_forward_launch launches every forward entry
 point of csrc/chunked.cu, fused or chunked, of either row geometry, and
 _chunked_backward_launch every backward entry point there.
 
-`FusedRender` joins them into one differentiable op, as the JAX package's
-custom VJP does; `render_fused` uses it when a gradient is wanted.
+ops.cuda_render joins them into one differentiable op, as the JAX
+package's custom VJP does (ops.cuda_render.ISO's wrappers at one chunk).
 
-The plain versions and the op are written over a row geometry (the terms
-mb, co, inv and sb per (row, ray), and the chain back to the raw inputs),
-so that ops.cuda_aniso runs the same pass A, pass B and op over
-anisotropic rows, as the kernels share gauss_common.cuh's.
+The plain versions are written over a row geometry (the terms mb, co, inv
+and sb per (row, ray), and the chain back to the raw inputs), so that
+ops.cuda_aniso runs the same pass A and pass B over anisotropic rows, as
+the kernels share gauss_common.cuh's.
 """
 
 from __future__ import annotations
@@ -47,12 +47,9 @@ import math
 
 import torch
 
-from sgrt_tpu_torch.models.gaussians import GaussianScene, pad_scene
 from sgrt_tpu_torch.ops.approx import ERF_AND_GAUSS_IMPLS, ERF_IMPLS, EXP_IMPLS, kernel_tables
 from sgrt_tpu_torch.ops.reference import INV_SQRT_2_PI
-from sgrt_tpu_torch.ops.render import _unit_pad
 from sgrt_tpu_torch.utils import nvcc
-from sgrt_tpu_torch.utils.trace import count_saved_t, span
 
 K_TAPS = (-4.0, -3.0, -2.0, -1.0, 0.0)
 K_WEIGHTS = tuple(math.exp(-k * k / 2.0) for k in K_TAPS)
@@ -724,147 +721,3 @@ def fused_backward(oc, sigma, mag, albedo, dirs_t, counts, dcol, t_saved=None, *
     kernel = FUSED_BWD if t_saved is None else FUSED_BWD_T
     return _chunked_backward_launch(kernel, args, dcol, t_saved, ck=oc.shape[1], rb=rb, qb=qb,
                                     erf_name=erf_name, exp_name=exp_name, part_ms=part_ms)
-
-
-# ---------------------------------------------------------------------------
-# the differentiable op
-# ---------------------------------------------------------------------------
-
-@dataclasses.dataclass(frozen=True)
-class _FusedOpts:
-    ops: tuple          # (forward, forward_t, backward) wrappers of one row geometry
-    rb: int
-    rb_bwd: int
-    pb: int
-    qb: int
-    erf_name: str
-    exp_name: str
-    save_t: bool
-
-
-class FusedRender(torch.autograd.Function):
-    """colors = fused forward(oc, shape, mag, albedo, dirs_t, counts) with
-    the analytic backward (the counterpart of the JAX package's
-    _make_fused_op and _make_fused_aniso_op): shape is sigma for the
-    isotropic kernels, invd = scale^-2 for the anisotropic ones, whichever
-    opts.ops holds. save_t: the forward also writes T and the backward
-    reads it instead of recomputing pass A. Gradients flow to oc, shape,
-    mag, albedo and the ray directions; counts gets None."""
-
-    @staticmethod
-    def forward(ctx, oc, shape, mag, albedo, dirs_t, counts, opts: _FusedOpts):
-        fwd, fwd_t, _ = opts.ops
-        kw = dict(pb=opts.pb, qb=opts.qb, erf_name=opts.erf_name, exp_name=opts.exp_name)
-        if opts.save_t:
-            colors, t = fwd_t(oc, shape, mag, albedo, dirs_t, counts, rb=opts.rb_bwd, **kw)
-            ctx.save_for_backward(oc, shape, mag, albedo, dirs_t, counts, t)
-        else:
-            colors = fwd(oc, shape, mag, albedo, dirs_t, counts, rb=opts.rb, **kw)
-            ctx.save_for_backward(oc, shape, mag, albedo, dirs_t, counts)
-        ctx.opts = opts
-        return colors
-
-    @staticmethod
-    def backward(ctx, dcol):
-        with span("launch"):
-            oc, shape, mag, albedo, dirs_t, counts, *t = ctx.saved_tensors
-            o = ctx.opts
-            grads = o.ops[2](oc, shape, mag, albedo, dirs_t, counts, dcol.contiguous(),
-                             t[0] if t else None, rb=o.rb_bwd, qb=o.qb,
-                             erf_name=o.erf_name, exp_name=o.exp_name)
-        return (*grads, None, None)
-
-
-def _render_fused(ops, scene_oc, shape, mag, albedo, dirs_t, counts, *, rb, pb, qb, rb_bwd,
-                  erf_name, exp_name, save_t):
-    """render_fused over the wrappers `ops` of one row geometry."""
-    erf_name = _kernel_erf_name(erf_name)
-    b, n, _ = scene_oc.shape
-    r = dirs_t.shape[2]
-    rb = min(rb, r)
-    rb_bwd = rb if rb_bwd is None else min(rb_bwd, r)
-    pb, qb = min(pb, n), min(qb, n)
-    if r % rb or n % pb or n % qb or r % rb_bwd or pb % 8 or qb % 8:
-        raise ValueError(f"shape (R={r}, N={n}) not divisible by blocks "
-                         f"(rb={rb}, rb_bwd={rb_bwd}, pb={pb}, qb={qb})")
-    if counts is None:
-        counts = torch.full((b,), n, dtype=torch.int32, device=scene_oc.device)
-    counts = torch.clamp(counts.to(torch.int32), max=n)
-    inputs = (scene_oc, shape, mag, albedo, dirs_t)
-    if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
-        return ops[0](*inputs, counts, rb=rb, pb=pb, qb=qb, erf_name=erf_name,
-                      exp_name=exp_name)
-    if save_t is None:
-        save_t = save_t_bytes(b, n, r) <= SAVE_T_MAX_BYTES
-    count_saved_t(save_t_bytes(b, n, r), bool(save_t))
-    opts = _FusedOpts(ops, rb, rb_bwd, pb, qb, erf_name, exp_name, bool(save_t))
-    return FusedRender.apply(*inputs, counts, opts)
-
-
-def render_fused(scene_oc, sigma, mag, albedo, dirs_t, counts=None, *,
-                 rb: int = 128, pb: int = 16, qb: int = 32,
-                 rb_bwd: int | None = None, erf_name: str = "as5",
-                 exp_name: str = "exact", save_t: bool | None = None):
-    """Fully fused batched render: oc (B,N,3), sigma/mag (B,N), albedo
-    (B,N,3), dirs_t (B,3,R) → colors (B,3,R). Block sizes follow the JAX
-    package's rules (rb | R, pb | N, qb | N, multiples of 8); counts
-    default to N and are clamped to N.
-
-    Differentiable: when grad is enabled and an input requires it, the
-    render goes through FusedRender (gradients for oc, sigma, mag, albedo
-    and the ray directions); otherwise it launches the plain forward kernel
-    and never pays for the T write. save_t=None saves T when its 20*B*N*R
-    bytes fit SAVE_T_MAX_BYTES. rb_bwd is the ray block of the saved-T
-    forward and of the backward (default rb)."""
-    return _render_fused((fused_forward, fused_forward_t, fused_backward), scene_oc, sigma, mag,
-                         albedo, dirs_t, counts, rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd,
-                         erf_name=erf_name, exp_name=exp_name, save_t=save_t)
-
-
-def render_tiles_fused(tiled_scene: GaussianScene, o, tile_dirs, counts=None,
-                       *, rb: int = 128, pb: int | None = None,
-                       qb: int | None = None, rb_bwd: int | None = None,
-                       erf_name: str = "as5", exp_name: str = "exact") -> torch.Tensor:
-    """Batched per-tile render: tiled_scene fields (T2, K, ...), tile_dirs
-    (T2, P, 3), counts (T2,) live Gaussians per tile → per-tile colors
-    (T2, P, 3). o is one (3,) origin or a per-tile (T2, 3) batch.
-    Differentiable through render_fused."""
-    k = tiled_scene.mu.shape[1]
-    dpb, dqb = _block_sizes(k)
-    pb = dpb if pb is None else pb
-    qb = dqb if qb is None else qb
-    with span("launch"):
-        o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
-        oc = (tiled_scene.mu - o_b).contiguous()             # (T2, K, 3)
-        dirs_t = tile_dirs.transpose(1, 2).contiguous()       # (T2, 3, P)
-        colors_t = render_fused(
-            oc, tiled_scene.sigma.contiguous(), tiled_scene.magnitude.contiguous(),
-            tiled_scene.albedo.contiguous(), dirs_t, counts, rb=rb, pb=pb, qb=qb,
-            rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name)  # (T2, 3, P)
-        return colors_t.transpose(1, 2)
-
-
-def render_rays_fused_impl(o, dirs, scene: GaussianScene, *, rb: int = 128,
-                           pb: int | None = None, qb: int | None = None,
-                           rb_bwd: int | None = None, erf_name: str = "as5",
-                           exp_name: str = "exact") -> torch.Tensor:
-    """Render a flat ray batch through the kernel as one tile:
-    dirs (R,3) → colors (R,3). Rays are padded to a multiple of rb with a
-    unit direction (see ops.render._unit_pad). Differentiable."""
-    n_live = scene.n
-    if pb is None or qb is None:
-        dpb, dqb = _block_sizes(n_live)
-        pb = dpb if pb is None else pb
-        qb = dqb if qb is None else qb
-    scene = pad_scene(scene, max(pb, qb))
-    r = dirs.shape[0]
-    rb = min(rb, r)
-    dirs_p = _unit_pad(dirs, (-r) % rb)
-    counts = torch.full((1,), n_live, dtype=torch.int32, device=dirs.device)
-    oc = (scene.mu - o[None, :]).contiguous()
-    colors_t = render_fused(
-        oc[None], scene.sigma[None].contiguous(), scene.magnitude[None].contiguous(),
-        scene.albedo[None].contiguous(), dirs_p.T[None].contiguous(), counts,
-        rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd, erf_name=erf_name,
-        exp_name=exp_name)[0]  # (3, R)
-    return colors_t.T[:r]

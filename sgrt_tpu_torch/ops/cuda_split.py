@@ -38,7 +38,7 @@ of the colors (split_forward) or its colors alone (split_forward_color); the
 backwards run the forward-with-T over the planes into scratch, then its p
 side, db sum, q side and a rows kernel. They take qb (the rows staged per
 shared-memory pass); pb is checked but does not change the kernels, and rb
-and rb_bwd stay the Pallas API's block rule on the host.
+stays the Pallas API's block rule on the host.
 
 TwSplit and ColorsSplit join them into differentiable ops, tw_split and
 colors_split the counterparts of tw_pallas and colors_pallas, with their
@@ -381,7 +381,6 @@ def split_backward_color(mb, co, sigma, inv, albedo, counts, dcol, *, rb: int = 
 @dataclasses.dataclass(frozen=True)
 class _SplitOpts:
     rb: int
-    rb_bwd: int
     pb: int
     qb: int
     erf_name: str
@@ -403,7 +402,7 @@ class TwSplit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         o = ctx.opts
-        grads = split_backward(*ctx.saved_tensors, g.contiguous(), rb=o.rb_bwd, qb=o.qb,
+        grads = split_backward(*ctx.saved_tensors, g.contiguous(), rb=o.rb, qb=o.qb,
                                erf_name=o.erf_name, exp_name=o.exp_name)
         return (*grads, None, None)
 
@@ -423,22 +422,21 @@ class ColorsSplit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dcol):
         o = ctx.opts
-        grads = split_backward_color(*ctx.saved_tensors, dcol.contiguous(), rb=o.rb_bwd,
+        grads = split_backward_color(*ctx.saved_tensors, dcol.contiguous(), rb=o.rb,
                                      qb=o.qb, erf_name=o.erf_name, exp_name=o.exp_name)
         return (*grads, None, None)
 
 
-def _split_op(fwd, op, planes, counts, *, rb, pb, qb, rb_bwd, erf_name, exp_name):
+def _split_op(fwd, op, planes, counts, *, rb, pb, qb, erf_name, exp_name):
     """tw_split / colors_split: the JAX package's block rules and count
     clamp, then the op when a gradient is wanted, else the forward."""
     erf_name = _kernel_erf_name(erf_name)
     b, n, r = planes[0].shape
     rb = min(rb, r)
-    rb_bwd = rb if rb_bwd is None else min(rb_bwd, r)
     pb, qb = min(pb, n), min(qb, n)
-    if r % rb or n % pb or n % qb or r % rb_bwd or pb % 8 or qb % 8:
+    if r % rb or n % pb or n % qb or pb % 8 or qb % 8:
         raise ValueError(f"shape (R={r}, N={n}) not divisible by blocks "
-                         f"(rb={rb}, rb_bwd={rb_bwd}, pb={pb}, qb={qb})")
+                         f"(rb={rb}, pb={pb}, qb={qb})")
     if counts is None:
         counts = torch.full((b,), n, dtype=torch.int32, device=planes[0].device)
     # clamp: a count past the padded capacity would run the loops off the
@@ -448,11 +446,11 @@ def _split_op(fwd, op, planes, counts, *, rb, pb, qb, rb_bwd, erf_name, exp_name
     kw = dict(erf_name=erf_name, exp_name=exp_name)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in planes)):
         return fwd(*planes, counts, rb=rb, pb=pb, qb=qb, **kw)
-    return op.apply(*planes, counts, _SplitOpts(rb, rb_bwd, pb, qb, erf_name, exp_name))
+    return op.apply(*planes, counts, _SplitOpts(rb, pb, qb, erf_name, exp_name))
 
 
 def tw_split(mb, co, sigma, inv, counts=None, *, rb: int = 128, pb: int = 16, qb: int = 32,
-             rb_bwd: int | None = None, erf_name: str = "as5", exp_name: str = "exact"):
+             erf_name: str = "as5", exp_name: str = "exact"):
     """Transmittance weights (the counterpart of tw_pallas): Gaussian-major
     mb, co (B,N,R); sigma, inv (B,N); counts (B,) int32 live-prefix lengths
     (None → all N live; clamped to N) → tw (B,N,R), zero past the count.
@@ -463,18 +461,17 @@ def tw_split(mb, co, sigma, inv, counts=None, *, rb: int = 128, pb: int = 16, qb
     or the counts are multiples of pb and qb; otherwise Pallas sums whole q
     blocks into acc_k and the two differ (module note)."""
     return _split_op(split_forward, TwSplit, (mb, co, sigma, inv), counts, rb=rb, pb=pb,
-                     qb=qb, rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name)
+                     qb=qb, erf_name=erf_name, exp_name=exp_name)
 
 
 def colors_split(mb, co, sigma, inv, albedo, counts=None, *, rb: int = 128, pb: int = 16,
-                 qb: int = 32, rb_bwd: int | None = None, erf_name: str = "as5",
-                 exp_name: str = "exact"):
+                 qb: int = 32, erf_name: str = "as5", exp_name: str = "exact"):
     """Radiance from the planes (the counterpart of colors_pallas): the
     inputs of tw_split plus albedo (B,N,3) → colors (B,3,R); tw never
     reaches device memory. Differentiable in mb, co, sigma, inv and
     albedo."""
     return _split_op(split_forward_color, ColorsSplit, (mb, co, sigma, inv, albedo), counts,
-                     rb=rb, pb=pb, qb=qb, rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name)
+                     rb=rb, pb=pb, qb=qb, erf_name=erf_name, exp_name=exp_name)
 
 
 # ---------------------------------------------------------------------------
@@ -504,16 +501,15 @@ def prep_terms_t(o, dirs, scene: GaussianScene):
 
 def render_tiles_split(tiled_scene: GaussianScene, o, tile_dirs, counts=None, *,
                        rb: int = 128, pb: int | None = None, qb: int | None = None,
-                       rb_bwd: int | None = None, erf_name: str = "as5",
-                       exp_name: str = "exact") -> torch.Tensor:
+                       erf_name: str = "as5", exp_name: str = "exact") -> torch.Tensor:
     """Per-tile colors (T2, P, 3) through the split kernels: prep_terms_t
     makes the (T2, K, P) planes, colors_split renders them. Inputs as
-    ops.cuda_kernel.render_tiles_fused; differentiable in the scene and the
-    ray directions."""
+    ops.cuda_render.render_tiles'; differentiable in the scene and the ray
+    directions."""
     dpb, dqb = _block_sizes(tiled_scene.mu.shape[1])
     o_b = o[None, None, :] if o.dim() == 1 else o[:, None, :]
     mb, _, coeff, inv = prep_terms_t(o_b, tile_dirs, tiled_scene)
     colors_t = colors_split(mb, coeff, tiled_scene.sigma, inv, tiled_scene.albedo, counts,
                             rb=rb, pb=dpb if pb is None else pb, qb=dqb if qb is None else qb,
-                            rb_bwd=rb_bwd, erf_name=erf_name, exp_name=exp_name)
+                            erf_name=erf_name, exp_name=exp_name)
     return colors_t.transpose(1, 2)

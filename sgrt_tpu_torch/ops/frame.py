@@ -94,10 +94,9 @@ def render_orbit_frame(
     if not use_tiling:
         no_overflow = torch.zeros((), dtype=torch.int32, device=dev)
         if backend == "kernel":
-            from sgrt_tpu_torch.ops.cuda_kernel import render_rays_fused_impl
+            from sgrt_tpu_torch.ops.cuda_render import render_rays
 
-            colors = render_rays_fused_impl(o, dirs, scene, erf_name=erf_name,
-                                            exp_name=exp_name)
+            colors = render_rays(o, dirs, scene, erf_name=erf_name, exp_name=exp_name)
         else:
             colors = render_rays_impl(o, dirs, scene, q_block, ray_block,
                                       erf_name=erf_name, exp_name=exp_name)

@@ -240,34 +240,35 @@ def make_bucketed_renderer(cfg: BucketConfig, *, tiles, aniso: bool = False, mes
     T2 / D and every rank carries a balanced mix of counts; bucket sizes
     the mesh does not divide raise ValueError (size them with
     probe_buckets(..., multiple_of=D)). The capacities are rounded and
-    routed, once per bucket, by tile_renderer_for, or for an AnisoScene
-    (aniso=True, culled on its max-scale proxy) tile_renderer_aniso_for.
-    Differentiable with respect to the scene: the bucket gathers transpose
-    to scatter-adds."""
+    routed, once per bucket, by tile_renderer_for, for the row geometry that
+    aniso selects (ops.cuda_render.ANISO: an AnisoScene, culled on its
+    max-scale proxy). Differentiable with respect to the scene: the bucket
+    gathers transpose to scatter-adds."""
     from sgrt_tpu_torch.ops import cuda_chunked
-    from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
+    from sgrt_tpu_torch.ops.cuda_render import ANISO, ISO
 
-    if aniso:
-        renderer_for, gather, proxy = (cuda_chunked.tile_renderer_aniso_for,
-                                       gather_tiles_aniso, iso_proxy)
-    else:
-        renderer_for, gather, proxy = cuda_chunked.tile_renderer_for, gather_tiles, None
+    geometry = ANISO if aniso else ISO
+    # this module's gather_tiles, looked up here, gathers isotropic rows, so
+    # that a gather replaced in this module is the one the buckets take
+    gather = gather_tiles if geometry is ISO else geometry.gather
     tx, ty = as_grid(tiles)
     n_d, n_s = cfg.n_dense, tx * ty - cfg.n_dense
     n_dev = 1 if mesh is None else mesh.size
     if n_d % n_dev or n_s % n_dev:
         raise ValueError(f"bucket sizes ({n_d}, {n_s}) must divide the mesh ({n_dev} "
                          f"ranks); size with probe_buckets(..., multiple_of={n_dev})")
-    cap_d, render_dense = renderer_for(cfg.cap_dense, pb=pb, qb=qb, rb=rb,
-                                       erf_name=erf_name, exp_name=exp_name)
-    cap_s, render_sparse = renderer_for(cfg.cap_sparse, pb=pb, qb=qb, rb=rb,
-                                        erf_name=erf_name, exp_name=exp_name)
+    cap_d, render_dense = cuda_chunked.tile_renderer_for(
+        cfg.cap_dense, geometry=geometry, pb=pb, qb=qb, rb=rb, erf_name=erf_name,
+        exp_name=exp_name)
+    cap_s, render_sparse = cuda_chunked.tile_renderer_for(
+        cfg.cap_sparse, geometry=geometry, pb=pb, qb=qb, rb=rb, erf_name=erf_name,
+        exp_name=exp_name)
     cfg = BucketConfig(n_d, cap_d, cap_s)
     sd, ss = (slice(None),) * 2 if mesh is None else (mesh.shard(n_d), mesh.shard(n_s))
 
     def render(scene, view, o, tile_dirs):
         dense_ids, idx_d, sparse_ids, idx_s, counts = bucketed_tile_indices(
-            scene if proxy is None else proxy(scene), view, tiles, cfg,
+            geometry.proxy(scene), view, tiles, cfg,
             focal_length=focal_length, interleave=n_dev)
         overflow = (torch.sum(counts[sparse_ids] > cfg.cap_sparse)
                     + torch.sum(counts[dense_ids] > cfg.cap_dense)).to(torch.int32)
@@ -296,12 +297,12 @@ def render_tiles_bucketed(scene, view, o, tile_dirs, cfg: BucketConfig,
     nothing was dropped)). make_bucketed_renderer's render on one rank,
     its colors scattered back into tile order (differentiable: the scatter
     transposes to a gather)."""
-    from sgrt_tpu_torch.ops.anisotropic import AnisoScene
+    from sgrt_tpu_torch.ops.cuda_render import ANISO, geometry_of
 
     t2 = tile_dirs.shape[0]
     if tiles is None:
         tiles = int(round(t2 ** 0.5))  # square-grid default
-    render = make_bucketed_renderer(cfg, tiles=tiles, aniso=isinstance(scene, AnisoScene),
+    render = make_bucketed_renderer(cfg, tiles=tiles, aniso=geometry_of(scene) is ANISO,
                                     erf_name=erf_name, exp_name=exp_name, rb=rb, pb=pb,
                                     qb=qb, focal_length=focal_length)
     out = render(scene, view, o, tile_dirs)

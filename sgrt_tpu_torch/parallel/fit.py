@@ -3,7 +3,7 @@
 Optimize Gaussian means / sigmas / magnitudes / albedos against target
 pixels by gradient descent. The tiled frame step is the north-star
 training configuration: per-frame re-tiling (no gradient), gather, the
-fused CUDA forward and its analytic backward (ops.cuda_kernel.FusedRender),
+fused CUDA forward and its analytic backward (ops.cuda_render.TileRender),
 the gather's transpose as a scatter-add of tile gradients into the scene,
 then an Adam step.
 
@@ -52,7 +52,7 @@ from sgrt_tpu_torch.models.gaussians import GaussianScene
 from sgrt_tpu_torch.ops.anisotropic import FIELDS as ANISO_FIELDS
 from sgrt_tpu_torch.ops.frame import BACKENDS
 from sgrt_tpu_torch.ops.render import _radiance_block, _tile_rays, render_rays_impl
-from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
+from sgrt_tpu_torch.ops.tiling import tile_indices
 from sgrt_tpu_torch.parallel.mesh import replicate, shard_rays
 from sgrt_tpu_torch.utils.trace import span
 
@@ -198,7 +198,7 @@ def make_train_step(mesh=None, loss_fn: Callable = l2_loss,
     """Untiled train step: step(state, o, dirs, target) → (state, loss).
 
     backend="kernel" renders through the fused kernel and its analytic
-    backward (ops.cuda_kernel.render_rays_fused_impl; the JAX package's
+    backward (ops.cuda_render.render_rays; the JAX package's
     "pallas"); "torch" differentiates the plain renderer by autograd
     (ops.render; the JAX package's "xla"). With a mesh, dirs and target are
     this rank's shards (parallel.mesh.shard_rays), and the loss and the
@@ -208,9 +208,9 @@ def make_train_step(mesh=None, loss_fn: Callable = l2_loss,
     def step(state: FitState, o, dirs, target):
         def loss_of(scene):
             if backend == "kernel":
-                from sgrt_tpu_torch.ops.cuda_kernel import render_rays_fused_impl
+                from sgrt_tpu_torch.ops.cuda_render import render_rays
 
-                colors = render_rays_fused_impl(o, dirs, scene)
+                colors = render_rays(o, dirs, scene)
             else:
                 colors = render_rays_impl(o, dirs, scene, q_block, ray_block)
             return loss_fn(colors, target), None
@@ -259,8 +259,8 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
 
     backend="kernel" routes tiles through tile_renderer_for (the fused
     kernels, or the chunked ones above MAX_MONOLITHIC_CAPACITY); aniso=True
-    takes an AnisoScene, culled on its iso_proxy, through
-    tile_renderer_aniso_for. bucket_cfg with n_dense > 0 renders a dense
+    takes an AnisoScene, culled on its iso_proxy (the row geometry
+    ops.cuda_render.ANISO). bucket_cfg with n_dense > 0 renders a dense
     and a sparse bucket (ops.scheduler.make_bucketed_renderer); a config
     with n_dense = 0 renders one launch at max(capacity, cap_dense), the
     probed capacity. backend="torch" differentiates the plain per-tile
@@ -283,11 +283,12 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
     transpose scatters into the scene. Without the request vg runs the same
     launches and returns the same tensors; with a mesh the request raises
     ValueError."""
-    from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
-    from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for, tile_renderer_for
+    from sgrt_tpu_torch.ops import cuda_chunked
+    from sgrt_tpu_torch.ops.cuda_render import ANISO, ISO
     from sgrt_tpu_torch.ops.tiling import as_grid
 
     _check_backend(backend)
+    geometry = ANISO if aniso else ISO
     if backend != "kernel":
         bucket_cfg = None
     elif bucket_cfg is not None and not bucket_cfg.n_dense:
@@ -336,8 +337,8 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
         return vg
 
     if backend == "kernel":
-        capacity, render = (tile_renderer_aniso_for if aniso else tile_renderer_for)(
-            capacity, erf_name=erf_name, exp_name=exp_name)
+        capacity, render = cuda_chunked.tile_renderer_for(
+            capacity, geometry=geometry, erf_name=erf_name, exp_name=exp_name)
     else:
         from sgrt_tpu_torch.ops.cuda_kernel import _block_sizes
 
@@ -346,11 +347,10 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
 
         def render(tiled, o, d, counts):
             return _torch_tile_render(tiled, o, d, min(q_block, capacity), tile_batch)
-    gather, proxy = (gather_tiles_aniso, iso_proxy) if aniso else (gather_tiles, lambda s: s)
 
     def vg(scene, view, o, dirs, target, per_tile=None):
         with torch.no_grad():
-            idx, counts = tile_indices(proxy(scene), view, tiles, capacity,
+            idx, counts = tile_indices(geometry.proxy(scene), view, tiles, capacity,
                                        focal_length=focal_length)
         with span("tiling"):
             overflow = torch.sum(counts > capacity, dtype=torch.int32)
@@ -359,7 +359,7 @@ def make_frame_value_and_grad(*, width: int = 256, height: int = 256, tiles=16,
         held = []
 
         def loss_of(s):
-            rows = gather(s, idx[mine])
+            rows = geometry.gather(s, idx[mine])
             colors = render(rows, o, d, counts[mine])
             if per_tile is not None:
                 ids = torch.arange(tx * ty, device=idx.device)[mine]
@@ -431,25 +431,19 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
     ranks' sums before the update. A tile count the mesh does not divide
     raises ValueError.
 
-    aniso=True fits an ops.anisotropic.AnisoScene the same way: tiles from
-    the max-scale proxy (iso_proxy), the anisotropic gather, and
-    tile_renderer_aniso_for (the chunked anisotropic kernels above
-    MAX_BWD_CAPACITY_ANISO)."""
+    aniso=True fits an ops.anisotropic.AnisoScene the same way, on the row
+    geometry ops.cuda_render.ANISO: tiles from the max-scale proxy
+    (iso_proxy), the anisotropic gather, and tile_renderer_for's anisotropic
+    route (the chunked anisotropic kernels above MAX_BWD_CAPACITY_ANISO)."""
+    from sgrt_tpu_torch.ops import cuda_chunked
+    from sgrt_tpu_torch.ops.cuda_render import ANISO, ISO
     from sgrt_tpu_torch.ops.tiling import as_grid
 
     _check_bwd_capacity(capacity, None, "kernel")
-    if aniso:
-        from sgrt_tpu_torch.ops.anisotropic import gather_tiles_aniso, iso_proxy
-        from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
-
-        capacity, render = tile_renderer_aniso_for(capacity, erf_name=erf_name,
-                                                   exp_name=exp_name)
-        gather, proxy, fields = gather_tiles_aniso, iso_proxy, ANISO_FIELDS
-    else:
-        from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_for
-
-        capacity, render = tile_renderer_for(capacity, erf_name=erf_name, exp_name=exp_name)
-        gather, proxy, fields = gather_tiles, (lambda s: s), FIELDS
+    geometry = ANISO if aniso else ISO
+    capacity, render = cuda_chunked.tile_renderer_for(capacity, geometry=geometry,
+                                                      erf_name=erf_name, exp_name=exp_name)
+    fields = geometry.fields
     trainable = fields if trainable is None else trainable
     tx, ty = as_grid(tiles)
     t2 = tx * ty
@@ -464,7 +458,7 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
 
     def step(state: FitState, view, o, dirs, target):
         with torch.no_grad():
-            idx, counts = tile_indices(proxy(state.scene), view, tiles, capacity,
+            idx, counts = tile_indices(geometry.proxy(state.scene), view, tiles, capacity,
                                        focal_length=focal_length)
             order = torch.argsort(-counts, stable=True)
             overflow = torch.sum(counts > capacity, dtype=torch.int32)
@@ -476,7 +470,7 @@ def make_slab_frame_train_step(*, width: int = 512, height: int = 512, tiles=(64
             sl = slice(s0, s0 + per_rank)
 
             def loss_of(sc):
-                colors = render(gather(sc, idx[sl]), o, d[sl], counts[sl])
+                colors = render(geometry.gather(sc, idx[sl]), o, d[sl], counts[sl])
                 return torch.sum((colors - tgt[sl]) ** 2), None
 
             (loss, _), g, _ = _value_and_grad(loss_of, state.scene, trainable)
@@ -511,7 +505,7 @@ def make_aniso_frame_train_step(*, width: int = 256, height: int = 256, tiles=16
     bucket_cfg: dense/sparse capacity bucketing as in the isotropic step,
     bucket membership from the iso_proxy counts; a config with n_dense = 0
     renders one launch at max(capacity, cap_dense). Capacities route through
-    tile_renderer_aniso_for: above MAX_BWD_CAPACITY_ANISO to the chunked
+    tile_renderer_for: above MAX_BWD_CAPACITY_ANISO to the chunked
     anisotropic kernels (recompute backward), and above
     MAX_CHUNKED_CAPACITY the step refuses to build. With a mesh the tiles
     (each bucket) are split over the ranks as in make_frame_train_step."""

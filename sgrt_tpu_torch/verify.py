@@ -11,7 +11,7 @@ report, {"device", "compiled", "checks", "parity_ok"}, and exits 1 when a
 check fails; "compiled" says whether the kernels ran on CUDA.
 
 Checks (the JAX script's five, with its names and tolerances):
-  1. fused forward, untiled: render_rays_fused_impl vs render_rays_impl
+  1. fused forward, untiled: cuda_render.render_rays vs render_rays_impl
      vs render_rays_reference, cube scene, 64x64 rays.
   2. fused forward, tiled + counts-bounded: render_orbit_frame
      (backend="kernel") vs (backend="torch"), 256x256, cube + teapot.
@@ -114,7 +114,7 @@ def run_checks(quick: bool = False, device="cuda", *, cube_obj: str | None = Non
     """The checks as a report dict, at the JAX script's sizes (RAYS,
     FRAME). cube_obj and teapot_obj name obj files for the two scenes
     (None: the seeded clouds)."""
-    from sgrt_tpu_torch.ops.cuda_kernel import render_rays_fused_impl
+    from sgrt_tpu_torch.ops.cuda_render import render_rays
     from sgrt_tpu_torch.ops.cuda_split import tw_split
     from sgrt_tpu_torch.ops.frame import orbit_camera, probe_capacity, render_orbit_frame
     from sgrt_tpu_torch.ops.reference import render_rays_reference
@@ -143,7 +143,7 @@ def run_checks(quick: bool = False, device="cuda", *, cube_obj: str | None = Non
 
     # --- 1. forward untiled: kernel vs torch vs oracle ---------------------
     with torch.no_grad():
-        px_kernel = render_rays_fused_impl(o, dirs, cube, erf_name="as5")
+        px_kernel = render_rays(o, dirs, cube, erf_name="as5")
         px_torch = render_rays_impl(o, dirs, cube, ray_block=ray_block)
         record("fwd_untiled_vs_xla", _rel_err(px_kernel, px_torch), 2e-5)
         if not quick:
@@ -174,7 +174,7 @@ def run_checks(quick: bool = False, device="cuda", *, cube_obj: str | None = Non
     # --- 3. gradients untiled: the kernel route's VJP vs autograd ----------
     tgt = torch.zeros((dirs.shape[0], 3), device=dev)
     g_k = _scene_grads(lambda s: torch.mean(
-        (render_rays_fused_impl(o, dirs, s, erf_name="as5") - tgt) ** 2), cube)
+        (render_rays(o, dirs, s, erf_name="as5") - tgt) ** 2), cube)
     g_t = _scene_grads(lambda s: torch.mean((_torch_rays(o, dirs, s) - tgt) ** 2), cube)
     for f in FIELDS:
         record(f"grad_untiled_{f}", _rel_err(g_k[f], g_t[f]), 5e-4)

@@ -245,11 +245,11 @@ def render_query(scene: GaussianScene, q: dict, width: int, height: int, tiles,
         return an.render_tiled_aniso(ascene, cam, tiles=tiles, capacity=cap, backend=backend,
                                      erf_name=erf_name, exp_name=exp_name)
     if backend == "kernel":
-        from sgrt_tpu_torch.ops.cuda_aniso import render_rays_fused_aniso_impl
+        from sgrt_tpu_torch.ops.cuda_render import render_rays
 
         o, dirs = cam.rays()
-        img = render_rays_fused_aniso_impl(o, dirs, ascene, erf_name=erf_name,
-                                           exp_name=exp_name).reshape(height, width, 3)
+        img = render_rays(o, dirs, ascene, erf_name=erf_name,
+                          exp_name=exp_name).reshape(height, width, 3)
     else:
         img = an.render_aniso(ascene, cam, erf_name=erf_name, exp_name=exp_name)
     return img, torch.zeros((), dtype=torch.int32, device=img.device)

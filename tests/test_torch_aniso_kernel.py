@@ -30,8 +30,7 @@ from sgrt_tpu.ops import pallas_aniso as jpa
 from sgrt_tpu_torch.ops import anisotropic as tan
 from sgrt_tpu_torch.ops import cuda_aniso as ta
 from sgrt_tpu_torch.ops import cuda_kernel as tk
-from sgrt_tpu_torch.ops.cuda_chunked import tile_renderer_aniso_for
-from sgrt_tpu_torch.ops.cuda_kernel import FusedRender
+from sgrt_tpu_torch.ops import cuda_render as cr
 
 FIELDS = ("mu", "scale", "magnitude", "albedo")
 GRADS = ("doc", "dinvd", "dmag", "dalbedo", "ddirs")
@@ -147,9 +146,11 @@ def test_plain_backward_is_the_forward_vjp():
 
 
 def test_fused_op_gradients_match_jax_grad():
-    """FusedRenderAniso's gradients to mu, scale, magnitude and albedo,
-    through render_rays_fused_aniso_impl (invd = scale^-2 chained by
-    autograd), against jax.grad of render_rays_pallas_aniso_impl."""
+    """The one op's gradients to mu, scale, magnitude and albedo over
+    anisotropic rows, through the flat-ray front door (invd = scale^-2
+    chained by autograd), against jax.grad of render_rays_pallas_aniso_impl;
+    both geometries at one chunk and chunked differentiate through that one
+    op."""
     from sgrt_tpu.models.camera import Camera as JCamera
 
     rng = np.random.default_rng(7)
@@ -170,17 +171,22 @@ def test_fused_op_gradients_match_jax_grad():
     jg = jax.grad(jloss)(jan.AnisoScene(*(jnp.asarray(f) for f in fields)))
     scene = tan.aniso_scene_from_numpy(*fields, device="cpu")
     leaves = {f: getattr(scene, f).clone().requires_grad_(True) for f in FIELDS}
-    c = ta.render_rays_fused_aniso_impl(torch.from_numpy(o), torch.from_numpy(dirs),
-                                        tan.AnisoScene(**leaves))
+    c = cr.render_rays(torch.from_numpy(o), torch.from_numpy(dirs), tan.AnisoScene(**leaves))
     torch.sum(c ** 2).backward()
     tol = 4.0 * float(np.max(np.sum((mu - o) ** 2 / fields[1] ** 2, axis=-1))) * 2.0 ** -24
     for f in FIELDS:
         _close(leaves[f].grad, getattr(jg, f), 4 * tol, f)
-    assert ta.FusedRenderAniso is FusedRender
+    for geometry, shape in ((cr.ISO, (1, 128)), (cr.ANISO, (1, 128, 3))):
+        for ck in (None, 128):
+            ops = (torch.zeros(1, 128, 3), torch.ones(shape), torch.zeros(1, 128),
+                   torch.zeros(1, 128, 3), torch.ones(1, 3, 8))
+            out = cr.render_batched(*(t.requires_grad_(True) for t in ops), geometry=geometry,
+                                    ck=ck)
+            assert type(out.grad_fn) is cr.TileRender._backward_cls, (geometry.scene, ck)
 
 
 def test_tiles_render_matches_pallas_tiles():
-    """render_tiles_fused_aniso (the per-tile entry) against
+    """The per-tile front door on an anisotropic tile against
     render_tiles_pallas_aniso on one padded tile with counts below K."""
     rng = np.random.default_rng(2)
     k, live = 16, 9
@@ -198,32 +204,10 @@ def test_tiles_render_matches_pallas_tiles():
     want = jpa.render_tiles_pallas_aniso(jt, jnp.asarray(o), jnp.asarray(d),
                                          jnp.asarray(counts), pb=8, qb=8, interpret=True)
     tt = tan.AnisoScene(*(torch.from_numpy(x[None]) for x in (mu, scale, mag, alb)))
-    got = ta.render_tiles_fused_aniso(tt, torch.from_numpy(o), torch.from_numpy(d),
-                                      torch.from_numpy(counts), pb=8, qb=8)
+    got = cr.render_tiles(tt, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(counts),
+                          pb=8, qb=8)
     tol = 4.0 * float(np.max(np.sum((mu[:live] - o) ** 2 / scale[:live] ** 2, -1))) * 2.0 ** -24
     _close(got, want, tol)
-
-
-@pytest.mark.parametrize("capacity,padded", [(20, 32), (300, 320), (6144, 6144)])
-def test_tile_renderer_aniso_routing(capacity, padded):
-    """Up to MAX_BWD_CAPACITY_ANISO the fused anisotropic route, padded to
-    lcm(pb, qb) as the JAX package pads; above it the chunked anisotropic
-    kernels at the JAX package's chunk_plan capacity, whose render refuses
-    a padded capacity past MAX_CHUNKED_CAPACITY."""
-    from sgrt_tpu.ops.pallas_chunked_aniso import tile_renderer_aniso_for as j_route
-    from sgrt_tpu_torch.ops.cuda_chunked import MAX_CHUNKED_CAPACITY, chunk_plan
-
-    cap, _ = tile_renderer_aniso_for(capacity)
-    assert cap == padded == j_route(capacity)[0]
-    assert ta.MAX_BWD_CAPACITY_ANISO == jpa.MAX_BWD_CAPACITY_ANISO
-    above = ta.MAX_BWD_CAPACITY_ANISO + 1
-    assert tile_renderer_aniso_for(above)[0] == j_route(above)[0] == chunk_plan(above)[0]
-    cap_top, render_top = tile_renderer_aniso_for(MAX_CHUNKED_CAPACITY + 1)
-    z = torch.zeros
-    tiled = tan.AnisoScene(z(1, cap_top, 3), torch.ones(1, cap_top, 3), z(1, cap_top),
-                           z(1, cap_top, 3))
-    with pytest.raises(ValueError, match="MAX_CHUNKED_CAPACITY"):
-        render_top(tiled, z(3), z(1, 8, 3), torch.ones(1, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("kernel,symbol,line", [

@@ -26,6 +26,7 @@ import torch
 import sgrt_tpu  # noqa: F401
 from sgrt_tpu.ops import pallas_kernel as jpk
 from sgrt_tpu_torch.ops import cuda_kernel as tk
+from sgrt_tpu_torch.ops import cuda_render as cr
 
 GRAD_NAMES = ("oc", "sigma", "mag", "albedo", "dirs")
 REL = 5e-5
@@ -95,8 +96,8 @@ def test_fused_render_vjp_matches_pallas(case, save_t):
     _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in args[:5]))
     want = [np.asarray(g) for g in vjp(jnp.asarray(args[6]))]
     leaves = [t.requires_grad_(True) for t in _torch(args[:5])]
-    tk.render_fused(*leaves, torch.from_numpy(args[5]), pb=8, qb=16, rb=128,
-                    save_t=save_t).backward(torch.from_numpy(args[6]))
+    cr.render_batched(*leaves, torch.from_numpy(args[5]), pb=8, qb=16, rb=128,
+                      save_t=save_t).backward(torch.from_numpy(args[6]))
     for name, t, w in zip(GRAD_NAMES, leaves, want):
         scale = np.abs(w).max()
         np.testing.assert_allclose(t.grad.numpy(), w, atol=REL * scale, err_msg=name)
@@ -160,7 +161,7 @@ def test_render_fused_without_grad_runs_the_plain_forward_path():
     forward alone (as the kernel route launches fused_forward)."""
     args = _torch(_inputs())
     with torch.no_grad():
-        out = tk.render_fused(*[a.requires_grad_(True) for a in args[:5]], args[5])
+        out = cr.render_batched(*[a.requires_grad_(True) for a in args[:5]], args[5])
     assert out.grad_fn is None
     assert tk.save_t_bytes(512, 320, 128) == 20 * 512 * 320 * 128
 
@@ -211,8 +212,8 @@ def test_vjp_without_pair_matches_pallas_saved_t(erf_name, save_t):
     args = _inputs(**NO_PAIR)
     want = _pallas_vjp(erf_name, True)
     leaves = [t.requires_grad_(True) for t in _torch(args[:5])]
-    tk.render_fused(*leaves, torch.from_numpy(args[5]), pb=8, qb=16, rb=128, save_t=save_t,
-                    erf_name=erf_name).backward(torch.from_numpy(args[6]))
+    cr.render_batched(*leaves, torch.from_numpy(args[5]), pb=8, qb=16, rb=128, save_t=save_t,
+                      erf_name=erf_name).backward(torch.from_numpy(args[6]))
     for name, t, w in zip(GRAD_NAMES, leaves, want):
         np.testing.assert_allclose(t.grad.numpy(), w, atol=REL * np.abs(w).max(), err_msg=name)
 

@@ -27,7 +27,7 @@ from sgrt_tpu.ops import pallas_chunked as jpc
 from sgrt_tpu_torch.models.gaussians import GaussianScene
 from sgrt_tpu_torch.ops import cuda_chunked as tc
 from sgrt_tpu_torch.ops import kernels
-from sgrt_tpu_torch.ops.cuda_kernel import render_tiles_fused
+from sgrt_tpu_torch.ops import cuda_render as cr
 
 GRAD_NAMES = ("oc", "sigma", "mag", "albedo", "dirs")
 KW = dict(ck=128, pb=8, qb=16)
@@ -57,9 +57,8 @@ def _jax_render(oc, sig, mag, alb, dirs, counts, **kw):
 
 
 def _port_render(oc, sig, mag, alb, dirs, counts, **kw):
-    return tc.render_fused_chunked(oc[None], sig[None], mag[None], alb[None],
-                                   dirs.T[None].contiguous(),
-                                   torch.tensor(counts, dtype=torch.int32), **KW, **kw)[0].T
+    return cr.render_batched(oc[None], sig[None], mag[None], alb[None], dirs.T[None].contiguous(),
+                             torch.tensor(counts, dtype=torch.int32), **KW, **kw)[0].T
 
 
 def test_chunked_forward_matches_jax(setup):
@@ -139,7 +138,7 @@ def test_chunked_batch_counts_and_dead_chunks(setup):
                                                jnp.asarray(counts, jnp.int32), interpret=True,
                                                **KW))
     leaves = [_t(a).requires_grad_(True) for a in (*fields, dirs_t)]
-    got = tc.render_fused_chunked(*leaves, torch.tensor(counts, dtype=torch.int32), **KW)
+    got = cr.render_batched(*leaves, torch.tensor(counts, dtype=torch.int32), **KW)
     np.testing.assert_allclose(got.detach().numpy(), want, atol=2e-5)
     assert torch.all(got[2] == 0)
     torch.sum(got ** 2).backward()
@@ -150,8 +149,8 @@ def test_chunked_batch_counts_and_dead_chunks(setup):
 
 
 def test_render_tiles_chunked_matches_fused(setup):
-    """The tile-batched chunked wrapper against the port's fused one and
-    the JAX package's chunked one, on tiles that fit both."""
+    """The per-tile front door chunked against itself at one chunk and the
+    JAX package's chunked one, on tiles that fit both."""
     n, oc, sig, mag, alb, dirs, o = setup
     mu = oc + o
     tiled_np = [np.tile(a[None], (4,) + (1,) * a.ndim) for a in (mu, sig, mag, alb)]
@@ -159,8 +158,8 @@ def test_render_tiles_chunked_matches_fused(setup):
     counts = [256, 256, 32, 0]
     tiled = GaussianScene(*map(_t, tiled_np))
     cnt = torch.tensor(counts, dtype=torch.int32)
-    ch = tc.render_tiles_chunked(tiled, _t(o), _t(d), cnt, **KW)
-    fused = render_tiles_fused(tiled, _t(o), _t(d), cnt, pb=8, qb=16)
+    ch = cr.render_tiles(tiled, _t(o), _t(d), cnt, **KW)
+    fused = cr.render_tiles(tiled, _t(o), _t(d), cnt, pb=8, qb=16)
     jch = jpc.render_tiles_chunked(JScene(*map(jnp.asarray, tiled_np)), jnp.asarray(o),
                                    jnp.asarray(d), jnp.asarray(counts, jnp.int32),
                                    interpret=True, **KW)
@@ -169,15 +168,21 @@ def test_render_tiles_chunked_matches_fused(setup):
     np.testing.assert_allclose(ch.numpy(), np.asarray(jch), atol=2e-5)
 
 
+@pytest.mark.parametrize("geometry", ["iso", "aniso"])
 @pytest.mark.parametrize("over", [False, True])
-def test_chunked_route_picks_saved_t_by_budget(over, monkeypatch):
+def test_chunked_route_picks_saved_t_by_budget(geometry, over, monkeypatch):
     """save_t=None saves T when its 20 B N R bytes fit
     SAVE_T_CHUNKED_MAX_BYTES (the forward-with-T runs and the backward gets
-    T) and recomputes above it."""
-    rng = np.random.default_rng(8)
+    T) and recomputes above it, by one rule for both row geometries."""
+    from sgrt_tpu_torch.ops import cuda_chunked_aniso as tca
+
+    iso = geometry == "iso"
+    geo, mod, sfx = (cr.ISO, tc, "") if iso else (cr.ANISO, tca, "_aniso")
+    rng = np.random.default_rng(8 if iso else 7)
     b, n, r = 2, 256, 64
     oc = _t(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32) + np.float32([0, 0, 4]))
-    sig = _t(rng.uniform(0.2, 0.5, (b, n)).astype(np.float32))
+    shape = _t(rng.uniform(0.2, 0.5, (b, n)).astype(np.float32) if iso else
+               rng.uniform(4, 25, (b, n, 3)).astype(np.float32))
     mag, alb = _t(rng.uniform(0.5, 1, (b, n)).astype(np.float32)), _t(
         rng.uniform(0, 1, (b, n, 3)).astype(np.float32))
     d = rng.normal(size=(b, 3, r)).astype(np.float32) * np.float32([0.2, 0.2, 1])[None, :, None]
@@ -185,41 +190,51 @@ def test_chunked_route_picks_saved_t_by_budget(over, monkeypatch):
     nbytes = 20 * b * n * r
     monkeypatch.setattr(tc, "SAVE_T_CHUNKED_MAX_BYTES", nbytes - 1 if over else nbytes)
     calls = []
-    for name in ("chunked_forward", "chunked_forward_t", "chunked_backward"):
-        real = getattr(tc, name)
+    for name in (f"chunked_forward{sfx}", f"chunked_forward_t{sfx}", f"chunked_backward{sfx}"):
+        real = getattr(mod, name)
 
         def spy(*a, _real=real, _name=name, **kw):
             calls.append((_name, len(a) > 7 and a[7] is not None))
             return _real(*a, **kw)
 
-        monkeypatch.setattr(tc, name, spy)
-    leaves = [x.requires_grad_(True) for x in (oc, sig, mag, alb, dirs)]
+        monkeypatch.setattr(mod, name, spy)
+    leaves = [x.requires_grad_(True) for x in (oc, shape, mag, alb, dirs)]
     counts = torch.tensor([n, 100], dtype=torch.int32)
-    tc.render_fused_chunked(*leaves, counts, ck=128, qb=16).sum().backward()
-    want = ([("chunked_forward", False), ("chunked_backward", False)] if over else
-            [("chunked_forward_t", False), ("chunked_backward", True)])
+    cr.render_batched(*leaves, counts, geometry=geo, ck=128, qb=16).sum().backward()
+    want = ([(f"chunked_forward{sfx}", False), (f"chunked_backward{sfx}", False)] if over else
+            [(f"chunked_forward_t{sfx}", False), (f"chunked_backward{sfx}", True)])
     assert calls == want
     assert all(torch.isfinite(x.grad).all() for x in leaves)
 
 
-@pytest.mark.parametrize("capacity", [4097, 5000, 5248, 12000, 65536])
-def test_tile_renderer_routes_chunked_above_wall(capacity, monkeypatch):
-    """Above MAX_MONOLITHIC_CAPACITY the chunked route renders at the JAX
-    package's padded capacity, and pb/qb/rb reach it (the JAX package drops
-    them there)."""
+@pytest.mark.parametrize("geometry,capacity", [
+    *(("iso", c) for c in (4097, 5000, 5248, 12000, 65536)),
+    *(("aniso", c) for c in (6145, 11008, 65536))])
+def test_tile_renderer_routes_chunked_above_wall(geometry, capacity, monkeypatch):
+    """Above the row geometry's ceiling of one chunk (MAX_MONOLITHIC_CAPACITY;
+    MAX_BWD_CAPACITY_ANISO, 6144) the chunked route renders at the JAX
+    package's padded capacity (11008: 6 chunks of 1920, the 50k-Gaussian
+    anisotropic scene's), and pb/qb/rb reach it (the JAX package drops them
+    there)."""
+    from sgrt_tpu.ops import pallas_chunked_aniso as jpca
+
+    geo, j_route = ((cr.ISO, jpc.tile_renderer_for) if geometry == "iso" else
+                    (cr.ANISO, jpca.tile_renderer_aniso_for))
     assert tc.MAX_CHUNKED_CAPACITY == jpc.MAX_CHUNKED_CAPACITY
-    cap, fn = tc.tile_renderer_for(capacity, pb=16, qb=32, rb=64)
-    assert cap == jpc.tile_renderer_for(capacity)[0] == tc.chunk_plan(capacity)[0]
+    cap, fn = tc.tile_renderer_for(capacity, geometry=geo, pb=16, qb=32, rb=64)
+    assert cap == j_route(capacity)[0] == tc.chunk_plan(capacity)[0]
     seen = {}
 
     def spy(*args, **kw):
         seen.update(kw)
         return torch.zeros(1)
 
-    monkeypatch.setattr(tc, "render_tiles_chunked", spy)
+    monkeypatch.setattr(cr, "render_tiles", spy)
     fn(None, None, None, None)
     assert (seen["pb"], seen["qb"], seen["rb"], seen["ck"]) == (16, 32, 64,
                                                                  tc.chunk_plan(capacity)[1])
+    if capacity == 11008:
+        assert tc.chunk_plan(capacity) == (11520, 1920)
 
 
 def test_chunk_plan_and_contract():
@@ -232,8 +247,8 @@ def test_chunk_plan_and_contract():
     with pytest.raises(ValueError, match="chunks"):
         tc.chunked_forward(*args, ck=256)
     with pytest.raises(ValueError, match="MAX_CHUNKED_CAPACITY"):
-        tc.render_fused_chunked(z(1, 65536 + 128, 3), z(1, 65536 + 128), z(1, 65536 + 128),
-                                z(1, 65536 + 128, 3), z(1, 3, 8), ck=128)
+        cr.render_batched(z(1, 65536 + 128, 3), z(1, 65536 + 128), z(1, 65536 + 128),
+                          z(1, 65536 + 128, 3), z(1, 3, 8), ck=128)
 
 
 def test_check_bwd_capacity_raises_above_chunked_ceiling():

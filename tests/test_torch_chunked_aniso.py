@@ -38,6 +38,7 @@ from sgrt_tpu_torch.models.gaussians import grid_scene
 from sgrt_tpu_torch.ops import anisotropic as an
 from sgrt_tpu_torch.ops import cuda_chunked as tc
 from sgrt_tpu_torch.ops import cuda_chunked_aniso as tca
+from sgrt_tpu_torch.ops import cuda_render as cr
 from sgrt_tpu_torch.ops import kernels
 from sgrt_tpu_torch.ops.cuda_aniso import MAX_BWD_CAPACITY_ANISO
 from sgrt_tpu_torch.ops.frame import orbit_camera
@@ -87,8 +88,8 @@ def _jax_chunked(o, mu, scale, mag, alb, dirs, counts):
 def _port_chunked(o, mu, scale, mag, alb, dirs, counts):
     oc = mu - o[None, :]
     invd = 1.0 / (scale * scale)
-    return tca.render_fused_chunked_aniso(oc[None], invd[None], mag[None], alb[None],
-                                          dirs.T[None].contiguous(), counts, **KW)[0].T
+    return cr.render_batched(oc[None], invd[None], mag[None], alb[None],
+                             dirs.T[None].contiguous(), counts, geometry=cr.ANISO, **KW)[0].T
 
 
 def _scene_tol(setup):
@@ -168,9 +169,9 @@ def test_chunked_aniso_schedules_match_jax(setup, jax_value_and_grads, save_t, m
     leaves = [_t(a).requires_grad_(True) for a in (mu, scale, mag, alb, dirs)]
     oc = leaves[0] - _t(o)[None, :]
     invd = 1.0 / (leaves[1] * leaves[1])
-    colors = tca.render_fused_chunked_aniso(
+    colors = cr.render_batched(
         oc[None], invd[None], leaves[2][None], leaves[3][None], leaves[4].T[None].contiguous(),
-        torch.tensor([n], dtype=torch.int32), save_t=save_t, **KW)
+        torch.tensor([n], dtype=torch.int32), geometry=cr.ANISO, save_t=save_t, **KW)
     loss = torch.sum(colors ** 2)
     loss.backward()
     assert seen == [save_t]
@@ -184,39 +185,6 @@ def test_chunked_aniso_schedules_match_jax(setup, jax_value_and_grads, save_t, m
             assert np.all(got[n:] == 0), f"{name}: padding gradients are not zero"
         sc = max(float(np.abs(w).max()), 1e-8)
         np.testing.assert_allclose(got / sc, w / sc, atol=tol, err_msg=name)
-
-
-@pytest.mark.parametrize("over", [False, True])
-def test_chunked_aniso_route_picks_saved_t_by_budget(over, monkeypatch):
-    """save_t=None saves T when its 20 B N R bytes fit
-    SAVE_T_CHUNKED_MAX_BYTES (the forward-with-T runs and the backward gets
-    T) and recomputes above it, by the isotropic chunked route's rule."""
-    rng = np.random.default_rng(7)
-    b, n, r = 2, 256, 64
-    oc = _t(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32) + np.float32([0, 0, 4]))
-    invd = _t(rng.uniform(4, 25, (b, n, 3)).astype(np.float32))
-    mag, alb = _t(rng.uniform(0.5, 1, (b, n)).astype(np.float32)), _t(
-        rng.uniform(0, 1, (b, n, 3)).astype(np.float32))
-    d = rng.normal(size=(b, 3, r)).astype(np.float32) * np.float32([0.2, 0.2, 1])[None, :, None]
-    dirs = _t(d / np.linalg.norm(d, axis=1, keepdims=True))
-    nbytes = 20 * b * n * r
-    monkeypatch.setattr(tc, "SAVE_T_CHUNKED_MAX_BYTES", nbytes - 1 if over else nbytes)
-    calls = []
-    for name in ("chunked_forward_aniso", "chunked_forward_t_aniso", "chunked_backward_aniso"):
-        real = getattr(tca, name)
-
-        def spy(*a, _real=real, _name=name, **kw):
-            calls.append((_name, len(a) > 7 and a[7] is not None))
-            return _real(*a, **kw)
-
-        monkeypatch.setattr(tca, name, spy)
-    leaves = [x.requires_grad_(True) for x in (oc, invd, mag, alb, dirs)]
-    counts = torch.tensor([n, 100], dtype=torch.int32)
-    tca.render_fused_chunked_aniso(*leaves, counts, ck=128, qb=16).sum().backward()
-    want = ([("chunked_forward_aniso", False), ("chunked_backward_aniso", False)] if over else
-            [("chunked_forward_t_aniso", False), ("chunked_backward_aniso", True)])
-    assert calls == want
-    assert all(torch.isfinite(x.grad).all() for x in leaves)
 
 
 def _routing_tiles():
@@ -244,13 +212,14 @@ def _pad_rows(arrays, cap):
 
 
 def test_aniso_renderer_routing():
-    """tile_renderer_aniso_for routes above MAX_BWD_CAPACITY_ANISO to the
-    chunked anisotropic kernels at the JAX package's padded capacity; both
+    """tile_renderer_for routes anisotropic tiles above
+    MAX_BWD_CAPACITY_ANISO to the chunked anisotropic kernels at the JAX
+    package's padded capacity; both
     routes agree on tiles that fit both (the JAX test's rtol 1e-5, atol
     1e-6: the same plain arithmetic on the CPU), and the chunked route
     agrees with the JAX package's."""
-    cap_lo, render_lo = tc.tile_renderer_aniso_for(128)
-    cap_hi, render_hi = tc.tile_renderer_aniso_for(MAX_BWD_CAPACITY_ANISO + 1)
+    cap_lo, render_lo = tc.tile_renderer_for(128, geometry=cr.ANISO)
+    cap_hi, render_hi = tc.tile_renderer_for(MAX_BWD_CAPACITY_ANISO + 1, geometry=cr.ANISO)
     assert cap_lo == jpca.tile_renderer_aniso_for(128)[0]
     assert cap_hi == jpca.tile_renderer_aniso_for(MAX_BWD_CAPACITY_ANISO + 1)[0] == 6656
     tiled, d, o, counts = _routing_tiles()
@@ -264,27 +233,6 @@ def test_aniso_renderer_routing():
     tol = _tol(tiled[0] - o, 1.0 / tiled[1] ** 2)
     np.testing.assert_allclose(hi.numpy(), np.asarray(j_hi),
                                atol=tol * float(np.abs(np.asarray(j_hi)).max()))
-
-
-@pytest.mark.parametrize("capacity", [MAX_BWD_CAPACITY_ANISO + 1, 11008, 65536])
-def test_tile_renderer_aniso_routes_chunked_above_wall(capacity, monkeypatch):
-    """Above the wall the padded capacity is chunk_plan's (11008: 6 chunks
-    of 1920, the 50k-Gaussian anisotropic scene's), and pb/qb/rb reach the
-    chunked renderer (the JAX package drops them there)."""
-    cap, fn = tc.tile_renderer_aniso_for(capacity, pb=16, qb=32, rb=64)
-    assert cap == jpca.tile_renderer_aniso_for(capacity)[0] == tc.chunk_plan(capacity)[0]
-    seen = {}
-
-    def spy(*args, **kw):
-        seen.update(kw)
-        return torch.zeros(1)
-
-    monkeypatch.setattr(tca, "render_tiles_chunked_aniso", spy)
-    fn(None, None, None, None)
-    assert (seen["pb"], seen["qb"], seen["rb"], seen["ck"]) == (16, 32, 64,
-                                                                 tc.chunk_plan(capacity)[1])
-    if capacity == 11008:
-        assert tc.chunk_plan(capacity) == (11520, 1920)
 
 
 def _stretched_grid(g: int):

@@ -21,6 +21,7 @@ import torch
 
 from sgrt_tpu_torch.models.gaussians import grid_scene
 from sgrt_tpu_torch.ops import cuda_kernel as tk
+from sgrt_tpu_torch.ops import cuda_render as cr
 from sgrt_tpu_torch.ops.frame import render_orbit_frame
 
 pytestmark = pytest.mark.gpu
@@ -114,8 +115,8 @@ def _assert_grads_f64_gate(got, plain, ref, rel=5e-5):
 
 
 def test_kernel_refuses_grad_and_unported_names():
-    """On the card, gradients of render_fused come from the backward
-    kernels and equal the plain backward's; the spline erf runs in both
+    """On the card, gradients of render_batched at one chunk come from the
+    backward kernels and equal the plain backward's; the spline erf runs in both
     kernels as in their plain versions; an erf name that no package has
     raises."""
     dev = _card()
@@ -125,7 +126,7 @@ def test_kernel_refuses_grad_and_unported_names():
     for save_t, kernel in ((True, tk.FUSED_BWD_T), (False, tk.FUSED_BWD)):
         leaves = [a.clone().requires_grad_(True) for a in args[:5]]
         before = kernel.launches
-        tk.render_fused(*leaves, args[5], pb=8, qb=32, save_t=save_t).backward(dcol)
+        cr.render_batched(*leaves, args[5], pb=8, qb=32, save_t=save_t).backward(dcol)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
         _assert_grads_close([t.grad for t in leaves], want)
@@ -347,7 +348,7 @@ def test_chunked_kernels_refuse_bad_qb():
 
 
 def test_chunked_route_on_card():
-    """render_fused_chunked's gradients on the card come from the chunked
+    """render_batched's chunked gradients on the card come from the chunked
     backward kernels (both schedules) and equal the plain backward's; the
     chunked and fused forwards agree on the same inputs, under the spline
     erf too; an erf name that no package has raises."""
@@ -360,7 +361,7 @@ def test_chunked_route_on_card():
     for save_t, kernel in ((True, tc.CHUNKED_BWD_T), (False, tc.CHUNKED_BWD)):
         leaves = [a.clone().requires_grad_(True) for a in args[:5]]
         before = kernel.launches
-        tc.render_fused_chunked(*leaves, args[5], ck=128, save_t=save_t).backward(dcol)
+        cr.render_batched(*leaves, args[5], ck=128, save_t=save_t).backward(dcol)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
         _assert_grads_close([x.grad for x in leaves], want)
@@ -641,8 +642,8 @@ def test_chunked_aniso_saved_t_kernels_match_plain(erf_name, exp_name):
 
 
 def test_chunked_aniso_route_on_card():
-    """render_fused_chunked_aniso's gradients on the card come from the
-    saved-T schedule under the byte budget and from the recompute backward
+    """render_batched's chunked anisotropic gradients on the card come from
+    the saved-T schedule under the byte budget and from the recompute backward
     above it, equal to each other and within the float64 gate of the plain
     backward; its colors are the chunked forward's; a chunk size that does
     not divide N raises."""
@@ -659,7 +660,7 @@ def test_chunked_aniso_route_on_card():
         before = kernel.launches
         tc.SAVE_T_CHUNKED_MAX_BYTES = limit
         try:
-            colors = tca.render_fused_chunked_aniso(*leaves, args[5], ck=128)
+            colors = cr.render_batched(*leaves, args[5], geometry=cr.ANISO, ck=128)
             colors.backward(dcol)
         finally:
             tc.SAVE_T_CHUNKED_MAX_BYTES = budget

@@ -32,7 +32,7 @@ from sgrt_tpu.ops.pallas_kernel import render_rays_pallas_impl
 from sgrt_tpu_torch.models.camera import Camera
 from sgrt_tpu_torch.models.gaussians import grid_scene
 from sgrt_tpu_torch.ops import packing
-from sgrt_tpu_torch.ops.cuda_kernel import render_rays_fused_impl
+from sgrt_tpu_torch.ops.cuda_render import render_rays
 from sgrt_tpu_torch.ops.reference import render_rays_reference
 from sgrt_tpu_torch.ops.render import render_rays_impl
 
@@ -58,7 +58,7 @@ def jax_oracle():
 
 def _kernel_image(oracle, erf_name, exp_name="exact"):
     scene, o, dirs, _ = oracle
-    return render_rays_fused_impl(o, dirs, scene, erf_name=erf_name, exp_name=exp_name).numpy()
+    return render_rays(o, dirs, scene, erf_name=erf_name, exp_name=exp_name).numpy()
 
 
 def _matches_jax(img, ref, jax_oracle, erf_name, exp_name):
@@ -140,8 +140,7 @@ def test_exp_stack_differentiable(oracle):
     scene, o, dirs, ref = oracle
     leaves = {f: getattr(scene, f).clone().requires_grad_(True)
               for f in ("mu", "sigma", "magnitude", "albedo")}
-    img = render_rays_fused_impl(o, dirs, scene.replace(**leaves), erf_name="as3",
-                                 exp_name="fast")
+    img = render_rays(o, dirs, scene.replace(**leaves), erf_name="as3", exp_name="fast")
     torch.mean((img - torch.from_numpy(ref)) ** 2).backward()
     for f, t in leaves.items():
         g = t.grad.numpy()

@@ -27,6 +27,7 @@ from sgrt_tpu.ops.tiling import gather_tiles as j_gather, tile_indices as j_indi
 from sgrt_tpu_torch.models.gaussians import scene_from_numpy
 from sgrt_tpu_torch.ops import cuda_chunked as tpc
 from sgrt_tpu_torch.ops import cuda_kernel as tk
+from sgrt_tpu_torch.ops import cuda_render as cr
 
 FIELDS = ("mu", "sigma", "magnitude", "albedo")
 
@@ -62,8 +63,8 @@ def _torch(args):
 def test_plain_matches_pallas_render_fused(erf_name, exp_name):
     args = _fused_inputs()
     j = _jax_fused(args, pb=8, qb=16, erf_name=erf_name, exp_name=exp_name)
-    t = tk.render_fused(*_torch(args), pb=8, qb=16, erf_name=erf_name,
-                        exp_name=exp_name).numpy()
+    t = cr.render_batched(*_torch(args), pb=8, qb=16, erf_name=erf_name,
+                          exp_name=exp_name).numpy()
     assert t.shape == (3, 3, 128)
     np.testing.assert_allclose(t, j, atol=2e-5)
     assert np.all(t[2] == 0.0)          # count 0: nothing live
@@ -79,8 +80,8 @@ def test_counts_clamped_and_dead_rows_never_read():
     args = _fused_inputs(counts=(64, 64, 64))
     big = list(_torch(args))
     big[5] = torch.tensor([64, 1000, 64], dtype=torch.int32)
-    np.testing.assert_array_equal(tk.render_fused(*big).numpy(),
-                                  tk.render_fused(*_torch(args)).numpy())
+    np.testing.assert_array_equal(cr.render_batched(*big).numpy(),
+                                  cr.render_batched(*_torch(args)).numpy())
 
 
 def test_plain_q_blocking_does_not_change_result():
@@ -124,7 +125,7 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="shape"):
         tk.fused_forward(*bad_shape)
     with pytest.raises(ValueError, match="not divisible"):
-        tk.render_fused(*args, pb=24)
+        cr.render_batched(*args, pb=24)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tk.fused_forward(*(a.to("meta") for a in args))
 
@@ -155,6 +156,7 @@ def _port(js):
 
 
 def test_render_tiles_fused_matches_pallas():
+    """The per-tile front door at one chunk against the Pallas tiles."""
     js = j_grid(4)
     cam = j_orbit_camera(20.0, -4.0, 1.0, 32, 32)
     o, dirs = cam.rays()
@@ -163,9 +165,8 @@ def test_render_tiles_fused_matches_pallas():
     j = np.asarray(jpk.render_tiles_pallas(j_gather(js, idx), o, d, counts))
     from sgrt_tpu_torch.ops.tiling import gather_tiles
     tiled = gather_tiles(_port(js), torch.tensor(np.asarray(idx)))
-    t = tk.render_tiles_fused(tiled, torch.tensor(np.asarray(o)),
-                              torch.tensor(np.asarray(d)),
-                              torch.tensor(np.asarray(counts)))
+    t = cr.render_tiles(tiled, torch.tensor(np.asarray(o)), torch.tensor(np.asarray(d)),
+                        torch.tensor(np.asarray(counts)))
     assert t.shape == (4, 256, 3)
     np.testing.assert_allclose(t.numpy(), j, atol=2e-5)
 
@@ -179,28 +180,54 @@ def test_render_rays_fused_impl_matches_pallas(n_rays):
     o, dirs = cam.rays()
     dirs = dirs[:n_rays]
     j = np.asarray(jpk.render_rays_pallas_impl(o, dirs, js))
-    t = tk.render_rays_fused_impl(torch.tensor(np.asarray(o)),
-                                  torch.tensor(np.asarray(dirs)), _port(js))
+    t = cr.render_rays(torch.tensor(np.asarray(o)), torch.tensor(np.asarray(dirs)), _port(js))
     assert t.shape == (n_rays, 3)
     np.testing.assert_allclose(t.numpy(), j, atol=2e-5)
 
 
-@pytest.mark.parametrize("capacity", [1, 17, 64, 250, 257, 1359, 4096])
-def test_tile_renderer_padding_matches(capacity):
-    tcap, _ = tpc.tile_renderer_for(capacity)
-    jcap, _ = jpc.tile_renderer_for(capacity)
-    assert tcap == jcap
-    assert tpc.tile_renderer_for(capacity, pb=16, qb=48)[0] == \
-        jpc.tile_renderer_for(capacity, pb=16, qb=48)[0]
+@pytest.mark.parametrize("geometry,capacity,padded", [
+    *(("iso", c, p) for c, p in ((1, 16), (17, 32), (64, 64), (250, 256), (257, 288),
+                                 (1359, 1376), (4096, 4096))),
+    *(("aniso", c, p) for c, p in ((20, 32), (300, 320), (6144, 6144)))])
+def test_tile_renderer_padding_matches(geometry, capacity, padded):
+    """The one router, for either row geometry, against the JAX package's
+    router of that geometry: up to the ceiling of one chunk
+    (MAX_BWD_CAPACITY; MAX_BWD_CAPACITY_ANISO) the capacity padded to
+    lcm(pb, qb), pb/qb overrides included; above it chunk_plan's padded
+    capacity, whose render refuses a padded capacity past
+    MAX_CHUNKED_CAPACITY."""
+    from sgrt_tpu.ops import pallas_aniso as jpa
+    from sgrt_tpu.ops.pallas_chunked_aniso import tile_renderer_aniso_for
+
+    geo, j_route, j_ceiling = {
+        "iso": (cr.ISO, jpc.tile_renderer_for, jpk.MAX_BWD_CAPACITY),
+        "aniso": (cr.ANISO, tile_renderer_aniso_for, jpa.MAX_BWD_CAPACITY_ANISO)}[geometry]
+    assert geo.ceiling() == j_ceiling
+    assert tpc.tile_renderer_for(capacity, geometry=geo)[0] == padded == j_route(capacity)[0]
+    assert tpc.tile_renderer_for(capacity, geometry=geo, pb=16, qb=48)[0] == \
+        j_route(capacity, pb=16, qb=48)[0]
+    above = j_ceiling + 1
+    assert (tpc.tile_renderer_for(above, geometry=geo)[0] == j_route(above)[0]
+            == tpc.chunk_plan(above)[0])
+    cap_top, render_top = tpc.tile_renderer_for(tpc.MAX_CHUNKED_CAPACITY + 1, geometry=geo)
+    z = torch.zeros
+    shape = torch.ones((1, cap_top) if geo is cr.ISO else (1, cap_top, 3))
+    tiled = geo.scene(z(1, cap_top, 3), shape, z(1, cap_top), z(1, cap_top, 3))
+    with pytest.raises(ValueError, match="MAX_CHUNKED_CAPACITY"):
+        render_top(tiled, z(3), z(1, 8, 3), torch.ones(1, dtype=torch.int32))
 
 
 def test_tile_renderer_refuses_above_monolithic_ceiling(monkeypatch):
     """Above the monolithic ceiling the fused kernels are refused: the
     route is the chunked one, at chunk_plan's padded capacity."""
     assert tpc.MAX_MONOLITHIC_CAPACITY == jpk.MAX_BWD_CAPACITY
-    monkeypatch.setattr(tpc, "render_tiles_fused",
-                        lambda *a, **k: pytest.fail("fused route above the ceiling"))
-    monkeypatch.setattr(tpc, "render_tiles_chunked", lambda *a, **k: "chunked")
+
+    def spy(*a, ck=None, **k):
+        if ck is None:
+            pytest.fail("fused route above the ceiling")
+        return "chunked"
+
+    monkeypatch.setattr(cr, "render_tiles", spy)
     cap, fn = tpc.tile_renderer_for(tpc.MAX_MONOLITHIC_CAPACITY + 1)
     assert cap == tpc.chunk_plan(tpc.MAX_MONOLITHIC_CAPACITY + 1)[0]
     assert fn(None, None, None, None) == "chunked"
@@ -214,10 +241,10 @@ def test_tile_renderer_passes_block_overrides(monkeypatch):
         seen.update(kw)
         return torch.zeros(1)
 
-    monkeypatch.setattr(tpc, "render_tiles_fused", spy)
+    monkeypatch.setattr(cr, "render_tiles", spy)
     _, fn = tpc.tile_renderer_for(100, pb=16, qb=32, rb=64)
     fn(None, None, None, None)
-    assert (seen["pb"], seen["qb"], seen["rb"]) == (16, 32, 64)
+    assert (seen["pb"], seen["qb"], seen["rb"], seen["ck"]) == (16, 32, 64, None)
 
 
 def test_constants_match():

@@ -27,6 +27,26 @@ def lib():
         pytest.skip(f"native library unavailable: {native.load_error()}")
 
 
+@pytest.fixture(scope="module")
+def jax_lib(lib):
+    """The JAX package's native library, loaded in this process, so that its
+    GIF writer takes the native encoder. Its loader (sgrt_tpu/utils/native.py)
+    runs `make -C native` when native/libsgrt_native.so is missing and keeps a
+    failed load for the life of the process. Under pytest-xdist every worker
+    collects tests/test_native.py, whose skip condition loads the library, so
+    several workers build it at once, and one whose make finds the file while
+    another worker's linker is still writing it takes it as up to date and
+    fails to dlopen it. No test starts before every worker has collected, so
+    those builds have ended by now: a failed load is tried once more."""
+    from sgrt_tpu.utils import native as jax_native
+
+    if jax_native._load() is None:
+        jax_native._lib_failed = False
+        jax_native._load()
+    if jax_native._lib is None:
+        pytest.fail("the JAX package's native library does not load")
+
+
 @pytest.fixture
 def obj(tmp_path):
     path = tmp_path / "tri.obj"
@@ -96,7 +116,7 @@ def test_gif_structure(lib, tmp_path):
     assert data.count(b"\x21\xf9\x04") == 5  # one graphic control per frame
 
 
-def test_gif_bytes_equal_jax(lib, tmp_path):
+def test_gif_bytes_equal_jax(jax_lib, tmp_path):
     """Both packages write an orbit's GIF through the same native encoder:
     the same bytes for the same float frames."""
     rng = np.random.default_rng(4)

@@ -291,7 +291,7 @@ def test_frame_loss_finite_difference_gradients():
     route's wrappers take float32 only, so float32 central differences in
     random directions (gradcheck's fast mode, as JAX's check_grads) at the
     JAX test's 2e-2."""
-    from sgrt_tpu_torch.ops.cuda_kernel import render_tiles_fused
+    from sgrt_tpu_torch.ops.cuda_render import render_tiles
     from sgrt_tpu_torch.ops.frame import orbit_camera
     from sgrt_tpu_torch.ops.render import _tile_rays
     from sgrt_tpu_torch.ops.tiling import gather_tiles, tile_indices
@@ -303,8 +303,8 @@ def test_frame_loss_finite_difference_gradients():
     d = _tile_rays(dirs, 32, 32, 2)
 
     def loss(mu, sigma, mag, alb):
-        colors = render_tiles_fused(gather_tiles(GaussianScene(mu, sigma, mag, alb), idx), o, d,
-                                    counts, pb=8, qb=8)
+        colors = render_tiles(gather_tiles(GaussianScene(mu, sigma, mag, alb), idx), o, d,
+                              counts, pb=8, qb=8)
         return torch.mean(colors ** 2)
 
     torch.manual_seed(0)
@@ -318,7 +318,7 @@ def test_fit_step_converges():
     """tests/test_pallas.py:255 on the port: one Adam step through the
     kernel route's VJP lowers the loss."""
     from sgrt_tpu_torch.models.camera import Camera
-    from sgrt_tpu_torch.ops.cuda_kernel import render_rays_fused_impl
+    from sgrt_tpu_torch.ops.cuda_render import render_rays
     from sgrt_tpu_torch.ops.render import render_rays_impl
     from sgrt_tpu_torch.parallel.fit import adam
 
@@ -330,7 +330,7 @@ def test_fit_step_converges():
               for t in (scene.mu + 0.05, scene.sigma, scene.magnitude, scene.albedo)]
 
     def loss_fn():
-        return torch.mean((render_rays_fused_impl(o, dirs, GaussianScene(*leaves)) - target) ** 2)
+        return torch.mean((render_rays(o, dirs, GaussianScene(*leaves)) - target) ** 2)
 
     opt = adam(5e-3)(leaves)
     l0 = loss_fn()

@@ -121,8 +121,7 @@ def test_every_span_reaches_the_exported_chrome_trace(setup, call, tmp_path):
 
 def _render_route(route, save_t):
     """One differentiable launch of B 2, N 256, R 8 rows through `route`."""
-    from sgrt_tpu_torch.ops.cuda_chunked import render_fused_chunked
-    from sgrt_tpu_torch.ops.cuda_kernel import render_fused
+    from sgrt_tpu_torch.ops.cuda_render import render_batched
 
     g = torch.Generator().manual_seed(3)
     oc = torch.randn((2, 256, 3), generator=g).add_(torch.tensor([0.0, 0.0, 4.0]))
@@ -132,9 +131,7 @@ def _render_route(route, save_t):
     d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
     args = [t.requires_grad_() for t in (oc, sigma, mag, alb)] + [d]
     counts = torch.full((2,), 40, dtype=torch.int32)
-    if route == "chunked":
-        return render_fused_chunked(*args, counts, ck=128, save_t=save_t)
-    return render_fused(*args, counts, save_t=save_t)
+    return render_batched(*args, counts, ck=128 if route == "chunked" else None, save_t=save_t)
 
 
 @pytest.mark.parametrize("route", ["fused", "chunked"])
